@@ -1,0 +1,116 @@
+"""Where the time of the serving frame goes, on one CUDA card.
+
+Builds the frame chip_smoke.py runs (bench.py's icon-filter config, 512^2
+normals, subdiv-5 body, res 256, seeded weights), warms it up, then:
+
+1. per-stage host-clock times with a synchronize between stages (filter,
+   crossing columns, engine, marching, pack, host decode), median of 5;
+2. a torch.profiler trace of 2 frames: device time by kernel (top 25) and
+   the device's busy share of the wall time.
+
+Usage, from the repository root on the card:
+
+    python3 -m icon_tpu_torch.recon.profile_frame [--out FILE]
+
+TF32 stays off, as in chip_smoke.py, so the numbers describe the same
+float32 frame.
+"""
+
+import argparse
+import os
+import os.path as osp
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def stage_times(fr):
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        feats, t_filter = timed(fr.features)
+        (cz, _), t_cols = timed(fr.columns)
+        (occ, st), t_eng = timed(lambda: fr.engine(
+            fr.query_fn, query_args=(cz, feats)))
+        mesh, t_march = timed(lambda: fr.marcher(
+            occ, coarse_occ=st["coarse_occ"]))
+        tok, t_pack = timed(lambda: fr.marcher.pack(mesh))
+        _, t_dec = timed(lambda: fr.marcher.unpack(tok))
+    return {"filter": t_filter, "columns": t_cols, "engine": t_eng,
+            "march": t_march, "pack": t_pack, "decode": t_dec}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile_frame.txt",
+                    help="where the stage split and kernel table go")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA card", file=sys.stderr)
+        return 2
+    from icon_tpu_torch.recon.frame import (bench_config, build_frame,
+                                            seeded_state)
+    from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    cfg = bench_config()
+    batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
+                                 image_size=512, n_samples=64, subdiv=5)
+    fr = build_frame(cfg, seeded_state(cfg, 0), batch, 256, "cuda")
+    for _ in range(3):
+        fr.frame()
+
+    runs = [stage_times(fr) for _ in range(5)]
+    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    total = sum(stages.values())
+    lines = [f"card: {card}; torch {torch.__version__}; TF32 off",
+             "stage medians of 5 synchronized frames (ms):"]
+    lines += [f"  {k:8s} {v:9.3f}  {100 * v / total:5.1f}%"
+              for k, v in stages.items()]
+    lines.append(f"  {'sum':8s} {total:9.3f}")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fr.frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    # device-side events only: an aten op's self device time repeats the
+    # time of the kernels it launched
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    lines.append(f"profiler, 2 frames: wall {wall_ms:.3f} ms, device busy "
+                 f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+                 f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    lines.append(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=25,
+        max_name_column_width=70))
+    text = "\n".join(lines)
+    os.makedirs(osp.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(text + "\n")
+    print("\n".join(lines[:len(stages) + 4]))
+    print(f"full table: {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""JAX package parameters -> the port's state dict.
+
+:func:`state_dict_from_flax` turns ``icon_tpu``'s flax ``HGPIFuNet``
+variables (as numpy arrays) into the torch state dict of
+``icon_tpu_torch.models.hgpifu.HGPIFuNet``, so both packages can run the
+same weights. The mapping is the inverse of
+``icon_tpu/utils/torch_port.py``'s checkpoint port:
+
+- Conv kernels HWIO -> OIHW; Dense (in, out) -> Conv1d (out, in, 1);
+- norm ``scale``/``bias`` -> ``weight``/``bias``; batch stats ``mean``/
+  ``var`` -> ``running_mean``/``running_var`` (+ ``num_batches_tracked``);
+- MLP ``conv{i}``/``norm{i}`` -> ``filters.{i}``/``norms.{i}``;
+- ConvBlock ``downsample`` -> ``downsample.2``, with ``bn4`` aliased as
+  ``downsample.0``; a ConvBlock without a shortcut gets the identity
+  ``bn4`` the reference registers anyway.
+
+The ``normal_filter`` scope (NormalNet, not ported yet) is skipped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+_SKIP_SCOPES = ("normal_filter",)
+_CONVBLOCK = {"conv1", "conv2", "conv3", "bn1", "bn2", "bn3"}
+
+
+def _flatten(tree: Any, prefix=()) -> Dict[tuple, np.ndarray]:
+    if hasattr(tree, "items"):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _module_path(path: tuple) -> list:
+    """flax module names -> torch module names along one path."""
+    mods = []
+    in_mlp = False
+    for name in path:
+        if name == "if_regressor":
+            in_mlp = True
+        if in_mlp and name.startswith("conv") and name[4:].isdigit():
+            mods += ["filters", name[4:]]
+        elif in_mlp and name.startswith("norm") and name[4:].isdigit():
+            mods += ["norms", name[4:]]
+        elif name == "downsample":
+            mods += ["downsample", "2"]
+        else:
+            mods.append(name)
+    return mods
+
+
+def _convert_kernel(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 4:                      # HWIO -> OIHW
+        return np.transpose(w, (3, 2, 0, 1))
+    if w.ndim == 2:                      # Dense (in, out) -> Conv1d
+        return np.transpose(w, (1, 0))[..., None]
+    raise ValueError(f"unexpected kernel rank {w.ndim}")
+
+
+def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
+                         ) -> Dict[str, np.ndarray]:
+    """``{torch key: numpy array}`` for the port's ``HGPIFuNet`` from flax
+    ``params`` (and ``batch_stats``) trees."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params).items():
+        if path[0] in _SKIP_SCOPES:
+            continue
+        *mods, leaf = path
+        key = ".".join(_module_path(tuple(mods)))
+        if leaf == "kernel":
+            out[f"{key}.weight"] = _convert_kernel(arr)
+        elif leaf == "scale":
+            out[f"{key}.weight"] = arr
+        elif leaf == "bias":
+            out[f"{key}.bias"] = arr
+        else:
+            raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
+    batch_norms = set()
+    for path, arr in _flatten(batch_stats or {}).items():
+        if path[0] in _SKIP_SCOPES:
+            continue
+        *mods, leaf = path
+        key = ".".join(_module_path(tuple(mods)))
+        names = {"mean": "running_mean", "var": "running_var"}
+        if leaf not in names:
+            raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
+        out[f"{key}.{names[leaf]}"] = arr
+        batch_norms.add(key)
+    for key in batch_norms:
+        out[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
+
+    # ConvBlocks: alias bn4 as downsample.0, or add the unused identity bn4
+    blocks = {}
+    for path in _flatten(params):
+        if path[0] in _SKIP_SCOPES or len(path) < 2:
+            continue
+        blocks.setdefault(tuple(_module_path(path[:-2])),
+                          set()).add(path[-2])
+    for mods, children in blocks.items():
+        if not _CONVBLOCK <= children:
+            continue
+        pre = "".join(m + "." for m in mods)
+        bn4 = f"{pre}bn4."
+        if "bn4" in children:
+            for k in [k for k in out if k.startswith(bn4)]:
+                out[f"{pre}downsample.0." + k[len(bn4):]] = out[k]
+            continue
+        bn1 = out[f"{pre}bn1.weight"]
+        out[f"{bn4}weight"] = np.ones_like(bn1)
+        out[f"{bn4}bias"] = np.zeros_like(bn1)
+        if f"{pre}bn1" in batch_norms:
+            out[f"{bn4}running_mean"] = np.zeros_like(bn1)
+            out[f"{bn4}running_var"] = np.ones_like(bn1)
+            out[f"{bn4}num_batches_tracked"] = np.array(0, np.int64)
+    return out

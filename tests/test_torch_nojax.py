@@ -1,0 +1,57 @@
+"""The port runs without JAX: importing icon_tpu_torch and running one tiny
+CPU frame leaves ``jax`` out of ``sys.modules``, and no file of the package
+imports it."""
+
+import os
+import os.path as osp
+import re
+import subprocess
+import sys
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+
+_FRAME = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from icon_tpu.config import Config, NetConfig
+from icon_tpu_torch.models.hgpifu import HGPIFuNet
+from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
+from icon_tpu_torch.recon.frame import build_frame
+cfg = Config(test_mode=False, net=NetConfig(
+    mlp_dim=(256, 16, 16, 16, 8, 1), res_layers=(2, 3, 4), num_stack=1,
+    prior_type="icon", use_filter=True,
+    in_geo=(("normal_F", 3), ("normal_B", 3)),
+    smpl_feats=("sdf", "norm", "vis", "cmap"), norm_mlp="batch",
+    hourglass_dim=6, smpl_dim=7))
+torch.manual_seed(0)
+state = HGPIFuNet(cfg).state_dict()
+batch = synthetic_icon_batch(np.random.RandomState(0), B=1, image_size=32,
+                             n_samples=8, subdiv=2)
+stats, mesh, verts, faces = build_frame(cfg, state, batch, 64, "cpu").frame()
+assert len(faces) > 1000 and np.isfinite(verts).all()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
+print("JAX_MODULES", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _FRAME], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_no_jax_import_in_package_sources():
+    pkg = osp.join(ROOT, "icon_tpu_torch")
+    pat = re.compile(r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b)", re.M)
+    checked = 0
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu")):
+                with open(osp.join(dirpath, name)) as f:
+                    assert not pat.search(f.read()), name
+                checked += 1
+    assert checked >= 20
