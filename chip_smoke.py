@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[4], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[6], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -21,7 +21,18 @@ JSON line ``{"ok": true, "device": {...}}``):
    icon-filter config, 512^2 normals, the subdiv-5 body, res 256 -> levels
    33/65/129/257), seeded random weights: 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
-   package's values for the same level set.
+   package's values for the same level set;
+5. the rasterizer (plain PyTorch) on the card against the CPU, on the
+   subdiv-5 body: the normal renders of the NormalNet frame (512^2,
+   azimuth 0 and 180) and the vertex-visibility raster (1024^2), with
+   CUDA-event medians of the card's calls;
+6. the NormalNet frame (the body's normal renders, NormalNet, filter,
+   per-body prep, engine on bench.py's variant field, marching): small on
+   the card against the CPU, then at full width (the published NormalNet
+   widths at 512^2, the rest as in phase 4): 3 warm-up frames, then timed
+   frames; level counts and triangle count checked against the JAX
+   package's values for the variant field, predicted normals of unit
+   length.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -43,6 +54,13 @@ JAX_LEVEL1_POINTS = 25491
 JAX_LEVEL2_POINTS = 66958
 JAX_N_TRIS = 295244
 COUNT_RTOL = 0.01
+# The same for the NormalNet frame's field, bench.py's variant field
+# clip(clothed_human_occ + spurious blobs, 0, 1) (see CHANGES.md).
+JAX_VARIANT_LEVEL1_POINTS = 73625
+JAX_VARIANT_LEVEL2_POINTS = 150590
+JAX_VARIANT_N_TRIS = 584720
+RASTER_ATOL = 1e-5
+RASTER_FACE_SHARE = 1e-3
 
 KNN_SHAPES = (35937, 98304, 232974)      # level 0, level-1/2 buckets, cap
 KEY_RTOL = 1e-5
@@ -68,6 +86,15 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def level0_points(engine, device) -> torch.Tensor:
+    """The engine's level-0 lattice as world points [1, N, 3]."""
+    g = torch.linspace(0.0, 1.0, engine.resolutions[0], device=device)
+    zz, yy, xx = torch.meshgrid(g, g, g, indexing="ij")
+    return torch.stack([xx, yy, zz], -1).reshape(1, -1, 3) * \
+        torch.tensor([2.0, -2.0, 2.0], device=device) + \
+        torch.tensor([-1.0, 1.0, -1.0], device=device)
 
 
 def phase_knn(dev, verts_np):
@@ -127,13 +154,9 @@ def phase_small_frame(dev):
     for name, device in (("cpu", "cpu"), ("gpu", dev)):
         fr = build_frame(cfg, state, batch, 128, device)
         stats, _, verts, faces = fr.frame()
-        g = torch.linspace(0.0, 1.0, 33, device=device)
-        zz, yy, xx = torch.meshgrid(g, g, g, indexing="ij")
-        pts = torch.stack([xx, yy, zz], -1).reshape(1, -1, 3) * \
-            torch.tensor([2.0, -2.0, 2.0], device=device) + \
-            torch.tensor([-1.0, 1.0, -1.0], device=device)
         with torch.no_grad():
-            raw = fr.net_occ(pts, fr.columns()[0], fr.features())
+            raw = fr.net_occ(level0_points(fr.engine, device),
+                             fr.columns()[0], fr.features())
         out[name] = (int(stats["level1_points"]), len(verts), len(faces),
                      raw.cpu().numpy(), np.isfinite(verts).all())
     (l1c, nvc, nfc, rawc, _), (l1g, nvg, nfg, rawg, fin) = \
@@ -201,6 +224,156 @@ def phase_full_frame(dev, card, iters: int = 5):
     return launches
 
 
+def phase_raster(dev, verts_np, faces_np):
+    """The plain rasterizer on the card against the CPU: the frame's normal
+    renders and its visibility raster of the subdiv-5 body."""
+    from icon_tpu_torch.ops.raster import rasterize, vertex_visibility
+    from icon_tpu_torch.render.render import normal_raster, render_normal
+
+    def on(device):
+        v = torch.from_numpy(verts_np).to(device)
+        f = torch.from_numpy(faces_np).long().to(device)
+        return v, f
+
+    calls = [(f"render_normal 512^2 az {az:g}",
+              lambda v, f, az=az: normal_raster(v, f, 512, az, 256),
+              lambda v, f, az=az: render_normal(v, f, 512, az, 256))
+             for az in (0.0, 180.0)]
+    calls.append(("vertex_visibility 1024^2",
+                  lambda v, f: rasterize(v, f, v.new_zeros((len(v), 1)),
+                                         H=1024, W=1024, K=512),
+                  lambda v, f: vertex_visibility(v, f, res=1024)))
+    cpu_in, gpu_in = on("cpu"), on(dev)
+    for name, raster, call in calls:
+        cpu, gpu = raster(*cpu_in), raster(*gpu_in)
+        pf, gpf = cpu.pix_to_face, gpu.pix_to_face.cpu()
+        covered = pf >= 0
+        same = pf == gpf
+        share = float((~same & covered).sum()) / max(int(covered.sum()), 1)
+        d_attr = float((cpu.attr - gpu.attr.cpu()).abs()[same].max())
+        d_depth = float((cpu.depth - gpu.depth.cpu()).abs()[same].max())
+        ov = (int(cpu.bin_overflow), int(gpu.bin_overflow))
+        vis = ""
+        if name.startswith("vertex_visibility"):
+            n_vis = int((call(*cpu_in) != call(*gpu_in).cpu()).sum())
+            vis = f", vertices whose visibility differs {n_vis}"
+        ms = cuda_ms(lambda: call(*gpu_in))
+        print(f"[5] {name}: pix_to_face differs at {share:.3g} of "
+              f"{int(covered.sum())} covered px, max|d| attr {d_attr:.3g} "
+              f"depth {d_depth:.3g} where the faces agree{vis}; "
+              f"bin_overflow cpu {ov[0]} card {ov[1]}; card {ms:.4f} ms",
+              flush=True)
+        if share > RASTER_FACE_SHARE or d_attr > RASTER_ATOL or \
+                d_depth > RASTER_ATOL or ov[0] != ov[1]:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+
+
+def phase_small_normalnet_frame(dev):
+    """The NormalNet frame at image 64^2, res 128, subdiv-3 body on the
+    card vs on the CPU (plain versions): same level counts, triangle counts
+    within 0.1%, raw net occupancy at the level-0 points to 1e-4."""
+    from icon_tpu_torch.recon.frame import (bench_config,
+                                            build_normalnet_frame,
+                                            seeded_state)
+    from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
+    cfg = bench_config()
+    state = seeded_state(cfg, 1, normal_net=True)
+    batch = synthetic_icon_batch(np.random.RandomState(1), B=1,
+                                 image_size=64, n_samples=8, subdiv=3)
+    out = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        fr = build_normalnet_frame(cfg, state, batch, 128, device)
+        stats, _, verts, faces = fr.frame()
+        with torch.no_grad():
+            nml = fr.normals(*fr.render())
+            feats = fr.features(*nml)
+            smpl = fr.body()
+            smpl["smpl_cross_z"], _ = fr.columns(smpl)
+            raw = fr.net_occ(level0_points(fr.engine, device), smpl, feats)
+        out[name] = (int(stats["level1_points"]), len(faces),
+                     raw.cpu().numpy(), torch.cat(nml, -1).cpu().numpy(),
+                     np.isfinite(verts).all())
+    (l1c, nfc, rawc, nmlc, _), (l1g, nfg, rawg, nmlg, fin) = \
+        out["cpu"], out["gpu"]
+    err = float(np.abs(rawc - rawg).max())
+    print(f"[6] small NormalNet frame, card vs CPU: level1 {l1c} vs {l1g}, "
+          f"tris {nfc} vs {nfg}, normals max|d| "
+          f"{float(np.abs(nmlc - nmlg).max()):.3g}, raw occupancy max|d| "
+          f"{err:.3g}", flush=True)
+    if l1c != l1g or abs(nfc - nfg) > 1e-3 * nfc or err > 1e-4 or not fin \
+            or nfg < 1000:
+        raise AssertionError("small NormalNet frame on the card disagrees "
+                             "with the CPU")
+
+
+def phase_full_normalnet_frame(dev, card, iters: int = 5):
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.recon.frame import (bench_config,
+                                            build_normalnet_frame,
+                                            seeded_state)
+    from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
+    cfg = bench_config()
+    batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
+                                 image_size=512, n_samples=64, subdiv=5)
+    t0 = time.perf_counter()
+    fr = build_normalnet_frame(cfg, seeded_state(cfg, 0, normal_net=True),
+                               batch, 256, dev)
+    setup_s = time.perf_counter() - t0
+
+    knn.launches = 0                  # count only the main path's launches
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        fr.frame()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        stats, mesh, verts, faces = fr.frame()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = knn.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with torch.no_grad():
+        nml = torch.cat(fr.normals(*fr.render()), -1)[0].reshape(-1, 2, 3)
+        smpl = fr.body()
+        _, counts = fr.columns(smpl)
+    mask = (torch.from_numpy(batch["image"][0]).abs().sum(-1) != 0).to(
+        dev).reshape(-1)
+    unit_err = float((nml[mask].norm(dim=-1) - 1.0).abs().max())
+    n_over = int((counts > 32).sum())
+    l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
+    ov = [int(stats[k]) for k in sorted(stats) if k.endswith("_overflow")]
+    print(f"[6] full NormalNet frame: level1 {l1} (JAX "
+          f"{JAX_VARIANT_LEVEL1_POINTS}), level2 {l2} (JAX "
+          f"{JAX_VARIANT_LEVEL2_POINTS}), n_tris {len(faces)} (JAX "
+          f"{JAX_VARIANT_N_TRIS}), n_verts {len(verts)}, overflow {ov}, "
+          f"buckets {fr.engine._bucket_used}, columns over 32: {n_over}, "
+          f"visible vertices {int(smpl['smpl_vis'].sum())}/"
+          f"{smpl['smpl_vis'].shape[1]}, normals max||n|-1| {unit_err:.3g} "
+          f"over {int(mask.sum())} px, kNN launches {launches}, peak "
+          f"{peak_gb:.2f} GiB, setup {setup_s:.2f} s", flush=True)
+    print(f"[6] latency per frame (s): median {statistics.median(times):.4f} "
+          f"all {[round(x, 4) for x in times]} on {card}, TF32 off",
+          flush=True)
+    if len(faces) == 0 or not np.isfinite(verts).all():
+        raise AssertionError("empty or non-finite mesh")
+    if n_over:
+        raise AssertionError(f"{n_over} columns exceed 32 crossings")
+    if launches <= 0:
+        raise AssertionError("the frame never launched the kNN kernel")
+    if any(ov):
+        raise AssertionError(f"engine budget overflow {ov}")
+    if not unit_err <= 1e-4:
+        raise AssertionError(f"predicted normals off unit length by "
+                             f"{unit_err}")
+    for name, got, ref in (("level1_points", l1, JAX_VARIANT_LEVEL1_POINTS),
+                           ("level2_points", l2, JAX_VARIANT_LEVEL2_POINTS),
+                           ("n_tris", len(faces), JAX_VARIANT_N_TRIS)):
+        if abs(got - ref) > COUNT_RTOL * ref:
+            raise AssertionError(f"{name} {got} vs JAX {ref}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -223,10 +396,13 @@ def main() -> int:
     so = build.build()
     print(f"[2] built {so} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    verts_np, _ = synthetic_body(subdiv=5)
+    verts_np, faces_np = synthetic_body(subdiv=5)
     summary = phase_knn(dev, verts_np)
     phase_small_frame(dev)
-    summary["launches"] = phase_full_frame(dev, card)
+    launches = phase_full_frame(dev, card)
+    phase_raster(dev, verts_np, faces_np)
+    phase_small_normalnet_frame(dev)
+    summary["launches"] = launches + phase_full_normalnet_frame(dev, card)
 
     print(json.dumps({"kernels": [summary]}))
     print(card_line())

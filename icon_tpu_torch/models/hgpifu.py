@@ -7,14 +7,19 @@ recon engine calls for every point it examines. Submodules carry the
 reference's names (``F_filter``, ``if_regressor``), so the state-dict keys
 are those of the published checkpoints with the ``netG.`` prefix stripped.
 
+``normal_filter`` is the NormalNet: ``filter()`` runs it when the front/back
+normal maps are not given (HGPIFuNet.py:167-192). Its keys
+(``normal_filter.netF.model.*``) are those of the published ``normal.ckpt``
+after the reference's ``netG -> netG.normal_filter`` rename.
+
 Ported: ``prior_type="icon"`` with the fast SMPL features
 (``smpl_vf_table``) signed by the per-column crossings (``smpl_cross_z``).
-Other priors, sign paths and the NormalNet raise ``NotImplementedError``.
+Other priors and sign paths raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,6 +27,7 @@ import torch.nn as nn
 from icon_tpu.config import Config
 from icon_tpu_torch.models.hourglass import HGFilter
 from icon_tpu_torch.models.mlp import MLP
+from icon_tpu_torch.models.normalnet import NormalNet
 from icon_tpu_torch.ops.grid_sample import grid_sample_2d
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.select import feat_select
@@ -46,7 +52,10 @@ def mlp_first_dim(cfg: Config) -> int:
 
 
 class HGPIFuNet(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, normal_net: bool = True):
+        """``normal_net=False`` leaves out the NormalNet (two pix2pixHD
+        generators) for callers that always pass the normal maps;
+        ``filter()`` then needs ``normal_F`` and ``normal_B``."""
         super().__init__()
         net = cfg.net
         if net.prior_type != "icon":
@@ -69,23 +78,39 @@ class HGPIFuNet(nn.Module):
                                  hourglass_dim=net.hourglass_dim,
                                  norm=net.norm, hg_down=net.hg_down,
                                  conv1_ksdp=tuple(net.conv1))
+        self.normal_filter = NormalNet(
+            net.in_nml, ngf=net.ngf, n_downsampling=net.n_downsampling,
+            n_blocks=net.n_blocks) if normal_net else None
 
-    def filter(self, in_tensor_dict: Dict[str, torch.Tensor]
-               ) -> List[torch.Tensor]:
-        """NHWC inputs (``normal_F``, ``normal_B``, and ``image`` when the
-        config's in_geo has it) -> ``[features [B, h, w, 2*hourglass_dim]]``
-        of the last stack (eval mode, HGPIFuNet.py:204-266)."""
+    def predict_normals(self, in_tensor_dict: Dict[str, torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(normal_F, normal_B) ``[B, H, W, 3]`` from the NHWC ``image``,
+        ``T_normal_F`` and ``T_normal_B`` (the body's normal renders)."""
+        if self.normal_filter is None:
+            raise ValueError("this HGPIFuNet was built with normal_net=False")
+        return self.normal_filter(in_tensor_dict)
+
+    def get_normal(self, in_tensor_dict: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        """The NHWC in_geo stack, with the normals predicted when
+        ``normal_F``/``normal_B`` are absent (HGPIFuNet.py:167-192)."""
         names = self.cfg.net.in_geo_names
-        if "normal_F" not in in_tensor_dict or \
-                "normal_B" not in in_tensor_dict:
-            raise NotImplementedError(
-                "predicting normals (NormalNet) is not ported (ROADMAP "
-                "Queue A item 2): pass normal_F and normal_B")
         feats = []
         if "image" in names:
             feats.append(in_tensor_dict["image"])
-        feats += [in_tensor_dict["normal_F"], in_tensor_dict["normal_B"]]
-        in_filter = torch.cat(feats, dim=-1).permute(0, 3, 1, 2)
+        if "normal_F" in in_tensor_dict and "normal_B" in in_tensor_dict:
+            feats += [in_tensor_dict["normal_F"], in_tensor_dict["normal_B"]]
+        else:
+            feats += list(self.predict_normals(in_tensor_dict))
+        return torch.cat(feats, dim=-1)
+
+    def filter(self, in_tensor_dict: Dict[str, torch.Tensor]
+               ) -> List[torch.Tensor]:
+        """NHWC inputs (``normal_F`` and ``normal_B``, or what the NormalNet
+        needs to predict them; ``image`` when the config's in_geo has it)
+        -> ``[features [B, h, w, 2*hourglass_dim]]`` of the last stack (eval
+        mode, HGPIFuNet.py:204-266)."""
+        in_filter = self.get_normal(in_tensor_dict).permute(0, 3, 1, 2)
         f_in = in_filter[:, self.channels_filter[0]]
         b_in = in_filter[:, self.channels_filter[1]]
         features_f = self.F_filter(f_in)[-1]

@@ -14,12 +14,15 @@ import torch.nn.functional as F
 
 def make_norm(norm: str, channels: int, dim: int = 2) -> nn.Module:
     """group -> GroupNorm(32, eps 1e-5); batch -> BatchNorm{1,2}d (eps 1e-5,
-    momentum 0.1, the torch twin of flax's 0.9)."""
+    momentum 0.1, the torch twin of flax's 0.9); instance ->
+    InstanceNorm2d without affine or running stats (eps 1e-5)."""
     if norm == "group":
         return nn.GroupNorm(32, channels, eps=1e-5)
     if norm == "batch":
         cls = nn.BatchNorm2d if dim == 2 else nn.BatchNorm1d
         return cls(channels, eps=1e-5)
+    if norm == "instance":
+        return nn.InstanceNorm2d(channels, eps=1e-5, affine=False)
     raise NotImplementedError(
         f"norm {norm!r} is not ported (ROADMAP Queue A item 2)")
 
@@ -55,6 +58,20 @@ class ConvBlock(nn.Module):
         out = torch.cat([out1, out2, out3], dim=1)
         res = x if self.downsample is None else self.downsample(x)
         return out + res
+
+
+def reflect_pad2d(pad: int) -> nn.ReflectionPad2d:
+    """Reflection padding by ``pad`` on each side of H and W (NCHW), the
+    JAX package's ``reflect_pad2d``."""
+    return nn.ReflectionPad2d(pad)
+
+
+def conv_transpose2x(cin: int, cout: int) -> nn.ConvTranspose2d:
+    """The pix2pixHD upsampling layer, ConvTranspose2d(k=3, s=2, p=1,
+    output_padding=1): an exact 2x upsample (the JAX package's
+    ``ConvTranspose2dTorch``)."""
+    return nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
+                              output_padding=1)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

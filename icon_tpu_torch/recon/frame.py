@@ -1,12 +1,19 @@
-"""The per-image serving frame (the JAX package's ``bench.py:137-226``, the
-reference's ``ICON.test_single``) as a function.
+"""The per-image serving frames (the JAX package's ``bench.py``, the
+reference's ``ICON.test_single``) as functions.
 
-One frame: ``HGPIFuNet.filter`` over the front/back normal maps; the body
-rasterized into per-column crossing depths; the coarse-to-fine engine in
-faster mode with ``auto_budget``, querying ``preds * 1e-6 +
-clothed_human_occ`` (the random-init net runs at full compute, while the
-level set, and so every buffer size, is that of a posed clothed human);
-lattice marching; pack; host decode.
+:func:`build_frame` (``bench.py:137-226``): ``HGPIFuNet.filter`` over given
+front/back normal maps; the body rasterized into per-column crossing
+depths; the coarse-to-fine engine in faster mode with ``auto_budget``,
+querying ``preds * 1e-6 + clothed_human_occ`` (the random-init net runs at
+full compute, while the level set, and so every buffer size, is that of a
+posed clothed human); lattice marching; pack; host decode.
+
+:func:`build_normalnet_frame` (``bench.py:274-328`` with the demo's body
+inputs, ``apps/infer.py:180-194,369-442``): the body's normal renders at
+azimuth 0 and 180, the NormalNet's cloth normals, ``filter``, the per-body
+prep (:func:`icon_feats`: projection, vertex visibility, cmap, crossing
+columns), then the engine on bench.py's variant field, marching, pack and
+decode.
 """
 
 from __future__ import annotations
@@ -19,11 +26,14 @@ import torch
 
 from icon_tpu.config import Config, NetConfig
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
+from icon_tpu_torch.ops.projection import project
+from icon_tpu_torch.ops.raster import vertex_visibility
 from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_crossing_columns_blocked,
                                          build_vertex_face_table)
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
 from icon_tpu_torch.recon.marching import AutoMarcher
+from icon_tpu_torch.render.render import render_normal
 from icon_tpu_torch.utils.synthetic import clothed_human_occ
 
 
@@ -42,12 +52,90 @@ def bench_config() -> Config:
             norm_mlp="batch", hourglass_dim=6, smpl_dim=7))
 
 
-def seeded_state(cfg: Config, seed: int) -> Dict[str, torch.Tensor]:
+def seeded_state(cfg: Config, seed: int, normal_net: bool = False
+                 ) -> Dict[str, torch.Tensor]:
     """HGPIFuNet's own random initialization under a fixed seed (the global
-    generator is forked, so the caller's stream is untouched)."""
+    generator is forked, so the caller's stream is untouched); with the
+    NormalNet's weights when ``normal_net``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return HGPIFuNet(cfg).state_dict()
+        return HGPIFuNet(cfg, normal_net=normal_net).state_dict()
+
+
+def _load_net(cfg: Config, state: Mapping, device, normal_net: bool):
+    net = HGPIFuNet(cfg, normal_net=normal_net).to(device)
+    net.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                         for k, v in state.items()})
+    return net.eval()
+
+
+@dataclasses.dataclass
+class BodyBins:
+    """Host tables of one body, built once per pose: the vertex -> face
+    table and the compact column bins of the lattice (``bench.py:157-169``),
+    on the device."""
+    vf_table: torch.Tensor
+    bins: torch.Tensor
+    bin_meta: torch.Tensor
+    tile_ids: torch.Tensor
+    col_x: torch.Tensor
+    col_y: torch.Tensor
+    cross_meta: torch.Tensor
+
+
+def body_bins(verts: np.ndarray, faces: np.ndarray, lattice_res: int,
+              device) -> BodyBins:
+    """:class:`BodyBins` of calib-space ``verts [V, 3]`` on the engine's
+    ``lattice_res``^2 column lattice (y flipped like the engine's box)."""
+    col_x = np.linspace(-1.0, 1.0, lattice_res, dtype=np.float32)
+    col_y = np.linspace(1.0, -1.0, lattice_res, dtype=np.float32)
+    cb, cm, tids = build_column_bins(verts, faces, col_x, col_y,
+                                     compact=True)
+    h = (lattice_res - 1) / 2.0
+
+    def dev(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return BodyBins(
+        dev(build_vertex_face_table(faces, len(verts)), torch.int64),
+        dev(cb), dev(cm), dev(tids), dev(col_x), dev(col_y),
+        dev([-1.0, 1.0, h, -h, float(lattice_res), float(lattice_res)],
+            torch.float32))
+
+
+def icon_feats(verts: torch.Tensor, faces: torch.Tensor,
+               calib: torch.Tensor, bins: BodyBins
+               ) -> Dict[str, torch.Tensor]:
+    """The per-body prep of the demo (``apps/infer.py:_icon_feats``):
+    ``verts [V, 3]`` projected to calib space by ``calib [4, 4]``, the
+    vertex visibility of a 1024^2 raster, the cmap
+    ``(v - vmin) / max(vmax - vmin, 1e-6)`` (the SMPL-X cmap asset is not
+    in the repository): the ``smpl_feat`` of ``HGPIFuNet.query`` but for
+    ``smpl_cross_z``, which :func:`crossing_columns` gives."""
+    v_cal = project(verts[None], calib[None])[0]
+    vis = vertex_visibility(v_cal, faces)
+    vmin = torch.amin(v_cal, dim=0)
+    vmax = torch.amax(v_cal, dim=0)
+    cmap = (v_cal - vmin) / torch.clamp(vmax - vmin, min=1e-6)
+    return {"smpl_verts": v_cal[None], "smpl_faces": faces,
+            "smpl_cmap": cmap[None], "smpl_vis": vis[None],
+            "smpl_vf_table": bins.vf_table,
+            "smpl_cross_meta": bins.cross_meta}
+
+
+def crossing_columns(smpl_feat: Dict[str, torch.Tensor], bins: BodyBins):
+    """(cross_z, counts) of the body of ``smpl_feat`` on the lattice."""
+    return build_crossing_columns_blocked(
+        smpl_feat["smpl_verts"][0], smpl_feat["smpl_faces"], bins.bins,
+        bins.bin_meta, bins.col_x, bins.col_y, tile_ids=bins.tile_ids)
+
+
+def _marcher(res: int) -> AutoMarcher:
+    # surface-bound buffers grow ~quadratically with resolution
+    area_scale = max((res // 256) ** 2, 1)
+    return AutoMarcher(max_cells=(1 << 18) * area_scale,
+                       max_tris=(1 << 19) * area_scale,
+                       max_verts=(1 << 19) * area_scale, slice_one=True)
 
 
 @dataclasses.dataclass
@@ -65,51 +153,35 @@ class Frame:
 def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                 batch: Dict[str, np.ndarray], res: int,
                 device) -> Frame:
-    """The serving frame for ``cfg`` with HGPIFuNet weights ``state`` on
-    ``batch`` (numpy, NHWC images: ``normal_F``, ``normal_B``, ``calib``,
+    """The serving frame for ``cfg`` with HGPIFuNet weights ``state``
+    (without the NormalNet: the normals are given) on ``batch`` (numpy, NHWC images: ``normal_F``, ``normal_B``, ``calib``,
     ``smpl_verts`` [1,V,3], ``smpl_faces``, ``smpl_cmap``, ``smpl_vis``),
     marching at ``res`` (256 -> levels 33, 65, 129, 257)."""
     device = torch.device(device)
-    net = HGPIFuNet(cfg).to(device)
-    net.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                         for k, v in state.items()})
-    net.eval()
+    net = _load_net(cfg, state, device, normal_net=False)
 
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    resolutions = reconstruction_resolutions(res)
-    engine = ReconEngine(resolutions, auto_budget=True, auto_headroom=1.3,
-                         device=device)
+    engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
+                         auto_headroom=1.3, device=device)
 
     verts_np = np.asarray(batch["smpl_verts"], np.float32)
     faces_np = np.asarray(batch["smpl_faces"])
+    # exact sign: the body rasterized once per frame into per-column
+    # crossings of the lattice; host tile binning is per body
+    bins = body_bins(verts_np[0], faces_np, res + 1, device)
     smpl_feat = {
         "smpl_verts": dev(verts_np),
         "smpl_faces": dev(faces_np, torch.int64),
         "smpl_cmap": dev(batch["smpl_cmap"], torch.float32),
         "smpl_vis": dev(batch["smpl_vis"], torch.float32),
-        "smpl_vf_table": dev(build_vertex_face_table(
-            faces_np, verts_np.shape[1]), torch.int64),
+        "smpl_vf_table": bins.vf_table,
+        "smpl_cross_meta": bins.cross_meta,
     }
-    # exact sign: the body rasterized once per frame into per-column
-    # crossings of the lattice (y flipped like the engine's box); host
-    # tile binning is per body
-    res1 = res + 1
-    col_x = np.linspace(-1.0, 1.0, res1, dtype=np.float32)
-    col_y = np.linspace(1.0, -1.0, res1, dtype=np.float32)
-    cb, cm, tids = build_column_bins(verts_np[0], faces_np, col_x, col_y,
-                                     compact=True)
-    cb, cm, tids = dev(cb), dev(cm), dev(tids)
-    col_x_t, col_y_t = dev(col_x), dev(col_y)
-    smpl_feat["smpl_cross_meta"] = dev(
-        [-1.0, 1.0, (res1 - 1) / 2.0, (res1 - 1) / -2.0, float(res1),
-         float(res1)], torch.float32)
 
     def columns():
-        return build_crossing_columns_blocked(
-            smpl_feat["smpl_verts"][0], smpl_feat["smpl_faces"], cb, cm,
-            col_x_t, col_y_t, tile_ids=tids)
+        return crossing_columns(smpl_feat, bins)
 
     in_t = {k: dev(batch[k], torch.float32) for k in ("normal_F", "normal_B")}
     calib = dev(batch["calib"], torch.float32)
@@ -125,11 +197,7 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return net_occ(pts, cross_z, feats) * 1e-6 + \
             clothed_human_occ(pts)[..., None]
 
-    # surface-bound buffers grow ~quadratically with resolution
-    area_scale = max((res // 256) ** 2, 1)
-    marcher = AutoMarcher(max_cells=(1 << 18) * area_scale,
-                          max_tris=(1 << 19) * area_scale,
-                          max_verts=(1 << 19) * area_scale, slice_one=True)
+    marcher = _marcher(res)
 
     @torch.no_grad()
     def compute():
@@ -145,3 +213,106 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
 
     return Frame(compute, frame, columns, features, net_occ, query_fn,
                  engine, marcher)
+
+
+def spurious_occ(pts: torch.Tensor) -> torch.Tensor:
+    """bench.py's band-limited spurious blobs ``[..., 1]`` (threshold
+    0.72): extra coarse-level boundary cells like a trained net's noisy
+    coarse levels (``bench.py:302-308``)."""
+    n = (torch.sin(pts[..., 0] * 6.1 + 0.9) *
+         torch.sin(pts[..., 1] * 5.3 + 2.0) *
+         torch.sin(pts[..., 2] * 6.7 + 4.2))[..., None]
+    return 0.8 * torch.clamp(n - 0.72, min=0.0) / 0.28
+
+
+@dataclasses.dataclass
+class NormalNetFrame:
+    compute: Callable    # -> (token, mesh, stats): up to the pack
+    frame: Callable      # -> (stats, mesh, verts, faces): blocking
+    render: Callable     # -> (T_normal_F, T_normal_B) [1, H, W, 3]
+    normals: Callable    # (T_F, T_B) -> (normal_F, normal_B) of NormalNet
+    features: Callable   # (normal_F, normal_B) -> HGPIFuNet.filter
+    body: Callable       # -> smpl_feat of icon_feats (no crossings)
+    columns: Callable    # (smpl_feat) -> (cross_z, counts)
+    net_occ: Callable    # (points [1,N,3], smpl_feat, features) -> preds
+    query_fn: Callable   # the engine's field (bench.py's variant field)
+    engine: ReconEngine
+    marcher: AutoMarcher
+
+
+def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
+                          batch: Dict[str, np.ndarray], res: int,
+                          device) -> NormalNetFrame:
+    """The NormalNet serving frame for ``cfg`` with HGPIFuNet weights
+    ``state`` (NormalNet included) on ``batch`` (numpy: ``image`` [1,H,W,3]
+    NHWC, ``calib``, ``smpl_verts`` [1,V,3] world, ``smpl_faces``),
+    marching at ``res``. Each frame renders the body's normals at ``H``^2,
+    predicts the cloth normals, filters, runs the per-body prep (its host
+    bins are built here, once per body), and reconstructs bench.py's
+    variant field ``clip(preds * 1e-6 + clothed_human_occ + spurious, 0,
+    1)``."""
+    device = torch.device(device)
+    net = _load_net(cfg, state, device, normal_net=True)
+
+    def dev(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
+                         auto_headroom=1.3, device=device)
+    image = dev(batch["image"], torch.float32)
+    size = image.shape[1]
+    calib = dev(batch["calib"], torch.float32)
+    verts = dev(batch["smpl_verts"], torch.float32)[0]
+    faces = dev(batch["smpl_faces"], torch.int64)
+    with torch.no_grad():
+        v_cal = project(verts[None].cpu(), calib[:1].cpu())[0].numpy()
+    bins = body_bins(v_cal, np.asarray(batch["smpl_faces"]),
+                     engine.resolutions[-1], device)
+
+    def render():
+        return tuple(render_normal(verts, faces, size=size, azimuth=az,
+                                   K=256)[0][None] for az in (0.0, 180.0))
+
+    def normals(t_f, t_b):
+        return net.predict_normals({"image": image, "T_normal_F": t_f,
+                                    "T_normal_B": t_b})
+
+    def features(nml_f, nml_b):
+        return net.filter({"image": image, "normal_F": nml_f,
+                           "normal_B": nml_b})
+
+    def body():
+        return icon_feats(verts, faces, calib[0], bins)
+
+    def columns(smpl):
+        return crossing_columns(smpl, bins)
+
+    def net_occ(pts, smpl, feats):
+        return net.query(feats, pts, calib, smpl)[-1]
+
+    def query_fn(pts, smpl, feats):
+        return torch.clamp(net_occ(pts, smpl, feats) * 1e-6 +
+                           clothed_human_occ(pts)[..., None] +
+                           spurious_occ(pts), 0.0, 1.0)
+
+    marcher = _marcher(res)
+
+    @torch.no_grad()
+    def compute():
+        # the rasters read their face counts to the host: run them before
+        # the nets are queued, so those reads do not wait for the nets
+        t_f, t_b = render()
+        smpl = body()
+        smpl["smpl_cross_z"], _ = columns(smpl)
+        feats = features(*normals(t_f, t_b))
+        occ, stats = engine(query_fn, query_args=(smpl, feats))
+        mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
+        return marcher.pack(mesh), mesh, stats
+
+    def frame():
+        token, mesh, stats = compute()
+        verts_out, faces_out = marcher.unpack(token)   # blocking transfer
+        return stats, mesh, verts_out, faces_out
+
+    return NormalNetFrame(compute, frame, render, normals, features, body,
+                          columns, net_occ, query_fn, engine, marcher)

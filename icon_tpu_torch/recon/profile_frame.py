@@ -1,16 +1,21 @@
-"""Where the time of the serving frame goes, on one CUDA card.
+"""Where the time of a serving frame goes, on one CUDA card.
 
-Builds the frame chip_smoke.py runs (bench.py's icon-filter config, 512^2
-normals, subdiv-5 body, res 256, seeded weights), warms it up, then:
+Builds the frame chip_smoke.py runs at full width (bench.py's icon-filter
+config, the subdiv-5 body, res 256, seeded weights), warms it up, then:
 
-1. per-stage host-clock times with a synchronize between stages (filter,
-   crossing columns, engine, marching, pack, host decode), median of 5;
+1. per-stage host-clock times with a synchronize between stages, median of
+   5; ``--frame plain`` (512^2 normals given): filter, crossing columns,
+   engine, marching, pack, host decode; ``--frame normalnet`` (512^2 image,
+   the published NormalNet widths): the body's normal renders, NormalNet,
+   filter, vertex visibility (with projection and cmap), crossing columns,
+   engine, marching, pack, host decode;
 2. a torch.profiler trace of 2 frames: device time by kernel (top 25) and
    the device's busy share of the wall time.
 
 Usage, from the repository root on the card:
 
-    python3 -m icon_tpu_torch.recon.profile_frame [--out FILE]
+    python3 -m icon_tpu_torch.recon.profile_frame [--frame normalnet]
+        [--out FILE]
 
 TF32 stays off, as in chip_smoke.py, so the numbers describe the same
 float32 frame.
@@ -49,8 +54,36 @@ def stage_times(fr):
             "march": t_march, "pack": t_pack, "decode": t_dec}
 
 
+def normalnet_stage_times(fr):
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    with torch.no_grad():
+        t_f, t_b = timed("render", fr.render)
+        nml = timed("normalnet", lambda: fr.normals(t_f, t_b))
+        feats = timed("filter", lambda: fr.features(*nml))
+        smpl = timed("vis", fr.body)
+        smpl["smpl_cross_z"], _ = timed("columns", lambda: fr.columns(smpl))
+        occ, st = timed("engine", lambda: fr.engine(
+            fr.query_fn, query_args=(smpl, feats)))
+        mesh = timed("march", lambda: fr.marcher(
+            occ, coarse_occ=st["coarse_occ"]))
+        tok = timed("pack", lambda: fr.marcher.pack(mesh))
+        timed("decode", lambda: fr.marcher.unpack(tok))
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--frame", choices=("plain", "normalnet"),
+                    default="plain", help="which serving frame")
     ap.add_argument("--out", default="profile_frame.txt",
                     help="where the stage split and kernel table go")
     args = ap.parse_args()
@@ -58,6 +91,7 @@ def main():
         print("no CUDA card", file=sys.stderr)
         return 2
     from icon_tpu_torch.recon.frame import (bench_config, build_frame,
+                                            build_normalnet_frame,
                                             seeded_state)
     from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
 
@@ -70,14 +104,21 @@ def main():
     cfg = bench_config()
     batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
                                  image_size=512, n_samples=64, subdiv=5)
-    fr = build_frame(cfg, seeded_state(cfg, 0), batch, 256, "cuda")
+    if args.frame == "plain":
+        fr = build_frame(cfg, seeded_state(cfg, 0), batch, 256, "cuda")
+        split = stage_times
+    else:
+        fr = build_normalnet_frame(
+            cfg, seeded_state(cfg, 0, normal_net=True), batch, 256, "cuda")
+        split = normalnet_stage_times
     for _ in range(3):
         fr.frame()
 
-    runs = [stage_times(fr) for _ in range(5)]
+    runs = [split(fr) for _ in range(5)]
     stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     total = sum(stages.values())
-    lines = [f"card: {card}; torch {torch.__version__}; TF32 off",
+    lines = [f"card: {card}; torch {torch.__version__}; TF32 off; "
+             f"{args.frame} frame",
              "stage medians of 5 synchronized frames (ms):"]
     lines += [f"  {k:8s} {v:9.3f}  {100 * v / total:5.1f}%"
               for k, v in stages.items()]

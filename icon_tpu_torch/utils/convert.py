@@ -12,9 +12,13 @@ same weights. The mapping is the inverse of
 - MLP ``conv{i}``/``norm{i}`` -> ``filters.{i}``/``norms.{i}``;
 - ConvBlock ``downsample`` -> ``downsample.2``, with ``bn4`` aliased as
   ``downsample.0``; a ConvBlock without a shortcut gets the identity
-  ``bn4`` the reference registers anyway.
-
-The ``normal_filter`` scope (NormalNet, not ported yet) is skipped.
+  ``bn4`` the reference registers anyway;
+- the NormalNet's generators (``normal_filter/net{F,B}``) -> the
+  reference's ``model.{i}`` Sequential indices: ``conv_in``, ``down{i}``,
+  the ``nn.scan``-stacked ``res_stack`` (one leading axis of ``n_blocks``)
+  split into ``model.{j}.conv_block.{1,5}``, ``up{i}/tconv`` (transposed
+  conv, flax ``[kh, kw, O, I]`` -> torch ``[I, O, kh, kw]``) and
+  ``conv_out``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-_SKIP_SCOPES = ("normal_filter",)
 _CONVBLOCK = {"conv1", "conv2", "conv3", "bn1", "bn2", "bn3"}
 
 
@@ -62,14 +65,44 @@ def _convert_kernel(w: np.ndarray) -> np.ndarray:
     raise ValueError(f"unexpected kernel rank {w.ndim}")
 
 
+def generator_state(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A flax ``GlobalGenerator`` params tree -> the reference's
+    ``{prefix}model.{i}.*`` keys (see ``icon_tpu_torch.models.pix2pix``)."""
+    n = sum(1 for k in tree if k.startswith("down"))
+    stack = tree["res_stack"]
+    nb = np.asarray(stack["conv1"]["kernel"]).shape[0]
+    convs = [(1, tree["conv_in"]), (5 + 6 * n + nb, tree["conv_out"])]
+    convs += [(4 + 3 * i, tree[f"down{i}"]) for i in range(n)]
+    convs += [(f"{4 + 3 * n + j}.conv_block.{slot}",
+               {k: np.asarray(v)[j] for k, v in stack[name].items()})
+              for j in range(nb) for name, slot in (("conv1", 1),
+                                                    ("conv2", 5))]
+    out: Dict[str, np.ndarray] = {}
+    for idx, p in convs:
+        out[f"{prefix}model.{idx}.weight"] = _convert_kernel(
+            np.asarray(p["kernel"]))
+        out[f"{prefix}model.{idx}.bias"] = np.asarray(p["bias"])
+    for i in range(n):
+        p = tree[f"up{i}"]["tconv"]
+        idx = 4 + 3 * n + nb + 3 * i
+        # flax transpose_kernel layout [kh, kw, O, I] -> torch [I, O, kh, kw]
+        out[f"{prefix}model.{idx}.weight"] = np.transpose(
+            np.asarray(p["kernel"]), (3, 2, 0, 1))
+        out[f"{prefix}model.{idx}.bias"] = np.asarray(p["bias"])
+    return out
+
+
 def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
                          ) -> Dict[str, np.ndarray]:
     """``{torch key: numpy array}`` for the port's ``HGPIFuNet`` from flax
-    ``params`` (and ``batch_stats``) trees."""
+    ``params`` (and ``batch_stats``) trees. Without a ``normal_filter``
+    scope (a flax init that was given the normal maps) the result fits an
+    ``HGPIFuNet(cfg, normal_net=False)``."""
     out: Dict[str, np.ndarray] = {}
+    for name, tree in params.get("normal_filter", {}).items():
+        out.update(generator_state(tree, f"normal_filter.{name}."))
+    params = {k: v for k, v in params.items() if k != "normal_filter"}
     for path, arr in _flatten(params).items():
-        if path[0] in _SKIP_SCOPES:
-            continue
         *mods, leaf = path
         key = ".".join(_module_path(tuple(mods)))
         if leaf == "kernel":
@@ -82,8 +115,6 @@ def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
             raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
     batch_norms = set()
     for path, arr in _flatten(batch_stats or {}).items():
-        if path[0] in _SKIP_SCOPES:
-            continue
         *mods, leaf = path
         key = ".".join(_module_path(tuple(mods)))
         names = {"mean": "running_mean", "var": "running_var"}
@@ -97,7 +128,7 @@ def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
     # ConvBlocks: alias bn4 as downsample.0, or add the unused identity bn4
     blocks = {}
     for path in _flatten(params):
-        if path[0] in _SKIP_SCOPES or len(path) < 2:
+        if len(path) < 2:
             continue
         blocks.setdefault(tuple(_module_path(path[:-2])),
                           set()).add(path[-2])

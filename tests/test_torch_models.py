@@ -29,7 +29,7 @@ RNG = np.random.RandomState(3)
 def icon_pair():
     cfg = icon_cfg()
     jnet, variables = init_jax_icon(cfg)
-    net = HGPIFuNet(cfg)
+    net = HGPIFuNet(cfg, normal_net=False)     # flax init had the normals
     net.load_state_dict(port_state(variables))            # strict
     return cfg, jnet, variables, net.eval()
 
@@ -67,9 +67,12 @@ def test_layer_primitives():
         avg_pool2(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy(),
         np.asarray(javg(jnp.asarray(x))), rtol=0, atol=1e-6)
     gn, bn = make_norm("group", 64), make_norm("batch", 16, dim=1)
-    assert (gn.num_groups, gn.eps, bn.eps) == (32, 1e-5, 1e-5)
+    inst = make_norm("instance", 8)
+    assert (gn.num_groups, gn.eps, bn.eps, inst.eps) == (32, 1e-5, 1e-5,
+                                                         1e-5)
+    assert not inst.affine
     with pytest.raises(NotImplementedError):
-        make_norm("instance", 8)
+        make_norm("none", 8)
 
 
 def test_state_dict_keys_match_reference_layout(icon_pair):
@@ -107,7 +110,7 @@ def test_hgfilter_and_filter_parity(icon_pair):
     for a, b in zip(stacks, jstacks):
         np.testing.assert_allclose(a.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(b), rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="normal_net=False"):
         net.filter({"image": t(nF)})
 
 

@@ -1,6 +1,7 @@
 """The port runs without JAX: importing icon_tpu_torch and running one tiny
-CPU frame leaves ``jax`` out of ``sys.modules``, and no file of the package
-imports it."""
+CPU frame of each kind (normals given; normals predicted by the NormalNet
+from the body's renders) leaves ``jax`` out of ``sys.modules``, and no file
+of the package imports it."""
 
 import os
 import os.path as osp
@@ -11,6 +12,7 @@ import sys
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 _FRAME = r"""
+import dataclasses
 import sys
 import numpy as np
 import torch
@@ -18,7 +20,7 @@ torch.set_num_threads(1)
 from icon_tpu.config import Config, NetConfig
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
 from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
-from icon_tpu_torch.recon.frame import build_frame
+from icon_tpu_torch.recon.frame import build_frame, build_normalnet_frame
 cfg = Config(test_mode=False, net=NetConfig(
     mlp_dim=(256, 16, 16, 16, 8, 1), res_layers=(2, 3, 4), num_stack=1,
     prior_type="icon", use_filter=True,
@@ -26,10 +28,17 @@ cfg = Config(test_mode=False, net=NetConfig(
     smpl_feats=("sdf", "norm", "vis", "cmap"), norm_mlp="batch",
     hourglass_dim=6, smpl_dim=7))
 torch.manual_seed(0)
-state = HGPIFuNet(cfg).state_dict()
+state = HGPIFuNet(cfg, normal_net=False).state_dict()
 batch = synthetic_icon_batch(np.random.RandomState(0), B=1, image_size=32,
                              n_samples=8, subdiv=2)
 stats, mesh, verts, faces = build_frame(cfg, state, batch, 64, "cpu").frame()
+assert len(faces) > 1000 and np.isfinite(verts).all()
+cfg = cfg.replace(net=dataclasses.replace(
+    cfg.net, in_nml=(("image", 3), ("T_normal_F", 3), ("T_normal_B", 3)), ngf=4,
+    n_downsampling=2, n_blocks=1))
+state = HGPIFuNet(cfg).state_dict()
+fr = build_normalnet_frame(cfg, state, batch, 64, "cpu")
+stats, mesh, verts, faces = fr.frame()
 assert len(faces) > 1000 and np.isfinite(verts).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)

@@ -45,12 +45,25 @@ def _randomize(tree, rng):
     return walk(tree)
 
 
-def init_jax_icon(cfg: Config, seed: int = 0):
-    """(flax HGPIFuNet, variables as numpy trees) with randomized norms."""
+def normalnet_cfg(ngf=8, n_downsampling=2, n_blocks=2, **net) -> Config:
+    """:func:`icon_cfg` with a NormalNet of the given widths (narrow by
+    default; the published ones are 64, 4, 9)."""
+    cfg = icon_cfg(**net)
+    return cfg.replace(net=dataclasses.replace(
+        cfg.net, ngf=ngf, n_downsampling=n_downsampling, n_blocks=n_blocks))
+
+
+def init_jax_icon(cfg: Config, seed: int = 0, normal_net: bool = False):
+    """(flax HGPIFuNet, variables as numpy trees) with randomized norms and
+    biases. With ``normal_net`` the init batch holds the NormalNet's inputs
+    (image, T_normal_F/B) instead of the normal maps, so the params carry
+    the ``normal_filter`` scope."""
     from icon_tpu.models.hgpifu import HGPIFuNet
     net = HGPIFuNet(cfg)
     small = jnp.zeros((1, 64, 64, 3))
-    batch = {"normal_F": small, "normal_B": small,
+    maps = ("image", "T_normal_F", "T_normal_B") if normal_net \
+        else ("normal_F", "normal_B")
+    batch = {**{k: small for k in maps},
              "sample": jnp.zeros((1, 8, 3)), "calib": jnp.eye(4)[None],
              "smpl_verts": jnp.zeros((1, 32, 3)),
              "smpl_faces": jnp.zeros((16, 3), jnp.int32),
