@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[6], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[9], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -22,19 +22,40 @@ JSON line ``{"ok": true, "device": {...}}``):
    33/65/129/257), seeded random weights: 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
    package's values for the same level set;
-5. the rasterizer (plain PyTorch) on the card against the CPU, on the
-   subdiv-5 body: the normal renders of the NormalNet frame (512^2,
-   azimuth 0 and 180) and the vertex-visibility raster (1024^2), with
-   CUDA-event medians of the card's calls;
+5. the rasterizer on the card (the raster_fwd kernel) against the CPU's
+   plain version, on the subdiv-5 body: the normal renders of the NormalNet
+   frame (512^2, azimuth 0 and 180) and the vertex-visibility raster
+   (1024^2), with CUDA-event medians of the card's calls;
 6. the NormalNet frame (the body's normal renders, NormalNet, filter,
    per-body prep, engine on bench.py's variant field, marching): small on
    the card against the CPU, then at full width (the published NormalNet
    widths at 512^2, the rest as in phase 4): 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
    package's values for the variant field, predicted normals of unit
-   length.
+   length;
+7. the rasterizer kernels (raster_fwd, raster_bwd) against the plain
+   version on the card, at the demo's shapes (512^2 normal renders with
+   K=256 and the fit's K=96; the 1024^2 visibility raster with K=512):
+   pix_to_face identical on every pixel, the images' and the gradients'
+   errors, CUDA-event medians of forward and backward;
+8. the fit frame (SMPL fit, recon, remesh, cloth refinement, colours) small
+   on the card against the CPU: per-iteration fit losses, level and
+   triangle counts; from the CPU's fitted body and remeshed mesh, the
+   card's raw net occupancy and cloth losses;
+9. the fit frame at full width (the subdiv-5 SMPL-X-layout body, a 512^2
+   matted image, 100 fit iterations, recon at res 256 on bench.py's variant
+   field, remesh, 200 cloth iterations, colours): per-stage times, losses,
+   kernel launches and peak memory; level counts against the JAX
+   package's; the raster kernels against the plain version, as in phase 7,
+   on the frame's own meshes (the fitted body at K=96, the cloth loop's
+   input and output at K=256, the colour stage's 1024^2 visibility raster)
+   with their bin overflow; then a known-answer fit (refine_smpl toward
+   the body's own render at seeded betas must lower its loss).
 
-Any failed check raises, so the script exits non-zero and prints no result.
+Each main path (phases 4, 6 and 9) runs with the kernels' launch counts set
+to 0 just before it and read just after; a kernel of the path that did not
+launch fails the run. Any failed check raises, so the script exits non-zero
+and prints no result.
 """
 
 import json
@@ -64,6 +85,11 @@ RASTER_FACE_SHARE = 1e-3
 
 KNN_SHAPES = (35937, 98304, 232974)      # level 0, level-1/2 buckets, cap
 KEY_RTOL = 1e-5
+# raster kernels against the plain version (tests/test_torch_raster_cuda.py)
+RASTER_KERNEL_ATOL = {"attr": 1e-6, "depth": 0.0, "silhouette": 1e-5}
+RASTER_GRAD_RTOL = 1e-4
+# the full-width fit frame: image size, body subdivision, marching res
+FIT_SIZE, FIT_SUBDIV, FIT_RES = 512, 5, 256
 
 
 def card_line() -> str:
@@ -88,9 +114,9 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def level0_points(engine, device) -> torch.Tensor:
-    """The engine's level-0 lattice as world points [1, N, 3]."""
-    g = torch.linspace(0.0, 1.0, engine.resolutions[0], device=device)
+def level0_points(res0: int, device) -> torch.Tensor:
+    """The engine's level-0 lattice (``res0``^3) as world points [1, N, 3]."""
+    g = torch.linspace(0.0, 1.0, res0, device=device)
     zz, yy, xx = torch.meshgrid(g, g, g, indexing="ij")
     return torch.stack([xx, yy, zz], -1).reshape(1, -1, 3) * \
         torch.tensor([2.0, -2.0, 2.0], device=device) + \
@@ -155,7 +181,7 @@ def phase_small_frame(dev):
         fr = build_frame(cfg, state, batch, 128, device)
         stats, _, verts, faces = fr.frame()
         with torch.no_grad():
-            raw = fr.net_occ(level0_points(fr.engine, device),
+            raw = fr.net_occ(level0_points(fr.engine.resolutions[0], device),
                              fr.columns()[0], fr.features())
         out[name] = (int(stats["level1_points"]), len(verts), len(faces),
                      raw.cpu().numpy(), np.isfinite(verts).all())
@@ -171,7 +197,6 @@ def phase_small_frame(dev):
 
 
 def phase_full_frame(dev, card, iters: int = 5):
-    from icon_tpu_torch.kernels import knn
     from icon_tpu_torch.recon.frame import (bench_config, build_frame,
                                             seeded_state)
     from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
@@ -182,7 +207,7 @@ def phase_full_frame(dev, card, iters: int = 5):
     fr = build_frame(cfg, seeded_state(cfg, 0), batch, 256, dev)
     setup_s = time.perf_counter() - t0
 
-    knn.launches = 0                  # count only the main path's launches
+    reset_launches()                  # count only the main path's launches
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         fr.frame()
@@ -192,7 +217,7 @@ def phase_full_frame(dev, card, iters: int = 5):
         stats, mesh, verts, faces = fr.frame()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = knn.launches
+    launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     _, counts = fr.columns()
@@ -202,8 +227,8 @@ def phase_full_frame(dev, card, iters: int = 5):
     print(f"[4] full frame: level1 {l1} (JAX {JAX_LEVEL1_POINTS}), level2 "
           f"{l2} (JAX {JAX_LEVEL2_POINTS}), n_tris {len(faces)} (JAX "
           f"{JAX_N_TRIS}), n_verts {len(verts)}, overflow {ov}, buckets "
-          f"{fr.engine._bucket_used}, columns over 32: {n_over}, kNN "
-          f"launches {launches}, peak {peak_gb:.2f} GiB, setup "
+          f"{fr.engine._bucket_used}, columns over 32: {n_over}, launches "
+          f"{launched}, peak {peak_gb:.2f} GiB, setup "
           f"{setup_s:.2f} s", flush=True)
     print(f"[4] latency per frame (s): median {statistics.median(times):.4f} "
           f"all {[round(x, 4) for x in times]} on {card}, TF32 off",
@@ -212,8 +237,7 @@ def phase_full_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    if launches <= 0:
-        raise AssertionError("the frame never launched the kNN kernel")
+    check_launched(launched, ("knn_f32",), "the frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     for name, got, ref in (("level1_points", l1, JAX_LEVEL1_POINTS),
@@ -221,7 +245,7 @@ def phase_full_frame(dev, card, iters: int = 5):
                            ("n_tris", len(faces), JAX_N_TRIS)):
         if abs(got - ref) > COUNT_RTOL * ref:
             raise AssertionError(f"{name} {got} vs JAX {ref}")
-    return launches
+    return launched
 
 
 def phase_raster(dev, verts_np, faces_np):
@@ -289,7 +313,8 @@ def phase_small_normalnet_frame(dev):
             feats = fr.features(*nml)
             smpl = fr.body()
             smpl["smpl_cross_z"], _ = fr.columns(smpl)
-            raw = fr.net_occ(level0_points(fr.engine, device), smpl, feats)
+            raw = fr.net_occ(level0_points(fr.engine.resolutions[0], device),
+                             smpl, feats)
         out[name] = (int(stats["level1_points"]), len(faces),
                      raw.cpu().numpy(), torch.cat(nml, -1).cpu().numpy(),
                      np.isfinite(verts).all())
@@ -307,7 +332,6 @@ def phase_small_normalnet_frame(dev):
 
 
 def phase_full_normalnet_frame(dev, card, iters: int = 5):
-    from icon_tpu_torch.kernels import knn
     from icon_tpu_torch.recon.frame import (bench_config,
                                             build_normalnet_frame,
                                             seeded_state)
@@ -320,7 +344,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
                                batch, 256, dev)
     setup_s = time.perf_counter() - t0
 
-    knn.launches = 0                  # count only the main path's launches
+    reset_launches()                  # count only the main path's launches
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         fr.frame()
@@ -330,7 +354,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
         stats, mesh, verts, faces = fr.frame()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = knn.launches
+    launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with torch.no_grad():
@@ -350,7 +374,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
           f"buckets {fr.engine._bucket_used}, columns over 32: {n_over}, "
           f"visible vertices {int(smpl['smpl_vis'].sum())}/"
           f"{smpl['smpl_vis'].shape[1]}, normals max||n|-1| {unit_err:.3g} "
-          f"over {int(mask.sum())} px, kNN launches {launches}, peak "
+          f"over {int(mask.sum())} px, launches {launched}, peak "
           f"{peak_gb:.2f} GiB, setup {setup_s:.2f} s", flush=True)
     print(f"[6] latency per frame (s): median {statistics.median(times):.4f} "
           f"all {[round(x, 4) for x in times]} on {card}, TF32 off",
@@ -359,8 +383,8 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    if launches <= 0:
-        raise AssertionError("the frame never launched the kNN kernel")
+    check_launched(launched, ("knn_f32", "raster_fwd"),
+                   "the NormalNet frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     if not unit_err <= 1e-4:
@@ -371,7 +395,337 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
                            ("n_tris", len(faces), JAX_VARIANT_N_TRIS)):
         if abs(got - ref) > COUNT_RTOL * ref:
             raise AssertionError(f"{name} {got} vs JAX {ref}")
-    return launches
+    return launched
+
+
+def compare_raster(tag, name, ndc, faces, attrs, size, K, rng,
+                   backward: bool = True):
+    """raster_fwd (and raster_bwd) against the plain version on the card for
+    one input: pix_to_face identical on every pixel, attr, depth and
+    silhouette within RASTER_KERNEL_ATOL, the same bin_overflow, and the
+    gradients of a seeded weighted sum of the images within
+    RASTER_GRAD_RTOL of their largest. Returns (worst image error, worst
+    gradient error, bin_overflow, ``run(fn, grad)``: one call of
+    ``rasterize`` or ``rasterize_plain`` on this input, with (loss, ndc,
+    attrs) when ``grad``)."""
+    from icon_tpu_torch.ops.raster import rasterize, rasterize_plain
+    C = attrs.shape[1]
+    weights = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        ndc.device) for shape in ((size, size, C), (size, size), (size, size))]
+
+    def run(fn, grad: bool):
+        x = ndc.detach().clone().requires_grad_(grad)
+        a = attrs.detach().clone().requires_grad_(grad)
+        out = fn(x, faces, a, H=size, W=size, K=K)
+        if not grad:
+            return out, None
+        loss = (out.attr * weights[0]).sum() + \
+            (out.depth * out.mask * weights[1]).sum() + \
+            (out.silhouette * weights[2]).sum()
+        return out, (loss, x, a)
+
+    with torch.no_grad():
+        out, _ = run(rasterize, False)
+        ref, _ = run(rasterize_plain, False)
+    torch.cuda.synchronize()
+    differ = int((out.pix_to_face != ref.pix_to_face).sum())
+    errs = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+            for k in RASTER_KERNEL_ATOL}
+    grad_err, grad_rel = 0.0, 0.0
+    if backward:
+        grads = []
+        for fn in (rasterize, rasterize_plain):
+            _, (loss, x, a) = run(fn, True)
+            grads.append(torch.autograd.grad(loss, (x, a)))
+        for g, w in zip(*grads):
+            d = float((g - w).abs().max())
+            grad_err = max(grad_err, d)
+            grad_rel = max(grad_rel, d / max(float(w.abs().max()), 1e-30))
+    print(f"{tag} {name}: pix_to_face differs at {differ} of {size * size} "
+          f"px ({int((ref.pix_to_face >= 0).sum())} covered), max|d| "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+          + (f"; grads max|d| {grad_err:.3g} ({grad_rel:.3g} of the "
+             f"largest)" if backward else "; forward only")
+          + f"; bin_overflow {int(out.bin_overflow)}", flush=True)
+    if differ or any(errs[k] > tol for k, tol in RASTER_KERNEL_ATOL.items()) \
+            or grad_rel > RASTER_GRAD_RTOL or \
+            int(out.bin_overflow) != int(ref.bin_overflow):
+        raise AssertionError(f"{name}: the raster kernels disagree with the "
+                             f"plain version")
+    return max(errs.values()), grad_err, int(out.bin_overflow), run
+
+
+def phase_raster_kernels(dev, verts_np, faces_np):
+    """raster_fwd / raster_bwd against the plain version on the card at the
+    demo's shapes; returns their summary entries (timed at the fit's
+    shape, 512^2 with K=96)."""
+    from icon_tpu_torch.ops.mesh import vertex_normals
+    from icon_tpu_torch.ops.raster import rasterize, rasterize_plain
+    from icon_tpu_torch.render.camera import verts_to_ndc
+
+    v = torch.from_numpy(verts_np).to(dev)
+    f = torch.from_numpy(faces_np).long().to(dev)
+    rng = np.random.RandomState(7)
+    cases = [(f"render_normal 512^2 K={k}", 512, k, 3) for k in (256, 96)]
+    cases.append(("vertex_visibility 1024^2 K=512", 1024, 512, 1))
+    worst = {"raster_fwd": 0.0, "raster_bwd": 0.0}
+    timing = {}
+    for name, size, K, C in cases:
+        # the renders' own inputs: the vertex normals (the view frame at
+        # azimuth 0), or the visibility raster's zero attribute
+        ndc = verts_to_ndc(v, 0.0)
+        attrs = vertex_normals(v[None], f)[0] if C == 3 else \
+            v.new_zeros((len(v), 1))
+        err, grad_err, _, run = compare_raster("[7]", name, ndc, f, attrs,
+                                               size, K, rng)
+
+        def fwd(fn):
+            with torch.no_grad():
+                run(fn, False)
+
+        def bwd_of(fn):
+            _, (loss, x, a) = run(fn, True)
+            return lambda: torch.autograd.grad(loss, (x, a),
+                                               retain_graph=True)
+
+        ms = {"fwd": cuda_ms(lambda: fwd(rasterize)),
+              "plain_fwd": cuda_ms(lambda: fwd(rasterize_plain)),
+              "bwd": cuda_ms(bwd_of(rasterize)),
+              "plain_bwd": cuda_ms(bwd_of(rasterize_plain))}
+        timing[(size, K)] = ms
+        print(f"[7] {name}: forward kernel {ms['fwd']:.4f} ms, plain "
+              f"{ms['plain_fwd']:.4f} ms; backward kernel {ms['bwd']:.4f} "
+              f"ms, plain {ms['plain_bwd']:.4f} ms", flush=True)
+        worst["raster_fwd"] = max(worst["raster_fwd"], err)
+        worst["raster_bwd"] = max(worst["raster_bwd"], grad_err)
+    ms = timing[(512, 96)]
+    return [{"name": name, "route": "cuda",
+             "source": "icon_tpu_torch/csrc/raster.cu",
+             "replaces": "icon_tpu/ops/raster.py:123",
+             "max_abs_err": worst[name], "ms": ms[key],
+             "plain_ms": ms["plain_" + key]}
+            for name, key in (("raster_fwd", "fwd"), ("raster_bwd", "bwd"))]
+
+
+def fit_on(fit, device):
+    """An ``SmplFit`` moved to ``device``."""
+    from icon_tpu_torch.infer.refine import SmplFit
+    return SmplFit(fit.verts.to(device),
+                   tuple(n.to(device) for n in fit.normals), fit.losses,
+                   {k: v.to(device) for k, v in fit.params.items()})
+
+
+def phase_small_fit_frame(dev):
+    """The fit frame at image 64^2, res 128, the subdiv-3 SMPL-X-layout
+    body, bench.py's config with the published NormalNet widths and its
+    variant field, 3 fit and 2 cloth iterations, on the card vs on the CPU:
+    fit losses to 1e-3 relative (cuDNN against the CPU's convolutions
+    through the NormalNet), level counts and marched triangles equal. Then
+    the card's recon chain and cloth loop from the CPU's fitted body and
+    remeshed mesh (the host remesh follows edge lengths, so a marched vertex
+    one u8 step apart changes its output): raw net occupancy at the level-0
+    points to 1e-4, cloth losses to 1e-3 relative."""
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    from icon_tpu_torch.recon.engine import reconstruction_resolutions
+    from icon_tpu_torch.recon.frame import (bench_config, build_fit_frame,
+                                            seeded_state, variant_occ)
+    from icon_tpu_torch.utils.synthetic import synthetic_fit_item
+    cfg = bench_config()
+    state = seeded_state(cfg, 1, normal_net=True)
+    item = synthetic_fit_item(synthetic_smplx_model(subdiv=3), 64, seed=1)
+    frames, out = {}, {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        frames[name] = build_fit_frame(
+            cfg, state, synthetic_smplx_model(subdiv=3), 128, device,
+            loop_smpl=3, loop_cloth=2, field=variant_occ)
+        out[name] = frames[name].frame(item)
+    c, g = out["cpu"], out["gpu"]
+    rel = float(np.max(np.abs(np.subtract(c.fit.losses, g.fit.losses)) /
+                       np.abs(c.fit.losses)))
+    counts = [(int(r.stats["level1_points"]), len(r.recon[1]),
+               len(r.remeshed[1])) for r in (c, g)]
+
+    res0 = reconstruction_resolutions(128)[0]
+    raw = {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        calib = torch.from_numpy(item["calib"]).to(device)
+        smpl, feats = frames[name].prep(
+            torch.from_numpy(item["image"]).to(device),
+            fit_on(c.fit, device), calib)
+        with torch.no_grad():
+            raw[name] = frames[name].net_occ(
+                level0_points(res0, device), smpl, feats,
+                calib).cpu().numpy()
+    occ_err = float(np.abs(raw["cpu"] - raw["gpu"]).max())
+    _, closses = frames["gpu"].cloth(*c.remeshed, fit_on(c.fit, dev))
+    cloth_rel = float(np.max(np.abs(np.subtract(closses, c.cloth_losses)) /
+                             np.abs(c.cloth_losses)))
+    print(f"[8] small fit frame, card vs CPU: fit losses {g.fit.losses} vs "
+          f"{c.fit.losses} (max rel {rel:.3g}); level1, marched, remeshed "
+          f"triangles {counts[1]} vs {counts[0]}; from the CPU's fitted body:"
+          f" raw occupancy max|d| {occ_err:.3g} (std {raw['cpu'].std():.3g})"
+          f"; from the CPU's remeshed mesh: cloth losses {closses} vs "
+          f"{c.cloth_losses} (max rel {cloth_rel:.3g})", flush=True)
+    if rel > 1e-3 or counts[0][:2] != counts[1][:2] or \
+            not np.isfinite(g.cloth_losses).all() or \
+            not bool(torch.isfinite(g.verts).all()) or counts[1][2] < 1000 \
+            or not occ_err <= 1e-4 or not raw["cpu"].std() > 0 or \
+            not cloth_rel <= 1e-3:
+        raise AssertionError("small fit frame on the card disagrees with "
+                             "the CPU")
+
+
+def phase_full_fit_frame(dev, card):
+    """The fit frame at full width, stage by stage (the composition of
+    ``FitFrame.frame``), with a synchronize between stages; then the raster
+    kernels against the plain version on the frame's own meshes, and a
+    known-answer fit. Returns (launches, worst raster errors)."""
+    from icon_tpu_torch.infer.refine import refine_smpl
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    from icon_tpu_torch.recon.frame import (bench_config, build_fit_frame,
+                                            seeded_state, variant_occ)
+    from icon_tpu_torch.render.camera import verts_to_ndc
+    from icon_tpu_torch.render.render import (render_normal,
+                                              render_silhouette)
+    from icon_tpu_torch.utils.synthetic import synthetic_fit_item
+    cfg = bench_config()
+    body = synthetic_smplx_model(subdiv=FIT_SUBDIV)
+    size = FIT_SIZE
+    t0 = time.perf_counter()
+    fr = build_fit_frame(cfg, seeded_state(cfg, 0, normal_net=True), body,
+                         FIT_RES, dev, field=variant_occ)
+    item = synthetic_fit_item(fr.body, size, seed=0)
+    image = torch.from_numpy(item["image"]).to(dev)
+    calib = torch.from_numpy(item["calib"]).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    reset_launches()                  # count only the main path's launches
+    torch.cuda.reset_peak_memory_stats()
+    stage = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        stage[name] = time.perf_counter() - t
+        return out
+
+    fit = timed("fit", fr.fit, item)
+    verts, faces, stats = timed("recon", fr.recon, image, fit, calib)
+    rverts, rfaces = timed("remesh", fr.remesh, verts, faces)
+    refined, closses = timed("cloth", fr.cloth, rverts, rfaces, fit)
+    faces_t = torch.as_tensor(rfaces, device=dev)
+    colors = timed("color", fr.color, refined, faces_t, image)
+    launched = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_fit, n_cloth = len(fit.losses), len(closses)
+    l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
+    print(f"[9] full fit frame: fit {fit.losses[0]:.6f} -> "
+          f"{fit.losses[-1]:.6f} ({n_fit} iterations, "
+          f"{stage['fit'] / n_fit:.4f} s/iteration); recon "
+          f"{stage['recon']:.3f} s (level1 {l1}, level2 {l2}, marched "
+          f"{len(verts)} verts / {len(faces)} tris after clean_mesh); remesh "
+          f"{stage['remesh']:.3f} s host ({len(rverts)} verts / "
+          f"{len(rfaces)} tris); cloth {closses[0]:.6f} -> {closses[-1]:.6f} "
+          f"({n_cloth} iterations, {stage['cloth'] / n_cloth:.4f} "
+          f"s/iteration); colour {stage['color']:.3f} s", flush=True)
+    print(f"[9] launches {launched}; peak "
+          f"{peak_gb:.2f} GiB; setup {setup_s:.2f} s; total "
+          f"{sum(stage.values()):.3f} s on {card}, TF32 off", flush=True)
+    check_launched(launched, ("knn_f32", "raster_fwd", "raster_bwd"),
+                   "the fit frame")
+    if not (np.isfinite(fit.losses).all() and np.isfinite(closses).all()
+            and bool(torch.isfinite(refined).all())
+            and bool(torch.isfinite(colors).all())):
+        raise AssertionError("non-finite losses, vertices or colours")
+    if len(rfaces) < 10000 or colors.shape != refined.shape:
+        raise AssertionError("the fit frame's mesh is too small")
+    for name, got, ref in (("level1_points", l1, JAX_VARIANT_LEVEL1_POINTS),
+                           ("level2_points", l2, JAX_VARIANT_LEVEL2_POINTS)):
+        if abs(got - ref) > COUNT_RTOL * ref:
+            raise AssertionError(f"{name} {got} vs JAX {ref}")
+
+    # the raster kernels against the plain version on the frame's meshes,
+    # with the rasters' bin overflow: the fit's (K=96, the fitted body), the
+    # cloth loop's (K=256: its first input, the remeshed mesh, at azimuth 0,
+    # and its output at 180) and the colour stage's visibility raster
+    # (K=512 at 1024^2, the refined mesh; forward only)
+    bf = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64,
+                         device=dev)
+    rv = torch.as_tensor(rverts, dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(11)
+    overflow, worst = {}, {"raster_fwd": 0.0, "raster_bwd": 0.0}
+    for name, (ndc, f, attrs), res, K in (
+            ("fit K=96", normal_inputs(fit.verts, bf, 0.0), size, 96),
+            ("cloth K=256 az 0", normal_inputs(rv, faces_t, 0.0), size, 256),
+            ("cloth K=256 az 180", normal_inputs(refined, faces_t, 180.0),
+             size, 256),
+            ("vis K=512", (verts_to_ndc(refined), faces_t,
+                           refined.new_zeros((len(refined), 1))), 1024,
+             512)):
+        err, grad_err, overflow[name], _ = compare_raster(
+            "[9]", f"{name} {res}^2", ndc, f, attrs, res, K, rng,
+            backward=K != 512)
+        worst["raster_fwd"] = max(worst["raster_fwd"], err)
+        worst["raster_bwd"] = max(worst["raster_bwd"], grad_err)
+    print(f"[9] bin_overflow {overflow}", flush=True)
+
+    # known answer: Adam (at the demo's fit learning rate) on the body's
+    # betas, pose, orientation and translation toward its own renders at
+    # seeded target betas
+    rng = np.random.RandomState(3)
+    target = torch.from_numpy((rng.randn(1, 10) * 0.8).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        tv = fr.body(betas=target)[0][0]
+        goals = (render_normal(tv, bf, size, 0.0)[0],
+                 render_normal(tv, bf, size, 180.0)[0],
+                 render_silhouette(tv, bf, size, 0.0))
+    init = {"betas": np.zeros((1, 10), np.float32),
+            "body_pose": np.zeros((1, 63), np.float32),
+            "global_orient": np.zeros((1, 3), np.float32),
+            "trans": np.zeros((1, 3), np.float32)}
+    t0 = time.perf_counter()
+    _, _, klosses = refine_smpl(fr.body, bf, init, *goals, iters=30,
+                                lr=1e-3, size=size)
+    print(f"[9] known answer: refine_smpl toward the body's render at seeded "
+          f"betas: {klosses[0]:.6f} -> {klosses[-1]:.6f} (min "
+          f"{min(klosses):.6f}) in 30 iterations, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not np.isfinite(klosses).all() or not klosses[-1] < klosses[0]:
+        raise AssertionError("the known-answer fit did not lower its loss")
+    return launched, worst
+
+
+def normal_inputs(verts, faces, azimuth):
+    """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
+    in the view frame)."""
+    from icon_tpu_torch.ops.mesh import vertex_normals
+    from icon_tpu_torch.render.camera import verts_to_ndc, view_matrix
+    R = torch.as_tensor(view_matrix(azimuth), dtype=verts.dtype,
+                        device=verts.device)
+    return (verts_to_ndc(verts, azimuth), faces,
+            vertex_normals(verts[None], faces)[0] @ R.T)
+
+
+def reset_launches() -> None:
+    from icon_tpu_torch.kernels import knn, raster
+    knn.launches = 0
+    raster.launches_fwd = raster.launches_bwd = 0
+
+
+def read_launches() -> dict:
+    from icon_tpu_torch.kernels import knn, raster
+    return {"knn_f32": knn.launches, "raster_fwd": raster.launches_fwd,
+            "raster_bwd": raster.launches_bwd}
+
+
+def check_launched(counts: dict, names, path: str) -> None:
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{path} never launched {name}")
 
 
 def main() -> int:
@@ -397,14 +751,22 @@ def main() -> int:
     print(f"[2] built {so} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     verts_np, faces_np = synthetic_body(subdiv=5)
-    summary = phase_knn(dev, verts_np)
+    summary = [phase_knn(dev, verts_np)]
     phase_small_frame(dev)
-    launches = phase_full_frame(dev, card)
+    runs = [phase_full_frame(dev, card)]
     phase_raster(dev, verts_np, faces_np)
     phase_small_normalnet_frame(dev)
-    summary["launches"] = launches + phase_full_normalnet_frame(dev, card)
+    runs.append(phase_full_normalnet_frame(dev, card))
+    summary += phase_raster_kernels(dev, verts_np, faces_np)
+    phase_small_fit_frame(dev)
+    launched, fit_errs = phase_full_fit_frame(dev, card)
+    runs.append(launched)
+    for entry in summary:           # the launches of the main paths' runs
+        entry["launches"] = sum(run[entry["name"]] for run in runs)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   fit_errs.get(entry["name"], 0.0))
 
-    print(json.dumps({"kernels": [summary]}))
+    print(json.dumps({"kernels": summary}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernels (nvcc -> cached shared library).
+"""Build the port's CUDA kernels (nvcc -> cached shared libraries).
 
-The library is built from the repository's ``csrc/*.cu`` sources at first
-use, for ``sm_90a``, with a plain C interface that :mod:`ctypes` binds. The
-output is cached under ``icon_tpu_torch/_build/`` by a hash of the sources
-and flags; concurrent builds race safely through an atomic rename. A
-failed build raises: there is no fallback.
+Each of the repository's ``csrc/*.cu`` sources becomes its own shared
+library at first use, for ``sm_90a``, with a plain C interface that
+:mod:`ctypes` binds; the nvcc processes run in parallel. The outputs are
+cached under ``icon_tpu_torch/_build/`` by a hash of each source and the
+flags; concurrent builds race safely through an atomic rename. A failed
+build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,12 +16,13 @@ import os.path as osp
 import shutil
 import subprocess
 import tempfile
+from typing import Dict
 
 _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _SRC_DIR = osp.join(_PKG, "csrc")
 _CACHE_DIR = osp.join(_PKG, "_build")
 
-SOURCES = ("knn.cu",)
+SOURCES = ("knn.cu", "raster.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,37 +44,52 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
-def _source_hash() -> str:
+def _library_path(name: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(osp.join(_SRC_DIR, name), "rb") as f:
-            h.update(f.read())
+    with open(osp.join(_SRC_DIR, name), "rb") as f:
+        h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    stem = osp.splitext(name)[0]
+    return osp.join(_CACHE_DIR, f"libicon_{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels if the cached library is missing; return its
-    path. Raises ``RuntimeError`` with nvcc's output on failure."""
+def build(verbose: bool = False) -> Dict[str, str]:
+    """Compile every source whose cached library is missing, one nvcc
+    process per source, all started together; return ``{source: library
+    path}``. Raises ``RuntimeError`` with nvcc's output on failure."""
     os.makedirs(_CACHE_DIR, exist_ok=True)
-    so_path = osp.join(_CACHE_DIR, f"libicon_kernels-{_source_hash()}.so")
-    if osp.exists(so_path):
-        return so_path
+    paths = {name: _library_path(name) for name in SOURCES}
+    todo = [name for name, path in paths.items() if not osp.exists(path)]
+    if not todo:
+        return paths
     nvcc = find_nvcc()
-    srcs = [osp.join(_SRC_DIR, s) for s in SOURCES]
-    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_CACHE_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           *srcs, "-o", tmp_path]
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp_path, so_path)     # atomic under concurrent builds
+        for name in todo:
+            fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_CACHE_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   osp.join(_SRC_DIR, name), "-o", tmp_path]
+            jobs.append((name, tmp_path, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, tmp_path, cmd, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+            else:
+                if verbose:
+                    print(out, end="")
+                os.replace(tmp_path, paths[name])  # atomic under races
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if osp.exists(tmp_path):
-            os.unlink(tmp_path)
-    return so_path
+        for _, tmp_path, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if osp.exists(tmp_path):
+                os.unlink(tmp_path)
+    return paths

@@ -29,7 +29,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             from icon_tpu_torch.kernels.build import build
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(build()["knn.cu"])
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.icon_knn_f32.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
             lib.icon_knn_f32.restype = ci

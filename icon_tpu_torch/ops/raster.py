@@ -1,22 +1,24 @@
-"""Tile-based mesh rasterizer (``icon_tpu.ops.raster``), plain PyTorch.
+"""Differentiable tile-based mesh rasterizer (``icon_tpu.ops.raster``).
 
 The same two-level algorithm as the JAX package, so both give the same
 images:
 
-1. **Bin**: a dense ``[tiles, F]`` overlap matrix (conservative bounding
-   box against tile) is compacted per tile into a static ``[tiles, K]``
-   face list by a row-wise cumsum and one write into a buffer one slot
-   longer per tile (the last slot takes the overflow, then is sliced off).
-   Faces keep ascending order within a tile, which decides depth ties.
-2. **Raster**: chunks of tiles evaluate the edge functions of every
-   (pixel, face) pair of the tile, z-buffer by argmin depth (the first face
-   wins a tie) and interpolate vertex attributes barycentrically; a soft
-   silhouette aggregates per-face sigmoids in log space. The face counts
-   are read to the host once per call: tiles without faces keep the
-   background, the others run fullest first, and a chunk evaluates only as
-   many of the K face slots as its fullest tile fills. The slots skipped
-   are empty in every tile of the chunk, so no output changes, and a call
-   costs tens of kernel launches instead of tens per 16 tiles.
+1. **Bin** (PyTorch on every device): a dense ``[tiles, F]`` overlap
+   matrix (conservative bounding box against tile) is compacted per tile
+   into a static ``[tiles, K]`` face list by a row-wise cumsum and one
+   write into a buffer one slot longer per tile (the last slot takes the
+   overflow, then is sliced off). Faces keep ascending order within a
+   tile, which decides depth ties.
+2. **Raster** (``icon_tpu_torch/kernels/raster.py``): every pixel of a
+   tile evaluates the edge functions of the tile's faces, z-buffers by
+   argmin depth (the first face wins a tie) and interpolates vertex
+   attributes barycentrically; a soft silhouette aggregates per-face
+   sigmoids in log space. On the card this is the hand-written CUDA pair
+   ``raster_fwd``/``raster_bwd``; on the CPU the plain version, which
+   reads the face counts to the host once per call to size its chunks.
+
+Gradients reach ``verts_ndc`` and ``attrs`` through the winning face's
+barycentrics, the depth and the silhouette, as in the JAX function.
 
 Conventions: verts in NDC [-1, 1], x right, y DOWN (image row =
 (y + 1) / 2 * H), smaller z is closer.
@@ -28,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from icon_tpu_torch.kernels import raster as raster_kernel
+
 
 class RasterOut(NamedTuple):
     attr: torch.Tensor          # [H, W, C] interpolated attributes
@@ -36,9 +40,6 @@ class RasterOut(NamedTuple):
     silhouette: torch.Tensor    # [H, W] soft coverage
     pix_to_face: torch.Tensor   # [H, W] int64, -1 where empty
     bin_overflow: torch.Tensor  # 0-d int64: (tile, face) pairs dropped
-
-
-_BIG = 1e9
 
 
 def _bin_faces(xy: torch.Tensor, tiles_x: int, tiles_y: int, tile: int,
@@ -79,6 +80,21 @@ def _bin_faces(xy: torch.Tensor, tiles_x: int, tiles_y: int, tile: int,
     return face_list, torch.clamp(counts, max=K), overflow
 
 
+def _prepare(verts_ndc, faces, attrs, H, W, tile, K):
+    """Per-face pixel coords, depths and attributes, and the binned face
+    list of ``verts_ndc [V, 3]`` (x, y in [-1, 1])."""
+    xy_pix = (verts_ndc[:, :2] + 1.0) * 0.5 * torch.tensor(
+        [W, H], dtype=verts_ndc.dtype, device=verts_ndc.device)
+    tri_xy = xy_pix[faces]                                # [F, 3, 2]
+    tri_z = verts_ndc[:, 2][faces]                        # [F, 3]
+    tri_attr = attrs[faces]                               # [F, 3, C]
+    tiles_x = (W + tile - 1) // tile
+    tiles_y = (H + tile - 1) // tile
+    face_list, counts, overflow = _bin_faces(tri_xy.detach(), tiles_x,
+                                             tiles_y, tile, H, W, K)
+    return tri_xy, tri_z, tri_attr, face_list, counts, overflow
+
+
 def rasterize(verts_ndc: torch.Tensor, faces: torch.Tensor,
               attrs: torch.Tensor, H: int = 512, W: int = 512,
               tile: int = 32, K: int = 256, sigma: float = 1e-4,
@@ -86,143 +102,33 @@ def rasterize(verts_ndc: torch.Tensor, faces: torch.Tensor,
     """Rasterize one mesh: ``verts_ndc [V, 3]``, ``faces [F, 3]`` (int64),
     ``attrs [V, C]`` to interpolate. ``sigma``: softness of the silhouette
     sigmoid in NDC^2 units (PyTorch3D's SoftSilhouetteShader default).
-    ``tiles_per_step`` bounds the memory of one chunk to ``tiles_per_step
-    * K`` (tile, face) slots, as in the JAX function; any value gives the
-    same images. Returns a :class:`RasterOut` of ``[H, W, ...]`` images."""
-    dev = verts_ndc.device
-    xy_pix = (verts_ndc[:, :2] + 1.0) * 0.5 * torch.tensor(
-        [W, H], dtype=verts_ndc.dtype, device=dev)
-    z = verts_ndc[:, 2]
-    tri_xy = xy_pix[faces]                                # [F, 3, 2]
-    tri_z = z[faces]                                      # [F, 3]
-    tri_attr = attrs[faces]                               # [F, 3, C]
+    Differentiable in ``verts_ndc`` and ``attrs`` (through the winning
+    face's barycentrics, the depth and the soft silhouette).
 
-    tiles_x = (W + tile - 1) // tile
-    tiles_y = (H + tile - 1) // tile
-    n_tiles = tiles_x * tiles_y
-    face_list, counts, overflow = _bin_faces(tri_xy, tiles_x, tiles_y, tile,
-                                             H, W, K)
-    counts = counts.tolist()          # one host read: the chunk widths
+    On a CUDA tensor the raster step is the hand-written kernel pair
+    (``kernels/raster.py``, no host read); on a CPU tensor it is the plain
+    version, whose chunks ``tiles_per_step`` bounds to ``tiles_per_step
+    * K`` (tile, face) slots, as in the JAX function (any value gives the
+    same images). Returns a :class:`RasterOut` of ``[H, W, ...]`` images."""
+    tri_xy, tri_z, tri_attr, face_list, counts, overflow = _prepare(
+        verts_ndc, faces, attrs, H, W, tile, K)
+    images = raster_kernel.raster(tri_xy, tri_z, tri_attr, face_list, counts,
+                                  H, W, tile, sigma, tiles_per_step)
+    return RasterOut(*images, bin_overflow=overflow)
 
-    # pixel centres within a tile
-    off = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
-    py = off[:, None].expand(tile, tile)
-    px = off[None, :].expand(tile, tile)
-    n_pix = tile * tile
 
-    def raster_tiles(tile_ids, k):                        # [nt], width
-        t_faces = face_list[tile_ids, :k]                 # [nt, k]
-        valid_f = t_faces >= 0
-        tf = torch.clamp(t_faces, min=0)
-        xy = tri_xy[tf]                                   # [nt, K, 3, 2]
-        zz = tri_z[tf]                                    # [nt, K, 3]
-        aa = tri_attr[tf]                                 # [nt, K, 3, C]
-
-        ty = (tile_ids // tiles_x).to(torch.float32) * tile
-        tx = (tile_ids % tiles_x).to(torch.float32) * tile
-        pxx = px[None] + tx[:, None, None]                # [nt, tile, tile]
-        pyy = py[None] + ty[:, None, None]
-        p = torch.stack([pxx, pyy], -1).reshape(-1, n_pix, 1, 2)
-
-        v0 = xy[:, None, :, 0]                            # [nt, 1, K, 2]
-        v1 = xy[:, None, :, 1]
-        v2 = xy[:, None, :, 2]
-
-        def edge(a, b):
-            return ((b[..., 0] - a[..., 0]) * (p[..., 1] - a[..., 1]) -
-                    (b[..., 1] - a[..., 1]) * (p[..., 0] - a[..., 0]))
-
-        e0 = edge(v1, v2)                                 # [nt, P, K]
-        e1 = edge(v2, v0)
-        e2 = edge(v0, v1)
-        area = ((v1[..., 0] - v0[..., 0]) * (v2[..., 1] - v0[..., 1]) -
-                (v1[..., 1] - v0[..., 1]) * (v2[..., 0] - v0[..., 0]))
-        area = torch.where(torch.abs(area) < 1e-9,
-                           torch.full_like(area, 1e-9), area)
-
-        w0 = e0 / area                                    # two-sided
-        w1 = e1 / area
-        w2 = e2 / area
-        # -1e-6: on a shared edge float error can push both triangles'
-        # tests slightly negative and open a crack; double coverage is
-        # settled by the z-buffer instead
-        inside = (w0 >= -1e-6) & (w1 >= -1e-6) & (w2 >= -1e-6) & \
-            valid_f[:, None, :]
-
-        zpix = w0 * zz[:, None, :, 0] + w1 * zz[:, None, :, 1] + \
-            w2 * zz[:, None, :, 2]                        # [nt, P, K]
-        zsel = torch.where(inside, zpix, torch.full_like(zpix, _BIG))
-        best = torch.argmin(zsel, dim=2, keepdim=True)    # [nt, P, 1]
-        bdepth = torch.gather(zsel, 2, best)[..., 0]
-        bmask = (bdepth < _BIG).to(torch.float32)
-
-        def take(arr):
-            return torch.gather(arr, 2, best)[..., 0]
-
-        bf = torch.gather(tf[:, None, :].expand(-1, n_pix, -1), 2,
-                          best)[..., 0]
-        idx_c = best.expand(-1, -1, aa.shape[-1])         # [nt, P, C]
-        battr = (take(w0)[..., None] * torch.gather(aa[:, :, 0], 1, idx_c) +
-                 take(w1)[..., None] * torch.gather(aa[:, :, 1], 1, idx_c) +
-                 take(w2)[..., None] * torch.gather(aa[:, :, 2], 1, idx_c))
-        battr = battr * bmask[..., None]
-        bface = torch.where(bmask > 0, bf, torch.full_like(bf, -1))
-
-        # soft silhouette: signed 2D distance (normalized edge functions),
-        # sigmoid-blended over faces (SoftRas aggregation)
-        def elen(a, b):
-            return torch.sqrt(torch.sum((b - a) ** 2, dim=-1) + 1e-12)
-
-        scale = 0.5 * (W + H)                             # px -> ~ndc units
-        d0 = e0 / elen(v1, v2)
-        d1 = e1 / elen(v2, v0)
-        d2 = e2 / elen(v0, v1)
-        sgn = torch.sign(area)
-        sdist = torch.minimum(torch.minimum(d0 * sgn, d1 * sgn), d2 * sgn) \
-            / scale                                       # + inside
-        zs = torch.sign(sdist) * sdist * sdist / sigma
-        zs = torch.where(valid_f[:, None, :], zs,
-                         torch.full_like(zs, float("-inf")))
-        # 1 - prod(1 - sigmoid(z)) in log space: prod(1 - p) =
-        # exp(-sum softplus(z)); a product of 1 - sigmoid loses every
-        # saturated sigmoid
-        log1mp = -torch.logaddexp(zs, torch.zeros_like(zs))
-        log1mp = torch.where(torch.isfinite(zs), log1mp,
-                             torch.zeros_like(log1mp))
-        sil = -torch.expm1(torch.sum(log1mp, dim=2))
-        return battr, bdepth, bmask, sil, bface
-
-    # empty tiles keep the background; the others go fullest first in
-    # chunks of at most tiles_per_step * K (tile, face) slots, and a chunk
-    # runs only as many face slots as its fullest tile fills: the slots cut
-    # off are -1 in every tile of the chunk, and a -1 slot never wins a
-    # pixel nor adds to the silhouette
-    images = (tri_attr.new_zeros((n_tiles, n_pix, tri_attr.shape[-1])),
-              tri_z.new_full((n_tiles, n_pix), _BIG),
-              tri_z.new_zeros((n_tiles, n_pix)),
-              tri_z.new_zeros((n_tiles, n_pix)),
-              face_list.new_full((n_tiles, n_pix), -1))
-    busy = sorted((i for i in range(n_tiles) if counts[i] > 0),
-                  key=lambda i: -counts[i])
-    start = 0
-    while start < len(busy):
-        k = counts[busy[start]]
-        ids = busy[start:start + max(tiles_per_step * K // k, 1)]
-        start += len(ids)
-        ids = torch.tensor(ids, device=dev)
-        for image, part in zip(images, raster_tiles(ids, k)):
-            image[ids] = part
-
-    def untile(x):
-        # [n_tiles, tile*tile, ...] -> [H, W, ...]
-        x = x.reshape(tiles_y, tiles_x, tile, tile, *x.shape[2:])
-        x = x.transpose(1, 2).reshape(tiles_y * tile, tiles_x * tile,
-                                      *x.shape[4:])
-        return x[:H, :W]
-
-    battr, bdepth, bmask, sil, bface = map(untile, images)
-    return RasterOut(attr=battr, depth=bdepth, mask=bmask, silhouette=sil,
-                     pix_to_face=bface, bin_overflow=overflow)
+def rasterize_plain(verts_ndc: torch.Tensor, faces: torch.Tensor,
+                    attrs: torch.Tensor, H: int = 512, W: int = 512,
+                    tile: int = 32, K: int = 256, sigma: float = 1e-4,
+                    tiles_per_step: int = 16) -> RasterOut:
+    """:func:`rasterize` with the plain raster step on any device (the
+    kernel's reference on the card)."""
+    tri_xy, tri_z, tri_attr, face_list, counts, overflow = _prepare(
+        verts_ndc, faces, attrs, H, W, tile, K)
+    images = raster_kernel.raster_plain(tri_xy, tri_z, tri_attr, face_list,
+                                        counts, H, W, tile, sigma,
+                                        tiles_per_step)
+    return RasterOut(*images, bin_overflow=overflow)
 
 
 def vertex_visibility(verts_ndc: torch.Tensor, faces: torch.Tensor,

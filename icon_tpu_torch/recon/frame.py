@@ -14,26 +14,42 @@ azimuth 0 and 180, the NormalNet's cloth normals, ``filter``, the per-body
 prep (:func:`icon_feats`: projection, vertex visibility, cmap, crossing
 columns), then the engine on bench.py's variant field, marching, pack and
 decode.
+
+:func:`build_fit_frame` (``apps/infer.py:121-292``, the icon prior, with
+the dataset item given): the demo's per-image path after HPS. The SMPL fit
+(``refine_smpl_live``, its NormalNet normals), ``filter``, the per-body
+prep of the fitted body with its crossing columns, the engine on the net's
+occupancy (or on a field the caller derives from it, such as bench.py's
+variant field :func:`variant_occ`), marching, the mesh in world
+coordinates, ``clean_mesh``, ``remesh``, the cloth refinement and the
+vertex colours. It reuses the NormalNet frame's pieces (:func:`body_bins`,
+:func:`icon_feats`, :func:`crossing_columns`, the marcher).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from icon_tpu.config import Config, NetConfig
+from icon_tpu.utils.io import clean_mesh
+from icon_tpu_torch.infer.refine import SmplFit, refine_cloth, \
+    refine_smpl_live
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
+from icon_tpu_torch.models.smplx.body import BodyModel
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.raster import vertex_visibility
+from icon_tpu_torch.ops.remesh import remesh
 from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_crossing_columns_blocked,
                                          build_vertex_face_table)
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
 from icon_tpu_torch.recon.marching import AutoMarcher
-from icon_tpu_torch.render.render import render_normal
+from icon_tpu_torch.render.render import query_color, render_normal
 from icon_tpu_torch.utils.synthetic import clothed_human_occ
 
 
@@ -225,6 +241,16 @@ def spurious_occ(pts: torch.Tensor) -> torch.Tensor:
     return 0.8 * torch.clamp(n - 0.72, min=0.0) / 0.28
 
 
+def variant_occ(preds: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """bench.py's variant field ``clip(preds * 1e-6 + clothed_human_occ +
+    spurious, 0, 1)`` ``[..., 1]`` at ``pts [..., 3]``: the random-init
+    net's ``preds`` run at full compute while the level set, and so every
+    buffer size, is that of a posed clothed human with a trained net's noisy
+    coarse levels."""
+    return torch.clamp(preds * 1e-6 + clothed_human_occ(pts)[..., None] +
+                       spurious_occ(pts), 0.0, 1.0)
+
+
 @dataclasses.dataclass
 class NormalNetFrame:
     compute: Callable    # -> (token, mesh, stats): up to the pack
@@ -291,9 +317,7 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return net.query(feats, pts, calib, smpl)[-1]
 
     def query_fn(pts, smpl, feats):
-        return torch.clamp(net_occ(pts, smpl, feats) * 1e-6 +
-                           clothed_human_occ(pts)[..., None] +
-                           spurious_occ(pts), 0.0, 1.0)
+        return variant_occ(net_occ(pts, smpl, feats), pts)
 
     marcher = _marcher(res)
 
@@ -316,3 +340,124 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
 
     return NormalNetFrame(compute, frame, render, normals, features, body,
                           columns, net_occ, query_fn, engine, marcher)
+
+
+class FitResult(NamedTuple):
+    fit: SmplFit                # the fitted body, its normals, the losses
+    stats: Dict[str, torch.Tensor]   # the engine's level counts
+    recon: Tuple[np.ndarray, np.ndarray]     # marched, cleaned (world)
+    remeshed: Tuple[np.ndarray, np.ndarray]  # after remesh
+    verts: torch.Tensor         # [V, 3] after the cloth refinement
+    faces: torch.Tensor         # [F, 3] int64
+    cloth_losses: List[float]
+    colors: torch.Tensor        # [V, 3] in [0, 1]
+
+
+@dataclasses.dataclass
+class FitFrame:
+    frame: Callable     # (item) -> FitResult: the whole per-image path
+    fit: Callable       # (item) -> SmplFit
+    prep: Callable      # (image, SmplFit, calib) -> (smpl_feat, features)
+    net_occ: Callable   # (points [1,N,3], smpl_feat, features, calib)
+                        # -> the net's occupancy [1, N, 1]
+    recon: Callable     # (image, SmplFit, calib) -> (verts, faces, stats)
+    remesh: Callable    # (verts, faces) -> (verts, faces), host numpy
+    cloth: Callable     # (verts, faces, SmplFit) -> (verts, losses)
+    color: Callable     # (verts, faces, image) -> colors [V, 3]
+    body: BodyModel     # on the frame's device
+
+
+def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
+                    body: BodyModel, res: int, device, loop_smpl: int = 100,
+                    loop_cloth: int = 200, patience: int = 5,
+                    field: Optional[Callable] = None) -> FitFrame:
+    """The demo's fit frame for ``cfg`` with HGPIFuNet weights ``state``
+    (NormalNet included) and the body model ``body`` (moved to
+    ``device``), marching at ``res``, with the demo's loop lengths
+    (``-loop_smpl``, ``-loop_cloth``, ``-patience``). ``frame(item)`` takes
+    the dataset item as numpy: ``image [H, W, 3]`` (matted, in [-1, 1]),
+    ``mask [H, W]``, ``init`` (``betas [1, n]``, ``body_pose [1, J-1, 3,
+    3]``, ``global_orient [1, 1, 3, 3]``, ``trans [3]``), ``scale`` and
+    ``calib [4, 4]`` (see ``utils.synthetic.synthetic_fit_item``). Every
+    size follows the image's ``H``. The engine marches the net's occupancy,
+    or ``field(preds, pts)`` of it when ``field`` is given (bench.py's
+    :func:`variant_occ` gives random weights a human's level set)."""
+    if loop_smpl < 1:
+        raise ValueError("the fit frame runs at least one fit iteration")
+    device = torch.device(device)
+    net = _load_net(cfg, state, device, normal_net=True)
+    body = body.to(device)
+    body_faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64,
+                                 device=device)
+    engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
+                         auto_headroom=1.3, device=device)
+    marcher = _marcher(res)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+
+    def fit(item):
+        return refine_smpl_live(
+            body, body_faces, dev(item["image"]), item["init"],
+            net.predict_normals, float(item["scale"]), dev(item["mask"]),
+            iters=loop_smpl, size=item["image"].shape[0], patience=patience)
+
+    def net_occ(pts, smpl, feats, calib):
+        return net.query(feats, pts, calib[None], smpl)[-1]
+
+    def query_fn(pts, smpl, feats, calib):
+        preds = net_occ(pts, smpl, feats, calib)
+        return preds if field is None else field(preds, pts)
+
+    @torch.no_grad()
+    def prep(image, smpl_fit: SmplFit, calib):
+        nml_f, nml_b = smpl_fit.normals
+        feats = net.filter({"image": image[None], "normal_F": nml_f[None],
+                            "normal_B": nml_b[None]})
+        v_cal = project(smpl_fit.verts[None], calib[None])[0]
+        bins = body_bins(v_cal.cpu().numpy(), body.faces,
+                         engine.resolutions[-1], device)
+        smpl = icon_feats(smpl_fit.verts, body_faces, calib, bins)
+        smpl["smpl_cross_z"], _ = crossing_columns(smpl, bins)
+        return smpl, feats
+
+    @torch.no_grad()
+    def recon(image, smpl_fit: SmplFit, calib):
+        smpl, feats = prep(image, smpl_fit, calib)
+        occ, stats = engine(query_fn, query_args=(smpl, feats, calib))
+        mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
+        verts, faces = marcher.unpack(marcher.pack(mesh))
+        # lattice index (first slice dropped) -> world, y up (export.py)
+        half = (engine.resolutions[-1] - 1) / 2.0
+        verts = ((verts + 1.0 - half) / half *
+                 np.array([1.0, -1.0, 1.0], np.float32)).astype(np.float32)
+        if cfg.clean_mesh and len(faces):
+            verts, faces = clean_mesh(verts, faces)
+        return verts, np.asarray(faces, np.int64), stats
+
+    def cloth(verts, faces, smpl_fit: SmplFit):
+        nml_f, nml_b = smpl_fit.normals
+        return refine_cloth(dev(verts), torch.as_tensor(faces, device=device),
+                            nml_f, nml_b, iters=loop_cloth,
+                            size=nml_f.shape[0])
+
+    @torch.no_grad()
+    def color(verts, faces, image):
+        return query_color(verts, faces, image)
+
+    def frame(item):
+        image = dev(item["image"])
+        smpl_fit = fit(item)
+        verts, faces, stats = recon(image, smpl_fit, dev(item["calib"]))
+        if not len(faces):
+            raise ValueError("the reconstruction is empty")
+        rverts, rfaces = remesh(verts, faces)
+        refined, losses = cloth(rverts, rfaces, smpl_fit)
+        faces_t = torch.as_tensor(rfaces, device=device)
+        return FitResult(smpl_fit, stats, (verts, faces), (rverts, rfaces),
+                         refined, faces_t, losses,
+                         color(refined, faces_t, image))
+
+    return FitFrame(frame, fit, prep, net_occ, recon, remesh, cloth, color,
+                    body)

@@ -19,6 +19,9 @@ same weights. The mapping is the inverse of
   split into ``model.{j}.conv_block.{1,5}``, ``up{i}/tconv`` (transposed
   conv, flax ``[kh, kw, O, I]`` -> torch ``[I, O, kh, kw]``) and
   ``conv_out``.
+
+:func:`body_model_from_jax` turns the JAX package's ``BodyModel`` into the
+port's, array for array, so one body runs through both packages.
 """
 
 from __future__ import annotations
@@ -149,3 +152,14 @@ def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
             out[f"{bn4}running_var"] = np.ones_like(bn1)
             out[f"{bn4}num_batches_tracked"] = np.array(0, np.int64)
     return out
+
+
+def body_model_from_jax(body: Any):
+    """The port's ``BodyModel`` with the arrays (as numpy) and the static
+    fields of ``icon_tpu``'s ``BodyModel`` ``body``."""
+    from icon_tpu_torch.models.smplx.body import _ARRAYS, BodyModel
+    arrays = {name: None if getattr(body, name) is None
+              else np.asarray(getattr(body, name)) for name in _ARRAYS}
+    return BodyModel(faces=np.asarray(body.faces), parents=body.parents,
+                     model_type=body.model_type, num_betas=body.num_betas,
+                     flat_hand_mean=body.flat_hand_mean, **arrays)

@@ -1,6 +1,7 @@
-"""Synthetic inputs of the serving frame (``icon_tpu.utils.synthetic``):
+"""Synthetic inputs of the serving frames (``icon_tpu.utils.synthetic``):
 the posed clothed-human occupancy field in PyTorch (``clothed_human_sdf`` /
-``clothed_human_occ``) and the numpy ICON batch (``synthetic_icon_batch``).
+``clothed_human_occ``), the numpy ICON batch (``synthetic_icon_batch``) and
+the demo's per-image item for the body fit (``synthetic_fit_item``).
 
 The body mesh and the capsule skeleton come from the JAX package's numpy
 helpers (``synthetic_body``, ``posed_skeleton``, ``_capsule_segments``);
@@ -18,7 +19,7 @@ from icon_tpu.utils.synthetic import (_capsule_segments, posed_skeleton,
                                       synthetic_body)
 
 __all__ = ["clothed_human_sdf", "clothed_human_occ", "synthetic_body",
-           "synthetic_icon_batch"]
+           "synthetic_fit_item", "synthetic_icon_batch"]
 
 
 def clothed_human_sdf(pts: torch.Tensor, pose: np.ndarray = None,
@@ -99,3 +100,53 @@ def synthetic_icon_batch(rng: np.random.RandomState, B: int = 1,
         "smpl_vis": (np.tile(v[None, :, 2:3], (B, 1, 1)) > 0).astype(
             np.float32),
     }
+
+
+def synthetic_fit_item(body, size: int, seed: int = 0) -> Dict[str, object]:
+    """The demo's per-image inputs of the body fit (``apps/infer.py``'s
+    ``<name>_smpl.npz`` override path), as numpy, for the port's
+    ``BodyModel`` ``body``: the body at a seeded target pose (every joint's
+    rotation 0.1 rad of axis-angle, betas, a small translation); its
+    ``size``^2 silhouette as the ``mask``; an ``image`` of seeded noise
+    inside the mask and zero outside (a matted crop); ``init``: the target's
+    rotations times seeded 0.05 rad offsets through ``batch_rodrigues``, and
+    perturbed betas and translation; ``scale`` 1; and the demo's ``calib``
+    (``make_calib(0.0)``: y and z flipped). The mask is drawn with face
+    lists long enough that no face is dropped."""
+    from icon_tpu_torch.models.smplx.lbs import batch_rodrigues
+    from icon_tpu_torch.ops.raster import rasterize
+    from icon_tpu_torch.render.camera import verts_to_ndc
+
+    rng = np.random.RandomState(seed)
+    J = body.num_joints
+    dev = body.v_template.device
+
+    def rotations(aa):
+        return batch_rodrigues(torch.from_numpy(aa.astype(np.float32)))
+
+    rot = rotations(rng.randn(J, 3) * 0.1)
+    betas = (rng.randn(1, body.num_betas) * 0.5).astype(np.float32)
+    trans = (rng.randn(3) * 0.02).astype(np.float32)
+    init_rot = (rot @ rotations(rng.randn(J, 3) * 0.05)).numpy()
+    with torch.no_grad():
+        v, _ = body(betas=torch.from_numpy(betas).to(dev),
+                    global_orient=rot[:1].reshape(1, 9).to(dev),
+                    body_pose=rot[1:].reshape(1, -1).to(dev), pose2rot=False)
+        verts = v[0] + torch.from_numpy(trans).to(dev)
+        faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64,
+                                device=dev)
+        out = rasterize(verts_to_ndc(verts), faces, verts[:, :1], H=size,
+                        W=size, K=min(2048, len(faces)))
+    if int(out.bin_overflow):
+        raise ValueError(f"the {size}^2 mask would drop "
+                         f"{int(out.bin_overflow)} (tile, face) pairs")
+    mask = out.mask.cpu().numpy()
+    image = rng.uniform(-1, 1, (size, size, 3)).astype(np.float32) * \
+        mask[..., None]
+    init = {"betas": betas + (rng.randn(*betas.shape) * 0.1).astype(
+                np.float32),
+            "body_pose": init_rot[None, 1:],
+            "global_orient": init_rot[None, :1],
+            "trans": trans + (rng.randn(3) * 0.01).astype(np.float32)}
+    return {"image": image, "mask": mask, "init": init, "scale": 1.0,
+            "calib": np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)}

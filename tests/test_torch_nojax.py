@@ -1,7 +1,8 @@
 """The port runs without JAX: importing icon_tpu_torch and running one tiny
 CPU frame of each kind (normals given; normals predicted by the NormalNet
-from the body's renders) leaves ``jax`` out of ``sys.modules``, and no file
-of the package imports it."""
+from the body's renders; the demo's fit frame: body fit, recon, remesh,
+cloth refinement, colours) leaves ``jax`` out of ``sys.modules``, and no
+file of the package imports it."""
 
 import os
 import os.path as osp
@@ -40,6 +41,14 @@ state = HGPIFuNet(cfg).state_dict()
 fr = build_normalnet_frame(cfg, state, batch, 64, "cpu")
 stats, mesh, verts, faces = fr.frame()
 assert len(faces) > 1000 and np.isfinite(verts).all()
+from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+from icon_tpu_torch.recon.frame import build_fit_frame, variant_occ
+from icon_tpu_torch.utils.synthetic import synthetic_fit_item
+body = synthetic_smplx_model(subdiv=2)
+out = build_fit_frame(cfg, state, body, 64, "cpu", loop_smpl=1, loop_cloth=1,
+                      field=variant_occ).frame(synthetic_fit_item(body, 32))
+assert len(out.faces) > 1000 and bool(torch.isfinite(out.verts).all())
+assert np.isfinite(out.fit.losses + out.cloth_losses).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 """
