@@ -33,11 +33,16 @@ JSON line ``{"ok": true, "device": {...}}``):
    frames; level counts and triangle count checked against the JAX
    package's values for the variant field, predicted normals of unit
    length;
-7. the rasterizer kernels (raster_fwd, raster_bwd) against the plain
-   version on the card, at the demo's shapes (512^2 normal renders with
-   K=256 and the fit's K=96; the 1024^2 visibility raster with K=512):
-   pix_to_face identical on every pixel, the images' and the gradients'
-   errors, CUDA-event medians of forward and backward;
+7. the rasterizer kernels (raster_setup, raster_bin, raster_fwd,
+   raster_bwd) against the plain version on the card, at the demo's shapes
+   (512^2 normal renders with K=256 and the fit's K=96; the 1024^2
+   visibility raster with K=512): the setup's pixel coordinates and depths
+   and the bin kernel's face lists, counts and overflow identical to the
+   plain binning's, pix_to_face identical on every pixel, the images' and
+   the gradients' errors; CUDA-event medians of each kernel alone (its
+   launches on preallocated buffers, queued behind a sleep so that host
+   dispatch does not count) beside those of the whole forward and
+   backward call, and each kernel's bound on this input;
 8. the fit frame (SMPL fit, recon, remesh, cloth refinement, colours) small
    on the card against the CPU: per-iteration fit losses, level and
    triangle counts; from the CPU's fitted body and remeshed mesh, the
@@ -48,14 +53,22 @@ JSON line ``{"ok": true, "device": {...}}``):
    kernel launches and peak memory; level counts against the JAX
    package's; the raster kernels against the plain version, as in phase 7,
    on the frame's own meshes (the fitted body at K=96, the cloth loop's
-   input and output at K=256, the colour stage's 1024^2 visibility raster)
-   with their bin overflow; then a known-answer fit (refine_smpl toward
-   the body's own render at seeded betas must lower its loss).
+   input and output at K=256, the remeshed mesh and the colour stage's
+   refined mesh at 1024^2 with K=512) with their bin lists and overflow;
+   then a known-answer fit (refine_smpl toward the body's own render at
+   seeded betas must lower its loss).
 
 Each main path (phases 4, 6 and 9) runs with the kernels' launch counts set
 to 0 just before it and read just after; a kernel of the path that did not
 launch fails the run. Any failed check raises, so the script exits non-zero
 and prints no result.
+
+The kernel summary gives, for every kernel, its launches in the main
+paths, its error against the plain version, its time and the plain
+version's, its bound (the larger of the bytes it must move over the card's
+memory rate and its operations over the float32 peak, from this run's
+inputs) and the time of one PyTorch call computing the same function where
+one exists (the kNN's ``cdist`` + ``topk``; none for the rasterizer).
 """
 
 import json
@@ -88,6 +101,18 @@ KEY_RTOL = 1e-5
 # raster kernels against the plain version (tests/test_torch_raster_cuda.py)
 RASTER_KERNEL_ATOL = {"attr": 1e-6, "depth": 0.0, "silhouette": 1e-5}
 RASTER_GRAD_RTOL = 1e-4
+# an NVIDIA H100 SXM's published peaks at 700 W: float32 outside the tensor
+# cores, and HBM3
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+# operations per (pixel, slot) pair: three edge functions (15), the
+# silhouette's distance and logit (7) and its log(1 - sigmoid) term (8),
+# counting a transcendental as one; the backward recomputes them and adds
+# the chain rule to six coordinates
+FWD_OPS_PER_PAIR = 30
+BWD_OPS_PER_PAIR = 60
+# operations per (point, vertex) pair of the kNN: |v|^2 - 2 p.v and compare
+KNN_OPS_PER_PAIR = 8
 # the full-width fit frame: image size, body subdivision, marching res
 FIT_SIZE, FIT_SUBDIV, FIT_RES = 512, 5, 256
 
@@ -112,6 +137,34 @@ def cuda_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(launch, reps: int = 20) -> float:
+    """Median over 5 runs of the CUDA-event time per launch of ``reps``
+    back-to-back ``launch()`` calls, queued behind a device sleep so that
+    the host's dispatch does not reach the timed window."""
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, ops: float):
+    """(least time in ms, "bytes" or "operations") for moving ``n_bytes``
+    once and doing ``ops`` float32 operations on one H100."""
+    t_bytes, t_ops = n_bytes / HBM_RATE, ops / FP32_PEAK
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def level0_points(res0: int, device) -> torch.Tensor:
@@ -158,11 +211,21 @@ def phase_knn(dev, verts_np):
             raise AssertionError(f"knn kernel disagrees with plain at N={n}")
         worst = max(worst, err)
         timing[(n, k, kind)] = (ms, plain_ms)
-    ms, plain_ms = timing[(KNN_SHAPES[-1], 2, "near")]
+        if (n, k, kind) == (KNN_SHAPES[-1], 2, "near"):
+            big = pts
+    n = KNN_SHAPES[-1]
+    ms, plain_ms = timing[(n, 2, "near")]
+    lib_ms = cuda_ms(lambda: torch.cdist(big, verts).topk(
+        2, largest=False), reps=5)
+    bound_ms, bound_by = bound(4.0 * (3 * n + 3 * len(verts_np) + 4 * n),
+                               KNN_OPS_PER_PAIR * n * len(verts_np))
+    print(f"[3] knn N={n} k=2: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}), torch.cdist + topk {lib_ms:.4f} ms", flush=True)
     return {"name": "knn_f32", "route": "cuda",
             "source": "icon_tpu_torch/csrc/knn.cu",
             "replaces": "icon_tpu/ops/pallas/knn.py:60",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def phase_small_frame(dev):
@@ -383,8 +446,8 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    check_launched(launched, ("knn_f32", "raster_fwd"),
-                   "the NormalNet frame")
+    check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
+                              "raster_fwd"), "the NormalNet frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     if not unit_err <= 1e-4:
@@ -398,18 +461,42 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
     return launched
 
 
+def compare_bins(ndc, faces, size, K):
+    """raster_setup and raster_bin against the plain version on the card:
+    the setup's pixel coordinates and depths, and every slot of the face
+    lists, the counts and the overflow, identical. Returns (setup error,
+    bin error, busy tiles, sum of the counts)."""
+    from icon_tpu_torch.kernels import raster as rk
+    f = faces.long().contiguous()
+    slot, lists, counts, overflow, _ = rk._bin_kernel(
+        ndc.detach().contiguous(), f, size, size, K)
+    ref = rk.bin_faces_plain(ndc, f, size, size, K=K)
+    xy = rk.pixel_xy(ndc.detach(), size, size)[f].reshape(-1, 6)
+    got = torch.cat([slot[0], slot[1, :, :2]], 1)
+    setup_err = max(float((got - xy).abs().max()),
+                    float((slot[4, :, :3] - ndc[:, 2][f]).abs().max()))
+    bin_err = max(float((lists.long() - ref[0]).abs().max()),
+                  float((counts.long() - ref[1]).abs().max()),
+                  float(abs(int(overflow) - int(ref[2]))))
+    if setup_err or bin_err:
+        raise AssertionError(f"raster_setup/raster_bin disagree with the "
+                             f"plain binning: {setup_err}, {bin_err}")
+    return setup_err, bin_err, int((counts > 0).sum()), int(counts.sum())
+
+
 def compare_raster(tag, name, ndc, faces, attrs, size, K, rng,
                    backward: bool = True):
-    """raster_fwd (and raster_bwd) against the plain version on the card for
-    one input: pix_to_face identical on every pixel, attr, depth and
-    silhouette within RASTER_KERNEL_ATOL, the same bin_overflow, and the
-    gradients of a seeded weighted sum of the images within
-    RASTER_GRAD_RTOL of their largest. Returns (worst image error, worst
-    gradient error, bin_overflow, ``run(fn, grad)``: one call of
-    ``rasterize`` or ``rasterize_plain`` on this input, with (loss, ndc,
-    attrs) when ``grad``)."""
+    """The raster kernels against the plain version on the card for one
+    input: the setup and the bin lists identical (:func:`compare_bins`),
+    pix_to_face identical on every pixel, attr, depth and silhouette within
+    RASTER_KERNEL_ATOL, the same bin_overflow, and the gradients of a
+    seeded weighted sum of the images within RASTER_GRAD_RTOL of their
+    largest. Returns ({kernel: worst error}, bin_overflow, ``run(fn,
+    grad)``: one call of ``rasterize`` or ``rasterize_plain`` on this
+    input, with (loss, ndc, attrs) when ``grad``)."""
     from icon_tpu_torch.ops.raster import rasterize, rasterize_plain
     C = attrs.shape[1]
+    setup_err, bin_err, busy, pairs = compare_bins(ndc, faces, size, K)
     weights = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
         ndc.device) for shape in ((size, size, C), (size, size), (size, size))]
 
@@ -441,8 +528,10 @@ def compare_raster(tag, name, ndc, faces, attrs, size, K, rng,
             d = float((g - w).abs().max())
             grad_err = max(grad_err, d)
             grad_rel = max(grad_rel, d / max(float(w.abs().max()), 1e-30))
-    print(f"{tag} {name}: pix_to_face differs at {differ} of {size * size} "
-          f"px ({int((ref.pix_to_face >= 0).sum())} covered), max|d| "
+    print(f"{tag} {name}: setup and bin lists identical ({busy} busy tiles,"
+          f" {pairs} slots); pix_to_face differs at {differ} of "
+          f"{size * size} px ({int((ref.pix_to_face >= 0).sum())} covered), "
+          f"max|d| "
           + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
           + (f"; grads max|d| {grad_err:.3g} ({grad_rel:.3g} of the "
              f"largest)" if backward else "; forward only")
@@ -452,13 +541,120 @@ def compare_raster(tag, name, ndc, faces, attrs, size, K, rng,
             int(out.bin_overflow) != int(ref.bin_overflow):
         raise AssertionError(f"{name}: the raster kernels disagree with the "
                              f"plain version")
-    return max(errs.values()), grad_err, int(out.bin_overflow), run
+    errors = {"raster_setup": setup_err, "raster_bin": bin_err,
+              "raster_fwd": max(errs.values()), "raster_bwd": grad_err}
+    return errors, int(out.bin_overflow), run
+
+
+RASTER_REPLACES = {"raster_setup": "icon_tpu/ops/raster.py:106",
+                   "raster_bin": "icon_tpu/ops/raster.py:49",
+                   "raster_fwd": "icon_tpu/ops/raster.py:123",
+                   "raster_bwd": "icon_tpu/ops/raster.py:123"}
+
+
+def raster_kernel_times(ndc, faces, attrs, size, K, weights):
+    """Each raster kernel alone on this input (:func:`kernel_ms` of its
+    launches on preallocated buffers), the plain version of the same step
+    (the per-face gathers, ``_bin_faces``, ``raster_plain`` forward), and
+    each kernel's bound on this input's busy tiles. Returns {kernel: (ms,
+    plain ms or None, bound ms, bound by)}."""
+    from icon_tpu_torch.kernels import raster as rk
+    lib = rk._load()
+    dev = ndc.device
+    f = faces.long().contiguous()
+    ndc = ndc.detach().contiguous()
+    attrs = attrs.detach().contiguous()
+    F, V, C = f.shape[0], ndc.shape[0], attrs.shape[1]
+    tiles = (size + rk.TILE - 1) // rk.TILE
+    n_tiles = tiles * tiles
+    S, R = rk.splits(n_tiles, K)
+    kz = rk._sil_constant(size, size, 1e-4)
+    slot, lists, counts, overflow, tile_done = rk._bin_kernel(
+        ndc, f, size, size, K)
+    n_chunks = -(-F // rk.CHUNK)
+    box = torch.empty((F, 4), dtype=torch.int32, device=dev)
+    chunk = torch.empty((n_chunks, 4), dtype=torch.int32, device=dev)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    attr = empty((size, size, C))
+    depth, mask, sil, logsum = (empty((size, size)) for _ in range(4))
+    p2f = empty((size, size), torch.int64)
+    win = empty((size, size), torch.int32)
+    n = n_tiles * S * rk.TILE * rk.TILE
+    part = (empty((n,)), empty((n,), torch.int32), empty((n,)))
+    g_attr, g_depth, g_sil = (w.contiguous() for w in weights)
+    gv, ga = empty((V, 3)).zero_(), empty((V, C)).zero_()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def P(t):
+        return t.data_ptr()
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"{name} launch failed ({err})")
+
+    def setup():
+        check(lib.icon_raster_setup(P(ndc), P(f), F, size, size, P(slot),
+                                    P(box), P(chunk), P(tile_done),
+                                    P(overflow), stream), "raster_setup")
+
+    def binning():
+        check(lib.icon_raster_bin(P(box), P(chunk), F, size, size, K,
+                                  P(lists), P(counts), P(overflow), stream),
+              "raster_bin")
+
+    def fwd():
+        check(lib.icon_raster_fwd(
+            P(lists), P(counts), P(slot), F, P(f), P(attrs), K, R, S, C,
+            size, size, kz, *map(P, part), P(tile_done), P(attr), P(depth),
+            P(mask), P(sil), P(p2f), P(win), P(logsum), stream),
+            "raster_fwd")
+
+    def bwd():
+        check(lib.icon_raster_bwd(
+            P(lists), P(counts), P(slot), F, P(f), P(attrs), K, R, S, C,
+            size, size, kz, P(g_attr), P(g_depth), P(g_sil), P(win),
+            P(logsum), P(gv), P(ga), stream), "raster_bwd")
+
+    ms = {"raster_setup": kernel_ms(setup), "raster_bin": kernel_ms(binning),
+          "raster_fwd": kernel_ms(fwd), "raster_bwd": kernel_ms(bwd)}
+
+    tri_xy = rk.pixel_xy(ndc, size, size)[f]
+    tri_z, tri_attr = ndc[:, 2][f], attrs[f]
+    fl, cn, _ = rk._bin_faces(tri_xy, tiles, tiles, rk.TILE, size, size, K)
+    plain = {
+        "raster_setup": cuda_ms(lambda: (rk.pixel_xy(ndc, size, size)[f],
+                                         ndc[:, 2][f], attrs[f])),
+        "raster_bin": cuda_ms(lambda: rk._bin_faces(
+            tri_xy, tiles, tiles, rk.TILE, size, size, K)),
+        "raster_fwd": cuda_ms(lambda: rk.raster_plain(
+            tri_xy, tri_z, tri_attr, fl, cn, size, size, rk.TILE, 1e-4, 16)),
+        "raster_bwd": None}
+
+    slots = int(counts.sum())               # (tile, face) pairs listed
+    pairs = slots * rk.TILE * rk.TILE
+    image = size * size
+    need = {
+        "raster_setup": (V * 12 + F * 24 + F * (16 * rk.SLOT_FIELDS + 16)
+                         + n_chunks * 16 + n_tiles * 4 + 8, F * 40),
+        "raster_bin": (F * 16 + n_chunks * 16 + n_tiles * (K + 1) * 4 + 8,
+                       slots),
+        "raster_fwd": (slots * (16 * rk.SLOT_FIELDS + 4)
+                       + n_tiles * (K + 1) * 4 + image * (4 * C + 28),
+                       pairs * FWD_OPS_PER_PAIR),
+        "raster_bwd": (slots * (16 * rk.SLOT_FIELDS + 4)
+                       + image * (4 * C + 16) + V * (12 + 4 * C),
+                       pairs * BWD_OPS_PER_PAIR)}
+    return {k: (ms[k], plain[k], *bound(*need[k])) for k in ms}
 
 
 def phase_raster_kernels(dev, verts_np, faces_np):
-    """raster_fwd / raster_bwd against the plain version on the card at the
-    demo's shapes; returns their summary entries (timed at the fit's
-    shape, 512^2 with K=96)."""
+    """The raster kernels against the plain version on the card at the
+    demo's shapes, each kernel timed alone and the whole calls timed;
+    returns their summary entries (at the renders' and the cloth loop's
+    shape, 512^2 with K=256)."""
     from icon_tpu_torch.ops.mesh import vertex_normals
     from icon_tpu_torch.ops.raster import rasterize, rasterize_plain
     from icon_tpu_torch.render.camera import verts_to_ndc
@@ -468,7 +664,7 @@ def phase_raster_kernels(dev, verts_np, faces_np):
     rng = np.random.RandomState(7)
     cases = [(f"render_normal 512^2 K={k}", 512, k, 3) for k in (256, 96)]
     cases.append(("vertex_visibility 1024^2 K=512", 1024, 512, 1))
-    worst = {"raster_fwd": 0.0, "raster_bwd": 0.0}
+    worst = dict.fromkeys(RASTER_REPLACES, 0.0)
     timing = {}
     for name, size, K, C in cases:
         # the renders' own inputs: the vertex normals (the view frame at
@@ -476,8 +672,10 @@ def phase_raster_kernels(dev, verts_np, faces_np):
         ndc = verts_to_ndc(v, 0.0)
         attrs = vertex_normals(v[None], f)[0] if C == 3 else \
             v.new_zeros((len(v), 1))
-        err, grad_err, _, run = compare_raster("[7]", name, ndc, f, attrs,
-                                               size, K, rng)
+        errs, _, run = compare_raster("[7]", name, ndc, f, attrs, size, K,
+                                      rng)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
 
         def fwd(fn):
             with torch.no_grad():
@@ -488,23 +686,29 @@ def phase_raster_kernels(dev, verts_np, faces_np):
             return lambda: torch.autograd.grad(loss, (x, a),
                                                retain_graph=True)
 
-        ms = {"fwd": cuda_ms(lambda: fwd(rasterize)),
-              "plain_fwd": cuda_ms(lambda: fwd(rasterize_plain)),
-              "bwd": cuda_ms(bwd_of(rasterize)),
-              "plain_bwd": cuda_ms(bwd_of(rasterize_plain))}
-        timing[(size, K)] = ms
-        print(f"[7] {name}: forward kernel {ms['fwd']:.4f} ms, plain "
-              f"{ms['plain_fwd']:.4f} ms; backward kernel {ms['bwd']:.4f} "
-              f"ms, plain {ms['plain_bwd']:.4f} ms", flush=True)
-        worst["raster_fwd"] = max(worst["raster_fwd"], err)
-        worst["raster_bwd"] = max(worst["raster_bwd"], grad_err)
-    ms = timing[(512, 96)]
+        weights = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev) for shape in ((size, size, C), (size, size), (size, size))]
+        kern = raster_kernel_times(ndc, f, attrs, size, K, weights)
+        call = {"fwd": cuda_ms(lambda: fwd(rasterize)),
+                "plain_fwd": cuda_ms(lambda: fwd(rasterize_plain)),
+                "bwd": cuda_ms(bwd_of(rasterize)),
+                "plain_bwd": cuda_ms(bwd_of(rasterize_plain))}
+        kern["raster_bwd"] = kern["raster_bwd"][:1] + (call["plain_bwd"],) + \
+            kern["raster_bwd"][2:]
+        timing[(size, K)] = kern
+        print(f"[7] {name}: whole call forward {call['fwd']:.4f} ms (plain "
+              f"{call['plain_fwd']:.4f}), backward {call['bwd']:.4f} ms "
+              f"(plain {call['plain_bwd']:.4f}); kernels alone: " + "; ".join(
+                  f"{k} {m:.4f} ms (plain "
+                  + ("n/a" if p is None else f"{p:.4f}")
+                  + f", bound {b:.4f} ms by {by}, {b / m:.1%} of it)"
+                  for k, (m, p, b, by) in kern.items()), flush=True)
     return [{"name": name, "route": "cuda",
              "source": "icon_tpu_torch/csrc/raster.cu",
-             "replaces": "icon_tpu/ops/raster.py:123",
-             "max_abs_err": worst[name], "ms": ms[key],
-             "plain_ms": ms["plain_" + key]}
-            for name, key in (("raster_fwd", "fwd"), ("raster_bwd", "bwd"))]
+             "replaces": RASTER_REPLACES[name], "max_abs_err": worst[name],
+             "ms": m, "plain_ms": p, "bound_ms": b, "bound_by": by,
+             "library_ms": None}
+            for name, (m, p, b, by) in timing[(512, 256)].items()]
 
 
 def fit_on(fit, device):
@@ -634,8 +838,7 @@ def phase_full_fit_frame(dev, card):
     print(f"[9] launches {launched}; peak "
           f"{peak_gb:.2f} GiB; setup {setup_s:.2f} s; total "
           f"{sum(stage.values()):.3f} s on {card}, TF32 off", flush=True)
-    check_launched(launched, ("knn_f32", "raster_fwd", "raster_bwd"),
-                   "the fit frame")
+    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "the fit frame")
     if not (np.isfinite(fit.losses).all() and np.isfinite(closses).all()
             and bool(torch.isfinite(refined).all())
             and bool(torch.isfinite(colors).all())):
@@ -648,28 +851,31 @@ def phase_full_fit_frame(dev, card):
             raise AssertionError(f"{name} {got} vs JAX {ref}")
 
     # the raster kernels against the plain version on the frame's meshes,
-    # with the rasters' bin overflow: the fit's (K=96, the fitted body), the
-    # cloth loop's (K=256: its first input, the remeshed mesh, at azimuth 0,
-    # and its output at 180) and the colour stage's visibility raster
-    # (K=512 at 1024^2, the refined mesh; forward only)
+    # with the rasters' bin lists and overflow: the fit's (K=96, the fitted
+    # body), the cloth loop's (K=256: its first input, the remeshed mesh,
+    # at azimuth 0, and its output at 180), the remeshed mesh at 1024^2 with
+    # K=512 and the colour stage's visibility raster (K=512 at 1024^2, the
+    # refined mesh); the 1024^2 ones forward only
     bf = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64,
                          device=dev)
     rv = torch.as_tensor(rverts, dtype=torch.float32, device=dev)
     rng = np.random.RandomState(11)
-    overflow, worst = {}, {"raster_fwd": 0.0, "raster_bwd": 0.0}
+    overflow, worst = {}, dict.fromkeys(RASTER_REPLACES, 0.0)
     for name, (ndc, f, attrs), res, K in (
             ("fit K=96", normal_inputs(fit.verts, bf, 0.0), size, 96),
             ("cloth K=256 az 0", normal_inputs(rv, faces_t, 0.0), size, 256),
             ("cloth K=256 az 180", normal_inputs(refined, faces_t, 180.0),
              size, 256),
+            ("remeshed K=512", (verts_to_ndc(rv), faces_t,
+                                rv.new_zeros((len(rv), 1))), 1024, 512),
             ("vis K=512", (verts_to_ndc(refined), faces_t,
                            refined.new_zeros((len(refined), 1))), 1024,
              512)):
-        err, grad_err, overflow[name], _ = compare_raster(
+        errs, overflow[name], _ = compare_raster(
             "[9]", f"{name} {res}^2", ndc, f, attrs, res, K, rng,
             backward=K != 512)
-        worst["raster_fwd"] = max(worst["raster_fwd"], err)
-        worst["raster_bwd"] = max(worst["raster_bwd"], grad_err)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
     print(f"[9] bin_overflow {overflow}", flush=True)
 
     # known answer: Adam (at the demo's fit learning rate) on the body's
@@ -713,12 +919,15 @@ def normal_inputs(verts, faces, azimuth):
 def reset_launches() -> None:
     from icon_tpu_torch.kernels import knn, raster
     knn.launches = 0
+    raster.launches_setup = raster.launches_bin = 0
     raster.launches_fwd = raster.launches_bwd = 0
 
 
 def read_launches() -> dict:
     from icon_tpu_torch.kernels import knn, raster
-    return {"knn_f32": knn.launches, "raster_fwd": raster.launches_fwd,
+    return {"knn_f32": knn.launches, "raster_setup": raster.launches_setup,
+            "raster_bin": raster.launches_bin,
+            "raster_fwd": raster.launches_fwd,
             "raster_bwd": raster.launches_bwd}
 
 

@@ -1,11 +1,13 @@
-"""Build the port's CUDA kernels (nvcc -> cached shared libraries).
+"""Build the port's native libraries (cached shared libraries).
 
-Each of the repository's ``csrc/*.cu`` sources becomes its own shared
-library at first use, for ``sm_90a``, with a plain C interface that
-:mod:`ctypes` binds; the nvcc processes run in parallel. The outputs are
-cached under ``icon_tpu_torch/_build/`` by a hash of each source and the
-flags; concurrent builds race safely through an atomic rename. A failed
-build raises: there is no fallback.
+:func:`build`: each of the repository's ``csrc/*.cu`` sources becomes its
+own shared library at first use, for ``sm_90a``, with a plain C interface
+that :mod:`ctypes` binds; the nvcc processes run in parallel.
+:func:`build_host`: the host lattice decoder ``csrc/latticecodec.cc``,
+compiled by ``g++`` (no CUDA toolkit needed, so the CPU frames use it too).
+The outputs are cached under ``icon_tpu_torch/_build/`` by a hash of each
+source and the flags; concurrent builds race safely through an atomic
+rename. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ _CACHE_DIR = osp.join(_PKG, "_build")
 SOURCES = ("knn.cu", "raster.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+HOST_SOURCE = "latticecodec.cc"
+CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+             "-Wall", "-Werror"]
 
 
 def find_nvcc() -> str:
@@ -44,11 +49,11 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
-def _library_path(name: str) -> str:
+def _library_path(name: str, flags=NVCC_FLAGS) -> str:
     h = hashlib.sha256()
     with open(osp.join(_SRC_DIR, name), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     stem = osp.splitext(name)[0]
     return osp.join(_CACHE_DIR, f"libicon_{stem}-{h.hexdigest()[:16]}.so")
 
@@ -93,3 +98,32 @@ def build(verbose: bool = False) -> Dict[str, str]:
             if osp.exists(tmp_path):
                 os.unlink(tmp_path)
     return paths
+
+
+def build_host() -> str:
+    """Compile the host lattice decoder with ``g++`` if its cached library
+    is missing; return the library path. Raises ``RuntimeError`` with the
+    compiler's output on failure."""
+    os.makedirs(_CACHE_DIR, exist_ok=True)
+    path = _library_path(HOST_SOURCE, CXX_FLAGS)
+    if osp.exists(path):
+        return path
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found: the lattice decoder cannot be "
+                           "built")
+    fd, tmp_path = tempfile.mkstemp(suffix=".so", dir=_CACHE_DIR)
+    os.close(fd)
+    try:
+        cmd = [cxx, *CXX_FLAGS, osp.join(_SRC_DIR, HOST_SOURCE), "-o",
+               tmp_path]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp_path, path)         # atomic under races
+    finally:
+        if osp.exists(tmp_path):
+            os.unlink(tmp_path)
+    return path

@@ -24,7 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from icon_tpu.config import Config
+from icon_tpu_torch.config import Config
 from icon_tpu_torch.models.hourglass import HGFilter
 from icon_tpu_torch.models.mlp import MLP
 from icon_tpu_torch.models.normalnet import NormalNet

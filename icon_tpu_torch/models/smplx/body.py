@@ -290,7 +290,7 @@ def synthetic_smplx_model(subdiv: int = 3, n_betas: int = 10,
     the full 55-joint SMPL-X pose layout, expression dirs and hand PCA, so
     that every branch of ``forward`` runs (subdiv 5: 10,242 vertices, 20,480
     faces, posedirs ``[486, 30,726]``)."""
-    from icon_tpu.utils.synthetic import synthetic_body
+    from icon_tpu_torch.utils.synthetic import synthetic_body
     rng = np.random.RandomState(seed)
     v, faces = synthetic_body(subdiv=subdiv)
     V = len(v)

@@ -3,19 +3,21 @@
 The same two-level algorithm as the JAX package, so both give the same
 images:
 
-1. **Bin** (PyTorch on every device): a dense ``[tiles, F]`` overlap
-   matrix (conservative bounding box against tile) is compacted per tile
-   into a static ``[tiles, K]`` face list by a row-wise cumsum and one
-   write into a buffer one slot longer per tile (the last slot takes the
-   overflow, then is sliced off). Faces keep ascending order within a
-   tile, which decides depth ties.
-2. **Raster** (``icon_tpu_torch/kernels/raster.py``): every pixel of a
-   tile evaluates the edge functions of the tile's faces, z-buffers by
-   argmin depth (the first face wins a tie) and interpolates vertex
-   attributes barycentrically; a soft silhouette aggregates per-face
-   sigmoids in log space. On the card this is the hand-written CUDA pair
-   ``raster_fwd``/``raster_bwd``; on the CPU the plain version, which
-   reads the face counts to the host once per call to size its chunks.
+1. **Bin**: each face's conservative bounding box marks the 32x32 tiles it
+   may cover; each tile lists its first ``K`` such faces in ascending face
+   id (``[tiles, K]``, -1 padded), which decides depth ties; the pairs past
+   K are dropped and counted in ``bin_overflow``.
+2. **Raster**: every pixel of a tile evaluates the edge functions of the
+   tile's faces, z-buffers by argmin depth (the first face wins a tie) and
+   interpolates vertex attributes barycentrically; a soft silhouette
+   aggregates per-face sigmoids in log space.
+
+Both steps live in ``icon_tpu_torch/kernels/raster.py``: on the card the
+hand-written CUDA kernels (``raster_setup``, ``raster_bin``, ``raster_fwd``
+and ``raster_bwd``, no host read and no ``[tiles, F]`` tensor); on the CPU
+the plain version (a dense ``[tiles, F]`` overlap matrix compacted by a
+cumsum; the raster reads the face counts to the host once per call to size
+its chunks).
 
 Gradients reach ``verts_ndc`` and ``attrs`` through the winning face's
 barycentrics, the depth and the silhouette, as in the JAX function.
@@ -42,59 +44,6 @@ class RasterOut(NamedTuple):
     bin_overflow: torch.Tensor  # 0-d int64: (tile, face) pairs dropped
 
 
-def _bin_faces(xy: torch.Tensor, tiles_x: int, tiles_y: int, tile: int,
-               H: int, W: int, K: int):
-    """Conservative face -> tile binning of ``xy [F, 3, 2]`` pixel coords:
-    (face list ``[tiles, K]``, -1 padded, ascending; faces per tile, at
-    most K; overflow count)."""
-    n_faces = xy.shape[0]
-    dev = xy.device
-    fx_min = torch.amin(xy[..., 0], dim=1)
-    fx_max = torch.amax(xy[..., 0], dim=1)
-    fy_min = torch.amin(xy[..., 1], dim=1)
-    fy_max = torch.amax(xy[..., 1], dim=1)
-
-    def tile_of(c, n):
-        return torch.clamp(torch.floor(c / tile), 0, n - 1).to(torch.int64)
-
-    tx0, tx1 = tile_of(fx_min, tiles_x), tile_of(fx_max, tiles_x)
-    ty0, ty1 = tile_of(fy_min, tiles_y), tile_of(fy_max, tiles_y)
-    offscreen = (fx_max < 0) | (fx_min > W) | (fy_max < 0) | (fy_min > H)
-
-    n_tiles = tiles_y * tiles_x
-    t = torch.arange(n_tiles, device=dev)[:, None]
-    ty, tx = t // tiles_x, t % tiles_x
-    overlap = ((tx >= tx0[None]) & (tx <= tx1[None]) &
-               (ty >= ty0[None]) & (ty <= ty1[None]) &
-               ~offscreen[None])                          # [T, F]
-
-    pos = torch.cumsum(overlap, dim=1) - 1                # [T, F]
-    take = overlap & (pos < K)
-    flat_to = torch.where(take, pos, K) + t * (K + 1)
-    face_ids = torch.arange(n_faces, device=dev).expand(n_tiles, n_faces)
-    buf = torch.full((n_tiles * (K + 1),), -1, dtype=torch.int64, device=dev)
-    buf[flat_to.reshape(-1)] = face_ids.reshape(-1)
-    face_list = buf.view(n_tiles, K + 1)[:, :K]
-    counts = pos[:, -1] + 1
-    overflow = torch.sum(torch.clamp(counts - K, min=0))
-    return face_list, torch.clamp(counts, max=K), overflow
-
-
-def _prepare(verts_ndc, faces, attrs, H, W, tile, K):
-    """Per-face pixel coords, depths and attributes, and the binned face
-    list of ``verts_ndc [V, 3]`` (x, y in [-1, 1])."""
-    xy_pix = (verts_ndc[:, :2] + 1.0) * 0.5 * torch.tensor(
-        [W, H], dtype=verts_ndc.dtype, device=verts_ndc.device)
-    tri_xy = xy_pix[faces]                                # [F, 3, 2]
-    tri_z = verts_ndc[:, 2][faces]                        # [F, 3]
-    tri_attr = attrs[faces]                               # [F, 3, C]
-    tiles_x = (W + tile - 1) // tile
-    tiles_y = (H + tile - 1) // tile
-    face_list, counts, overflow = _bin_faces(tri_xy.detach(), tiles_x,
-                                             tiles_y, tile, H, W, K)
-    return tri_xy, tri_z, tri_attr, face_list, counts, overflow
-
-
 def rasterize(verts_ndc: torch.Tensor, faces: torch.Tensor,
               attrs: torch.Tensor, H: int = 512, W: int = 512,
               tile: int = 32, K: int = 256, sigma: float = 1e-4,
@@ -105,30 +54,24 @@ def rasterize(verts_ndc: torch.Tensor, faces: torch.Tensor,
     Differentiable in ``verts_ndc`` and ``attrs`` (through the winning
     face's barycentrics, the depth and the soft silhouette).
 
-    On a CUDA tensor the raster step is the hand-written kernel pair
-    (``kernels/raster.py``, no host read); on a CPU tensor it is the plain
-    version, whose chunks ``tiles_per_step`` bounds to ``tiles_per_step
-    * K`` (tile, face) slots, as in the JAX function (any value gives the
-    same images). Returns a :class:`RasterOut` of ``[H, W, ...]`` images."""
-    tri_xy, tri_z, tri_attr, face_list, counts, overflow = _prepare(
-        verts_ndc, faces, attrs, H, W, tile, K)
-    images = raster_kernel.raster(tri_xy, tri_z, tri_attr, face_list, counts,
-                                  H, W, tile, sigma, tiles_per_step)
-    return RasterOut(*images, bin_overflow=overflow)
+    On a CUDA tensor this is the hand-written kernel chain
+    (``kernels/raster.py``: three launches, no host read); on a CPU tensor
+    it is the plain version, whose chunks ``tiles_per_step`` bounds to
+    ``tiles_per_step * K`` (tile, face) slots, as in the JAX function (any
+    value gives the same images). Returns a :class:`RasterOut` of
+    ``[H, W, ...]`` images."""
+    return RasterOut(*raster_kernel.rasterize(
+        verts_ndc, faces, attrs, H, W, tile, K, sigma, tiles_per_step))
 
 
 def rasterize_plain(verts_ndc: torch.Tensor, faces: torch.Tensor,
                     attrs: torch.Tensor, H: int = 512, W: int = 512,
                     tile: int = 32, K: int = 256, sigma: float = 1e-4,
                     tiles_per_step: int = 16) -> RasterOut:
-    """:func:`rasterize` with the plain raster step on any device (the
-    kernel's reference on the card)."""
-    tri_xy, tri_z, tri_attr, face_list, counts, overflow = _prepare(
-        verts_ndc, faces, attrs, H, W, tile, K)
-    images = raster_kernel.raster_plain(tri_xy, tri_z, tri_attr, face_list,
-                                        counts, H, W, tile, sigma,
-                                        tiles_per_step)
-    return RasterOut(*images, bin_overflow=overflow)
+    """:func:`rasterize` in plain PyTorch on any device (the kernels'
+    reference on the card)."""
+    return RasterOut(*raster_kernel.rasterize_plain(
+        verts_ndc, faces, attrs, H, W, tile, K, sigma, tiles_per_step))
 
 
 def vertex_visibility(verts_ndc: torch.Tensor, faces: torch.Tensor,

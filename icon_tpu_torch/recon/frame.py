@@ -35,8 +35,7 @@ from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from icon_tpu.config import Config, NetConfig
-from icon_tpu.utils.io import clean_mesh
+from icon_tpu_torch.config import Config, NetConfig
 from icon_tpu_torch.infer.refine import SmplFit, refine_cloth, \
     refine_smpl_live
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
@@ -50,6 +49,7 @@ from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
 from icon_tpu_torch.recon.marching import AutoMarcher
 from icon_tpu_torch.render.render import query_color, render_normal
+from icon_tpu_torch.utils.io import clean_mesh
 from icon_tpu_torch.utils.synthetic import clothed_human_occ
 
 

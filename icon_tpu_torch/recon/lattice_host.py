@@ -2,16 +2,22 @@
 decode (copies of ``icon_tpu.recon.marching``'s ``_host_tables``,
 ``_host_tables_flat`` and ``decode_lattice``, whose module imports jax).
 
-The decode runs in the native C++ decoder of ``icon_tpu.native``; a missing
-native library raises (build it with g++ and zlib, see
-``icon_tpu/native/build.py``).
+The decode runs in the port's host C++ decoder (``csrc/latticecodec.cc``,
+a copy of the JAX package's), built by ``g++`` at first use
+(``kernels/build.py:build_host``); a failed build raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
+from typing import Optional
 
 import numpy as np
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
 
 # cube corner c -> offset (x, y, z)
 _CORNER_OFF = np.array([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
@@ -101,6 +107,44 @@ def _host_tables_flat():
             np.ascontiguousarray(valid.reshape(-1).astype(np.uint8)))
 
 
+def _load() -> ctypes.CDLL:
+    """Build (first use) and bind the host decoder."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from icon_tpu_torch.kernels.build import build_host
+            lib = ctypes.CDLL(build_host())
+            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            for fn in (lib.icon_lattice_decode,
+                       lib.icon_lattice_decode_implicit):
+                fn.argtypes = [vp, ll, ll, ci, ci] + [vp] * 7
+                fn.restype = ll
+            _lib = lib
+    return _lib
+
+
+def lattice_decode(buf: np.ndarray, nvb: int, ncb: int, H: int, W: int,
+                   implicit: bool):
+    """(verts [n, 3] f32 grid coords, faces [m, 3] i32, info [3] i32:
+    n_verts, n_cells, overflow) of a lattice-codec buffer, through the host
+    decoder; ``implicit`` selects wire v2 (no edge-id block)."""
+    lib = _load()
+    buf = np.ascontiguousarray(buf, np.int32)
+    verts = np.empty((nvb, 3), np.float32)
+    faces = np.empty((ncb * 12, 3), np.int32)
+    info = np.zeros(3, np.int32)
+    fn = lib.icon_lattice_decode_implicit if implicit \
+        else lib.icon_lattice_decode
+    tables = _host_tables_flat()
+    nf = fn(buf.ctypes.data, nvb, ncb, H, W,
+            *(t.ctypes.data for t in tables), verts.ctypes.data,
+            faces.ctypes.data, info.ctypes.data)
+    if nf < 0:
+        raise ValueError(f"malformed lattice buffer sizes: {nvb} vertex "
+                         f"and {ncb} cell slots for a {H}x{W} grid")
+    return verts[:info[0]], faces[:nf], info
+
+
 def decode_lattice(packed, H: int, W: int, return_overflow: bool = False):
     """Blocking transfer + host rebuild of a ``pack_lattice`` buffer: verts
     from (edge id, fraction), faces from (cell id, corner bits). ``H``/``W``
@@ -108,18 +152,13 @@ def decode_lattice(packed, H: int, W: int, return_overflow: bool = False):
     faces [F, 3] int64) (+ the overflow flag: the true counts exceeded the
     packed sizes, so the caller re-packs at full size). The wire format (v1
     explicit edge ids, v2 implicit) is read from header word 2."""
-    from icon_tpu import native
     empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
     if packed is None:
         return empty + (False,) if return_overflow else empty
     buf, nvb, ncb = packed
     host = buf.cpu().numpy() if hasattr(buf, "cpu") else np.asarray(buf)
     implicit = bool(host[2] & 1)
-    if not native.available():
-        raise RuntimeError("icon_tpu.native did not build: the lattice "
-                           "decoder needs g++ and zlib")
-    verts, faces, info = native.lattice_decode(
-        host, nvb, ncb, H, W, *_host_tables_flat(), implicit=implicit)
+    verts, faces, info = lattice_decode(host, nvb, ncb, H, W, implicit)
     out = (verts, faces.astype(np.int64))
     return out + (bool(info[2]),) if return_overflow else out
 

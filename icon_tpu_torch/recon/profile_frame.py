@@ -129,7 +129,7 @@ def fit_loops(cfg, state, iters: int = 5):
                      f"({100 * busy_ms / wall_ms:.1f}%), idle "
                      f"{100 * (1 - busy_ms / wall_ms):.1f}%")
         lines.append(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=20,
+            sort_by="self_device_time_total", row_limit=40,
             max_name_column_width=70))
     return lines
 

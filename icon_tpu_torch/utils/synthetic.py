@@ -3,23 +3,215 @@ the posed clothed-human occupancy field in PyTorch (``clothed_human_sdf`` /
 ``clothed_human_occ``), the numpy ICON batch (``synthetic_icon_batch``) and
 the demo's per-image item for the body fit (``synthetic_fit_item``).
 
-The body mesh and the capsule skeleton come from the JAX package's numpy
-helpers (``synthetic_body``, ``posed_skeleton``, ``_capsule_segments``);
-the field evaluation is torch, on the device of the query points.
+The body mesh and the capsule skeleton are copies of the JAX package's
+numpy helpers (``icosphere``, ``synthetic_body``, ``posed_skeleton``,
+``_capsule_segments`` and their tables); the field evaluation is torch, on
+the device of the query points.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from icon_tpu.utils.synthetic import (_capsule_segments, posed_skeleton,
-                                      synthetic_body)
-
 __all__ = ["clothed_human_sdf", "clothed_human_occ", "synthetic_body",
            "synthetic_fit_item", "synthetic_icon_batch"]
+
+
+def icosphere(subdiv: int = 5, radius: float = 1.0):
+    """Unit icosphere; subdiv 5 -> 10242 verts, 20480 faces."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+
+    for _ in range(subdiv):
+        cache = {}
+        verts = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in cache:
+                m = (np.asarray(verts[a]) + np.asarray(verts[b])) / 2
+                m = m / np.linalg.norm(m)
+                cache[key] = len(verts)
+                verts.append(m)
+            return cache[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c],
+                          [ab, bc, ca]]
+        faces = np.array(new_faces, np.int64)
+        verts = np.array(verts)
+
+    return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def synthetic_body(subdiv: int = 5, scale: float = 0.55,
+                   squash: Tuple[float, float, float] = (0.45, 1.0, 0.3)):
+    """A body-proportioned ellipsoid mesh at SMPL-X face count."""
+    v, f = icosphere(subdiv)
+    v = v * np.array(squash, np.float32) * scale
+    return v, f
+
+
+# ---------------------------------------------------------------------------
+# Posed capsule-skeleton human: an analytic clothed-human occupancy field for
+# benchmarking. The recon engine's cost follows the *boundary area* of the
+# level set (per-level candidate counts); an ellipsoid understates a clothed
+# human's by ~3x (recon/engine.py:50-56), so the bench field is a human:
+# SMPL-topology kinematic tree posed by forward kinematics with a real
+# THuman2 fit's joint rotations, capsules along every bone, plus
+# high-frequency sinusoidal "cloth fold" displacement below the neck.
+# ---------------------------------------------------------------------------
+
+# SMPL 24-joint kinematic tree (parents as in lib/smplx/lbs.py usage).
+SMPL_PARENTS = np.array([
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17,
+    18, 19, 20, 21], np.int32)
+
+# Approximate average-adult rest-pose joint positions (meters, y-up, pelvis
+# at origin). These are generic body proportions, not SMPL model data.
+REST_JOINTS = np.array([
+    [0.000, 0.000, 0.000],    # 0  pelvis
+    [0.090, -0.080, 0.005],   # 1  l_hip
+    [-0.090, -0.080, 0.005],  # 2  r_hip
+    [0.000, 0.110, 0.005],    # 3  spine1
+    [0.105, -0.465, 0.000],   # 4  l_knee
+    [-0.105, -0.465, 0.000],  # 5  r_knee
+    [0.000, 0.230, 0.010],    # 6  spine2
+    [0.100, -0.845, -0.025],  # 7  l_ankle
+    [-0.100, -0.845, -0.025], # 8  r_ankle
+    [0.000, 0.300, 0.010],    # 9  spine3
+    [0.110, -0.900, 0.095],   # 10 l_foot
+    [-0.110, -0.900, 0.095],  # 11 r_foot
+    [0.000, 0.470, 0.005],    # 12 neck
+    [0.060, 0.420, 0.000],    # 13 l_collar
+    [-0.060, 0.420, 0.000],   # 14 r_collar
+    [0.000, 0.580, 0.020],    # 15 head
+    [0.170, 0.440, 0.000],    # 16 l_shoulder
+    [-0.170, 0.440, 0.000],   # 17 r_shoulder
+    [0.430, 0.430, 0.000],    # 18 l_elbow
+    [-0.430, 0.430, 0.000],   # 19 r_elbow
+    [0.670, 0.430, 0.000],    # 20 l_wrist
+    [-0.670, 0.430, 0.000],   # 21 r_wrist
+    [0.755, 0.430, 0.000],    # 22 l_hand
+    [-0.755, 0.430, 0.000],   # 23 r_hand
+], np.float32)
+
+# (joint_a, joint_b, radius_a, radius_b) capsules along bones. Radii taper
+# toward the extremities like a real body.
+BONE_CAPSULES = (
+    (0, 3, 0.125, 0.120),    # pelvis->spine1
+    (3, 6, 0.120, 0.115),    # spine1->spine2
+    (6, 9, 0.115, 0.110),    # spine2->spine3
+    (9, 12, 0.095, 0.055),   # spine3->neck
+    (12, 15, 0.050, 0.055),  # neck->head
+    (15, 15, 0.100, 0.100),  # head sphere
+    (1, 2, 0.105, 0.105),    # hip bar
+    (13, 16, 0.060, 0.055),  # l clavicle->shoulder
+    (14, 17, 0.060, 0.055),  # r
+    (1, 4, 0.085, 0.060),    # l thigh
+    (2, 5, 0.085, 0.060),    # r thigh
+    (4, 7, 0.058, 0.042),    # l shin
+    (5, 8, 0.058, 0.042),    # r shin
+    (7, 10, 0.042, 0.035),   # l foot
+    (8, 11, 0.042, 0.035),   # r foot
+    (16, 18, 0.050, 0.040),  # l upper arm
+    (17, 19, 0.050, 0.040),  # r
+    (18, 20, 0.040, 0.032),  # l forearm
+    (19, 21, 0.040, 0.032),  # r
+    (20, 22, 0.036, 0.025),  # l hand
+    (21, 23, 0.036, 0.025),  # r
+)
+
+# Joint rotations (axis-angle, SMPL joint order: global_orient + 21 body
+# joints; hands/feet identity) of the THuman2.0 subject-0525 SMPL-X fit
+# shipped with the reference as sample data
+# (sample_data/thuman2/fits/0525/smplx_param.pkl) — fit
+# *parameters* of a public dataset sample, embedded so the bench needs no
+# external files. The pose is a natural standing pose with bent arms.
+THUMAN2_0525_POSE = np.array([
+    0.0378, 0.4628, -0.2276,             # global_orient
+    -0.5782, 0.0263, 0.418,              # 1 l_hip
+    0.1329, -0.174, 0.074,               # 2 r_hip
+    0.0615, 0.1032, -0.0296,             # 3 spine1
+    0.3089, -0.0784, 0.021,              # 4 l_knee
+    -0.0755, -0.0323, 0.1927,            # 5 r_knee
+    -0.1412, -0.0212, 0.1142,            # 6 spine2
+    0.1994, -0.0162, -0.2544,            # 7 l_ankle
+    -0.2169, -0.208, 0.0462,             # 8 r_ankle
+    0.1161, -0.0387, 0.0725,             # 9 spine3
+    -0.40089, 0.026784, 0.11078,         # 10 l_foot
+    0.1681, 0.038684, -0.00048756,       # 11 r_foot
+    -0.052921, -0.58196, 0.25597,        # 12 neck
+    0.0293, 0.2919, 0.126,               # 13 l_collar
+    -0.3952, -0.1603, -0.0656,           # 14 r_collar
+    -0.0172, -0.5763, -0.0225,           # 15 head
+    0.4978, -0.4615, -0.8853,            # 16 l_shoulder
+    -0.0846, 0.6482, 0.3235,             # 17 r_shoulder
+    1.306, -1.94, -0.3282,               # 18 l_elbow
+    0.1771, 0.1544, -0.1926,             # 19 r_elbow
+    -0.5447, -0.6193, 0.4241,            # 20 l_wrist
+    0.1643, 0.3154, -0.9383,             # 21 r_wrist
+    0.0, 0.0, 0.0,                       # 22 l_hand
+    0.0, 0.0, 0.0,                       # 23 r_hand
+], np.float32).reshape(24, 3)
+
+
+def posed_skeleton(pose: np.ndarray = None) -> np.ndarray:
+    """Forward kinematics -> [24, 3] posed joint positions (numpy).
+
+    ``pose`` is [24, 3] axis-angle (SMPL joint order); default is the
+    embedded THuman2-0525 standing pose.
+    """
+    if pose is None:
+        pose = THUMAN2_0525_POSE
+    pose = np.asarray(pose, np.float64)
+
+    def rodrigues(v):
+        ang = np.linalg.norm(v)
+        if ang < 1e-9:
+            return np.eye(3)
+        k = v / ang
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * (K @ K)
+
+    R_world = [None] * 24
+    pos = np.zeros((24, 3))
+    for j in range(24):
+        R = rodrigues(pose[j])
+        p = SMPL_PARENTS[j]
+        if p < 0:
+            R_world[j] = R
+            pos[j] = REST_JOINTS[j]
+        else:
+            pos[j] = pos[p] + R_world[p] @ (REST_JOINTS[j] - REST_JOINTS[p])
+            R_world[j] = R_world[p] @ R
+    return pos.astype(np.float32)
+
+
+def _capsule_segments(joints: np.ndarray):
+    """Capsule endpoints + radii from posed joints: ([K,3], [K,3], [K],
+    [K])."""
+    a = np.stack([joints[c[0]] for c in BONE_CAPSULES])
+    b = np.stack([joints[c[1]] for c in BONE_CAPSULES])
+    ra = np.array([c[2] for c in BONE_CAPSULES], np.float32)
+    rb = np.array([c[3] for c in BONE_CAPSULES], np.float32)
+    return (a.astype(np.float32), b.astype(np.float32), ra, rb)
 
 
 def clothed_human_sdf(pts: torch.Tensor, pose: np.ndarray = None,

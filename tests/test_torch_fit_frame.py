@@ -22,7 +22,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_port_helpers import init_jax_icon, normalnet_cfg, port_state
+from torch_port_helpers import (init_jax_icon, normalnet_cfg, port_cfg,
+                                port_state)
 
 RES = 128
 SIZE = 64
@@ -115,9 +116,9 @@ def frames():
     pbody = body_model_from_jax(jbody)
     item = synthetic_fit_item(pbody, SIZE, seed=3)
     want = _jax_fit_frame(jnet, variables, jbody, item)
-    frame = build_fit_frame(cfg, port_state(variables), pbody, RES, "cpu",
-                            loop_smpl=LOOP_SMPL, loop_cloth=LOOP_CLOTH,
-                            field=variant_occ)
+    frame = build_fit_frame(port_cfg(cfg), port_state(variables), pbody,
+                            RES, "cpu", loop_smpl=LOOP_SMPL,
+                            loop_cloth=LOOP_CLOTH, field=variant_occ)
     got = frame.frame(item)
     want.update(want.pop("finish")(*got.recon))
     return got, want, frame, item

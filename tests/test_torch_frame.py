@@ -16,7 +16,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_port_helpers import icon_cfg, init_jax_icon, port_state, t
+from torch_port_helpers import (icon_cfg, init_jax_icon, port_cfg,
+                                port_state, t)
 
 from icon_tpu.utils.synthetic import synthetic_body, synthetic_icon_batch
 
@@ -96,7 +97,8 @@ def frames():
     batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
                                  image_size=64, n_samples=64, subdiv=3)
     jframe = _jax_frame(cfg, jnet, variables, batch, RES)
-    pframe = build_frame(cfg, port_state(variables), batch, RES, "cpu")
+    pframe = build_frame(port_cfg(cfg), port_state(variables), batch, RES,
+                         "cpu")
     return jframe, pframe
 
 

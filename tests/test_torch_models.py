@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from torch_port_helpers import (body, icon_cfg, init_jax_icon,
-                                lattice_columns, port_state, t)
+                                lattice_columns, port_cfg, port_state, t)
 
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
 from icon_tpu_torch.models.layers import ConvBlock, avg_pool2, make_norm
@@ -29,7 +29,7 @@ RNG = np.random.RandomState(3)
 def icon_pair():
     cfg = icon_cfg()
     jnet, variables = init_jax_icon(cfg)
-    net = HGPIFuNet(cfg, normal_net=False)     # flax init had the normals
+    net = HGPIFuNet(port_cfg(cfg), normal_net=False)     # flax init had the normals
     net.load_state_dict(port_state(variables))            # strict
     return cfg, jnet, variables, net.eval()
 
@@ -197,4 +197,4 @@ def test_unported_priors_raise():
     cfg = icon_cfg()
     pifu = cfg.replace(net=dataclasses.replace(cfg.net, prior_type="pifu"))
     with pytest.raises(NotImplementedError, match="item 9"):
-        HGPIFuNet(pifu)
+        HGPIFuNet(port_cfg(pifu))

@@ -1,8 +1,9 @@
-"""The port runs without JAX: importing icon_tpu_torch and running one tiny
-CPU frame of each kind (normals given; normals predicted by the NormalNet
-from the body's renders; the demo's fit frame: body fit, recon, remesh,
-cloth refinement, colours) leaves ``jax`` out of ``sys.modules``, and no
-file of the package imports it."""
+"""The port runs without JAX and without the JAX package: importing
+icon_tpu_torch and running one tiny CPU frame of each kind (normals given;
+normals predicted by the NormalNet from the body's renders; the demo's fit
+frame: body fit, recon, remesh, cloth refinement, colours) leaves ``jax``,
+``flax`` and ``icon_tpu`` out of ``sys.modules``, and no file of the package
+nor ``chip_smoke.py`` imports them."""
 
 import os
 import os.path as osp
@@ -18,7 +19,7 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from icon_tpu.config import Config, NetConfig
+from icon_tpu_torch.config import Config, NetConfig
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
 from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
 from icon_tpu_torch.recon.frame import build_frame, build_normalnet_frame
@@ -51,6 +52,8 @@ assert len(out.faces) > 1000 and bool(torch.isfinite(out.verts).all())
 assert np.isfinite(out.fit.losses + out.cloth_losses).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
+ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
+print("ICON_TPU_MODULES", ref)
 """
 
 
@@ -60,6 +63,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_MODULES []" in proc.stdout, proc.stdout[-2000:]
+    assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
 def test_no_jax_import_in_package_sources():
@@ -73,3 +77,26 @@ def test_no_jax_import_in_package_sources():
                     assert not pat.search(f.read()), name
                 checked += 1
     assert checked >= 20
+
+
+def _port_sources():
+    pkg = osp.join(ROOT, "icon_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cc")):
+                yield osp.join(dirpath, name)
+    yield osp.join(ROOT, "chip_smoke.py")
+
+
+def test_no_icon_tpu_import_in_port_sources():
+    """Neither the package nor chip_smoke.py imports the JAX package, not
+    even its modules that do not import JAX: the port keeps its own copies
+    (config, clean_mesh, the synthetic body, the lattice decoder)."""
+    pat = re.compile(r"^\s*(from|import)\s+icon_tpu(\.|\s|$)", re.M)
+    checked = 0
+    for path in _port_sources():
+        with open(path) as f:
+            hit = pat.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0)!r}"
+        checked += 1
+    assert checked >= 40

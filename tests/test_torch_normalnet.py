@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from test_torch_port import torch_global_generator
-from torch_port_helpers import init_jax_icon, normalnet_cfg, port_state, t
+from torch_port_helpers import (init_jax_icon, normalnet_cfg, port_cfg,
+                                port_state, t)
 
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
 from icon_tpu_torch.models.layers import (conv_transpose2x, make_norm,
@@ -135,7 +136,7 @@ def test_global_generator_parity(ngf, n_down, n_blocks):
 def normal_pair():
     cfg = normalnet_cfg()
     jnet, variables = init_jax_icon(cfg, seed=2, normal_net=True)
-    net = HGPIFuNet(cfg)
+    net = HGPIFuNet(port_cfg(cfg))
     net.load_state_dict(port_state(variables))            # strict
     return jnet, variables, net.eval()
 
@@ -192,7 +193,7 @@ def test_filter_predicts_missing_normals(normal_pair):
     assert feats.shape == (1, 16, 16, 12)
     np.testing.assert_allclose(feats.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
-    no_nml = HGPIFuNet(normalnet_cfg(), normal_net=False)
+    no_nml = HGPIFuNet(port_cfg(normalnet_cfg()), normal_net=False)
     with pytest.raises(ValueError, match="normal_net=False"):
         no_nml.filter(tin)
 

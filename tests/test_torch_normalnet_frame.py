@@ -18,7 +18,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_port_helpers import init_jax_icon, normalnet_cfg, port_state, t
+from torch_port_helpers import (init_jax_icon, normalnet_cfg, port_cfg,
+                                port_state, t)
 
 from icon_tpu.utils.synthetic import synthetic_icon_batch
 
@@ -120,8 +121,8 @@ def frames():
                                  image_size=64, n_samples=8, subdiv=3)
     batch["image"][0, :6] = 0.0         # background rows
     jout = _jax_frame(jnet, variables, batch, RES)
-    pframe = build_normalnet_frame(cfg, port_state(variables), batch, RES,
-                                   "cpu")
+    pframe = build_normalnet_frame(port_cfg(cfg), port_state(variables),
+                                   batch, RES, "cpu")
     return jout, pframe
 
 

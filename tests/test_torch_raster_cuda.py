@@ -1,15 +1,17 @@
-"""The rasterizer's CUDA kernels (raster_fwd, raster_bwd) against the plain
-PyTorch raster step, on the card.
+"""The rasterizer's CUDA kernels (raster_setup, raster_bin, raster_fwd,
+raster_bwd) against the plain PyTorch binning and raster step, on the card.
 
 Needs a CUDA card and nvcc, and imports no JAX, so it runs on a machine
 without it: ``python -m pytest tests/test_torch_raster_cuda.py --noconftest
 -m cuda -q`` (the suite's conftest imports jax). Where no card exists the
 tests skip.
 
-Forward: ``pix_to_face``, ``mask`` and ``depth`` identical (the edge
+Binning: the face lists, counts and overflow identical to ``_bin_faces``.
+Forward: three launches, no ``[tiles, F]`` block; ``pix_to_face``,
+``mask`` and ``depth`` identical (the edge
 functions, barycentrics and depths round op by op as the plain version's
 do), ``attr`` to 1e-6, the silhouette to 1e-5 (its log-sum runs in another
-order, with the card's expf/log1pf). Backward: each gradient within 1e-4 of
+order, with sign / length multiplied in). Backward: each gradient within 1e-4 of
 the plain version's autograd, relative to its largest magnitude (atomicAdd
 order and the sums' order differ)."""
 
@@ -48,10 +50,11 @@ CASES = [(5, 512, 256, 3, 0.0), (5, 512, 96, 3, 180.0), (5, 1024, 512, 1, 0.0),
 @pytest.mark.parametrize("subdiv,size,K,C,az", CASES)
 def test_forward_matches_plain(cuda_device, subdiv, size, K, C, az):
     ndc, f, attrs = _scene(subdiv, az, C, size + K, cuda_device)
-    before = rk.launches_fwd
+    before = (rk.launches_setup, rk.launches_bin, rk.launches_fwd)
     out = rasterize(ndc, f, attrs, H=size, W=size, K=K)
     torch.cuda.synchronize()
-    assert rk.launches_fwd == before + 1
+    assert (rk.launches_setup, rk.launches_bin, rk.launches_fwd) == \
+        tuple(n + 1 for n in before)
     ref = rasterize_plain(ndc, f, attrs, H=size, W=size, K=K)
     assert torch.equal(out.pix_to_face, ref.pix_to_face)
     assert torch.equal(out.mask, ref.mask)
@@ -113,7 +116,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         rasterize(ndc.double(), f, attrs.double(), H=64, W=64, K=16)
     with pytest.raises(ValueError, match="K <="):
         rasterize(ndc, f, attrs, H=64, W=64, K=4096)
+    with pytest.raises(ValueError, match="32-px tiles"):
+        rasterize(ndc, f, attrs, H=64, W=64, K=16, tile=16)
     with pytest.raises(ValueError, match="several devices"):
-        rk.raster(ndc[f][..., :2].cpu(), ndc[f][..., 2], attrs[f],
-                  torch.zeros((4, 8), dtype=torch.int64, device=cuda_device),
-                  None, 64, 64)
+        rk.rasterize(ndc.cpu(), f, attrs, 64, 64)
+
+
+@pytest.mark.parametrize("subdiv,size,K,az", [(5, 512, 96, 0.0),
+                                               (5, 512, 256, 90.0),
+                                               (5, 1024, 32, 0.0),
+                                               (6, 256, 32, 30.0)])
+def test_bin_kernel_matches_plain(cuda_device, subdiv, size, K, az):
+    """Every slot of every tile, the counts and the overflow equal
+    ``_bin_faces``'s, including tiles with more than K faces."""
+    ndc, f, _ = _scene(subdiv, az, 1, 0, cuda_device)
+    # push some faces off screen on each side
+    ndc = ndc * torch.tensor([1.6, 1.6, 1.0], device=cuda_device)
+    lists, counts, overflow = rk.bin_faces(ndc, f, size, size, K=K)
+    torch.cuda.synchronize()
+    ref = rk.bin_faces_plain(ndc, f, size, size, K=K)
+    assert int(ref[2]) > 0                # some tile overflows
+    assert torch.equal(lists.long(), ref[0])
+    assert torch.equal(counts.long(), ref[1])
+    assert int(overflow) == int(ref[2])
+
+
+def test_forward_allocates_no_tiles_by_faces_block(cuda_device):
+    """A forward on the card needs its images, the slot data, the face
+    lists and the split blocks' scratch: less than a one-byte [tiles, F]
+    matrix (the plain binning's overlap mask) at 327,680 faces."""
+    ndc, f, attrs = _scene(7, 0.0, 3, 0, cuda_device)
+    size, K = 1024, 512
+    rasterize(ndc, f, attrs, H=size, W=size, K=K)       # warm the cache
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = rasterize(ndc, f, attrs, H=size, W=size, K=K)
+    torch.cuda.synchronize()
+    delta = torch.cuda.max_memory_allocated() - base
+    n_tiles = (size // 32) ** 2
+    assert delta < n_tiles * f.shape[0]
+    assert int(out.mask.sum()) > 0

@@ -16,7 +16,8 @@ import optax
 import pytest
 import torch
 
-from torch_port_helpers import init_jax_icon, normalnet_cfg, port_state, t
+from torch_port_helpers import (init_jax_icon, normalnet_cfg, port_cfg,
+                                port_state, t)
 
 from icon_tpu.utils.synthetic import icosphere, synthetic_body
 from icon_tpu_torch.infer import refine as prefine
@@ -185,7 +186,7 @@ def fit_setup():
     item = synthetic_fit_item(pbody, SIZE, seed=1)
     cfg = normalnet_cfg()
     jnet, variables = init_jax_icon(cfg, seed=2, normal_net=True)
-    pnet = HGPIFuNet(cfg)
+    pnet = HGPIFuNet(port_cfg(cfg))
     pnet.load_state_dict(port_state(variables))
     pnet.eval()
     return jbody, pbody, item, (jnet, variables), pnet

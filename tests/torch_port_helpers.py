@@ -13,16 +13,32 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import icon_tpu.config
+import icon_tpu_torch.config
 from icon_tpu.config import Config
 
 torch.set_num_threads(1)
 
 
+def _config_as(cfg, module):
+    """``cfg`` rebuilt field for field from ``module``'s dataclasses."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["net"] = module.NetConfig(**dataclasses.asdict(cfg.net))
+    kw["dataset"] = module.DatasetConfig(**dataclasses.asdict(cfg.dataset))
+    return module.Config(**kw)
+
+
+def port_cfg(cfg: Config) -> icon_tpu_torch.config.Config:
+    """The port's config with the fields of the JAX package's ``cfg``."""
+    return _config_as(cfg, icon_tpu_torch.config)
+
+
 def icon_cfg(mlp_dim=(256, 32, 64, 32, 16, 1)) -> Config:
     """bench.py's icon-filter config (2 stacks, hourglass_dim 6, batch-norm
-    MLP, 7 SMPL features) at a narrow MLP width (13-32-64-32-16-1)."""
+    MLP, 7 SMPL features) at a narrow MLP width (13-32-64-32-16-1), as the
+    JAX package's ``Config`` (:func:`port_cfg` gives the port's)."""
     from icon_tpu_torch.recon.frame import bench_config
-    cfg = bench_config()
+    cfg = _config_as(bench_config(), icon_tpu.config)
     return cfg.replace(net=dataclasses.replace(cfg.net, mlp_dim=mlp_dim))
 
 
