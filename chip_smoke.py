@@ -12,9 +12,18 @@ JSON line ``{"ok": true, "device": {...}}``):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the TF32 settings; TF32 is turned off for every later phase, so float32
    convolutions and products stay float32 and comparable;
-2. build the CUDA kernels from ``icon_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``icon_tpu_torch/csrc`` (nvcc, sm_90a), and
+   show that the kNN kernel issues tensor-core instructions (``cuobjdump
+   -sass``: its HMMA count and first HMMA line);
 3. the kNN kernel against its plain PyTorch version at the main path's
-   shapes, with CUDA-event medians of both;
+   shapes (run after phase 4's full frame, whose engine gives the level-1
+   and level-2 buckets it used): the level-0 lattice against the
+   mirror-symmetric subdiv-5 body (indices identical on every row, exact
+   ties included), the two buckets and the 232,974-point cap near the body
+   and in the cube, and k=8: keys to 1e-5 relative, every pick's index
+   equal wherever the keys on both sides of it are more than 1e-5 apart;
+   the kernel alone (its launches on preallocated outputs, behind a device
+   sleep) and the whole wrapper call timed at each shape beside the bound;
 4. the slice: first the frame on a small input on the card against the
    same frame on the CPU (plain versions, themselves held to the JAX
    package by the tests); then the frame at full width (bench.py's
@@ -67,8 +76,10 @@ The kernel summary gives, for every kernel, its launches in the main
 paths, its error against the plain version, its time and the plain
 version's, its bound (the larger of the bytes it must move over the card's
 memory rate and its operations over the float32 peak, from this run's
-inputs) and the time of one PyTorch call computing the same function where
-one exists (the kNN's ``cdist`` + ``topk``; none for the rasterizer).
+inputs; for the kNN also its tensor-core products over the TF32 peak and
+one compare per pair over the float32 instruction rate) and the time of
+one PyTorch call computing the same function where one exists (the kNN's
+``cdist`` + ``topk``; none for the rasterizer).
 """
 
 import json
@@ -96,8 +107,9 @@ JAX_VARIANT_N_TRIS = 584720
 RASTER_ATOL = 1e-5
 RASTER_FACE_SHARE = 1e-3
 
-KNN_SHAPES = (35937, 98304, 232974)      # level 0, level-1/2 buckets, cap
+KNN_LEVEL0, KNN_CAP = 35937, 232974       # the 33^3 lattice, the cap
 KEY_RTOL = 1e-5
+KEY_GAP = 1e-5               # picks compared where both neighbours are apart
 # raster kernels against the plain version (tests/test_torch_raster_cuda.py)
 RASTER_KERNEL_ATOL = {"attr": 1e-6, "depth": 0.0, "silhouette": 1e-5}
 RASTER_GRAD_RTOL = 1e-4
@@ -111,8 +123,14 @@ HBM_RATE = 3.35e12
 # the chain rule to six coordinates
 FWD_OPS_PER_PAIR = 30
 BWD_OPS_PER_PAIR = 60
-# operations per (point, vertex) pair of the kNN: |v|^2 - 2 p.v and compare
-KNN_OPS_PER_PAIR = 8
+# the kNN per (point, vertex) pair: 8 flops of |v|^2 - 2 p.v (a depth-4
+# product) on the tensor cores at the TF32 peak and one compare at the
+# float32 instruction rate (half the float32 flop rate); the scalar
+# kernel's yardstick, 8 float32 operations at FP32_PEAK, is printed beside
+# it
+KNN_FLOPS_PER_PAIR = 8
+TF32_PEAK = 495e12
+FP32_INSTR_RATE = 33.5e12
 # the full-width fit frame: image size, body subdivision, marching res
 FIT_SIZE, FIT_SUBDIV, FIT_RES = 512, 5, 256
 
@@ -167,6 +185,26 @@ def bound(n_bytes: float, ops: float):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def knn_hmma(lib: str) -> None:
+    """Fail unless the kNN kernel's SASS holds HMMA (tensor-core)
+    instructions; print their count and the first."""
+    import os.path as osp
+    from icon_tpu_torch.kernels.build import find_nvcc
+    cuobjdump = osp.join(osp.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    fn, hmma = "", []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HMMA" in line and "knn_kernel" in fn:
+            hmma.append((fn, line.split(";")[0].split("*/")[-1].strip()))
+    if not hmma:
+        raise AssertionError("no HMMA instruction in the kNN kernel's SASS")
+    print(f"[2] knn.cu SASS: {len(hmma)} HMMA instructions in the knn_kernel "
+          f"instances; first: {hmma[0][1]} in {hmma[0][0]}", flush=True)
+
+
 def level0_points(res0: int, device) -> torch.Tensor:
     """The engine's level-0 lattice (``res0``^3) as world points [1, N, 3]."""
     g = torch.linspace(0.0, 1.0, res0, device=device)
@@ -176,56 +214,103 @@ def level0_points(res0: int, device) -> torch.Tensor:
         torch.tensor([-1.0, 1.0, -1.0], device=device)
 
 
-def phase_knn(dev, verts_np):
-    """Kernel vs plain at the main path's shapes; returns the summary."""
+def knn_bound(n: int, v: int, k: int):
+    """(least time in ms, "bytes" or "operations") of the kNN at [n, 3] x
+    [v, 3] -> [n, k] on one H100: the larger of its bytes over the memory
+    rate, its products over the TF32 peak and its compares over the float32
+    instruction rate."""
+    t_bytes = 4.0 * (3 * n + 3 * v + 2 * k * n) / HBM_RATE
+    t_ops = max(KNN_FLOPS_PER_PAIR * n * v / TF32_PEAK,
+                n * v / FP32_INSTR_RATE)
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def knn_picks_agree(idx, key, pts, verts, k):
+    """(max relative key error, whether every pick equals the plain
+    version's wherever the plain keys on both sides of it, the (k+1)-th
+    included, are more than KEY_GAP apart, share of such picks, plain idx,
+    plain key)."""
+    from icon_tpu_torch.kernels import knn
+    idx0, key0 = knn.nearest_vertices_plain(pts, verts, k)
+    rel = float(((key - key0).abs() / key0.abs().clamp(min=1.0)).max())
+    vn = knn.squared_norms(verts)[None]
+    after = torch.cat([(vn - 2.0 * (p @ verts.T)).topk(
+        k + 1, 1, largest=False).values[:, k:] for p in pts.split(16384)])
+    keys = torch.cat([torch.full_like(after, -float("inf")), key0, after], 1)
+    gaps = torch.diff(keys, dim=1)
+    clear = (gaps[:, :k] > KEY_GAP) & (gaps[:, 1:] > KEY_GAP)
+    same = bool((idx[clear] == idx0[clear]).all())
+    return rel, same, float(clear.float().mean()), idx0, key0
+
+
+def phase_knn(dev, verts_np, buckets):
+    """Kernel vs plain at the main path's shapes: the level-0 lattice, the
+    engine's level-1 and level-2 buckets (``buckets``) and the cap; returns
+    the summary entry."""
     from icon_tpu_torch.kernels import knn
     rng = np.random.RandomState(0)
     verts = torch.from_numpy(verts_np).to(dev)
-    worst = 0.0
-    timing = {}
-    cases = [(n, 2, kind) for n in KNN_SHAPES for kind in ("cube", "near")]
-    cases.append((4096, 8, "cube"))
-    for n, k, kind in cases:
-        if kind == "cube":
-            pts = rng.uniform(-1, 1, (n, 3))
-        else:           # within 2 cm of the surface, like boundary queries
-            d = rng.normal(size=(n, 3))
-            d *= (0.02 * rng.uniform(0, 1, (n, 1)) ** (1 / 3)
-                  / np.linalg.norm(d, axis=1, keepdims=True))
-            pts = verts_np[rng.randint(0, len(verts_np), n)] + d
-        pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    v = len(verts_np)
+
+    def near(n):         # within 2 cm of the surface, like boundary queries
+        d = rng.normal(size=(n, 3))
+        d *= (0.02 * rng.uniform(0, 1, (n, 1)) ** (1 / 3)
+              / np.linalg.norm(d, axis=1, keepdims=True))
+        return verts_np[rng.randint(0, v, n)] + d
+
+    lattice = level0_points(33, dev)[0].contiguous()
+    cases = [("level 0 lattice", lattice, 2)]
+    cases += [(f"level {lv} bucket near", near(n), 2)
+              for lv, n in sorted(buckets.items())]
+    cases += [("cap near", near(KNN_CAP), 2),
+              ("cap cube", rng.uniform(-1, 1, (KNN_CAP, 3)), 2),
+              ("k=8 cube", rng.uniform(-1, 1, (4096, 3)), 8)]
+    worst, timing = 0.0, {}
+    for name, pts, k in cases:
+        if not torch.is_tensor(pts):
+            pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        n = len(pts)
         idx, key = knn.nearest_vertices_kernel(pts, verts, k)
-        idx0, key0 = knn.nearest_vertices_plain(pts, verts, k)
         torch.cuda.synchronize()
+        rel, same, share, idx0, key0 = knn_picks_agree(idx, key, pts, verts,
+                                                       k)
+        ties = ""
+        if name == "level 0 lattice":      # the mirror body ties exactly
+            n_diff = int((idx != idx0).any(1).sum())
+            ties = f", rows whose idx differ {n_diff}"
+            same = same and n_diff == 0
         err = float((key - key0).abs().max())
-        rel = float(((key - key0).abs() / key0.abs().clamp(min=1.0)).max())
-        clear = (key0[:, 1] - key0[:, 0]) > 1e-5
-        top1 = bool((idx[clear, 0] == idx0[clear, 0]).all())
-        ms = cuda_ms(lambda: knn.nearest_vertices_kernel(pts, verts, k))
-        plain_ms = cuda_ms(lambda: knn.nearest_vertices_plain(pts, verts, k))
-        print(f"[3] knn N={n} V={len(verts_np)} k={k} {kind}: max|dkey| "
-              f"{err:.3g} (rel {rel:.3g}) top1 equal where gap>1e-5: {top1} "
-              f"({int(clear.sum())}/{n}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
-        if rel > KEY_RTOL or not top1:
-            raise AssertionError(f"knn kernel disagrees with plain at N={n}")
+        out_i, out_k = torch.empty_like(idx), torch.empty_like(key)
+        ms = kernel_ms(lambda: knn._launch(pts, verts, out_i, out_k))
+        call_ms = cuda_ms(lambda: knn.nearest_vertices_kernel(pts, verts, k))
+        plain_ms = cuda_ms(lambda: knn.nearest_vertices_plain(pts, verts, k),
+                           reps=3)
+        b_ms, b_by = knn_bound(n, v, k)
+        old_ms, _ = bound(4.0 * (3 * n + 3 * v + 2 * k * n),
+                          KNN_FLOPS_PER_PAIR * n * v)
+        print(f"[3] knn {name} N={n} V={v} k={k}: max|dkey| {err:.3g} (rel "
+              f"{rel:.3g}), every pick equal where gaps>{KEY_GAP:g}: {same} "
+              f"({share:.1%} of picks){ties}; kernel alone {ms:.4f} ms, "
+              f"whole call {call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it (float32-only "
+              f"bound {old_ms:.4f} ms, {old_ms / ms:.1%})",
+              flush=True)
+        if rel > KEY_RTOL or not same:
+            raise AssertionError(f"knn kernel disagrees with plain: {name}")
         worst = max(worst, err)
-        timing[(n, k, kind)] = (ms, plain_ms)
-        if (n, k, kind) == (KNN_SHAPES[-1], 2, "near"):
-            big = pts
-    n = KNN_SHAPES[-1]
-    ms, plain_ms = timing[(n, 2, "near")]
+        timing[name] = (ms, plain_ms, b_ms, b_by, pts)
+    ms, plain_ms, b_ms, b_by, big = timing["cap near"]
     lib_ms = cuda_ms(lambda: torch.cdist(big, verts).topk(
         2, largest=False), reps=5)
-    bound_ms, bound_by = bound(4.0 * (3 * n + 3 * len(verts_np) + 4 * n),
-                               KNN_OPS_PER_PAIR * n * len(verts_np))
-    print(f"[3] knn N={n} k=2: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}), torch.cdist + topk {lib_ms:.4f} ms", flush=True)
+    print(f"[3] knn cap N={KNN_CAP} k=2 near: kernel alone {ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), torch.cdist + topk {lib_ms:.4f} ms",
+          flush=True)
     return {"name": "knn_f32", "route": "cuda",
             "source": "icon_tpu_torch/csrc/knn.cu",
             "replaces": "icon_tpu/ops/pallas/knn.py:60",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
 def phase_small_frame(dev):
@@ -308,7 +393,7 @@ def phase_full_frame(dev, card, iters: int = 5):
                            ("n_tris", len(faces), JAX_N_TRIS)):
         if abs(got - ref) > COUNT_RTOL * ref:
             raise AssertionError(f"{name} {got} vs JAX {ref}")
-    return launched
+    return launched, dict(fr.engine._bucket_used)
 
 
 def phase_raster(dev, verts_np, faces_np):
@@ -958,11 +1043,13 @@ def main() -> int:
     t0 = time.perf_counter()
     so = build.build()
     print(f"[2] built {so} in {time.perf_counter() - t0:.2f} s", flush=True)
+    knn_hmma(so["knn.cu"])
 
     verts_np, faces_np = synthetic_body(subdiv=5)
-    summary = [phase_knn(dev, verts_np)]
     phase_small_frame(dev)
-    runs = [phase_full_frame(dev, card)]
+    launched, buckets = phase_full_frame(dev, card)
+    runs = [launched]
+    summary = [phase_knn(dev, verts_np, buckets)]
     phase_raster(dev, verts_np, faces_np)
     phase_small_normalnet_frame(dev)
     runs.append(phase_full_normalnet_frame(dev, card))

@@ -1,10 +1,14 @@
 """k nearest body vertices per point: the CUDA kernel and its plain twin.
 
 :func:`nearest_vertices_kernel` is the wrapper the main path calls. A CUDA
-tensor launches ``csrc/knn.cu`` (exact top-k, ties to the lowest index) or
-raises; a CPU tensor takes :func:`nearest_vertices_plain`, the same function
-in plain PyTorch. ``launches`` counts kernel launches, so a run can show
-that the main path went through the kernel.
+tensor launches ``csrc/knn.cu`` (the key product on the tensor cores, its
+operands split into TF32 parts, as a filter; exact float32 rescoring;
+top-k by (key, index), so ties go to the lowest index) or raises; a CPU
+tensor takes :func:`nearest_vertices_plain`, the same function in plain
+PyTorch.
+:func:`key_margin` restates the kernel's filter margin. ``launches`` counts
+kernel launches, so a run can show that the main path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +57,33 @@ def _check(points: torch.Tensor, verts: torch.Tensor, k: int) -> None:
         raise ValueError(f"points on {points.device}, verts on {verts.device}")
 
 
+# The filter's margin: |k_tc - key| <= C * T + A_ABS (csrc/knn.cu's note,
+# kMarginC and kMarginAbs there; keep the two in step)
+MARGIN_C = 2.0 ** -15
+MARGIN_ABS = 2.0 ** -96
+
+
+def key_margin(points: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
+    """``[N, V]`` bound on how far the kernel's tensor-core filter key of
+    (point, vertex) may lie from the float32 key: ``C * (2 (|px x| + |py
+    y| + |pz z|) + w) + A_ABS`` with ``w = |v|^2``. The filter splits A =
+    [p, 1] and B = [-2v, w] into TF32 parts (``a = ah + al``, by
+    truncation or to nearest) and sums ``ah.bl + al.bh + ah.bh`` on the
+    tensor cores (derived in csrc/knn.cu's note). A pair whose filter key
+    exceeds a row's k-th exact key by more than this cannot be among the
+    row's k. Computed in float64."""
+    w = squared_norms(verts).double()
+    t = 2.0 * (points.double().abs() @ verts.double().abs().T) + w[None]
+    return MARGIN_C * t + MARGIN_ABS
+
+
+def squared_norms(verts: torch.Tensor) -> torch.Tensor:
+    """``|v|^2`` in float32 as the kernel rounds it: ``(x*x + y*y) +
+    z*z``, each step rounded."""
+    x, y, z = verts.unbind(-1)
+    return (x * x + y * y) + z * z
+
+
 def nearest_vertices_plain(points: torch.Tensor, verts: torch.Tensor,
                            k: int = 2, point_chunk: int = 16384
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,7 +96,7 @@ def nearest_vertices_plain(points: torch.Tensor, verts: torch.Tensor,
     index), which are unique. Mirror-symmetric bodies tie exactly at points
     on their symmetry planes."""
     _check(points, verts, k)
-    vn = torch.sum(verts * verts, dim=-1)
+    vn = squared_norms(verts)
     vid = torch.arange(verts.shape[0], device=verts.device)
     idx, key = [], []
     for p in torch.split(points, point_chunk):
@@ -103,16 +134,27 @@ def nearest_vertices_kernel(points: torch.Tensor, verts: torch.Tensor,
     n, v = points.shape[0], verts.shape[0]
     if n >= 2 ** 31 // MAX_K or v >= 2 ** 31:
         raise ValueError(f"{n} points x {v} vertices exceed int32 indexing")
-    lib = _load()
     idx = torch.empty((n, k), dtype=torch.int32, device=points.device)
     key = torch.empty((n, k), dtype=torch.float32, device=points.device)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.icon_knn_f32(points.data_ptr(), verts.data_ptr(), n, v, k,
-                               idx.data_ptr(), key.data_ptr(), stream)
-    if err != 0:
-        msg = lib.icon_cuda_error_string(err).decode()
-        raise RuntimeError(f"icon_knn_f32 launch failed: {msg} ({err})")
+    _launch(points, verts, idx, key)
     if n:
         launches += 1
     return idx, key
+
+
+def _launch(points: torch.Tensor, verts: torch.Tensor, idx: torch.Tensor,
+            key: torch.Tensor) -> None:
+    """One kernel launch on caller-owned ``idx`` [N, k] int32 and ``key``
+    [N, k] f32 (checked by the caller), on the current stream; counts
+    nothing. :func:`nearest_vertices_kernel` and the kernel's timing use
+    it."""
+    lib = _load()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.icon_knn_f32(points.data_ptr(), verts.data_ptr(),
+                               points.shape[0], verts.shape[0],
+                               idx.shape[1], idx.data_ptr(), key.data_ptr(),
+                               stream)
+    if err != 0:
+        msg = lib.icon_cuda_error_string(err).decode()
+        raise RuntimeError(f"icon_knn_f32 launch failed: {msg} ({err})")

@@ -12,7 +12,10 @@ from typing import Dict
 import torch
 
 
-def init_local_affine(n_verts: int, device=None) -> Dict[str, torch.Tensor]:
+def init_local_affine(n_verts: int, device="cuda"
+                      ) -> Dict[str, torch.Tensor]:
+    """Identity transforms for ``n_verts`` vertices on ``device`` (the card
+    unless the caller passes its own)."""
     return {"A": torch.eye(3, device=device)[None].repeat(n_verts, 1, 1),
             "t": torch.zeros((n_verts, 3), device=device)}
 

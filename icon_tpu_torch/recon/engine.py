@@ -91,12 +91,13 @@ class ReconEngine:
     def __init__(self, resolutions: Sequence[int],
                  budgets: Optional[Sequence[int]] = None,
                  auto_budget: bool = False,
-                 auto_headroom: float = 1.5, device="cpu"):
+                 auto_headroom: float = 1.5, device="cuda"):
         """``auto_budget``: each frame sizes its per-level point buffers
         from the previous frame's boundary count x ``auto_headroom``,
         snapped to a geometric bucket ladder; the first frame and any frame
         after an overflow use the caps (``budgets``). Grids and query
-        points live on ``device``."""
+        points live on ``device``: the card unless the caller asks for
+        the CPU."""
         self.device = torch.device(device)
         self.resolutions = tuple(resolutions)
         for r in self.resolutions:

@@ -50,7 +50,7 @@ def test_compact_identical(density, budget):
 def test_engine_parity_on_analytic_field():
     res = (17, 33, 65)
     jocc, jstats = J.ReconEngine(res, faster=True)(jfield)
-    occ, stats = P.ReconEngine(res)(pfield)
+    occ, stats = P.ReconEngine(res, device="cpu")(pfield)
     assert occ.shape == (65, 65, 65)
     for lv in (1,):
         assert int(stats[f"level{lv}_points"]) == \
@@ -69,7 +69,7 @@ def test_engine_budget_overflow_parity():
     the same overflow and write the same grid."""
     res = (17, 33, 65)
     jocc, jstats = J.ReconEngine(res, budgets=(500, 500))(jfield)
-    occ, stats = P.ReconEngine(res, budgets=(500, 500))(pfield)
+    occ, stats = P.ReconEngine(res, budgets=(500, 500), device="cpu")(pfield)
     assert int(stats["level1_overflow"]) == int(jstats["level1_overflow"]) > 0
     np.testing.assert_allclose(occ.numpy(), np.asarray(jocc), rtol=0,
                                atol=1e-5)
@@ -81,7 +81,7 @@ def test_auto_budget_shrinks_and_recovers():
     the cap. The port picks the same buckets as the JAX engine."""
     res = (33, 65, 129)
     jeng = J.ReconEngine(res, auto_budget=True)
-    eng = P.ReconEngine(res, auto_budget=True)
+    eng = P.ReconEngine(res, auto_budget=True, device="cpu")
     jocc1, js1 = jeng(jfield)
     occ1, s1 = eng(pfield)
     b_default = eng.budgets[0]
@@ -97,13 +97,13 @@ def test_auto_budget_shrinks_and_recovers():
     eng._last_counts[1] = torch.tensor(10 ** 9)
     assert eng._bucket(1) == b_default
     with pytest.raises(ValueError, match="odd"):
-        P.ReconEngine((16, 33))
+        P.ReconEngine((16, 33), device="cpu")
 
 
 def test_query_args_reach_the_query():
     """Per-frame tensors pass through ``query_args`` (the frame hands the
     body's crossing columns and image features this way)."""
-    eng = P.ReconEngine((9, 17, 33), budgets=(2048, 4096))
+    eng = P.ReconEngine((9, 17, 33), budgets=(2048, 4096), device="cpu")
 
     def query_fn(pts, radius):
         d = torch.linalg.norm(pts, dim=-1, keepdim=True)

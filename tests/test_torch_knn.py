@@ -67,3 +67,103 @@ def test_rejects_bad_input_and_cpu_takes_plain():
     idx, _ = knn.nearest_vertices_kernel(t(pts), t(vts), 3)
     assert knn.launches == before            # CPU tensors launch nothing
     assert sorted(idx[0].tolist()) == [0, 1, 2]
+
+
+# -- the kernel's filter margin (csrc/knn.cu's note) --------------------------
+# The card's kernel filters by a tensor-core key whose operands are split
+# into TF32 parts and rescores in float32 every pair whose filter key lies
+# within key_margin of the row's threshold. Here the split is emulated in
+# numpy (truncation, and cvt.rna's round to nearest with ties away from
+# zero), the three products ah.bl + al.bh + ah.bh are summed exactly in
+# float64, and the float32 key follows the kernel's chain; the tensor
+# core's own accumulation error is what the margin's slack beyond the
+# split's residual covers.
+
+def _tf32(x, mode):
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if mode == "rna":
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x, mode):
+    hi = _tf32(x, mode)
+    return hi.astype(np.float64), _tf32(x - hi, mode).astype(np.float64)
+
+
+def _keys(pts, vts, mode):
+    """(filter key, float32 key) [N, V] as the kernel forms them."""
+    p = pts.astype(np.float32)
+    w = knn.squared_norms(t(vts)).numpy()
+    b = np.concatenate([-2.0 * vts.astype(np.float32), w[:, None]], 1)
+    a = np.concatenate([p, np.ones((len(p), 1), np.float32)], 1)
+    (ah, al), (bh, bl) = _split(a, mode), _split(b, mode)
+    k_tc = ah @ bl.T + al @ bh.T + ah @ bh.T
+    # float32 products and fmas: the float64 product of two float32 values
+    # is exact, so one float64 step rounded to float32 is the fma
+    p64, b64 = p.astype(np.float64), b.astype(np.float64)
+    s = (p64[:, None, 0] * b64[None, :, 0]).astype(np.float32)
+    s = (p64[:, None, 1] * b64[None, :, 1] + s).astype(np.float32)
+    s = (p64[:, None, 2] * b64[None, :, 2] + s).astype(np.float32)
+    key = (b64[None, :, 3] + s).astype(np.float32)
+    return k_tc, key
+
+
+def _check_margin(pts, vts, mode, k=2, chunk=512):
+    """Every pair's TF32 key within key_margin of its float32 key; the
+    plain version's top-k pass the filter against the row's k-th key; the
+    kernel's per-row bound covers key_margin. Returns the largest share of
+    the margin used."""
+    vt = t(vts)
+    idx, _ = knn.nearest_vertices_plain(t(pts), vt, k)
+    idx = idx.numpy()
+    sq = vts.astype(np.float64) ** 2
+    W = sq.sum(1).max() * (1 + 2 ** -20)       # the kernel's rounded-up max
+    used = 0.0
+    for i0 in range(0, len(pts), chunk):
+        p = pts[i0:i0 + chunk]
+        k_tc, key = _keys(p, vts, mode)
+        m = knn.key_margin(t(p), vt).numpy()
+        err = np.abs(k_tc - key.astype(np.float64))
+        assert (err <= m).all(), float((err / m).max())
+        used = max(used, float((err / m).max()))
+        rows = np.arange(len(p))[:, None]
+        picks = idx[i0:i0 + chunk]
+        thr = key[rows, picks].max(1, keepdims=True).astype(np.float64)
+        assert (k_tc[rows, picks] <= thr + m[rows, picks]).all()
+        norm = np.sqrt((p.astype(np.float64) ** 2).sum(1))
+        row = knn.MARGIN_C * (2 * norm * np.sqrt(W) + W) + knn.MARGIN_ABS
+        assert (m <= row[:, None]).all()
+    return used
+
+
+@pytest.mark.parametrize("mode", ["trunc", "rna"])
+def test_margin_on_the_level0_lattice_and_the_body(mode):
+    """The 33^3 level-0 lattice against the subdiv-5 synthetic body (10,242
+    vertices), as the frame's first kNN call sees them."""
+    from icon_tpu_torch.utils.synthetic import synthetic_body
+    vts, _ = synthetic_body(subdiv=5)
+    g = np.linspace(0.0, 1.0, 33, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    pts = (np.stack([xx, yy, zz], -1).reshape(-1, 3) *
+           np.float32([2, -2, 2]) + np.float32([-1, 1, -1])).astype(
+               np.float32)
+    _check_margin(pts, vts.astype(np.float32), mode)
+
+
+@pytest.mark.parametrize("mode", ["trunc", "rna"])
+def test_margin_on_drawn_points(mode):
+    from hypothesis import given, settings, strategies as st
+    from hypothesis.extra.numpy import arrays
+
+    coords = st.floats(-3, 3, width=32, allow_subnormal=True)
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(arrays(np.float32, st.tuples(st.integers(1, 40), st.just(3)),
+                  elements=coords),
+           arrays(np.float32, st.tuples(st.integers(8, 200), st.just(3)),
+                  elements=st.floats(-1, 1, width=32)))
+    def check(pts, vts):
+        _check_margin(pts, vts, mode, k=min(8, len(vts)))
+
+    check()

@@ -86,7 +86,7 @@ def test_local_affine_parity():
             ("rigid", jla.rigid_loss(jp), pla.rigid_loss(pp))):
         np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=0,
                                    atol=ATOL, err_msg=name)
-    init = pla.init_local_affine(n)
+    init = pla.init_local_affine(n, device="cpu")
     jinit = jla.init_local_affine(n)
     for k in ("A", "t"):
         np.testing.assert_array_equal(init[k].numpy(), np.asarray(jinit[k]))
