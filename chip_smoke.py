@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[9], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[10], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -65,9 +65,27 @@ JSON line ``{"ok": true, "device": {...}}``):
    input and output at K=256, the remeshed mesh and the colour stage's
    refined mesh at 1024^2 with K=512) with their bin lists and overflow;
    then a known-answer fit (refine_smpl toward the body's own render at
-   seeded betas must lower its loss).
+   seeded betas must lower its loss);
+10. the demo CLI (``icon_tpu_torch.apps.infer.main``) from two photos it
+   writes from seeds (the 24-joint synthetic SMPL's silhouette as the alpha
+   of colour noise, and the same figure as RGB on a textured background,
+   which takes the saliency path), with a full-width YAML config (bench.py's
+   icon-filter widths, the published NormalNet), seeded reference-layout
+   ``.ckpt`` files (the MLP's last layer reading the body's signed
+   distance, so the recon is body-shaped) and a seeded PyMAF ``.pt``
+   (published geometry, its regressor heads scaled down so that the
+   estimate stays near the mean body): ``-loop_smpl 100 -loop_cloth 200
+   -no_remesh -img_size 512 -mcube_res 256``; PyMAF's items on the card
+   against the CPU (1e-3 of each array's largest magnitude), the artifact
+   set, finite losses, and the per-image stage split; then the kernels
+   against their plain versions on the run's own inputs: every kNN call
+   (the recon engine's level points against the padded fitted body) as in
+   phase 3, and per photo the raster kernels as in phase 7 on the fitted
+   body (K=96), the cloth loop's input and output (K=256, azimuth 0 and
+   180), and the recon's and the colour stage's visibility rasters (1024^2,
+   K=512).
 
-Each main path (phases 4, 6 and 9) runs with the kernels' launch counts set
+Each main path (phases 4, 6, 9 and 10) runs with the kernels' launch counts set
 to 0 just before it and read just after; a kernel of the path that did not
 launch fails the run. Any failed check raises, so the script exits non-zero
 and prints no result.
@@ -133,6 +151,11 @@ TF32_PEAK = 495e12
 FP32_INSTR_RATE = 33.5e12
 # the full-width fit frame: image size, body subdivision, marching res
 FIT_SIZE, FIT_SUBDIV, FIT_RES = 512, 5, 256
+# the demo CLI's artifacts per photo (the JAX CLI's set, tests/
+# test_infer_e2e.py:57-67, and the later stages' meshes)
+CLI_ARTIFACTS = ("_smpl.obj", "_smpl.npy", "_smpl.gif", "_overlap.png",
+                 "_recon.obj", "_refine.obj", "_recon_color.obj")
+HPS_RTOL = 1e-3
 
 
 def card_line() -> str:
@@ -990,6 +1013,161 @@ def phase_full_fit_frame(dev, card):
     return launched, worst
 
 
+def phase_cli(dev, card):
+    """The demo CLI on the card from two photos at full width; then the
+    kernels of its path against their plain versions on what the run gave
+    them. The kNN: every call of the run, recorded (a pass-through spy on
+    ``sdf_fast``'s kNN wrapper that clones the inputs and counts nothing:
+    the recon engine's level points against the padded fitted body). The
+    raster kernels, per photo, on the run's meshes, with their bin lists
+    and overflow: the fitted body at K=96 (the fit), the recon at azimuth 0
+    and the refined mesh at 180 with K=256 (the cloth loop's input and
+    output), and at 1024^2 with K=512 the recon's visibility raster of the
+    fitted body and the colour stage's of the refined mesh. Returns (the
+    launches of the CLI's run, {kernel: worst error})."""
+    import os
+    import tempfile
+    from icon_tpu_torch.apps.infer import main
+    from icon_tpu_torch.data.render_dataset import make_calib
+    from icon_tpu_torch.data.test_dataset import TestDataset
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.ops import sdf_fast
+    from icon_tpu_torch.ops.projection import project
+    from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.render.camera import verts_to_ndc
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = write_demo_inputs(d, bench_config(), hps_ckpt=True)
+        inputs_s = time.perf_counter() - t0
+        # PyMAF on the card against the CPU on the same photos
+        items = {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            ds = TestDataset(paths["in_dir"], hps_ckpt=paths["hps_ckpt"],
+                             icon_size=FIT_SIZE, device=device)
+            items[name] = [ds[i] for i in range(len(ds))]
+        hps_err = 0.0
+        for c, g in zip(items["cpu"], items["gpu"]):
+            for k in ("betas", "body_pose", "global_orient", "smpl_verts",
+                      "trans"):
+                ref = np.abs(c[k]).max()
+                hps_err = max(hps_err, float(np.abs(g[k] - c[k]).max()) /
+                              max(float(ref), 1e-6))
+            hps_err = max(hps_err, abs(g["scale"] - c["scale"]) /
+                          abs(c["scale"]))
+        scales = [round(it["scale"], 4) for it in items["gpu"]]
+        print(f"[10] PyMAF on the card vs the CPU (2 photos): max error "
+              f"{hps_err:.3g} of each array's largest magnitude; scales "
+              f"{scales}; inputs written in {inputs_s:.2f} s", flush=True)
+        if not hps_err <= HPS_RTOL:
+            raise AssertionError("PyMAF on the card disagrees with the CPU")
+
+        argv = ["-cfg", paths["cfg"], "-in_dir", paths["in_dir"],
+                "-out_dir", paths["out_dir"], "-ckpt", paths["ckpt"],
+                "-normal_ckpt", paths["normal_ckpt"], "-hps_ckpt",
+                paths["hps_ckpt"], "-loop_smpl", "100", "-loop_cloth", "200",
+                "-no_remesh", "-allow_random_hps", "-img_size",
+                str(FIT_SIZE), "-mcube_res", str(FIT_RES)]
+        knn_calls = []
+        kernel = sdf_fast.nearest_vertices_kernel
+
+        def spy(points, verts, k):
+            knn_calls.append((points.detach().clone(),
+                              verts.detach().clone(), k))
+            return kernel(points, verts, k)
+
+        torch.cuda.synchronize()
+        sdf_fast.nearest_vertices_kernel = spy
+        reset_launches()              # count only the main path's launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            records = main(argv, device=dev, keep_meshes=True)
+        finally:
+            sdf_fast.nearest_vertices_kernel = kernel
+        total_s = time.perf_counter() - t0
+        launched = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        written = sorted(os.listdir(paths["out_dir"]))
+
+    for r in records:
+        st = r["stages"]
+        n_fit, n_cloth = len(r["fit_losses"]), len(r["cloth_losses"])
+        print(f"[10] {r['name']}: preprocess {st['preprocess']:.4f} s "
+              f"(host), hps {st['hps']:.4f} s, fit {st['fit']:.3f} s "
+              f"({st['fit'] / max(n_fit, 1):.4f} s/iteration, "
+              f"{r['fit_losses'][0]:.5f} -> {r['fit_losses'][-1]:.5f}), "
+              f"recon {st['recon']:.3f} s ({r['recon'][0]} verts / "
+              f"{r['recon'][1]} tris, levels {r['stats']}), cloth "
+              f"{st.get('cloth', 0.0):.3f} s "
+              f"({st.get('cloth', 0.0) / max(n_cloth, 1):.4f} s/iteration), "
+              f"colour {st['color']:.3f} s, writes {st['writes']:.3f} s"
+              + (f", setup {st['setup']:.3f} s" if "setup" in st else ""),
+              flush=True)
+    print(f"[10] demo CLI: {len(records)} photos in {total_s:.2f} s, "
+          f"launches {launched}, peak {peak_gb:.2f} GiB on {card}, TF32 off",
+          flush=True)
+    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "the demo CLI")
+    want = sorted(f"{r['name']}{s}" for r in records for s in CLI_ARTIFACTS)
+    if len(records) != 2 or written != want:
+        raise AssertionError(f"CLI artifacts {written}, want {want}")
+    for r in records:
+        if len(r["fit_losses"]) != 100 or len(r["cloth_losses"]) != 200 or \
+                not np.isfinite(r["fit_losses"] + r["cloth_losses"]).all():
+            raise AssertionError(f"{r['name']}: loops short or non-finite")
+        if r["recon"][1] < 10000 or r["final"] != r["recon"]:
+            raise AssertionError(f"{r['name']}: recon {r['recon']}")
+        if any(v for k, v in r["stats"].items() if k.endswith("overflow")):
+            raise AssertionError(f"{r['name']}: engine overflow {r['stats']}")
+
+    # the kernels against their plain versions on the run's own inputs
+    worst = dict.fromkeys(("knn_f32", *RASTER_REPLACES), 0.0)
+    if len(knn_calls) != launched["knn_f32"]:
+        raise AssertionError(f"{len(knn_calls)} kNN calls recorded, "
+                             f"{launched['knn_f32']} launched")
+    for i, (pts, verts, k) in enumerate(knn_calls):
+        idx, key = knn.nearest_vertices_kernel(pts, verts, k)
+        torch.cuda.synchronize()
+        rel, same, share, _, key0 = knn_picks_agree(idx, key, pts, verts, k)
+        err = float((key - key0).abs().max())
+        print(f"[10] knn call {i} N={len(pts)} V={len(verts)} k={k}: max|dkey|"
+              f" {err:.3g} (rel {rel:.3g}), every pick equal where gaps>"
+              f"{KEY_GAP:g}: {same} ({share:.1%} of picks)", flush=True)
+        if rel > KEY_RTOL or not same:
+            raise AssertionError(f"knn kernel disagrees with plain on the "
+                                 f"CLI's call {i}")
+        worst["knn_f32"] = max(worst["knn_f32"], err)
+    calib8 = make_calib(0.0)            # the CLI's calib (apps/infer.py)
+    calib = torch.as_tensor(calib8[4:8] @ calib8[:4], device=dev)
+    rng = np.random.RandomState(12)
+    overflow = {}
+    for r in records:
+        (bv, bf), (cv, cf), (fv, ff) = (
+            (torch.as_tensor(v, dtype=torch.float32, device=dev),
+             torch.as_tensor(np.asarray(f), dtype=torch.int64, device=dev))
+            for v, f in (r["meshes"][m] for m in ("body", "recon", "final")))
+        for name, (ndc, f, attrs), res, K in (
+                ("fit K=96", normal_inputs(bv, bf, 0.0), FIT_SIZE, 96),
+                ("cloth K=256 az 0", normal_inputs(cv, cf, 0.0), FIT_SIZE,
+                 256),
+                ("cloth K=256 az 180", normal_inputs(fv, ff, 180.0),
+                 FIT_SIZE, 256),
+                ("recon vis K=512", (project(bv[None], calib[None])[0], bf,
+                                     bv.new_zeros((len(bv), 1))), 1024, 512),
+                ("colour vis K=512", (verts_to_ndc(fv), ff,
+                                      fv.new_zeros((len(fv), 1))), 1024,
+                 512)):
+            name = f"{r['name']} {name}"
+            errs, overflow[name], _ = compare_raster(
+                "[10]", f"{name} {res}^2", ndc, f, attrs, res, K, rng,
+                backward=K != 512)
+            for k, e in errs.items():
+                worst[k] = max(worst[k], e)
+    print(f"[10] bin_overflow {overflow}", flush=True)
+    return launched, worst
+
+
 def normal_inputs(verts, faces, azimuth):
     """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
     in the view frame)."""
@@ -1057,10 +1235,13 @@ def main() -> int:
     phase_small_fit_frame(dev)
     launched, fit_errs = phase_full_fit_frame(dev, card)
     runs.append(launched)
+    launched, cli_errs = phase_cli(dev, card)
+    runs.append(launched)
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   fit_errs.get(entry["name"], 0.0))
+                                   fit_errs.get(entry["name"], 0.0),
+                                   cli_errs.get(entry["name"], 0.0))
 
     print(json.dumps({"kernels": summary}))
     print(card_line())

@@ -2,18 +2,21 @@
 
 The JAX package ``icon_tpu`` stays the reference; every module here mirrors
 the module path and function names of its JAX counterpart. The port imports
-``torch`` and never ``jax``; from ``icon_tpu`` it uses only jax-free code
-(``icon_tpu.config``, ``icon_tpu.native``, the numpy helpers of
-``icon_tpu.utils.synthetic``).
+``torch`` and never ``jax``, and nothing of ``icon_tpu``: where it needs
+framework-free code of that package (the config tree and its YAML loader,
+the mesh IO, the synthetic body, the lattice decoder, the detector, the
+crop) it keeps its own copy, pinned to the original by the tests.
 
-Layout: ``ops`` (stateless tensor ops, the differentiable rasterizer, mesh
-losses, the host remesher), ``models`` (HGPIFuNet filter and query, the
-NormalNet, the SMPL-family body model, the local affine deformation),
-``render`` (camera and renders), ``infer`` (the demo's fit and cloth
-loops), ``kernels`` + ``csrc`` (hand-written CUDA kernels with plain
-PyTorch twins), ``recon`` (coarse-to-fine engine, lattice marching, the
-frames), ``utils`` (synthetic inputs, JAX -> torch weight and body model
-conversion).
+Layout: ``apps`` (the demo CLI, ``python -m icon_tpu_torch.apps.infer``),
+``data`` (the photo dataset: crop, PyMAF estimate; the demo's calib),
+``ops`` (stateless tensor ops, the differentiable rasterizer, mesh losses,
+the host remesher), ``models`` (HGPIFuNet filter and query, the NormalNet,
+PyMAF, the saliency detector, the SMPL-family body model and its asset
+registry, the local affine deformation), ``render`` (camera and renders),
+``infer`` (the demo's fit and cloth loops), ``kernels`` + ``csrc``
+(hand-written CUDA kernels with plain PyTorch twins), ``recon``
+(coarse-to-fine engine, lattice marching, the frames), ``utils`` (mesh IO,
+synthetic inputs, JAX -> torch weight and body model conversion).
 
 Images are NHWC at the public boundary (``HGPIFuNet.filter``), NCHW inside;
 point sets are ``[B, N, 3]``.

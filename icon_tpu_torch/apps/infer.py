@@ -1,0 +1,336 @@
+"""Single-image reconstruction demo CLI (``icon_tpu.apps.infer``; reference
+apps/infer.py).
+
+Per photo of ``-in_dir``:
+
+1. ``TestDataset`` preprocessing (the crop around the person matte) and
+   PyMAF's SMPL estimate; a ``<name>_smpl.npz`` fit beside the photo
+   overrides the estimate;
+2. the SMPL fit against the NormalNet's cloth normals and the matte
+   (``-loop_smpl`` iterations), or with ``-loop_smpl 0`` the estimated
+   body's normal renders at 0 and 180 degrees through the NormalNet;
+3. ``<name>_smpl.obj``, ``_smpl.npy``, ``_smpl.gif`` and ``_overlap.png``;
+4. the occupancy reconstruction at ``-mcube_res`` (engine with fixed
+   budgets, the export marcher, y flipped to world, ``clean_mesh``), with
+   the SMPL-X cmap asset when installed; ``<name>_recon.obj``;
+5. the isotropic remesh unless ``-no_remesh``;
+6. the cloth refinement (``-loop_cloth`` iterations); ``<name>_refine.obj``;
+7. the vertex colours from the photo; ``<name>_recon_color.obj``.
+
+Usage (on the card):
+
+    python -m icon_tpu_torch.apps.infer -cfg icon-filter.yaml \\
+        -in_dir photos -out_dir results [-loop_smpl 100] [-loop_cloth 200]
+
+The published ``-ckpt`` (``icon-filter.ckpt``) and ``-normal_ckpt``
+(``normal.ckpt``) load by the reference's rules
+(lib/dataset/mesh_util.py:187-237, apps/train.py:201-218). What the port
+does not have yet raises, naming its ROADMAP item: checkpoint directories
+and ``-num_devices`` > 1 (A10), ``-export_video`` and ``-seg_dir`` (A7
+(rest)), the pifu and pamir priors (A9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import time
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+_GEOMETRY_SKIP = ("normal_filter", "voxelization", "reconEngine")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The JAX CLI's flags (``icon_tpu/apps/infer.py:34-58``)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-cfg", "--config_file", required=True)
+    ap.add_argument("-in_dir", required=True)
+    ap.add_argument("-out_dir", required=True)
+    ap.add_argument("-seg_dir", default=None)
+    ap.add_argument("-ckpt", default="", help="geometry checkpoint")
+    ap.add_argument("-normal_ckpt", default="", help="normal-net checkpoint")
+    ap.add_argument("-hps_type", default="pymaf")
+    ap.add_argument("-hps_ckpt", default="")
+    ap.add_argument("-loop_smpl", type=int, default=100)
+    ap.add_argument("-loop_cloth", type=int, default=200)
+    ap.add_argument("-patience", type=int, default=5)
+    ap.add_argument("-mcube_res", type=int, default=256)
+    ap.add_argument("-img_size", type=int, default=512,
+                    help="working resolution for crops/renders/refinement")
+    ap.add_argument("-export_video", action="store_true")
+    ap.add_argument("-num_devices", type=int, default=1,
+                    help="point-shard the occupancy queries over n devices "
+                    "(not ported: 1 only)")
+    ap.add_argument("-no_remesh", action="store_true")
+    ap.add_argument("-allow_random_hps", action="store_true",
+                    help="proceed with a random-init HPS (smoke tests only; "
+                    "the fits are meaningless)")
+    return ap.parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace, prior_type: str) -> None:
+    """Raise for each option the port does not have yet, naming its ROADMAP
+    item; none is ignored."""
+    for flag, path in (("-ckpt", args.ckpt),
+                       ("-normal_ckpt", args.normal_ckpt)):
+        if path and osp.isdir(path):
+            raise NotImplementedError(
+                f"{flag} {path} is a checkpoint directory (the JAX "
+                "package's orbax format); the port loads the published "
+                "torch files, its own checkpoints are ROADMAP Queue A item "
+                "A10")
+        if path and not osp.isfile(path):
+            raise FileNotFoundError(f"{flag} {path} does not exist")
+    if args.num_devices > 1:
+        raise NotImplementedError(
+            "-num_devices > 1 (point-sharded recon) is ROADMAP Queue A item "
+            "A10")
+    if args.export_video:
+        raise NotImplementedError(
+            "-export_video (the turntable video) is ROADMAP Queue A item A7 "
+            "(rest)")
+    if args.seg_dir is not None:
+        raise NotImplementedError(
+            "-seg_dir (garment extraction) is ROADMAP Queue A item A7 (rest)")
+    if prior_type != "icon":
+        raise NotImplementedError(
+            f"prior_type {prior_type!r}: the pifu and pamir priors are "
+            "ROADMAP Queue A item A9")
+
+
+def _torch_state(path: str) -> Mapping[str, torch.Tensor]:
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return ckpt.get("state_dict", ckpt)
+
+
+def checkpoint_state(base: Mapping[str, torch.Tensor], geometry: str = "",
+                     normal: str = "") -> Dict[str, torch.Tensor]:
+    """``base`` (an ``HGPIFuNet`` state dict) with the published checkpoints
+    loaded over it: the geometry file's ``netG.*`` entries but the
+    ``normal_filter``, ``voxelization`` and ``reconEngine`` ones, and the
+    normal file's ``netG.*`` entries renamed to ``netG.normal_filter.*``,
+    each with the ``netG.`` prefix stripped. Raises on an entry the port
+    has no tensor for, and on a tensor of a loaded scope that the file
+    lacks; prints the count loaded."""
+    loaded: Dict[str, torch.Tensor] = {}
+    scopes = []
+    if geometry:
+        for k, v in _torch_state(geometry).items():
+            if k.startswith("netG.") and \
+                    not any(s in k for s in _GEOMETRY_SKIP):
+                loaded[k[len("netG."):]] = v
+        scopes += ["F_filter.", "if_regressor."]
+    if normal:
+        for k, v in _torch_state(normal).items():
+            if k.startswith("netG."):
+                loaded["normal_filter." + k[len("netG."):]] = v
+        scopes.append("normal_filter.")
+    unknown = [k for k in loaded if k not in base]
+    if unknown:
+        raise KeyError(f"{len(unknown)} checkpoint tensors have no place in "
+                       f"the port's HGPIFuNet, e.g. {unknown[:5]}")
+    missing = [k for k in base if k.startswith(tuple(scopes))
+               and k not in loaded]
+    if missing:
+        raise KeyError(f"the checkpoints lack {len(missing)} tensors, e.g. "
+                       f"{missing[:5]}")
+    if loaded:
+        print(f"  loaded {len(loaded)} torch tensors "
+              f"({'geometry ' if geometry else ''}"
+              f"{'normal' if normal else ''})", flush=True)
+    return {**base, **loaded}
+
+
+def fit_override(path: str, num_joints: int):
+    """(init, scale) of a precomputed ``<name>_smpl.npz`` fit (axis-angle
+    ``body_pose``/``global_orient``, ``betas``, ``transl``, ``scale``)."""
+    from icon_tpu_torch.models.smplx.lbs import batch_rodrigues
+
+    fit = np.load(path)
+
+    def rotmats(aa):
+        return batch_rodrigues(torch.from_numpy(
+            np.asarray(aa, np.float32).reshape(-1, 3))).numpy()
+
+    init = {"betas": fit["betas"].reshape(1, -1).astype(np.float32),
+            "body_pose": rotmats(fit["body_pose"]).reshape(
+                1, -1, 3, 3)[:, :num_joints - 1],
+            "global_orient": rotmats(fit["global_orient"]).reshape(
+                1, 1, 3, 3),
+            "trans": fit["transl"].reshape(3).astype(np.float32)}
+    return init, float(fit["scale"]) if "scale" in fit else 1.0
+
+
+def export_overlap(path: str, image: np.ndarray, nml_f: np.ndarray,
+                   mask: np.ndarray) -> None:
+    """[input | input with the predicted cloth normal over the mask]
+    (reference blend_rgb_norm and ``_overlap.png``, apps/infer.py:326-348)."""
+    from PIL import Image
+
+    def to_u8(x):
+        return (np.clip(x * 0.5 + 0.5, 0.0, 1.0) * 255).astype(np.uint8)
+
+    img = to_u8(image)
+    norm = to_u8(nml_f)
+    m = (np.asarray(mask) > 0.5).astype(np.uint8)[..., None]
+    blend = img * (1 - m) + norm * m
+    Image.fromarray(np.concatenate([img, blend], axis=1)).save(path)
+
+
+def main(argv: Optional[Sequence[str]] = None, device="cuda",
+         keep_meshes: bool = False) -> List[Dict[str, object]]:
+    """Run the demo over ``argv`` (``sys.argv[1:]`` when None) on
+    ``device`` (the card unless the caller asks for the CPU). Returns one
+    record per photo: its stage times in seconds (each ended by a device
+    synchronize), the loop lengths and losses, the mesh sizes; with
+    ``keep_meshes`` also ``meshes``: the fitted body, the recon and the
+    final mesh as numpy (verts, faces), as the fit, cloth and colour stages
+    take them."""
+    from icon_tpu_torch.config import load_config
+    from icon_tpu_torch.data.render_dataset import make_calib
+    from icon_tpu_torch.data.test_dataset import TestDataset
+    from icon_tpu_torch.recon.engine import (ReconEngine,
+                                             reconstruction_resolutions)
+    from icon_tpu_torch.recon.export import make_marcher
+    from icon_tpu_torch.recon.frame import build_fit_frame, seeded_state
+    from icon_tpu_torch.utils.io import save_gif, save_obj
+
+    args = parse_args(argv)
+    cfg = load_config(args.config_file).replace(test_mode=False,
+                                                mcube_res=args.mcube_res)
+    refuse_unported(args, cfg.net.prior_type)
+    device = torch.device(device)
+    dataset = TestDataset(args.in_dir, hps_type=args.hps_type,
+                          hps_ckpt=args.hps_ckpt, icon_size=args.img_size,
+                          allow_random_hps=args.allow_random_hps,
+                          device=device)
+    if len(dataset) == 0:
+        raise SystemExit(f"no images in {args.in_dir}")
+    os.makedirs(args.out_dir, exist_ok=True)
+    state = checkpoint_state(seeded_state(cfg, 0, normal_net=True),
+                             args.ckpt, args.normal_ckpt)
+    calib8 = make_calib(0.0)
+    calib = torch.as_tensor(calib8[4:8] @ calib8[:4], device=device)
+    flip_y = np.array([1, -1, 1], np.float32)
+
+    def out_path(name, suffix):
+        return osp.join(args.out_dir, f"{name}{suffix}")
+
+    frame = None
+    records = []
+    for idx in range(len(dataset)):
+        stage: Dict[str, float] = {"writes": 0.0}
+        clock = [time.perf_counter()]
+
+        def lap(name):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            stage[name] = stage.get(name, 0.0) + now - clock[0]
+            clock[0] = now
+
+        name, processed = dataset.preprocess(idx)
+        print(f"[infer] {name}", flush=True)
+        lap("preprocess")
+        data = dataset.estimate(name, processed)
+        body = dataset.hps.body
+        lap("hps")
+        if frame is None:
+            frame = build_fit_frame(
+                cfg, state, body, args.mcube_res, device,
+                loop_smpl=args.loop_smpl, loop_cloth=args.loop_cloth,
+                patience=args.patience,
+                engine=ReconEngine(reconstruction_resolutions(
+                    args.mcube_res), device=device),
+                marcher=make_marcher())
+            lap("setup")
+
+        override = osp.join(args.in_dir, f"{name}_smpl.npz")
+        if osp.exists(override):
+            init, scale = fit_override(override, body.num_joints)
+        else:
+            init = {k: data[k].astype(np.float32) for k in
+                    ("betas", "body_pose", "global_orient", "trans")}
+            scale = data["scale"]
+        image = torch.as_tensor(data["image"], device=device)
+        smpl_fit = frame.fit(
+            {"image": data["image"], "mask": data["mask"], "init": init,
+             "scale": scale},
+            capture_every=max(args.loop_smpl // 20, 1)
+            if args.loop_smpl > 1 else 0)
+        lap("fit")
+        if smpl_fit.losses:
+            print(f"  smpl fit: {smpl_fit.losses[0]:.4f} -> "
+                  f"{smpl_fit.losses[-1]:.4f} ({stage['fit']:.1f}s)",
+                  flush=True)
+
+        faces_np = np.asarray(data["smpl_faces"])
+        body_verts = smpl_fit.verts.cpu().numpy()
+        save_obj(out_path(name, "_smpl.obj"), body_verts * flip_y, faces_np)
+        p = {k: v.cpu().numpy() for k, v in smpl_fit.params.items()}
+        np.save(out_path(name, "_smpl.npy"),
+                {"betas": p["betas"], "pose": p["body_pose"],
+                 "orient": p["global_orient"], "trans": p["trans"],
+                 "scale": scale}, allow_pickle=True)
+        if smpl_fit.frames:
+            save_gif(out_path(name, "_smpl.gif"), smpl_fit.frames, fps=2)
+        nml_f, _ = smpl_fit.normals
+        export_overlap(out_path(name, "_overlap.png"), data["image"],
+                       nml_f.cpu().numpy(), data["mask"])
+        lap("writes")
+
+        verts, faces, stats = frame.recon(image, smpl_fit, calib)
+        for k, v in stats.items():
+            if k.endswith("overflow") and int(v) > 0:
+                print(f"  WARNING: recon {k}={int(v)} — geometry may be "
+                      "lost; raise engine budgets", flush=True)
+        print(f"  recon: {len(verts)} verts, {len(faces)} faces", flush=True)
+        lap("recon")
+        n_recon = (len(verts), len(faces))
+        meshes = {"body": (body_verts, faces_np), "recon": (verts, faces)}
+        save_obj(out_path(name, "_recon.obj"), verts, faces)
+        lap("writes")
+
+        closses: List[float] = []
+        if len(verts):
+            if not args.no_remesh:
+                verts, faces = frame.remesh(verts, faces)
+                print(f"  remesh: {len(verts)} verts, {len(faces)} faces",
+                      flush=True)
+                lap("remesh")
+            verts_t = torch.as_tensor(verts, device=device)
+            faces_t = torch.as_tensor(faces, device=device)
+            if args.loop_cloth > 0:
+                verts_t, closses = frame.cloth(verts, faces, smpl_fit)
+                print(f"  cloth refine: {closses[0]:.4f} -> "
+                      f"{closses[-1]:.4f}", flush=True)
+                lap("cloth")
+                save_obj(out_path(name, "_refine.obj"),
+                         verts_t.cpu().numpy(), faces)
+                lap("writes")
+            colors = frame.color(verts_t, faces_t, image)
+            lap("color")
+            meshes["final"] = (verts_t.cpu().numpy(), faces)
+            save_obj(out_path(name, "_recon_color.obj"), *meshes["final"],
+                     colors.cpu().numpy())
+            lap("writes")
+        records.append({"name": name, "stages": stage,
+                        "fit_losses": list(smpl_fit.losses),
+                        "cloth_losses": list(closses),
+                        "recon": n_recon, "final": (len(verts), len(faces)),
+                        "stats": {k: int(v) for k, v in stats.items()
+                                  if k != "coarse_occ"}})
+        if keep_meshes:
+            records[-1]["meshes"] = meshes
+        print("  stages (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stage.items()), flush=True)
+    print("[infer] done", flush=True)
+    return records
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,29 @@
 """The configuration tree the port reads (a copy of ``icon_tpu.config``'s
-dataclasses: the same field names and defaults, which mirror the
-reference's yacs tree, ``lib/common/config.py:21-162``).
+dataclasses and YAML loader: the same field names and defaults, which
+mirror the reference's yacs tree, ``lib/common/config.py:21-162``, so the
+reference's YAML configs parse unchanged).
 
-The port builds its configs in code (:func:`icon_tpu_torch.recon.frame.
-bench_config`); the YAML loader of the JAX package is not copied.
+Merge order as in the reference: defaults -> YAML file -> ``key value``
+override list (``apps/infer.py:76-89``).
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Optional, Sequence, Tuple
+
+
+def _parse_channel_spec(value: Any) -> Tuple[Tuple[str, int], ...]:
+    """Channel specs like ``(('normal_F',3), ('normal_B',3))``, which the
+    reference's YAML stores as python-literal strings (``in_geo``,
+    ``in_nml``)."""
+    if value is None:
+        return ()
+    if isinstance(value, str):
+        value = ast.literal_eval(value)
+    return tuple((str(name), int(dim)) for name, dim in value)
 
 
 @dataclass
@@ -137,3 +150,90 @@ class Config:
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
+
+
+_TUPLE_FIELDS = {
+    "in_geo": _parse_channel_spec,
+    "in_nml": _parse_channel_spec,
+}
+
+
+def _coerce(dc_cls, name: str, value: Any) -> Any:
+    if name in _TUPLE_FIELDS:
+        return _TUPLE_FIELDS[name](value)
+    fields = {f.name: f for f in dataclasses.fields(dc_cls)}
+    if fields.get(name) is None:
+        return value
+    # lists in YAML -> tuples in the tree
+    if isinstance(value, list):
+        return tuple(value)
+    return value
+
+
+def _merge_into(dc, updates: dict):
+    """A copy of the dataclass ``dc`` with the dict ``updates`` merged in,
+    recursively; keys the tree does not have are ignored (the reference's
+    tree has many unused legacy options)."""
+    changes = {}
+    fields = {f.name: f for f in dataclasses.fields(dc)}
+    for key, value in updates.items():
+        if key not in fields:
+            continue
+        current = getattr(dc, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            changes[key] = _merge_into(current, value)
+        else:
+            changes[key] = _coerce(type(dc), key, value)
+    return dataclasses.replace(dc, **changes)
+
+
+def get_cfg_defaults() -> Config:
+    return Config()
+
+
+def load_config(yaml_path: Optional[str] = None,
+                overrides: Optional[Sequence[Any]] = None,
+                base: Optional[Config] = None) -> Config:
+    """defaults -> YAML -> override list (alternating key and value, as in
+    yacs)."""
+    cfg = base if base is not None else Config()
+    if yaml_path:
+        import yaml
+        with open(yaml_path) as f:
+            data = yaml.safe_load(f) or {}
+        cfg = _merge_into(cfg, data)
+    if overrides:
+        if len(overrides) % 2 != 0:
+            raise ValueError("override list must alternate key value")
+        for i in range(0, len(overrides), 2):
+            key, value = str(overrides[i]), overrides[i + 1]
+            if isinstance(value, str):
+                try:
+                    value = ast.literal_eval(value)
+                except (ValueError, SyntaxError):
+                    pass
+            parts = key.split(".")
+            node: dict = {}
+            leaf = node
+            for p in parts[:-1]:
+                leaf[p] = {}
+                leaf = leaf[p]
+            leaf[parts[-1]] = value
+            cfg = _merge_into(cfg, node)
+    return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as YAML that :func:`load_config` reads back to an equal
+    config (tuples as lists)."""
+    import yaml
+
+    def lists(x):
+        if isinstance(x, (tuple, list)):
+            return [lists(v) for v in x]
+        if isinstance(x, dict):
+            return {k: lists(v) for k, v in x.items()}
+        return x
+
+    with open(path, "w") as f:
+        yaml.safe_dump(lists(dataclasses.asdict(cfg)), f)

@@ -208,6 +208,43 @@ class SmplFit(NamedTuple):
     normals: Tuple[torch.Tensor, torch.Tensor]   # last (normal_F, normal_B)
     losses: List[float]
     params: Params
+    frames: Tuple[np.ndarray, ...] = ()   # uint8 panel rows of the fit gif
+
+
+def _u8(img: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> uint8 on the device, truncating like numpy's astype."""
+    return (torch.clamp(img * 0.5 + 0.5, 0.0, 1.0) * 255).to(torch.uint8)
+
+
+def _body_verts(body_model: BodyModel, p: Params, scale: float
+                ) -> torch.Tensor:
+    """The demo's body in render space: LBS of raw rotation matrices
+    (``pose2rot=False``), then ``(verts + trans) * scale``."""
+    nb = p["body_pose"].shape[1]
+    verts, _ = body_model(betas=p["betas"],
+                          global_orient=p["global_orient"].reshape(1, 9),
+                          body_pose=p["body_pose"].reshape(1, nb * 9),
+                          pose2rot=False)
+    return (verts[0] + p["trans"][None]) * scale
+
+
+@torch.no_grad()
+def hps_body_normals(body_model: BodyModel, faces: torch.Tensor,
+                     image: torch.Tensor, init: Dict, normal_fn: NormalFn,
+                     scale: float, size: int = 512) -> SmplFit:
+    """The demo's ``-loop_smpl 0`` branch (``apps/infer.py:179-194``): the
+    HPS body as it is, its normals rendered at azimuth 0 and 180 and the
+    NormalNet's cloth normals from them; no losses, the init as params."""
+    params = {k: torch.as_tensor(np.asarray(v, np.float32),
+                                 device=faces.device)
+              for k, v in init.items()}
+    verts = _body_verts(body_model, params, scale)
+    t_f, _ = render_normal(verts, faces, size=size)
+    t_b, _ = render_normal(verts, faces, size=size, azimuth=180.0)
+    image = torch.as_tensor(image, dtype=torch.float32, device=faces.device)
+    n_f, n_b = normal_fn({"image": image[None], "T_normal_F": t_f[None],
+                          "T_normal_B": t_b[None]})
+    return SmplFit(verts, (n_f[0], n_b[0]), [], params)
 
 
 def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
@@ -215,7 +252,7 @@ def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
                      scale: float, mask: torch.Tensor, iters: int = 100,
                      lr: float = 1e-3, size: int = 512, patience: int = 5,
                      w_normal: float = 1.0, w_sil: float = 1.0,
-                     raster_k: int = 96) -> SmplFit:
+                     raster_k: int = 96, capture_every: int = 0) -> SmplFit:
     """The demo's body fit (infer.py:123-273).
 
     - ``body_pose [1, J-1, 3, 3]`` and ``global_orient [1, 1, 3, 3]`` are
@@ -233,9 +270,14 @@ def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
       ``mask [H, W]`` (the demo's branch; the JAX function can also take
       the predictions' non-zero support);
     - SGD with momentum 0.9 and reduce-on-plateau (factor 0.5,
-      ``patience``, min scale 1e-2), fed the loss before each step.
+      ``patience``, min scale 1e-2), fed the loss before each step;
+    - ``capture_every`` > 0 snapshots the uint8 panel row [input | body
+      ``T_normal_F`` | predicted ``normal_F``] on the device every k-th
+      iteration and the last (the reference's fit gif frames,
+      ``apps/infer.py:275-321``); 0 captures nothing.
 
-    Returns :class:`SmplFit` (the losses are read to the host once)."""
+    Returns :class:`SmplFit` (the losses and the panels are read to the
+    host once, at the end)."""
     dev = faces.device
     params = _leaf_params(init, device=dev)
     opt = sgd_plateau_init(params)
@@ -243,16 +285,11 @@ def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
     gt = (mask > 0.5).to(torch.float32)
 
     def forward_verts(p):
-        nb = p["body_pose"].shape[1]
-        verts, _ = body_model(betas=p["betas"],
-                              global_orient=p["global_orient"].reshape(1, 9),
-                              body_pose=p["body_pose"].reshape(1, nb * 9),
-                              pose2rot=False)
-        return (verts[0] + p["trans"][None]) * scale
+        return _body_verts(body_model, p, scale)
 
-    losses = []
+    losses, frames = [], []
     nF = nB = None
-    for _ in range(iters):
+    for i in range(iters):
         verts = forward_verts(params)
         T_nF, _, silF = render_normal_sil(verts, faces, size=size,
                                           azimuth=0.0, K=raster_k)
@@ -263,6 +300,9 @@ def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
                                 "T_normal_F": T_nF.detach()[None],
                                 "T_normal_B": T_nB.detach()[None]})
             nF, nB = nF[0], nB[0]
+            if capture_every and (i % capture_every == 0 or i == iters - 1):
+                frames.append(torch.cat([_u8(image), _u8(T_nF), _u8(nF)],
+                                        dim=1))
         lossN = torch.mean(torch.abs(T_nF - nF)) + \
             torch.mean(torch.abs(T_nB - nB))
         lossS = 0.5 * (torch.mean(torch.abs(silF - gt)) +
@@ -275,7 +315,8 @@ def refine_smpl_live(body_model: BodyModel, faces: torch.Tensor,
     with torch.no_grad():
         verts = forward_verts(params)
     return SmplFit(verts, (nF, nB),
-                   torch.stack(losses).tolist() if losses else [], params)
+                   torch.stack(losses).tolist() if losses else [], params,
+                   tuple(f.cpu().numpy() for f in frames))
 
 
 # -- cloth refinement --------------------------------------------------------

@@ -29,18 +29,23 @@ def make_marcher(max_cells: int = 1 << 18, max_tris: int = 1 << 20,
 
 def extract_mesh(occ: torch.Tensor, iso: float = 0.5,
                  max_cells: int = 1 << 18, max_tris: int = 1 << 20,
-                 marcher: Optional[AutoMarcher] = None
+                 marcher: Optional[AutoMarcher] = None,
+                 coarse_occ: Optional[torch.Tensor] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(verts [V, 3] float32, faces [F, 3] int64) from ``occ [R, R, R]``
     ([z, y, x]). Vertices are normalized to [-1, 1] by the full resolution
     R. Without a ``marcher`` a one-shot :func:`make_marcher` is
-    used; hold one across frames to keep its autotuned buffers."""
+    used; hold one across frames to keep its autotuned buffers.
+    ``coarse_occ``, the engine's grid before its interpolation-only last
+    level, limits the search to the cells of its mixed cells (the same
+    mesh while its candidate buffer holds them)."""
     R = occ.shape[0]
     if marcher is None:
         marcher = make_marcher(max_cells, max_tris, iso)
     if not marcher.slice_one:
         raise ValueError("extract_mesh marchers drop slice 0 (slice_one)")
-    verts, faces = marcher.unpack(marcher.pack(marcher(occ)))
+    verts, faces = marcher.unpack(marcher.pack(
+        marcher(occ, coarse_occ=coarse_occ)))
     if len(verts):
         half = (R - 1) / 2.0
         # +1: sliced-grid index -> full-grid index (see module docstring)

@@ -23,12 +23,16 @@ occupancy (or on a field the caller derives from it, such as bench.py's
 variant field :func:`variant_occ`), marching, the mesh in world
 coordinates, ``clean_mesh``, ``remesh``, the cloth refinement and the
 vertex colours. It reuses the NormalNet frame's pieces (:func:`body_bins`,
-:func:`icon_feats`, :func:`crossing_columns`, the marcher).
+:func:`icon_feats`, :func:`crossing_columns`). The demo CLI
+(``apps/infer.py``) runs it with the CLI's own engine and marcher.
+
+The frames run on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os.path as osp
 from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
                     Tuple)
 
@@ -36,9 +40,10 @@ import numpy as np
 import torch
 
 from icon_tpu_torch.config import Config, NetConfig
-from icon_tpu_torch.infer.refine import SmplFit, refine_cloth, \
-    refine_smpl_live
+from icon_tpu_torch.infer.refine import SmplFit, hps_body_normals, \
+    refine_cloth, refine_smpl_live
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
+from icon_tpu_torch.models.smplx.assets import SMPLX
 from icon_tpu_torch.models.smplx.body import BodyModel
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.raster import vertex_visibility
@@ -47,6 +52,7 @@ from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_crossing_columns_blocked,
                                          build_vertex_face_table)
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
+from icon_tpu_torch.recon.export import extract_mesh
 from icon_tpu_torch.recon.marching import AutoMarcher
 from icon_tpu_torch.render.render import query_color, render_normal
 from icon_tpu_torch.utils.io import clean_mesh
@@ -99,6 +105,24 @@ class BodyBins:
     cross_meta: torch.Tensor
 
 
+def asset_cmap(n_verts: int) -> Optional[np.ndarray]:
+    """The installed SMPL-X cmap for a body of ``n_verts`` vertices
+    (``apps/infer.py:384-396``): the asset itself for an SMPL-X body, the
+    asset remapped through the nearest SMPL-X vertex of each SMPL vertex
+    for an SMPL body (``smpl_verts.npy`` and ``smplx_verts.npy`` installed),
+    else None."""
+    reg = SMPLX()
+    if not osp.exists(reg.cmap_vert_path):
+        return None
+    if len(reg.cmap) == n_verts:
+        return reg.cmap
+    if osp.exists(reg.smpl_verts_path) and \
+            osp.exists(reg.smplx_verts_path) and \
+            len(reg.smpl_verts) == n_verts:
+        return reg.cmap_smpl_vids("smpl")
+    return None
+
+
 def body_bins(verts: np.ndarray, faces: np.ndarray, lattice_res: int,
               device) -> BodyBins:
     """:class:`BodyBins` of calib-space ``verts [V, 3]`` on the engine's
@@ -120,19 +144,22 @@ def body_bins(verts: np.ndarray, faces: np.ndarray, lattice_res: int,
 
 
 def icon_feats(verts: torch.Tensor, faces: torch.Tensor,
-               calib: torch.Tensor, bins: BodyBins
+               calib: torch.Tensor, bins: BodyBins,
+               cmap: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """The per-body prep of the demo (``apps/infer.py:_icon_feats``):
     ``verts [V, 3]`` projected to calib space by ``calib [4, 4]``, the
-    vertex visibility of a 1024^2 raster, the cmap
-    ``(v - vmin) / max(vmax - vmin, 1e-6)`` (the SMPL-X cmap asset is not
-    in the repository): the ``smpl_feat`` of ``HGPIFuNet.query`` but for
-    ``smpl_cross_z``, which :func:`crossing_columns` gives."""
+    vertex visibility of a 1024^2 raster, the cmap (``cmap [V, 3]`` when
+    given, the demo's installed asset of :func:`asset_cmap`, else ``(v -
+    vmin) / max(vmax - vmin, 1e-6)`` in calib space): the ``smpl_feat`` of
+    ``HGPIFuNet.query`` but for ``smpl_cross_z``, which
+    :func:`crossing_columns` gives."""
     v_cal = project(verts[None], calib[None])[0]
     vis = vertex_visibility(v_cal, faces)
-    vmin = torch.amin(v_cal, dim=0)
-    vmax = torch.amax(v_cal, dim=0)
-    cmap = (v_cal - vmin) / torch.clamp(vmax - vmin, min=1e-6)
+    if cmap is None:
+        vmin = torch.amin(v_cal, dim=0)
+        vmax = torch.amax(v_cal, dim=0)
+        cmap = (v_cal - vmin) / torch.clamp(vmax - vmin, min=1e-6)
     return {"smpl_verts": v_cal[None], "smpl_faces": faces,
             "smpl_cmap": cmap[None], "smpl_vis": vis[None],
             "smpl_vf_table": bins.vf_table,
@@ -168,7 +195,7 @@ class Frame:
 
 def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                 batch: Dict[str, np.ndarray], res: int,
-                device) -> Frame:
+                device="cuda") -> Frame:
     """The serving frame for ``cfg`` with HGPIFuNet weights ``state``
     (without the NormalNet: the normals are given) on ``batch`` (numpy, NHWC images: ``normal_F``, ``normal_B``, ``calib``,
     ``smpl_verts`` [1,V,3], ``smpl_faces``, ``smpl_cmap``, ``smpl_vis``),
@@ -268,7 +295,7 @@ class NormalNetFrame:
 
 def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                           batch: Dict[str, np.ndarray], res: int,
-                          device) -> NormalNetFrame:
+                          device="cuda") -> NormalNetFrame:
     """The NormalNet serving frame for ``cfg`` with HGPIFuNet weights
     ``state`` (NormalNet included) on ``batch`` (numpy: ``image`` [1,H,W,3]
     NHWC, ``calib``, ``smpl_verts`` [1,V,3] world, ``smpl_faces``),
@@ -356,7 +383,7 @@ class FitResult(NamedTuple):
 @dataclasses.dataclass
 class FitFrame:
     frame: Callable     # (item) -> FitResult: the whole per-image path
-    fit: Callable       # (item) -> SmplFit
+    fit: Callable       # (item, capture_every=0) -> SmplFit
     prep: Callable      # (image, SmplFit, calib) -> (smpl_feat, features)
     net_occ: Callable   # (points [1,N,3], smpl_feat, features, calib)
                         # -> the net's occupancy [1, N, 1]
@@ -368,9 +395,11 @@ class FitFrame:
 
 
 def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
-                    body: BodyModel, res: int, device, loop_smpl: int = 100,
-                    loop_cloth: int = 200, patience: int = 5,
-                    field: Optional[Callable] = None) -> FitFrame:
+                    body: BodyModel, res: int, device="cuda",
+                    loop_smpl: int = 100, loop_cloth: int = 200,
+                    patience: int = 5, field: Optional[Callable] = None,
+                    engine: Optional[ReconEngine] = None,
+                    marcher: Optional[AutoMarcher] = None) -> FitFrame:
     """The demo's fit frame for ``cfg`` with HGPIFuNet weights ``state``
     (NormalNet included) and the body model ``body`` (moved to
     ``device``), marching at ``res``, with the demo's loop lengths
@@ -381,27 +410,46 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     ``calib [4, 4]`` (see ``utils.synthetic.synthetic_fit_item``). Every
     size follows the image's ``H``. The engine marches the net's occupancy,
     or ``field(preds, pts)`` of it when ``field`` is given (bench.py's
-    :func:`variant_occ` gives random weights a human's level set)."""
-    if loop_smpl < 1:
-        raise ValueError("the fit frame runs at least one fit iteration")
+    :func:`variant_occ` gives random weights a human's level set).
+
+    ``loop_smpl`` 0 takes the body as the item's ``init`` gives it, with
+    the NormalNet's normals from its renders (``hps_body_normals``). The
+    engine defaults to ``auto_budget`` with headroom 1.3 and the marcher to
+    one sized for ``res``; the demo CLI passes its own (fixed budgets,
+    ``export.make_marcher``). The body features take the SMPL-X cmap asset
+    when it is installed for a body of this vertex count, as the demo does
+    (:func:`asset_cmap`, read once here)."""
     device = torch.device(device)
     net = _load_net(cfg, state, device, normal_net=True)
     body = body.to(device)
     body_faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64,
                                  device=device)
-    engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
-                         auto_headroom=1.3, device=device)
-    marcher = _marcher(res)
+    if engine is None:
+        engine = ReconEngine(reconstruction_resolutions(res),
+                             auto_budget=True, auto_headroom=1.3,
+                             device=device)
+    if marcher is None:
+        marcher = _marcher(res)
 
     def dev(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=device)
 
-    def fit(item):
+    # the demo's cmap choice (apps/infer.py:384-400), once per body model
+    cmap = asset_cmap(body.v_template.shape[-2])
+    cmap = None if cmap is None else dev(cmap)
+
+    def fit(item, capture_every: int = 0):
+        size = item["image"].shape[0]
+        if loop_smpl == 0:
+            return hps_body_normals(body, body_faces, dev(item["image"]),
+                                    item["init"], net.predict_normals,
+                                    float(item["scale"]), size=size)
         return refine_smpl_live(
             body, body_faces, dev(item["image"]), item["init"],
             net.predict_normals, float(item["scale"]), dev(item["mask"]),
-            iters=loop_smpl, size=item["image"].shape[0], patience=patience)
+            iters=loop_smpl, size=size, patience=patience,
+            capture_every=capture_every)
 
     def net_occ(pts, smpl, feats, calib):
         return net.query(feats, pts, calib[None], smpl)[-1]
@@ -418,7 +466,7 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         v_cal = project(smpl_fit.verts[None], calib[None])[0]
         bins = body_bins(v_cal.cpu().numpy(), body.faces,
                          engine.resolutions[-1], device)
-        smpl = icon_feats(smpl_fit.verts, body_faces, calib, bins)
+        smpl = icon_feats(smpl_fit.verts, body_faces, calib, bins, cmap)
         smpl["smpl_cross_z"], _ = crossing_columns(smpl, bins)
         return smpl, feats
 
@@ -426,12 +474,9 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     def recon(image, smpl_fit: SmplFit, calib):
         smpl, feats = prep(image, smpl_fit, calib)
         occ, stats = engine(query_fn, query_args=(smpl, feats, calib))
-        mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
-        verts, faces = marcher.unpack(marcher.pack(mesh))
-        # lattice index (first slice dropped) -> world, y up (export.py)
-        half = (engine.resolutions[-1] - 1) / 2.0
-        verts = ((verts + 1.0 - half) / half *
-                 np.array([1.0, -1.0, 1.0], np.float32)).astype(np.float32)
+        verts, faces = extract_mesh(occ, marcher=marcher,
+                                    coarse_occ=stats["coarse_occ"])
+        verts = verts * np.array([1.0, -1.0, 1.0], np.float32)  # world y up
         if cfg.clean_mesh and len(faces):
             verts, faces = clean_mesh(verts, faces)
         return verts, np.asarray(faces, np.int64), stats

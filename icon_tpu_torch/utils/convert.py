@@ -20,12 +20,21 @@ same weights. The mapping is the inverse of
   conv, flax ``[kh, kw, O, I]`` -> torch ``[I, O, kh, kw]``) and
   ``conv_out``.
 
+:func:`pymaf_state_from_flax` does the same for the JAX package's PyMAF
+(the inverse of ``icon_tpu/models/pymaf/convert.py:_map_name``): backbone
+``layer{s}_{i}`` -> ``layer{s}.{i}``, ``downsample_conv``/``downsample_bn``
+-> ``downsample.0``/``downsample.1``; ``deconv{k}_tconv``/``deconv{k}_bn``
+-> ``deconv_layers.{3k}``/``deconv_layers.{3k+1}``; ``maf_{i}`` ->
+``maf_extractor.{i}`` (Dense (in, out) -> Conv1d (out, in, 1));
+``regressor_{i}`` -> ``regressor.{i}`` (Dense -> Linear (out, in)).
+
 :func:`body_model_from_jax` turns the JAX package's ``BodyModel`` into the
 port's, array for array, so one body runs through both packages.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -151,6 +160,59 @@ def state_dict_from_flax(params: Any, batch_stats: Optional[Any] = None
             out[f"{bn4}running_mean"] = np.zeros_like(bn1)
             out[f"{bn4}running_var"] = np.ones_like(bn1)
             out[f"{bn4}num_batches_tracked"] = np.array(0, np.int64)
+    return out
+
+
+def _pymaf_module(mods: tuple) -> str:
+    """flax PyMAF module path -> the published checkpoint's module key."""
+    out = []
+    for name in mods:
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        d = re.fullmatch(r"deconv(\d)_(tconv|bn)", name)
+        r = re.fullmatch(r"(maf|regressor)_(\d)", name)
+        if m:
+            out += [f"layer{m.group(1)}", m.group(2)]
+        elif name in ("downsample_conv", "downsample_bn"):
+            out += ["downsample", "0" if name.endswith("conv") else "1"]
+        elif d:
+            out += ["deconv_layers",
+                    str(3 * int(d.group(1)) + (d.group(2) == "bn"))]
+        elif r:
+            out += ["maf_extractor" if r.group(1) == "maf" else "regressor",
+                    r.group(2)]
+        else:
+            out.append(name)
+    return ".".join(out)
+
+
+def pymaf_state_from_flax(variables: Any) -> Dict[str, np.ndarray]:
+    """``{torch key: numpy array}`` for the port's ``PyMAF`` from the JAX
+    PyMAF's ``variables`` (``params`` and ``batch_stats``)."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables["params"]).items():
+        *mods, leaf = path
+        key = _pymaf_module(tuple(mods))
+        if leaf == "kernel":
+            if arr.ndim == 4 and mods[-1].endswith("_tconv"):
+                # flax transpose_kernel [kh, kw, O, I] -> torch [I, O, kh, kw]
+                w = np.transpose(arr, (3, 2, 0, 1))
+            elif arr.ndim == 2 and mods[0].startswith("regressor_"):
+                w = arr.T                           # Dense -> Linear
+            else:
+                w = _convert_kernel(arr)            # conv, Dense -> Conv1d
+            out[f"{key}.weight"] = w
+        elif leaf == "scale":
+            out[f"{key}.weight"] = arr
+        elif leaf == "bias":
+            out[f"{key}.bias"] = arr
+        else:
+            raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, arr in _flatten(variables.get("batch_stats", {})).items():
+        *mods, leaf = path
+        key = _pymaf_module(tuple(mods))
+        out[f"{key}.{names[leaf]}"] = arr
+        out[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
     return out
 
 

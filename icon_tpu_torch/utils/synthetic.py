@@ -1,7 +1,10 @@
 """Synthetic inputs of the serving frames (``icon_tpu.utils.synthetic``):
 the posed clothed-human occupancy field in PyTorch (``clothed_human_sdf`` /
-``clothed_human_occ``), the numpy ICON batch (``synthetic_icon_batch``) and
-the demo's per-image item for the body fit (``synthetic_fit_item``).
+``clothed_human_occ``), the numpy ICON batch (``synthetic_icon_batch``), the demo's per-image
+item for the body fit (``synthetic_fit_item``), the demo's input photos
+(``synthetic_photos``), HGPIFuNet weights whose occupancy is the body's
+(``sdf_readout``), and a directory of the demo CLI's inputs
+(``write_demo_inputs``).
 
 The body mesh and the capsule skeleton are copies of the JAX package's
 numpy helpers (``icosphere``, ``synthetic_body``, ``posed_skeleton``,
@@ -11,13 +14,15 @@ the device of the query points.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["clothed_human_sdf", "clothed_human_occ", "synthetic_body",
-           "synthetic_fit_item", "synthetic_icon_batch"]
+__all__ = ["clothed_human_sdf", "clothed_human_occ", "sdf_readout",
+           "synthetic_body", "synthetic_fit_item", "synthetic_icon_batch",
+           "synthetic_photos", "write_demo_inputs"]
 
 
 def icosphere(subdiv: int = 5, radius: float = 1.0):
@@ -342,3 +347,105 @@ def synthetic_fit_item(body, size: int, seed: int = 0) -> Dict[str, object]:
             "trans": trans + (rng.randn(3) * 0.01).astype(np.float32)}
     return {"image": image, "mask": mask, "init": init, "scale": 1.0,
             "calib": np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)}
+
+
+def synthetic_photos(body, size: int, seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Two uint8 photos of the ``BodyModel`` ``body``'s rest-pose
+    silhouette at ``size``^2, for the demo's two preprocessing paths: RGBA,
+    colour noise with the silhouette as alpha (the matte path), and RGB,
+    the same figure over a smooth textured background (the saliency
+    path)."""
+    from icon_tpu_torch.ops.raster import rasterize
+    from icon_tpu_torch.render.camera import verts_to_ndc
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        v, _ = body()
+        verts = v[0].cpu() * 0.8
+        faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64)
+        out = rasterize(verts_to_ndc(verts), faces, verts[:, :1], H=size,
+                        W=size, K=min(2048, len(faces)))
+    mask = out.mask.numpy() > 0.5
+    figure = (rng.rand(size, size, 3) * 255).astype(np.uint8)
+    rgba = np.concatenate([figure, (mask * 255).astype(np.uint8)[..., None]],
+                          axis=-1)
+    yy, xx = np.mgrid[:size, :size] / float(size)
+    back = np.stack([0.35 + 0.1 * np.sin(6.0 * xx + 2.0 * yy),
+                     0.55 + 0.1 * np.sin(4.0 * yy),
+                     0.30 + 0.05 * np.cos(5.0 * xx)], axis=-1)
+    back = np.clip(back + 0.02 * rng.randn(size, size, 3), 0.0, 1.0)
+    rgb = np.where(mask[..., None], figure, (back * 255).astype(np.uint8))
+    return rgba, rgb.astype(np.uint8)
+
+
+def sdf_readout(cfg, state: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """``state`` (an icon-prior ``HGPIFuNet`` state dict for ``cfg``) with
+    the MLP's last layer reading only the signed distance to the body (its
+    re-concatenated input column, positive inside): the occupancy is
+    ``sigmoid(50 * sdf)``, so seeded random weights elsewhere give a
+    body-shaped, bounded reconstruction while every layer still runs."""
+    dims, res = cfg.net.mlp_dim, cfg.net.res_layers
+    last = len(dims) - 2
+    if last not in res:
+        raise ValueError("the last MLP layer does not see the point "
+                         "features (res_layers)")
+    w = state[f"if_regressor.filters.{last}.weight"]
+    b = state[f"if_regressor.filters.{last}.bias"]
+    w = torch.zeros_like(w)
+    w[0, dims[last] + cfg.net.hourglass_dim, 0] = 50.0
+    return {**state, f"if_regressor.filters.{last}.weight": w,
+            f"if_regressor.filters.{last}.bias": torch.zeros_like(b)}
+
+
+def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
+                      seed: int = 0, hps_ckpt: bool = False
+                      ) -> Dict[str, str]:
+    """The demo CLI's inputs under the directory ``d``, made from ``seed``:
+    ``photos/`` with the two :func:`synthetic_photos` of the 24-joint
+    synthetic SMPL body (``subdiv``) at ``photo_size``^2 (``matte.png``
+    RGBA, ``scene.png`` RGB); ``cfg`` as YAML; the published checkpoints'
+    layout holding HGPIFuNet's seeded init under :func:`sdf_readout`, the
+    geometry ``icon-filter.ckpt`` (``netG.*`` but the NormalNet) and
+    ``normal.ckpt`` (the NormalNet under ``netG.``); with ``hps_ckpt`` also
+    ``PyMAF_model_checkpoint.pt`` of ``build_pymaf``'s seeded init at the
+    published geometry (keys under ``model.``, one
+    IUV-head entry the loader drops, the regressor's heads scaled by 0.05
+    so that the estimate stays near the mean body). Returns the paths by
+    the CLI's flag names (``in_dir``, ``cfg``, ``ckpt``, ``normal_ckpt``,
+    ``hps_ckpt``) and ``out_dir`` (not created)."""
+    from PIL import Image
+    from icon_tpu_torch.config import save_config
+    from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24, build_pymaf
+    from icon_tpu_torch.recon.frame import seeded_state
+
+    paths = {k: os.path.join(d, v) for k, v in (
+        ("in_dir", "photos"), ("cfg", "icon-filter.yaml"),
+        ("ckpt", "icon-filter.ckpt"), ("normal_ckpt", "normal.ckpt"),
+        ("hps_ckpt", "PyMAF_model_checkpoint.pt"), ("out_dir", "results"))}
+    os.makedirs(paths["in_dir"])
+    rgba, rgb = synthetic_photos(_synthetic_smpl24(subdiv=subdiv), photo_size,
+                                 seed=seed)
+    Image.fromarray(rgba).save(os.path.join(paths["in_dir"], "matte.png"))
+    Image.fromarray(rgb).save(os.path.join(paths["in_dir"], "scene.png"))
+    save_config(cfg, paths["cfg"])
+    state = sdf_readout(cfg, seeded_state(cfg, seed, normal_net=True))
+    nf = "normal_filter."
+    torch.save({"state_dict": {"netG." + k: v for k, v in state.items()
+                               if not k.startswith(nf)}}, paths["ckpt"])
+    torch.save({"state_dict": {"netG." + k[len(nf):]: v
+                               for k, v in state.items()
+                               if k.startswith(nf)}}, paths["normal_ckpt"])
+    if not hps_ckpt:
+        del paths["hps_ckpt"]
+        return paths
+    net, _ = build_pymaf()
+    hps = {}
+    for k, v in net.state_dict().items():
+        if k.startswith("regressor.") and ".dec" in k:
+            v = v * 0.05
+        hps["model." + k] = v
+    hps["model.iuv_predictor.predict_u.weight"] = torch.zeros(25, 256, 1, 1)
+    torch.save(hps, paths["hps_ckpt"])
+    return paths

@@ -110,3 +110,219 @@ def test_synthetic_skeleton_matches():
     np.testing.assert_allclose(
         PS.clothed_human_occ(t(pts)).numpy(),
         np.asarray(JS.clothed_human_occ(jnp.asarray(pts))), atol=1e-5)
+
+
+# -- the demo's photo path: io, config, calib, detector, crop, assets -------
+
+def test_save_and_load_obj_match(tmp_path):
+    """Identical file bytes with and without colours; the same arrays read
+    back, polygons fan-triangulated."""
+    rng = np.random.RandomState(2)
+    v = rng.randn(40, 3).astype(np.float32)
+    f = rng.randint(0, 40, (60, 3))
+    c = rng.rand(40, 3).astype(np.float32)
+    for colors in (None, c):
+        PIO.save_obj(str(tmp_path / "p.obj"), v, f, colors)
+        JIO.save_obj(str(tmp_path / "j.obj"), v, f, colors)
+        assert (tmp_path / "p.obj").read_bytes() == \
+            (tmp_path / "j.obj").read_bytes()
+    with open(tmp_path / "quad.obj", "a") as fh:
+        fh.write("f 1/1 2/2 3/3 4/4\n")
+    for a, b in zip(PIO.load_obj(str(tmp_path / "quad.obj")),
+                    JIO.load_obj(str(tmp_path / "quad.obj"))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_save_gif_matches(tmp_path):
+    rng = np.random.RandomState(3)
+    frames = [(rng.rand(16, 48, 3) * 255).astype(np.uint8) for _ in range(3)]
+    PIO.save_gif(str(tmp_path / "p.gif"), frames, fps=2)
+    JIO.save_gif(str(tmp_path / "j.gif"), frames, fps=2)
+    assert (tmp_path / "p.gif").read_bytes() == \
+        (tmp_path / "j.gif").read_bytes()
+
+
+def test_load_config_matches(tmp_path):
+    """The reference's YAML style (channel specs as python-literal strings,
+    lists for tuples, unknown legacy keys) and a yacs override list give
+    equal trees in both packages."""
+    text = """
+name: icon-filter
+mcube_res: 128
+clean_mesh: False
+test_gpus: [0]
+net:
+  mlp_dim: [256, 512, 256, 128, 1]
+  res_layers: [2, 3, 4]
+  num_stack: 2
+  prior_type: icon
+  in_geo: (('normal_F',3), ('normal_B',3))
+  in_nml: (('image',3), ('T_normal_F',3), ('T_normal_B',3))
+  smpl_feats: ['sdf', 'norm', 'vis', 'cmap']
+  smpl_dim: 7
+  norm_mlp: batch
+dataset:
+  scales: [100.0]
+"""
+    path = tmp_path / "cfg.yaml"
+    path.write_text(text)
+    over = ["net.hourglass_dim", "6", "batch_size", "2", "net.norm", "batch"]
+    for args in ((str(path),), (str(path), over), (None, over)):
+        pc, jc = PC.load_config(*args), JC.load_config(*args)
+        assert isinstance(pc, PC.Config)
+        assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+    assert PC.load_config(str(path)).net.in_geo_dim == 6
+    assert dataclasses.asdict(PC.get_cfg_defaults()) == \
+        dataclasses.asdict(JC.get_cfg_defaults())
+    with pytest.raises(ValueError, match="alternate"):
+        PC.load_config(None, ["mcube_res"])
+
+
+def test_make_calib_matches():
+    from icon_tpu.data.render_dataset import make_calib as jcalib
+    from icon_tpu_torch.data.render_dataset import make_calib as pcalib
+    for az, s in ((0.0, 1.0), (90.0, 1.0), (217.5, 0.8)):
+        a, b = pcalib(az, s), jcalib(az, s)
+        assert a.dtype == b.dtype and a.shape == (8, 4)
+        np.testing.assert_array_equal(a, b)
+
+
+def _photo(rng, size=(120, 90)):
+    """A textured background with a brighter noisy figure in it."""
+    H, W = size
+    img = np.clip(0.4 + 0.05 * rng.randn(H, W, 3), 0, 1)
+    yy, xx = np.mgrid[:H, :W]
+    fig = ((yy - 0.55 * H) ** 2 / (0.35 * H) ** 2 +
+           (xx - 0.45 * W) ** 2 / (0.18 * W) ** 2) < 1
+    img[fig] = rng.rand(int(fig.sum()), 3)
+    return img.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_detector_matches(seed):
+    from icon_tpu.models import detector as JD
+    from icon_tpu_torch.models import detector as PD
+    rgb = _photo(np.random.RandomState(seed))
+    assert PD.saliency_person_bbox(rgb) == JD.saliency_person_bbox(rgb)
+    assert PD.saliency_person_bbox(rgb, thresh=0.35) == \
+        JD.saliency_person_bbox(rgb, thresh=0.35)
+    np.testing.assert_allclose(PD.spectral_residual_saliency(rgb),
+                               JD.spectral_residual_saliency(rgb),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(PD.border_contrast_saliency(rgb),
+                               JD.border_contrast_saliency(rgb),
+                               rtol=0, atol=1e-6)
+    with pytest.warns(UserWarning, match="matting"):
+        pa = PD.detect_and_matte(rgb)
+    with pytest.warns(UserWarning, match="matting"):
+        ja = JD.detect_and_matte(rgb)
+    assert pa.max() > 0
+    np.testing.assert_allclose(pa, ja, rtol=0, atol=1e-6)
+    seg = lambda crop: crop.mean(-1)                          # noqa: E731
+    np.testing.assert_allclose(PD.detect_and_matte(rgb, seg),
+                               JD.detect_and_matte(rgb, seg), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(NotImplementedError, match="A8 \\(rest\\)"):
+        PD.detect_and_matte(rgb, detector=object())
+
+
+def test_alpha_bbox_matches():
+    from icon_tpu.data.test_dataset import alpha_bbox as jbox
+    from icon_tpu_torch.data.test_dataset import alpha_bbox as pbox
+    rng = np.random.RandomState(4)
+    for shape in ((50, 80), (80, 50), (64, 64)):
+        empty = np.zeros(shape, np.float32)
+        assert pbox(empty) == jbox(empty)
+        for _ in range(5):
+            a = np.zeros(shape, np.float32)
+            y0, x0 = rng.randint(0, shape[0] - 5), rng.randint(0, shape[1] - 5)
+            a[y0:y0 + rng.randint(2, 40), x0:x0 + rng.randint(2, 40)] = 1.0
+            for margin in (0.1, 0.3):
+                assert pbox(a, margin=margin) == jbox(a, margin=margin)
+
+
+@pytest.mark.parametrize("mode", ["RGBA", "RGB"])
+def test_process_image_is_byte_equal(tmp_path, mode):
+    """The port's crop, resize and normalization of a PNG the test writes
+    equal the JAX package's byte for byte (PIL's uint8 bilinear resize,
+    the clip * 255 -> uint8 round trip), crop_param included."""
+    import warnings
+    from PIL import Image
+    from icon_tpu.data.test_dataset import process_image as jproc
+    from icon_tpu_torch.data.test_dataset import process_image as pproc
+    rng = np.random.RandomState(5)
+    rgb = (_photo(rng, (130, 100)) * 255).astype(np.uint8)
+    if mode == "RGBA":
+        alpha = np.zeros(rgb.shape[:2], np.uint8)
+        alpha[20:120, 30:70] = 255
+        Image.fromarray(np.concatenate([rgb, alpha[..., None]], -1)).save(
+            tmp_path / "x.png")
+    else:
+        Image.fromarray(rgb).save(tmp_path / "x.png")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        got = pproc(str(tmp_path / "x.png"), icon_size=96)
+        want = jproc(str(tmp_path / "x.png"), icon_size=96)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+    assert got[3] == want[3]
+    assert got[2].sum() > 100
+
+
+def test_synthetic_smpl24_matches():
+    from icon_tpu.models.pymaf.net import _synthetic_smpl24 as jmodel
+    from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24 as pmodel
+    for subdiv in (2, 4):
+        p, j = pmodel(subdiv), jmodel(subdiv)
+        for name in ("v_template", "shapedirs", "posedirs", "J_regressor",
+                     "lbs_weights"):
+            np.testing.assert_array_equal(getattr(p, name).numpy(),
+                                          np.asarray(getattr(j, name)), name)
+        np.testing.assert_array_equal(p.faces, np.asarray(j.faces))
+        assert p.parents == tuple(j.parents) and p.num_joints == 24
+        assert (p.model_type, p.num_betas) == (j.model_type, j.num_betas)
+
+
+def write_cmap_assets(root, n_smpl: int, rng) -> None:
+    """Seeded ``smplx_verts.npy``, ``smpl_verts.npy`` (``n_smpl`` verts)
+    and ``smplx_cmap.npy`` under ``root/smpl_related/smpl_data``."""
+    sd = root / "smpl_related" / "smpl_data"
+    sd.mkdir(parents=True, exist_ok=True)
+    np.save(sd / "smplx_verts.npy", rng.randn(300, 3).astype(np.float32))
+    np.save(sd / "smpl_verts.npy", rng.randn(n_smpl, 3).astype(np.float32))
+    np.save(sd / "smplx_cmap.npy", rng.rand(300, 3))
+
+
+def test_smplx_registry_matches(tmp_path, monkeypatch):
+    from icon_tpu.models.smplx import assets as JA
+    from icon_tpu_torch.models.smplx import assets as PA
+    assert PA.data_root() == JA.data_root()
+    write_cmap_assets(tmp_path, 120, np.random.RandomState(6))
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    assert PA.data_root() == JA.data_root() == str(tmp_path)
+    p, j = PA.SMPLX(), JA.SMPLX()
+    for name in ("smpl_verts_path", "smplx_verts_path", "faces_path",
+                 "cmap_vert_path", "model_dir", "tedra_dir"):
+        assert getattr(p, name) == getattr(j, name)
+    for kind in ("smplx", "smpl"):
+        a, b = p.cmap_smpl_vids(kind), j.cmap_smpl_vids(kind)
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert p.cmap_smpl_vids("smpl").shape == (120, 3)
+
+
+def test_export_overlap_is_byte_equal(tmp_path):
+    """The CLI's ``_overlap.png`` panel against the JAX CLI's
+    ``_export_overlap`` on seeded inputs (values beyond [-1, 1] clipped, a
+    soft mask thresholded): identical file bytes."""
+    from icon_tpu.apps.infer import _export_overlap
+    from icon_tpu_torch.apps.infer import export_overlap
+    rng = np.random.RandomState(5)
+    image, nml = rng.uniform(-1.2, 1.2, (2, 48, 40, 3)).astype(np.float32)
+    mask = rng.rand(48, 40).astype(np.float32)
+    _export_overlap(str(tmp_path / "jax.png"), image, nml, mask)
+    export_overlap(str(tmp_path / "port.png"), image, nml, mask)
+    assert (tmp_path / "port.png").read_bytes() == \
+        (tmp_path / "jax.png").read_bytes()

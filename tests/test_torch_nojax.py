@@ -1,9 +1,10 @@
 """The port runs without JAX and without the JAX package: importing
 icon_tpu_torch and running one tiny CPU frame of each kind (normals given;
 normals predicted by the NormalNet from the body's renders; the demo's fit
-frame: body fit, recon, remesh, cloth refinement, colours) leaves ``jax``,
-``flax`` and ``icon_tpu`` out of ``sys.modules``, and no file of the package
-nor ``chip_smoke.py`` imports them."""
+frame: body fit, recon, remesh, cloth refinement, colours) and the demo CLI
+on a photo (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
+colours) leaves ``jax``, ``flax`` and ``icon_tpu`` out of ``sys.modules``,
+and no file of the package nor ``chip_smoke.py`` imports them."""
 
 import os
 import os.path as osp
@@ -15,6 +16,7 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 _FRAME = r"""
 import dataclasses
+import os
 import sys
 import numpy as np
 import torch
@@ -50,6 +52,20 @@ out = build_fit_frame(cfg, state, body, 64, "cpu", loop_smpl=1, loop_cloth=1,
                       field=variant_occ).frame(synthetic_fit_item(body, 32))
 assert len(out.faces) > 1000 and bool(torch.isfinite(out.verts).all())
 assert np.isfinite(out.fit.losses + out.cloth_losses).all()
+import tempfile
+from icon_tpu_torch.apps.infer import main
+from icon_tpu_torch.utils.synthetic import write_demo_inputs
+with tempfile.TemporaryDirectory() as d:
+    p = write_demo_inputs(d, cfg, photo_size=64, subdiv=2)
+    recs = main(["-cfg", p["cfg"], "-in_dir", p["in_dir"], "-out_dir",
+                 p["out_dir"], "-ckpt", p["ckpt"], "-normal_ckpt",
+                 p["normal_ckpt"], "-loop_smpl", "1", "-loop_cloth", "1",
+                 "-mcube_res", "64", "-img_size", "32", "-no_remesh",
+                 "-allow_random_hps"], device="cpu")
+    assert all(r["final"][1] > 100 and len(r["cloth_losses"]) == 1
+               for r in recs) and len(recs) == 2
+    assert os.path.exists(os.path.join(p["out_dir"],
+                                       "scene_recon_color.obj"))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))

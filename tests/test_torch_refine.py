@@ -202,14 +202,15 @@ def test_refine_smpl_live_parity(fit_setup):
                           method=jnet.predict_normals)
 
     iters = 4
-    jverts, (jnF, jnB), jlosses, jparams, _ = jrefine(
+    jverts, (jnF, jnB), jlosses, jparams, jframes = jrefine(
         jbody, jbody.faces, jnp.asarray(item["image"]), item["init"],
         jnormal_fn, item["scale"], iters=iters, size=SIZE,
-        mask=jnp.asarray(item["mask"]))
+        mask=jnp.asarray(item["mask"]), capture_every=2)
     faces = t(pbody.faces, torch.int64)
     fit = prefine.refine_smpl_live(
         pbody, faces, t(item["image"]), item["init"], pnet.predict_normals,
-        item["scale"], t(item["mask"]), iters=iters, size=SIZE)
+        item["scale"], t(item["mask"]), iters=iters, size=SIZE,
+        capture_every=2)
     assert len(fit.losses) == iters and np.isfinite(fit.losses).all()
     np.testing.assert_allclose(fit.losses, jlosses, rtol=LOSS_RTOL, atol=0)
     assert fit.losses[-1] != fit.losses[0]
@@ -223,6 +224,50 @@ def test_refine_smpl_live_parity(fit_setup):
     # NormalNet's two generators (a few pixels of 12,288 move by ~2e-4)
     for got, want in zip(fit.normals, (jnF, jnB)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-3)
+    # the gif's panel rows [input | body normals | cloth normals] at
+    # iterations 0, 2 and the last: uint8 within 1 (the normals' 1e-3
+    # above can cross a rounding step)
+    assert len(fit.frames) == len(jframes) == 3
+    for got, want in zip(fit.frames, jframes):
+        assert got.dtype == np.uint8 and got.shape == want.shape == \
+            (SIZE, 3 * SIZE, 3)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_hps_body_normals_parity(fit_setup):
+    """The ``-loop_smpl 0`` branch against the JAX CLI's
+    (``icon_tpu/apps/infer.py:179-194``) on the same body, item and
+    NormalNet: the HPS body's vertices to 1e-4 and the cloth normals
+    predicted from its renders at azimuth 0 and 180 to 1e-3 (as in the
+    fit's parity above: a few pixels move by ~2e-4 through the two
+    generators)."""
+    from icon_tpu.render.render import render_normal
+    jbody, pbody, item, (jnet, variables), pnet = fit_setup
+    init = item["init"]
+    nb = init["body_pose"].shape[1]
+    v0, _ = jbody.forward(
+        betas=jnp.asarray(init["betas"]),
+        global_orient=jnp.asarray(init["global_orient"]).reshape(1, 9),
+        body_pose=jnp.asarray(init["body_pose"]).reshape(1, nb * 9),
+        pose2rot=False)
+    jverts = (v0[0] + jnp.asarray(init["trans"])[None]) * item["scale"]
+    jfaces = jnp.asarray(jbody.faces)
+    t_f, _ = render_normal(jverts, jfaces, size=SIZE)
+    t_b, _ = render_normal(jverts, jfaces, size=SIZE, azimuth=180.0)
+    image = jnp.asarray(item["image"])
+    want = jnet.apply(variables, {"image": image[None], "T_normal_F":
+                                  t_f[None], "T_normal_B": t_b[None]},
+                      False, method=jnet.predict_normals)
+    fit = prefine.hps_body_normals(
+        pbody, t(pbody.faces, torch.int64), t(item["image"]), init,
+        pnet.predict_normals, item["scale"], size=SIZE)
+    assert fit.losses == [] and fit.frames == ()
+    np.testing.assert_allclose(fit.verts.numpy(), np.asarray(jverts),
+                               rtol=0, atol=PARAM_ATOL)
+    for got, w in zip(fit.normals, want):
+        assert got.shape == (SIZE, SIZE, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(w[0]), rtol=0,
                                    atol=1e-3)
 
 

@@ -122,6 +122,47 @@ def lattice_columns(v, f, res1: int):
     return cb, cm, tids, col_x, col_y, meta
 
 
+def pymaf_pair(width: int = 16, layers=(1, 1, 1, 1), subdiv: int = 3,
+               seed: int = 0):
+    """The JAX PyMAF and the port's at a small width on the 24-joint
+    synthetic SMPL: (JAX net, its variables as numpy with BatchNorm stats,
+    scales and biases randomized, the port's net with those weights through
+    ``pymaf_state_from_flax``, (JAX body, port body, dmap))."""
+    from icon_tpu.models.pymaf.net import PyMAF as JPyMAF
+    from icon_tpu.models.pymaf.net import _synthetic_smpl24
+    from icon_tpu_torch.models.pymaf.net import PyMAF as PPyMAF
+    from icon_tpu_torch.utils.convert import (body_model_from_jax,
+                                              pymaf_state_from_flax)
+    jbody = _synthetic_smpl24(subdiv=subdiv)
+    pbody = body_model_from_jax(jbody)
+    V = len(np.asarray(jbody.v_template))
+    dmap = np.zeros((431, V), np.float32)
+    dmap[np.arange(431), np.linspace(0, V - 1, 431).astype(np.int32)] = 1.0
+
+    def jfwd(betas, rotmats):
+        return jbody.forward(betas=betas,
+                             global_orient=rotmats[:, :1].reshape(-1, 9),
+                             body_pose=rotmats[:, 1:].reshape(
+                                 rotmats.shape[0], -1), pose2rot=False)
+
+    def pfwd(betas, rotmats):
+        return pbody(betas=betas, global_orient=rotmats[:, :1].reshape(-1, 9),
+                     body_pose=rotmats[:, 1:].reshape(rotmats.shape[0], -1),
+                     pose2rot=False)
+
+    jnet = JPyMAF(smpl_forward=jfwd, dmap=dmap, backbone_width=width,
+                  backbone_layers=tuple(layers))
+    variables = jax.jit(lambda k, x: jnet.init(k, x, train=False))(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 224, 224, 3)))
+    rng = np.random.RandomState(seed + 2)
+    variables = {k: _randomize(v, rng) for k, v in variables.items()}
+    pnet = PPyMAF(pfwd, dmap, backbone_width=width,
+                  backbone_layers=tuple(layers))
+    pnet.load_state_dict({k: t(v) for k, v in
+                          pymaf_state_from_flax(variables).items()})
+    return jnet, variables, pnet.eval(), (jbody, pbody, dmap)
+
+
 def t(x, dtype=None):
     """numpy -> CPU torch tensor."""
     return torch.as_tensor(np.array(x), dtype=dtype)
