@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[10], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[11], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -83,11 +83,27 @@ JSON line ``{"ok": true, "device": {...}}``):
    phase 3, and per photo the raster kernels as in phase 7 on the fitted
    body (K=96), the cloth loop's input and output (K=256, azimuth 0 and
    180), and the recon's and the colour stage's visibility rasters (1024^2,
-   K=512).
+   K=512);
+11. the rest of the photo path: the CLI on the RGB scene photo with
+   seeded weight files in their published layouts under a temporary
+   ``ICON_TPU_DATA_DIR/HPS`` (a darknet ``yolov3-tiny.weights`` whose
+   heads box the whole frame, the full ``u2net.pth``, PARE's
+   ``pare_checkpoint.ckpt`` at HRNet-W32) and a garment JSON: ``-hps_type
+   pare -export_video -seg_dir``, 100 fit and 200 cloth iterations,
+   ``-no_remesh``. Before it, YOLO's heads, U^2-Net's seven logit maps and
+   PARE's outputs on the card against the CPU on the CLI's own inputs
+   (NET_RTOL of each array's largest magnitude) and the same person box;
+   after it, the stage split (``detect``, ``matte``, ``hps``, ``video``,
+   ``garments`` among them), the mp4's 360 frames read back with cv2, the
+   garment OBJs' sizes against the CPU's ``extract_cloth``, and the raster
+   kernels against the plain version on both turntable meshes at azimuths
+   0, 90, 180 and 270 (256^2, K=128, forward only: bin lists, pix_to_face,
+   overflow and the composited uint8 frame identical), with the whole
+   frame's CUDA-event time.
 
-Each main path (phases 4, 6, 9 and 10) runs with the kernels' launch counts set
-to 0 just before it and read just after; a kernel of the path that did not
-launch fails the run. Any failed check raises, so the script exits non-zero
+Each main path (phases 4, 6, 9, 10 and 11) runs with the kernels' launch
+counts set to 0 just before it and read just after; a kernel of the path
+that did not launch fails the run. Any failed check raises, so the script exits non-zero
 and prints no result.
 
 The kernel summary gives, for every kernel, its launches in the main
@@ -156,6 +172,9 @@ FIT_SIZE, FIT_SUBDIV, FIT_RES = 512, 5, 256
 CLI_ARTIFACTS = ("_smpl.obj", "_smpl.npy", "_smpl.gif", "_overlap.png",
                  "_recon.obj", "_refine.obj", "_recon_color.obj")
 HPS_RTOL = 1e-3
+# YOLO, U^2-Net and PARE on the card against the CPU (phase 11): the max
+# error over each array's largest magnitude, TF32 off
+NET_RTOL = 1e-4
 
 
 def card_line() -> str:
@@ -1168,6 +1187,246 @@ def phase_cli(dev, card):
     return launched, worst
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (both moved to the CPU)."""
+    got, want = (torch.as_tensor(x).detach().float().cpu()
+                 for x in (got, want))
+    return float((got - want).abs().max()) / \
+        max(float(want.abs().max()), 1e-30)
+
+
+def turntable_inputs(verts, faces, colors, azimuth, dev):
+    """The turntable frame's raster inputs at ``azimuth``: the vertices
+    rotated about y on the host in float32 and flipped to NDC by (1, -1,
+    -1), as ``apps/infer.py:export_turntable_video`` and the JAX CLI do."""
+    a = np.radians(azimuth)
+    rot = np.array([[np.cos(a), 0.0, -np.sin(a)], [0.0, 1.0, 0.0],
+                    [np.sin(a), 0.0, np.cos(a)]], np.float32)
+    v_rot = np.asarray(verts, np.float32) @ rot.T
+    ndc = torch.from_numpy(v_rot).to(dev) * torch.tensor(
+        [1.0, -1.0, -1.0], device=dev)
+    return (ndc, torch.as_tensor(np.asarray(faces), dtype=torch.int64,
+                                 device=dev),
+            torch.as_tensor(np.asarray(colors), dtype=torch.float32,
+                            device=dev))
+
+
+def phase_photo_path(dev, card):
+    """Phase 11: the CLI on the card on the RGB scene photo with the seeded
+    YOLOv3-tiny, the full U^2-Net and PARE installed under a temporary
+    ``ICON_TPU_DATA_DIR``, with ``-hps_type pare -export_video -seg_dir``.
+    First the three nets on the card against the CPU on the CLI's own
+    inputs (the letterboxed photo, the detector's crop, the PARE input of
+    the dataset), each output within NET_RTOL of its largest magnitude and
+    the same person box; then the CLI (launches counted); its artifacts,
+    the mp4's 360 frames read back with cv2, the garment OBJs against the
+    CPU's ``extract_cloth`` on the same mesh and JSON; then the raster
+    kernels against the plain version on both turntable meshes at azimuths
+    0, 90, 180 and 270 (256^2, K=128, forward only: bin lists,
+    pix_to_face, overflow and the composited uint8 frame identical).
+    Returns (the launches of the CLI's run, {kernel: worst error})."""
+    import json
+    import os
+    import tempfile
+
+    import cv2
+    from icon_tpu_torch.apps.infer import main
+    from icon_tpu_torch.ops.cloth_extraction import extract_cloth
+    from icon_tpu_torch.ops.raster import rasterize_plain
+    from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.render.render import make_turntable_renderer
+    from icon_tpu_torch.utils.io import load_obj
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+
+    old_root = os.environ.get("ICON_TPU_DATA_DIR")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = write_demo_inputs(d, bench_config(), detector=True,
+                                  segmenter="full", pare_ckpt=True,
+                                  seg_dir=True)
+        os.remove(os.path.join(paths["in_dir"], "matte.png"))
+        os.environ["ICON_TPU_DATA_DIR"] = paths["data_dir"]
+        inputs_s = time.perf_counter() - t0
+        try:
+            photo_nets_agree(dev, paths)
+            argv = ["-cfg", paths["cfg"], "-in_dir", paths["in_dir"],
+                    "-out_dir", paths["out_dir"], "-ckpt", paths["ckpt"],
+                    "-normal_ckpt", paths["normal_ckpt"], "-hps_type",
+                    "pare", "-export_video", "-seg_dir", paths["seg_dir"],
+                    "-img_size", str(FIT_SIZE), "-mcube_res", str(FIT_RES),
+                    "-loop_smpl", "100", "-loop_cloth", "200", "-no_remesh"]
+            torch.cuda.synchronize()
+            reset_launches()          # count only the main path's launches
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (record,) = main(argv, device=dev, keep_meshes=True)
+            total_s = time.perf_counter() - t0
+            launched = read_launches()
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            if old_root is None:
+                os.environ.pop("ICON_TPU_DATA_DIR", None)
+            else:
+                os.environ["ICON_TPU_DATA_DIR"] = old_root
+        out = paths["out_dir"]
+        written = sorted(os.listdir(out))
+        cap = cv2.VideoCapture(os.path.join(out, "scene_cloth.mp4"))
+        n_frames, frame_shape = 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n_frames, frame_shape = n_frames + 1, frame.shape
+        cap.release()
+        with open(os.path.join(paths["seg_dir"], "scene.json")) as f:
+            segs = json.load(f)
+        garments = {}
+        for seg in segs:
+            got = load_obj(os.path.join(out, f"scene_{seg['type']}.obj"))
+            want = extract_cloth(*record["meshes"]["final"], seg)
+            garments[seg["type"]] = ((len(got[0]), len(got[1])),
+                                     (len(want[0]), len(want[1])))
+
+    st = record["stages"]
+    n_fit, n_cloth = len(record["fit_losses"]), len(record["cloth_losses"])
+    print(f"[11] scene (YOLO box, U^2-Net full matte, PARE): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in st.items())
+          + f"; fit {st['fit'] / max(n_fit, 1):.4f} s/iteration "
+          f"({record['fit_losses'][0]:.5f} -> {record['fit_losses'][-1]:.5f})"
+          f", cloth {st.get('cloth', 0.0) / max(n_cloth, 1):.4f} "
+          f"s/iteration; recon {record['recon'][0]} verts / "
+          f"{record['recon'][1]} tris, levels {record['stats']}", flush=True)
+    print(f"[11] demo CLI with the photo path: {total_s:.2f} s, launches "
+          f"{launched}, peak {peak_gb:.2f} GiB on {card}, TF32 off; inputs "
+          f"written in {inputs_s:.2f} s; mp4 {n_frames} frames of "
+          f"{frame_shape}; garments (OBJ, CPU extract_cloth) {garments}",
+          flush=True)
+    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "phase 11")
+    want = sorted(f"scene{s}" for s in CLI_ARTIFACTS +
+                  ("_cloth.mp4", "_upper.obj", "_lower.obj"))
+    if written != want:
+        raise AssertionError(f"phase 11 artifacts {written}, want {want}")
+    if n_frames != 360 or frame_shape != (256, 4 * 256, 3):
+        raise AssertionError(f"mp4: {n_frames} frames of {frame_shape}")
+    if any(g != c for g, c in garments.values()) or \
+            set(garments) != set(record["garments"]):
+        raise AssertionError(f"garments {garments} vs {record['garments']}")
+    if len(record["fit_losses"]) != 100 or \
+            len(record["cloth_losses"]) != 200 or not np.isfinite(
+                record["fit_losses"] + record["cloth_losses"]).all():
+        raise AssertionError("phase 11: loops short or non-finite")
+    if record["recon"][1] < 10000 or any(
+            v for k, v in record["stats"].items() if k.endswith("overflow")):
+        raise AssertionError(f"phase 11: recon {record['recon']}, "
+                             f"{record['stats']}")
+    if not {"detect", "matte", "hps", "video", "garments"} <= set(st):
+        raise AssertionError(f"phase 11 stages {sorted(st)}")
+
+    # the raster kernels on the turntable's inputs
+    worst = dict.fromkeys(("raster_setup", "raster_bin", "raster_fwd"), 0.0)
+    overflow = {}
+    rng = np.random.RandomState(13)
+    faces_np = record["meshes"]["final"][1]      # both meshes' faces
+    for label, (verts, colors) in zip(("pre-refine", "refined"),
+                                      record["meshes"]["turntable"]):
+        for az in (0.0, 90.0, 180.0, 270.0):
+            ndc, f, c = turntable_inputs(verts, faces_np, colors, az, dev)
+            errs, overflow[f"{label} az {az:g}"], _ = compare_raster(
+                "[11]", f"turntable {label} az {az:g} 256^2 K=128", ndc, f,
+                c, 256, 128, rng, backward=False)
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
+            v_rot = ndc * torch.tensor([1.0, -1.0, -1.0], device=dev)
+            frame = make_turntable_renderer(f, c, 256, 128)(v_rot)
+            with torch.no_grad():
+                ref = rasterize_plain(ndc, f, c, H=256, W=256, K=128)
+            m = ref.mask[..., None]
+            plain = ref.attr * m + 0.5 * (1.0 - m)
+            u8 = [(x.clamp(0.0, 1.0) * 255).to(torch.uint8)
+                  for x in (frame, plain)]
+            d_float = float((frame - plain).abs().max())
+            n_u8 = int((u8[0] != u8[1]).sum())
+            print(f"[11] turntable {label} az {az:g}: composited frame "
+                  f"max|d| {d_float:.3g}, uint8 values that differ {n_u8}",
+                  flush=True)
+            if n_u8 or d_float > RASTER_KERNEL_ATOL["attr"]:
+                raise AssertionError("the turntable frame differs from the "
+                                     "plain version's")
+    whole = {}
+    for label, (verts, colors) in zip(("pre-refine", "refined"),
+                                      record["meshes"]["turntable"]):
+        ndc, f, c = turntable_inputs(verts, faces_np, colors, 0.0, dev)
+        v_rot = ndc * torch.tensor([1.0, -1.0, -1.0], device=dev)
+        render = make_turntable_renderer(f, c, 256, 128)
+        whole[label] = (cuda_ms(lambda: render(v_rot)), len(verts))
+    print(f"[11] bin_overflow {overflow}", flush=True)
+    print(f"[11] turntable frame (three raster launches and the composite, "
+          f"256^2 K=128), ms: " + ", ".join(
+              f"{k} {ms:.4f} ({n} verts, {len(faces_np)} faces)"
+              for k, (ms, n) in whole.items()) + f" on {card}", flush=True)
+    return launched, worst
+
+
+def photo_nets_agree(dev, paths) -> None:
+    """YOLO, U^2-Net and PARE on the card against the CPU on phase 11's
+    inputs: the letterboxed photo, the detector's crop and the dataset's
+    PARE input; prints each net's error and its forward's CUDA-event time
+    on the card."""
+    import os
+    from PIL import Image
+    from icon_tpu_torch.data.test_dataset import PAREWrapper, TestDataset
+    from icon_tpu_torch.models import u2net, yolo
+    scene = os.path.join(paths["in_dir"], "scene.png")
+    rgb = np.asarray(Image.open(scene).convert("RGB"), np.float32) / 255.0
+    dets = {n: yolo.PersonDetector(paths["yolo"], device=n)
+            for n in ("cpu", dev)}
+    inp, _, _, _ = yolo._letterbox(rgb)
+    heads = {n: det.heads(inp) for n, det in dets.items()}
+    errs = {"yolo heads": max(rel_err(g, c) for g, c in
+                              zip(heads[dev], heads["cpu"]))}
+    boxes = {n: yolo.person_bbox(det, rgb) for n, det in dets.items()}
+    y0, x0, y1, x1 = boxes[dev]
+    crop = rgb[y0:y1, x0:x1]
+    x = torch.from_numpy(u2net.segmenter_input(crop))[None]
+    segs = {n: u2net.build_segmenter(paths["u2net"], lite=False, device=n)
+            for n in ("cpu", dev)}
+    with torch.no_grad():
+        logits = {n: s.net.logits(x.to(n)) for n, s in segs.items()}
+    errs["u2net logits"] = max(rel_err(logits[dev][:, i],
+                                       logits["cpu"][:, i])
+                               for i in range(7))
+    alpha = {n: s(crop) for n, s in segs.items()}
+    img_hps = TestDataset(paths["in_dir"], hps_type="pare",
+                          icon_size=FIT_SIZE, device="cpu").preprocess(
+        0)[1][1]
+    x_hps = torch.from_numpy(img_hps)[None]
+    pares = {n: PAREWrapper(paths["pare_ckpt"], device=n)
+             for n in ("cpu", dev)}
+    outs = {n: w(x_hps) for n, w in pares.items()}
+    for k in ("pred_pose", "pred_shape", "pred_cam", "smpl_vertices",
+              "pred_segm_mask"):
+        errs[f"pare {k}"] = rel_err(outs[dev][k], outs["cpu"][k])
+    x_dev, inp_dev = x.to(dev), torch.from_numpy(inp)[None].to(dev)
+    with torch.no_grad():
+        ms = {"yolo": cuda_ms(lambda: dets[dev].net(inp_dev)),
+              "u2net": cuda_ms(lambda: segs[dev].net(x_dev)),
+              "pare": cuda_ms(lambda: pares[dev](x_hps))}
+    print(f"[11] nets on the card vs the CPU (max error over each array's "
+          f"largest magnitude): " + ", ".join(
+              f"{k} {e:.3g}" for k, e in errs.items())
+          + f"; person box card {boxes[dev]} cpu {boxes['cpu']}; matte "
+          f"max|d| {float(np.abs(alpha[dev] - alpha['cpu']).max()):.3g} "
+          f"(mean {float(alpha[dev].mean()):.3f}); forward alone on the "
+          f"card (CUDA events), ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+    if boxes[dev] is None or boxes[dev] != boxes["cpu"]:
+        raise AssertionError(f"person boxes {boxes}")
+    bad = {k: e for k, e in errs.items() if not e <= NET_RTOL}
+    if bad:
+        raise AssertionError(f"nets on the card disagree with the CPU: "
+                             f"{bad}")
+
+
 def normal_inputs(verts, faces, azimuth):
     """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
     in the view frame)."""
@@ -1237,11 +1496,13 @@ def main() -> int:
     runs.append(launched)
     launched, cli_errs = phase_cli(dev, card)
     runs.append(launched)
+    launched, photo_errs = phase_photo_path(dev, card)
+    runs.append(launched)
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   fit_errs.get(entry["name"], 0.0),
-                                   cli_errs.get(entry["name"], 0.0))
+                                   *(errs.get(entry["name"], 0.0) for errs
+                                     in (fit_errs, cli_errs, photo_errs)))
 
     print(json.dumps({"kernels": summary}))
     print(card_line())

@@ -15,7 +15,12 @@ Per photo of ``-in_dir``:
    the SMPL-X cmap asset when installed; ``<name>_recon.obj``;
 5. the isotropic remesh unless ``-no_remesh``;
 6. the cloth refinement (``-loop_cloth`` iterations); ``<name>_refine.obj``;
-7. the vertex colours from the photo; ``<name>_recon_color.obj``.
+7. the vertex colours from the photo; ``<name>_recon_color.obj``;
+8. with ``-seg_dir``, each garment of ``<seg_dir>/<name>.json`` cut from
+   the final mesh, ``<name>_<type>.obj``;
+9. with ``-export_video``, the turntable of the pre- and post-refinement
+   meshes in their colours beside the photo and its predicted normals,
+   ``<name>_cloth.mp4`` (360 frames at 256^2, 30 fps).
 
 Usage (on the card):
 
@@ -26,8 +31,8 @@ The published ``-ckpt`` (``icon-filter.ckpt``) and ``-normal_ckpt``
 (``normal.ckpt``) load by the reference's rules
 (lib/dataset/mesh_util.py:187-237, apps/train.py:201-218). What the port
 does not have yet raises, naming its ROADMAP item: checkpoint directories
-and ``-num_devices`` > 1 (A10), ``-export_video`` and ``-seg_dir`` (A7
-(rest)), the pifu and pamir priors (A9).
+and ``-num_devices`` > 1 (A10), the pifu and pamir priors (A9), the HPS
+types but pymaf and pare (A8 (rest)).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import argparse
 import os
 import os.path as osp
 import time
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,7 +79,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def refuse_unported(args: argparse.Namespace, prior_type: str) -> None:
     """Raise for each option the port does not have yet, naming its ROADMAP
-    item; none is ignored."""
+    item (none is ignored), and for ``-export_video`` without cv2, before
+    any work."""
     for flag, path in (("-ckpt", args.ckpt),
                        ("-normal_ckpt", args.normal_ckpt)):
         if path and osp.isdir(path):
@@ -90,12 +96,11 @@ def refuse_unported(args: argparse.Namespace, prior_type: str) -> None:
             "-num_devices > 1 (point-sharded recon) is ROADMAP Queue A item "
             "A10")
     if args.export_video:
-        raise NotImplementedError(
-            "-export_video (the turntable video) is ROADMAP Queue A item A7 "
-            "(rest)")
-    if args.seg_dir is not None:
-        raise NotImplementedError(
-            "-seg_dir (garment extraction) is ROADMAP Queue A item A7 (rest)")
+        try:
+            import cv2  # noqa: F401
+        except ImportError as e:
+            raise ImportError("-export_video writes the mp4 with OpenCV: "
+                              "cv2 is not installed") from e
     if prior_type != "icon":
         raise NotImplementedError(
             f"prior_type {prior_type!r}: the pifu and pamir priors are "
@@ -181,6 +186,86 @@ def export_overlap(path: str, image: np.ndarray, nml_f: np.ndarray,
     Image.fromarray(np.concatenate([img, blend], axis=1)).save(path)
 
 
+def export_turntable_video(path: str, image: np.ndarray, nml_f: np.ndarray,
+                           meshes, faces: np.ndarray, size: int = 256,
+                           n_frames: int = 360, fps: int = 30,
+                           device="cuda") -> None:
+    """The coloured meshes turning a full circle (reference
+    get_rendered_video, lib/common/render.py:327-374): each frame is the
+    photo and the predicted front normal (resized by PIL to ``size``^2),
+    then each mesh of ``meshes`` (``[(verts, vertex colours), ...]``, numpy,
+    sharing ``faces``) rotated about y on the host in float32 as the JAX
+    CLI does, rendered on ``device`` over grey (K=128); ``n_frames`` frames
+    at ``fps`` to ``path`` (mp4)."""
+    import math
+
+    from PIL import Image
+
+    from icon_tpu_torch.render.render import make_turntable_renderer
+    from icon_tpu_torch.utils.io import save_video
+
+    device = torch.device(device)
+    panels = []
+    for img in (image, nml_f):
+        p = np.clip(np.asarray(img) * 0.5 + 0.5, 0.0, 1.0)
+        p8 = (p * 255).astype(np.uint8)
+        panels.append(np.asarray(Image.fromarray(p8).resize((size, size))))
+    panels = torch.from_numpy(np.concatenate(panels, axis=1)).to(device)
+
+    faces_t = torch.as_tensor(np.asarray(faces), dtype=torch.int64,
+                              device=device)
+    renderers = [make_turntable_renderer(
+        faces_t, torch.as_tensor(np.asarray(c), dtype=torch.float32,
+                                 device=device), size=size, K=128)
+        for _, c in meshes]
+    frames = torch.empty((n_frames, size, size * (2 + len(meshes)), 3),
+                         dtype=torch.uint8, device=device)
+    for i in range(n_frames):
+        a = math.radians(i * 360.0 / n_frames)
+        c_, s_ = math.cos(a), math.sin(a)
+        rot = np.array([[c_, 0.0, -s_], [0.0, 1.0, 0.0], [s_, 0.0, c_]],
+                       np.float32)
+        row = [panels]
+        for (v, _), render in zip(meshes, renderers):
+            v_rot = np.asarray(v, np.float32) @ rot.T
+            rgb = render(torch.from_numpy(v_rot).to(device)).clamp(0.0, 1.0)
+            row.append((rgb * 255).to(torch.uint8))
+        frames[i] = torch.cat(row, dim=1)
+    save_video(path, frames.cpu().numpy(), fps=fps)
+    print(f"  video: {path} ({n_frames} frames)", flush=True)
+
+
+def extract_garments(seg_dir: str, out_dir: str, name: str,
+                     verts: np.ndarray, faces: np.ndarray
+                     ) -> Dict[str, Tuple[int, int]]:
+    """Each garment of ``<seg_dir>/<name>.json`` cut from the mesh by its
+    polygons (``ops/cloth_extraction.py:extract_cloth``) and written as
+    ``<out_dir>/<name>_<type>.obj``; returns {type: (verts, faces)} of the
+    written ones (none without the JSON)."""
+    import json
+
+    from icon_tpu_torch.ops.cloth_extraction import extract_cloth
+    from icon_tpu_torch.utils.io import save_obj
+
+    seg_path = osp.join(seg_dir, f"{name}.json")
+    if not osp.exists(seg_path):
+        return {}
+    with open(seg_path) as f:
+        segmentations = json.load(f)
+    written = {}
+    for seg in segmentations:
+        garment = extract_cloth(verts, faces, seg)
+        if garment is None:
+            continue
+        g_verts, g_faces = garment
+        kind = seg.get("type", "garment")
+        save_obj(osp.join(out_dir, f"{name}_{kind}.obj"), g_verts, g_faces)
+        written[kind] = (len(g_verts), len(g_faces))
+        print(f"  garment: {seg.get('type')} -> {len(g_verts)} verts",
+              flush=True)
+    return written
+
+
 def main(argv: Optional[Sequence[str]] = None, device="cuda",
          keep_meshes: bool = False) -> List[Dict[str, object]]:
     """Run the demo over ``argv`` (``sys.argv[1:]`` when None) on
@@ -189,7 +274,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
     synchronize), the loop lengths and losses, the mesh sizes; with
     ``keep_meshes`` also ``meshes``: the fitted body, the recon and the
     final mesh as numpy (verts, faces), as the fit, cloth and colour stages
-    take them."""
+    take them, and ``turntable``: the meshes and colours of the video."""
     from icon_tpu_torch.config import load_config
     from icon_tpu_torch.data.render_dataset import make_calib
     from icon_tpu_torch.data.test_dataset import TestDataset
@@ -233,9 +318,11 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
             stage[name] = stage.get(name, 0.0) + now - clock[0]
             clock[0] = now
 
-        name, processed = dataset.preprocess(idx)
+        name, processed = dataset.preprocess(idx, stages=stage)
         print(f"[infer] {name}", flush=True)
         lap("preprocess")
+        stage["preprocess"] -= stage.get("detect", 0.0) + \
+            stage.get("matte", 0.0)
         data = dataset.estimate(name, processed)
         body = dataset.hps.body
         lap("hps")
@@ -261,7 +348,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
             {"image": data["image"], "mask": data["mask"], "init": init,
              "scale": scale},
             capture_every=max(args.loop_smpl // 20, 1)
-            if args.loop_smpl > 1 else 0)
+            if args.export_video or args.loop_smpl > 1 else 0)
         lap("fit")
         if smpl_fit.losses:
             print(f"  smpl fit: {smpl_fit.losses[0]:.4f} -> "
@@ -296,6 +383,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
         lap("writes")
 
         closses: List[float] = []
+        garments: Dict[str, Tuple[int, int]] = {}
         if len(verts):
             if not args.no_remesh:
                 verts, faces = frame.remesh(verts, faces)
@@ -304,6 +392,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
                 lap("remesh")
             verts_t = torch.as_tensor(verts, device=device)
             faces_t = torch.as_tensor(faces, device=device)
+            turntable = [verts_t]             # the pre-refinement mesh
             if args.loop_cloth > 0:
                 verts_t, closses = frame.cloth(verts, faces, smpl_fit)
                 print(f"  cloth refine: {closses[0]:.4f} -> "
@@ -312,13 +401,29 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
                 save_obj(out_path(name, "_refine.obj"),
                          verts_t.cpu().numpy(), faces)
                 lap("writes")
+                turntable.append(verts_t)
             colors = frame.color(verts_t, faces_t, image)
             lap("color")
             meshes["final"] = (verts_t.cpu().numpy(), faces)
             save_obj(out_path(name, "_recon_color.obj"), *meshes["final"],
                      colors.cpu().numpy())
             lap("writes")
+            if args.seg_dir is not None:
+                garments = extract_garments(args.seg_dir, args.out_dir, name,
+                                            *meshes["final"])
+                lap("garments")
+            if args.export_video:
+                meshes["turntable"] = [
+                    (v.cpu().numpy(), (colors if v is verts_t else
+                                       frame.color(v, faces_t, image))
+                     .cpu().numpy()) for v in turntable]
+                export_turntable_video(
+                    out_path(name, "_cloth.mp4"), data["image"],
+                    nml_f.cpu().numpy(), meshes["turntable"], faces,
+                    device=device)
+                lap("video")
         records.append({"name": name, "stages": stage,
+                        "garments": garments,
                         "fit_losses": list(smpl_fit.losses),
                         "cloth_losses": list(closses),
                         "recon": n_recon, "final": (len(verts), len(faces)),

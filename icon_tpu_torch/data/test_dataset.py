@@ -3,11 +3,13 @@
 and lib/pymaf/utils/imutils.py:89-185).
 
 Images with an alpha channel use it as the person matte, whose box drives
-the crop. RGB images take the saliency box and matte of
-``models.detector``. PyMAF is the one HPS ported; the others, the YOLO
-detector and the U^2-Net matting net are ROADMAP Queue A item A8 (rest),
-and their installed weights make the dataset raise rather than quietly
-take another path than the JAX package would.
+the crop. RGB images take ``models.detector.detect_and_matte``: the
+YOLOv3-tiny person box when ``data/HPS/yolov3-tiny.weights`` is installed
+(the reference's ``human_det``), else the saliency box; inside it the
+U^2-Net matte when ``data/HPS/u2net.pth`` or ``u2netp.pth`` is installed
+(the reference's rembg), else the saliency matte. Both nets run on the
+dataset's device; an installed file that does not load raises. The HPS is
+PyMAF or PARE; the others are ROADMAP Queue A item A8 (rest).
 
 An item holds (TestDataset.py:232-287): ``image [S, S, 3]`` in [-1, 1]
 masked, ``mask [S, S]``, ``betas [1, 10]``, ``body_pose [1, 23, 3, 3]``,
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import glob
 import os.path as osp
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,10 +51,16 @@ def alpha_bbox(alpha: np.ndarray, thresh: float = 0.5,
     return top, left, size
 
 
-def process_image(path: str, icon_size: int = 512, hps_size: int = 224):
+def process_image(path: str, icon_size: int = 512, hps_size: int = 224,
+                  segmenter: Optional[Callable] = None,
+                  detector: Optional[Callable] = None,
+                  stages: Optional[Dict[str, float]] = None):
     """(img_icon ``[S, S, 3]`` in [-1, 1] times the mask, img_hps ``[224,
     224, 3]`` ImageNet-normalized, mask ``[S, S]``, crop_param), numpy;
-    PIL's bilinear resize on uint8, as the JAX package."""
+    PIL's bilinear resize on uint8, as the JAX package. An RGB photo takes
+    ``detector``'s box and ``segmenter``'s matte when given
+    (``detect_and_matte``, which adds its ``detect`` and ``matte`` seconds
+    to ``stages``)."""
     from PIL import Image
 
     from icon_tpu_torch.models.detector import detect_and_matte
@@ -61,7 +69,7 @@ def process_image(path: str, icon_size: int = 512, hps_size: int = 224):
     rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
     rgb, alpha = rgba[..., :3], rgba[..., 3]
     if not has_alpha:
-        alpha = detect_and_matte(rgb)
+        alpha = detect_and_matte(rgb, segmenter, detector, stages=stages)
 
     top, left, size = alpha_bbox(alpha)
     H, W = alpha.shape
@@ -114,26 +122,44 @@ class PyMAFWrapper:
         return self.net(img.to(self.device))["smpl_out"][-1]
 
 
+class PAREWrapper:
+    """Callable HPS: ``[B, 224, 224, 3]`` -> PARE's output dict, on
+    ``device``. Without a checkpoint the weights are PARE's seeded random
+    initialization (``random_init``)."""
+
+    def __init__(self, ckpt: str = "", device="cuda"):
+        from icon_tpu_torch.models.pare.convert import load_pare_checkpoint
+        from icon_tpu_torch.models.pare.net import build_pare
+        self.device = torch.device(device)
+        self.net, self.body = build_pare()
+        self.faces = self.body.faces
+        self.random_init = not (ckpt and osp.exists(ckpt))
+        if not self.random_init:
+            load_pare_checkpoint(self.net, ckpt)
+        else:
+            print("[hps] no PARE checkpoint found — RANDOM weights")
+        self.net.to(self.device).eval()
+        self.body.to(self.device)
+
+    @torch.no_grad()
+    def __call__(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.net(img.to(self.device))
+
+
 def get_hps(hps_type: str = "pymaf", ckpt: str = "", device="cuda"):
-    """The HPS registry (reference TestDataset.py:90-126); PyMAF only."""
+    """The HPS registry (reference TestDataset.py:90-126): PyMAF and PARE."""
     from icon_tpu_torch.models.smplx.assets import data_root
-    if hps_type != "pymaf":
-        raise NotImplementedError(f"hps_type {hps_type!r} {_NOT_PORTED}")
-    if not ckpt:
-        ckpt = osp.join(data_root(), "HPS", "pymaf_data",
-                        "pretrained_model", "PyMAF_model_checkpoint.pt")
-    return PyMAFWrapper(ckpt, device)
-
-
-def _refuse_installed(*names: str) -> None:
-    """Raise when one of the weight files ``data/HPS/<name>`` exists: the
-    JAX package would use it."""
-    from icon_tpu_torch.models.smplx.assets import data_root
-    for name in names:
-        p = osp.join(data_root(), "HPS", name)
-        if osp.exists(p):
-            raise NotImplementedError(
-                f"{p} is installed, and the net that reads it {_NOT_PORTED}")
+    if hps_type == "pymaf":
+        if not ckpt:
+            ckpt = osp.join(data_root(), "HPS", "pymaf_data",
+                            "pretrained_model", "PyMAF_model_checkpoint.pt")
+        return PyMAFWrapper(ckpt, device)
+    if hps_type == "pare":
+        if not ckpt:
+            ckpt = osp.join(data_root(), "HPS", "pare_data",
+                            "pare_checkpoint.ckpt")
+        return PAREWrapper(ckpt, device)
+    raise NotImplementedError(f"hps_type {hps_type!r} {_NOT_PORTED}")
 
 
 class TestDataset:
@@ -152,6 +178,8 @@ class TestDataset:
         self.device = torch.device(device)
         self._hps = None
         self._hps_ckpt = hps_ckpt
+        self._segmenter = None
+        self._detector = None
 
     def __len__(self):
         return len(self.subject_list)
@@ -171,29 +199,69 @@ class TestDataset:
             self._hps = hps
         return self._hps
 
-    def preprocess(self, index: int):
+    @property
+    def segmenter(self):
+        """U^2-Net matting on the dataset's device for RGB photos when its
+        checkpoint is installed (``data/HPS/u2net.pth``, else
+        ``u2netp.pth``: the reference's rembg), else None."""
+        if self._segmenter is None:
+            from icon_tpu_torch.models.smplx.assets import data_root
+            for name, lite in (("u2net.pth", False), ("u2netp.pth", True)):
+                p = osp.join(data_root(), "HPS", name)
+                if osp.exists(p):
+                    from icon_tpu_torch.models.u2net import build_segmenter
+                    self._segmenter = build_segmenter(p, lite, self.device)
+                    break
+            else:
+                self._segmenter = False
+        return self._segmenter or None
+
+    @property
+    def detector(self):
+        """The YOLOv3-tiny person detector on the dataset's device when its
+        darknet weights are installed (``data/HPS/yolov3-tiny.weights``: the
+        reference's human_det), else None (RGB photos take the saliency
+        box)."""
+        if self._detector is None:
+            from icon_tpu_torch.models.smplx.assets import data_root
+            p = osp.join(data_root(), "HPS", "yolov3-tiny.weights")
+            if osp.exists(p):
+                from icon_tpu_torch.models.yolo import PersonDetector
+                self._detector = PersonDetector(p, device=self.device)
+            else:
+                self._detector = False
+        return self._detector or None
+
+    def preprocess(self, index: int,
+                   stages: Optional[Dict[str, float]] = None):
         """(name, the :func:`process_image` tuple) of photo ``index``: the
-        host half of an item."""
-        _refuse_installed("u2net.pth", "u2netp.pth", "yolov3-tiny.weights")
+        host half of an item, with the detector and the matting net when
+        installed (their seconds added to ``stages``)."""
         path = self.subject_list[index]
         name = osp.splitext(osp.basename(path))[0]
-        return name, process_image(path, icon_size=self.icon_size)
+        return name, process_image(
+            path, icon_size=self.icon_size, segmenter=self.segmenter,
+            detector=self.detector, stages=stages)
 
     @torch.no_grad()
     def estimate(self, name: str, processed) -> Dict[str, Any]:
-        """The item of a :meth:`preprocess` result: PyMAF on the device and
-        the pymaf branch of the adaptation (TestDataset.py:232-287)."""
+        """The item of a :meth:`preprocess` result: the HPS on the device
+        and its branch of the adaptation (TestDataset.py:232-287)."""
         img_icon, img_hps, mask, crop_param = processed
         out = self.hps(torch.from_numpy(img_hps)[None])
-        cam = out["pred_cam"][0, :3].cpu().numpy()
-        scale, tran_x, tran_y = (float(v) for v in cam)
-        rotmat = out["rotmat"].cpu().numpy()
+        if self.hps_type == "pare":
+            rotmat, verts, cam = (out["pred_pose"], out["smpl_vertices"],
+                                  out["pred_cam"])
+        else:                                        # pymaf
+            rotmat, verts, cam = out["rotmat"], out["verts"], out["pred_cam"]
+        scale, tran_x, tran_y = (float(v) for v in cam[0, :3].cpu().numpy())
+        rotmat = rotmat.cpu().numpy()
         return {
             "name": name, "image": img_icon, "mask": mask,
             "crop_param": crop_param, "smpl_faces": self.hps.faces,
             "betas": out["pred_shape"].cpu().numpy(),
             "body_pose": rotmat[:, 1:], "global_orient": rotmat[:, 0:1],
-            "smpl_verts": out["verts"].cpu().numpy(), "scale": scale,
+            "smpl_verts": verts.cpu().numpy(), "scale": scale,
             "trans": np.array([tran_x, tran_y, 0.0], np.float32)}
 
     def __getitem__(self, index: int) -> Dict[str, Any]:

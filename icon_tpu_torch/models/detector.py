@@ -4,15 +4,16 @@
 
 :func:`saliency_person_bbox` combines spectral-residual saliency (Hou &
 Zhang, CVPR 2007) with a border-contrast cue and takes the largest
-connected component's box. Without a matting net the matte is the soft
-border-contrast figure/ground estimate inside the box. The trained
-YOLOv3-tiny detector and the U^2-Net matting net are ROADMAP Queue A item
-A8 (rest).
+connected component's box; it stands in for the trained YOLOv3-tiny
+detector (``models/yolo.py``) when that finds nobody or its weights are not
+installed. The matte inside the box comes from the U^2-Net matting net
+(``models/u2net.py``) when installed, else from the soft border-contrast
+figure/ground estimate, with a warning.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -127,20 +128,35 @@ def saliency_person_bbox(rgb: np.ndarray, thresh: float = 1.0,
 def detect_and_matte(rgb: np.ndarray,
                      segmenter: Optional[callable] = None,
                      detector: Optional[callable] = None,
-                     thresh: float = 0.35) -> np.ndarray:
-    """Full RGB frame -> person alpha [H, W] (detector, then the matte
-    inside its box). The saliency box stands in for the detector; with a
-    ``segmenter`` the matte comes from it, else from the soft
-    border-contrast estimate, with a warning that the result is degraded
-    (a hard box alpha would make every silhouette loss fit a rectangle)."""
+                     thresh: float = 0.35,
+                     stages: Optional[Dict[str, float]] = None
+                     ) -> np.ndarray:
+    """Full RGB frame -> person alpha ``[H, W]`` (the reference's detector,
+    then the matte inside its box, imutils.py:89-136).
+
+    The trained detector (a :class:`~icon_tpu_torch.models.yolo.
+    PersonDetector`, when given) proposes the box; the saliency box stands
+    in when there is none or it finds nobody. With a ``segmenter`` the
+    matte comes from it, else from the soft border-contrast estimate, with
+    a warning that the result is degraded (a hard box alpha would make
+    every silhouette loss fit a rectangle). ``stages`` (optional) gains
+    the seconds spent in ``detect`` and ``matte``."""
+    import time
     import warnings
 
-    if detector is not None:
-        raise NotImplementedError(
-            "the YOLOv3-tiny person detector is not ported (ROADMAP Queue A "
-            "item A8 (rest))")
+    clock = time.perf_counter()
     H, W = rgb.shape[:2]
-    y0, x0, y1, x1 = saliency_person_bbox(rgb, thresh=thresh)
+    box = None
+    if detector is not None:
+        from icon_tpu_torch.models.yolo import person_bbox
+        box = person_bbox(detector, rgb)
+    if box is None:
+        box = saliency_person_bbox(rgb, thresh=thresh)
+    y0, x0, y1, x1 = box
+    if stages is not None:
+        now = time.perf_counter()
+        stages["detect"] = stages.get("detect", 0.0) + now - clock
+        clock = now
     alpha = np.zeros((H, W), np.float32)
     crop = rgb[y0:y1, x0:x1]
     if segmenter is not None:
@@ -154,4 +170,7 @@ def detect_and_matte(rgb: np.ndarray,
         soft = np.where(soft > soft.mean(), soft, 0.0)
         alpha[y0:y1, x0:x1] = _resize_np(
             soft[..., None].repeat(3, -1), crop.shape[:2])[..., 0]
+    if stages is not None:
+        stages["matte"] = stages.get("matte", 0.0) + \
+            time.perf_counter() - clock
     return alpha

@@ -21,6 +21,15 @@ def upsample2x_bicubic(x: torch.Tensor) -> torch.Tensor:
                          align_corners=True)
 
 
+def resize2d_bilinear_align_corners(x: torch.Tensor,
+                                    out_hw: Sequence[int]) -> torch.Tensor:
+    """Bilinear align_corners resize of ``[B, C, H, W]`` to ``out_hw`` (the
+    JAX package's ``resize_align_corners(..., "linear")``, which HRNet's
+    '-conv' head climbs by)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=True)
+
+
 def resize3d_trilinear_align_corners(x: torch.Tensor,
                                      out_dhw: Sequence[int]) -> torch.Tensor:
     """Trilinear align_corners resize of ``[B, C, D, H, W]`` to ``out_dhw``.

@@ -77,6 +77,24 @@ def render_color(verts: torch.Tensor, faces: torch.Tensor,
     return out.attr * m + bg * (1.0 - m), out.mask
 
 
+def make_turntable_renderer(faces: torch.Tensor, colors: torch.Tensor,
+                            size: int = 512, K: int = 256, bg: float = 0.5):
+    """The turntable's frame renderer: faces and vertex colours stay on
+    their device, each frame's azimuth enters as pre-rotated vertices
+    ``[V, 3]`` (render space, y up), flipped to NDC by ``(1, -1, -1)``;
+    returns ``render(v_rot) -> rgb [size, size, 3]``, the colours over a
+    grey background, forward only."""
+    flip = torch.tensor([1.0, -1.0, -1.0], device=colors.device)
+
+    @torch.no_grad()
+    def render(v_rot: torch.Tensor) -> torch.Tensor:
+        out = rasterize(v_rot * flip, faces, colors, H=size, W=size, K=K)
+        m = out.mask[..., None]
+        return out.attr * m + bg * (1.0 - m)
+
+    return render
+
+
 def query_color(verts: torch.Tensor, faces: torch.Tensor,
                 image: torch.Tensor,
                 visibility: Optional[torch.Tensor] = None) -> torch.Tensor:

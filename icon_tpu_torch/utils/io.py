@@ -1,5 +1,5 @@
 """Host mesh and media IO (copies of ``icon_tpu.utils.io``'s ``save_obj``,
-``load_obj``, ``clean_mesh`` and ``save_gif``; reference
+``load_obj``, ``clean_mesh``, ``save_gif`` and ``save_video``; reference
 ``mesh_util.py:523-683,778-791``)."""
 
 from __future__ import annotations
@@ -77,3 +77,16 @@ def save_gif(path: str, frames, fps: int = 30) -> None:
     imgs = [Image.fromarray(np.asarray(f, np.uint8)) for f in frames]
     imgs[0].save(path, save_all=True, append_images=imgs[1:],
                  duration=max(1000 // fps, 20), loop=0)
+
+
+def save_video(path: str, frames, fps: int = 30) -> None:
+    """Frames ``[H, W, 3]`` uint8 RGB as an MP4 (OpenCV, ``mp4v``; the
+    reference's video deliverable)."""
+    import cv2
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    frames = [np.asarray(f, np.uint8) for f in frames]
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for fr in frames:
+        vw.write(cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
+    vw.release()

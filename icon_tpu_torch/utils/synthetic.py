@@ -399,8 +399,134 @@ def sdf_readout(cfg, state: Dict[str, torch.Tensor]
             f"if_regressor.filters.{last}.bias": torch.zeros_like(b)}
 
 
+def write_darknet_weights(path: str, rng: np.random.RandomState,
+                          head: str = "seeded") -> None:
+    """A darknet ``yolov3-tiny.weights`` (version 0.2 header, then per
+    convolution [beta, gamma, mean, var] or its bias, then the weights
+    ``[out, in, k, k]``) of seeded He-scaled weights and BatchNorm
+    statistics. ``head="seeded"``: the two heads' convolutions too, their
+    weights at 0.3 and the objectness biases lowered by 1, so that a photo
+    gives tens of candidate boxes above a 0.25 score, not most anchors;
+    ``head="frame"``: the heads' weights at 1/100 and their biases set so
+    that every anchor scores about 0.96 for a person and spans twice the
+    net input, so the best box covers the whole frame (a box from the
+    detector on any photo, not the saliency fallback)."""
+    from icon_tpu_torch.models.yolo import (ANCHORS, CONV_LAYERS, MASKS,
+                                            N_CLASSES, NET_SIZE)
+    blob = [np.array([0, 2, 0], np.int32).tobytes(),
+            np.array([0], np.int64).tobytes()]
+    heads = {15: MASKS[0], 22: MASKS[1]}
+    for idx, cin, ch, k, bn in CONV_LAYERS:
+        w = rng.randn(ch, cin, k, k) * np.sqrt(2.0 / (cin * k * k))
+        if bn:
+            parts = [0.1 * rng.randn(ch), 1.0 + 0.1 * rng.randn(ch),
+                     0.1 * rng.randn(ch), rng.uniform(0.5, 1.5, ch)]
+        else:
+            bias = 0.1 * rng.randn(ch)
+            if head == "seeded":
+                w = w * 0.3
+                bias = bias - np.tile(np.eye(5 + N_CLASSES)[4], 3)
+            elif head == "frame":
+                w = w * 0.01
+                bias = np.full((3, 5 + N_CLASSES), -4.0)
+                bias[:, 4:6] = 4.0                  # objectness, person
+                bias[:, 0:2] = 0.0
+                anc = ANCHORS[list(heads[idx])]
+                bias[:, 2:4] = np.log(2.0 * NET_SIZE / anc)
+                bias = bias.reshape(-1)
+            parts = [bias]
+        blob += [np.asarray(x, np.float32).tobytes() for x in parts + [w]]
+    with open(path, "wb") as f:
+        f.write(b"".join(blob))
+
+
+def garment_polygons(body, size: int = 512) -> list:
+    """A ``-seg_dir`` JSON's garments for the ``BodyModel`` ``body``'s
+    rest-pose silhouette (scaled by 0.8, as :func:`synthetic_photos` draws
+    it) at ``size``^2: an ``upper`` band from a fifth to the middle of its
+    height and a ``lower`` band below, each a rectangle over its width, as
+    ``[{"type", "coordinates": [[x0, y0, x1, y1, ...]]}]``."""
+    from icon_tpu_torch.ops.raster import rasterize
+    from icon_tpu_torch.render.camera import verts_to_ndc
+
+    with torch.no_grad():
+        v, _ = body()
+        verts = v[0].cpu() * 0.8
+        faces = torch.as_tensor(np.asarray(body.faces), dtype=torch.int64)
+        out = rasterize(verts_to_ndc(verts), faces, verts[:, :1], H=size,
+                        W=size, K=min(2048, len(faces)))
+    ys, xs = np.nonzero(out.mask.numpy() > 0.5)
+    r0, r1, c0, c1 = (float(ys.min()), float(ys.max()), float(xs.min()),
+                      float(xs.max()))
+    h = r1 - r0
+
+    def band(top, bottom):
+        return [[c0, top, c1, top, c1, bottom, c0, bottom]]
+
+    return [{"type": "upper", "coordinates": band(r0 + 0.2 * h,
+                                                  r0 + 0.5 * h)},
+            {"type": "lower", "coordinates": band(r0 + 0.5 * h, r1)}]
+
+
+def seeded_u2net_state(lite: bool, seed: int) -> Dict[str, torch.Tensor]:
+    """A U^2-Net state dict in the public checkpoint's layout: the seeded
+    initialization with BatchNorm statistics, scales and biases drawn from
+    ``seed``, and the fuse conv's bias at +2 so that the seeded net's
+    matte stays above 0.5 (a crop the fit can use) while its side outputs
+    still reach the result."""
+    from icon_tpu_torch.models.u2net import build_u2net
+    rng = np.random.RandomState(seed)
+    state = build_u2net(lite).state_dict()
+    for k, v in state.items():
+        if k.endswith(("running_mean", "bn_s1.bias")):
+            state[k] = torch.from_numpy(
+                (0.1 * rng.randn(*v.shape)).astype(np.float32))
+        elif k.endswith("running_var"):
+            state[k] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif k.endswith("bn_s1.weight"):
+            state[k] = torch.from_numpy(
+                (1.0 + 0.1 * rng.randn(*v.shape)).astype(np.float32))
+    state["outconv.bias"] = torch.full((1,), 2.0)
+    return state
+
+
+def seeded_pare_state(seed: int) -> Dict[str, torch.Tensor]:
+    """A PARE state dict at the published geometry (HRNet-W32): the seeded
+    initialization with BatchNorm statistics drawn from ``seed``, and the
+    regression heads set so that the estimate stays near the rest body:
+    each joint's 6D pose the identity times the mean feature plus a small
+    seeded part, the shape and camera maps at 1/100 with the camera's
+    bias at the mean camera (0.9, 0, 0)."""
+    from icon_tpu_torch.models.pare.net import build_pare
+    rng = np.random.RandomState(seed)
+    net, _ = build_pare()
+    state = net.state_dict()
+    for k, v in state.items():
+        if k.endswith("running_mean"):
+            state[k] = torch.from_numpy(
+                (0.1 * rng.randn(*v.shape)).astype(np.float32))
+        elif k.endswith("running_var"):
+            state[k] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+    w = state["head.pose_mlp.weight"]                 # [1, 6, C, J, 1, 1]
+    C = w.shape[2]
+    eye = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 0.0])
+    state["head.pose_mlp.weight"] = (
+        eye[None, :, None, None, None, None] / C
+        + 0.002 * torch.from_numpy(rng.randn(*w.shape).astype(np.float32)))
+    for name in ("shape_mlp", "cam_mlp"):
+        state[f"head.{name}.weight"] = state[f"head.{name}.weight"] * 0.01
+        state[f"head.{name}.bias"] = torch.zeros_like(
+            state[f"head.{name}.bias"])
+    state["head.cam_mlp.bias"] = torch.tensor([0.9, 0.0, 0.0])
+    return state
+
+
 def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
-                      seed: int = 0, hps_ckpt: bool = False
+                      seed: int = 0, hps_ckpt: bool = False,
+                      detector: bool = False, segmenter: str = "",
+                      pare_ckpt: bool = False, seg_dir: bool = False
                       ) -> Dict[str, str]:
     """The demo CLI's inputs under the directory ``d``, made from ``seed``:
     ``photos/`` with the two :func:`synthetic_photos` of the 24-joint
@@ -412,9 +538,25 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     ``PyMAF_model_checkpoint.pt`` of ``build_pymaf``'s seeded init at the
     published geometry (keys under ``model.``, one
     IUV-head entry the loader drops, the regressor's heads scaled by 0.05
-    so that the estimate stays near the mean body). Returns the paths by
-    the CLI's flag names (``in_dir``, ``cfg``, ``ckpt``, ``normal_ckpt``,
-    ``hps_ckpt``) and ``out_dir`` (not created)."""
+    so that the estimate stays near the mean body).
+
+    Under ``data/HPS`` (the ``ICON_TPU_DATA_DIR`` of ``data_dir``), in each
+    file's published layout: with ``detector``, ``yolov3-tiny.weights``
+    (:func:`write_darknet_weights`, heads set to box the whole frame); with
+    ``segmenter`` ``"full"`` or ``"lite"``, ``u2net.pth`` or ``u2netp.pth``
+    (:func:`seeded_u2net_state`); with ``pare_ckpt``,
+    ``pare_data/pare_checkpoint.ckpt`` (:func:`seeded_pare_state` as a
+    Lightning ``state_dict`` under ``model.``, with three entries the
+    loader drops: an SMPL buffer, an ``init_pose`` buffer and the
+    backbone's ``final_layer``). With ``seg_dir``, ``segs/<photo>.json``:
+    :func:`garment_polygons` at 512^2.
+
+    Returns the paths by the CLI's flag names (``in_dir``, ``cfg``,
+    ``ckpt``, ``normal_ckpt``, ``hps_ckpt``, ``seg_dir``), ``out_dir``
+    (not created) and ``data_dir``; and the weight files written
+    (``yolo``, ``u2net``, ``pare_ckpt``)."""
+    import json
+
     from PIL import Image
     from icon_tpu_torch.config import save_config
     from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24, build_pymaf
@@ -423,10 +565,13 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     paths = {k: os.path.join(d, v) for k, v in (
         ("in_dir", "photos"), ("cfg", "icon-filter.yaml"),
         ("ckpt", "icon-filter.ckpt"), ("normal_ckpt", "normal.ckpt"),
-        ("hps_ckpt", "PyMAF_model_checkpoint.pt"), ("out_dir", "results"))}
+        ("hps_ckpt", "PyMAF_model_checkpoint.pt"), ("out_dir", "results"),
+        ("data_dir", "data"))}
     os.makedirs(paths["in_dir"])
-    rgba, rgb = synthetic_photos(_synthetic_smpl24(subdiv=subdiv), photo_size,
-                                 seed=seed)
+    hps_dir = os.path.join(paths["data_dir"], "HPS")
+    os.makedirs(hps_dir)
+    body = _synthetic_smpl24(subdiv=subdiv)
+    rgba, rgb = synthetic_photos(body, photo_size, seed=seed)
     Image.fromarray(rgba).save(os.path.join(paths["in_dir"], "matte.png"))
     Image.fromarray(rgb).save(os.path.join(paths["in_dir"], "scene.png"))
     save_config(cfg, paths["cfg"])
@@ -437,6 +582,34 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     torch.save({"state_dict": {"netG." + k[len(nf):]: v
                                for k, v in state.items()
                                if k.startswith(nf)}}, paths["normal_ckpt"])
+    if detector:
+        paths["yolo"] = os.path.join(hps_dir, "yolov3-tiny.weights")
+        write_darknet_weights(paths["yolo"], np.random.RandomState(seed + 1),
+                              head="frame")
+    if segmenter:
+        lite = {"full": False, "lite": True}[segmenter]
+        paths["u2net"] = os.path.join(hps_dir, "u2netp.pth" if lite
+                                      else "u2net.pth")
+        torch.save(seeded_u2net_state(lite, seed + 2), paths["u2net"])
+    if pare_ckpt:
+        paths["pare_ckpt"] = os.path.join(hps_dir, "pare_data",
+                                          "pare_checkpoint.ckpt")
+        os.makedirs(os.path.dirname(paths["pare_ckpt"]))
+        pare = {"model." + k: v for k, v in seeded_pare_state(
+            seed + 3).items()}
+        pare.update({"model.head.smpl.v_template": torch.zeros(6890, 3),
+                     "model.head.init_pose": torch.zeros(1, 144),
+                     "model.backbone.final_layer.weight":
+                         torch.zeros(24, 32, 1, 1)})
+        torch.save({"state_dict": pare, "epoch": 0}, paths["pare_ckpt"])
+    if seg_dir:
+        paths["seg_dir"] = os.path.join(d, "segs")
+        os.makedirs(paths["seg_dir"])
+        garments = garment_polygons(body)
+        for name in ("matte", "scene"):
+            with open(os.path.join(paths["seg_dir"], f"{name}.json"),
+                      "w") as f:
+                json.dump(garments, f)
     if not hps_ckpt:
         del paths["hps_ckpt"]
         return paths

@@ -1,6 +1,9 @@
 """The port's copies of framework-free code of the JAX package, pinned to
 their originals: the config tree's field names and defaults, ``clean_mesh``,
-the host lattice decoder and the synthetic body's arrays."""
+the host lattice decoder, the synthetic body's arrays, the photo path's
+host code (the saliency detector, ``process_image``, YOLO's darknet parser,
+letterbox and NMS, the matting net's host pre- and post-processing), the
+garment extraction and ``save_video``."""
 
 import dataclasses
 
@@ -223,8 +226,15 @@ def test_detector_matches(seed):
     np.testing.assert_allclose(PD.detect_and_matte(rgb, seg),
                                JD.detect_and_matte(rgb, seg), rtol=0,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A8 \\(rest\\)"):
-        PD.detect_and_matte(rgb, detector=object())
+    # a detector's box (here a stub's best box, with the 10% margin of
+    # person_bbox) bounds the matte in both packages; nobody found: the
+    # saliency box
+    for boxes in ([[10.0, 12.5, 60.0, 41.0], [0.0, 0.0, 5.0, 5.0]], []):
+        det = lambda im, b=boxes: (np.asarray(b, np.float32).reshape(-1, 4),
+                                   np.ones(len(b), np.float32))  # noqa: E731
+        np.testing.assert_array_equal(
+            PD.detect_and_matte(rgb, seg, det),
+            JD.detect_and_matte(rgb, seg, det))
 
 
 def test_alpha_bbox_matches():
@@ -326,3 +336,159 @@ def test_export_overlap_is_byte_equal(tmp_path):
     export_overlap(str(tmp_path / "port.png"), image, nml, mask)
     assert (tmp_path / "port.png").read_bytes() == \
         (tmp_path / "jax.png").read_bytes()
+
+
+def test_darknet_parser_matches(tmp_path):
+    """One seeded darknet file of each header version: every array equal,
+    and the BatchNorm fold equal to the JAX package's (its kernels in the
+    torch layout)."""
+    import struct
+    from icon_tpu.models import yolo as JY
+    from icon_tpu_torch.models import yolo as PY
+    from icon_tpu_torch.utils.synthetic import write_darknet_weights
+    write_darknet_weights(str(tmp_path / "w"), np.random.RandomState(8))
+    blob = (tmp_path / "w").read_bytes()
+    # version 0.1: the images seen as int32
+    old = struct.pack("<iiii", 0, 1, 0, 0) + blob[20:]
+    for b in (blob, old):
+        p, j = PY.parse_darknet_weights(b), JY.parse_darknet_weights(b)
+        assert list(p) == list(j)
+        for name in j:
+            assert list(p[name]) == list(j[name])
+            for k in j[name]:
+                assert p[name][k].tobytes() == j[name][k].tobytes()
+    folded, params = PY.fold_to_params(p), JY.fold_to_params(j)
+    for name, d in params.items():
+        np.testing.assert_array_equal(
+            folded[f"{name}.weight"].numpy().transpose(2, 3, 1, 0),
+            d["kernel"])
+        np.testing.assert_array_equal(folded[f"{name}.bias"].numpy(),
+                                      d["bias"])
+
+
+@pytest.mark.parametrize("hw", [(300, 200), (120, 416), (417, 90)])
+def test_letterbox_matches(hw):
+    from icon_tpu.models import yolo as JY
+    from icon_tpu_torch.models import yolo as PY
+    rgb = np.random.RandomState(hw[0]).uniform(-0.1, 1.1, (*hw, 3))
+    p, j = PY._letterbox(rgb), JY._letterbox(rgb)
+    assert p[0].dtype == j[0].dtype and p[0].tobytes() == j[0].tobytes()
+    assert p[1:] == j[1:]
+
+
+def test_nms_matches():
+    from icon_tpu.models import yolo as JY
+    from icon_tpu_torch.models import yolo as PY
+    rng = np.random.RandomState(9)
+    for n in (1, 2, 40, 300):
+        boxes = np.concatenate([rng.uniform(50, 350, (n, 2)),
+                                rng.uniform(5, 120, (n, 2))], 1).astype(
+            np.float32)
+        scores = rng.rand(n).astype(np.float32)
+        for iou in (0.45, 0.1):
+            keep = PY._nms(boxes, scores, iou)
+            assert keep == JY._nms(boxes, scores, iou)
+    assert 1 < len(keep) < n
+
+
+def test_segmenter_host_code_matches():
+    """The matting's host side, bit for bit: the JAX segmenter's closure
+    runs with its net replaced by a recorder that returns a seeded alpha;
+    the port's ``segmenter_input`` equals what the net was given and its
+    ``segmenter_output`` equals the JAX segmenter's result."""
+    from icon_tpu.models import u2net as JU
+    from icon_tpu_torch.models import u2net as PU
+    segment = JU.build_segmenter("", lite=True)
+    cells = dict(zip(segment.__code__.co_freevars, segment.__closure__))
+    seen = []
+    rng = np.random.RandomState(10)
+    alpha = rng.rand(1, 320, 320, 1).astype(np.float32)
+
+    def fwd(variables, x):
+        seen.append(np.asarray(x))
+        return alpha
+
+    cells["fwd"].cell_contents = fwd
+    for hw in ((150, 97), (320, 320), (41, 500)):
+        rgb = rng.uniform(-0.05, 1.05, (*hw, 3)).astype(np.float32)
+        want = segment(rgb)
+        x = PU.segmenter_input(rgb)
+        assert x.dtype == seen[-1].dtype
+        assert x[None].tobytes() == seen[-1].tobytes()
+        got = PU.segmenter_output(alpha[0, ..., 0], hw)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def _mesh_and_segs(rng):
+    v, f = JS.synthetic_body(subdiv=3)
+    v = v * 0.9 + 0.01 * rng.randn(*v.shape).astype(np.float32)
+    # a second component, so that the largest one is picked
+    f = np.concatenate([f, f + len(v)])
+    v = np.concatenate([v, v * 0.2 + 0.6]).astype(np.float32)
+    segs = [{"type": "upper", "coordinates": [[60, 60, 460, 60, 460, 250,
+                                               60, 250]]},
+            {"type": "dress", "coord": [[100, 200, 420, 200, 256, 500],
+                                        [400, 20, 500, 20, 500, 120]]},
+            {"type": "none", "coordinates": [[0, 0, 2, 0, 2, 2]]},
+            {"type": "open", "coordinates": [[10, 10, 20, 20]]},
+            {"type": "missing"}]
+    return v, f, segs
+
+
+def test_cloth_extraction_matches():
+    from icon_tpu.ops import cloth_extraction as JC
+    from icon_tpu_torch.ops import cloth_extraction as PC
+    rng = np.random.RandomState(11)
+    v, f, segs = _mesh_and_segs(rng)
+    px, py = PC.project_to_pixels(v)
+    jx, jy = JC.project_to_pixels(v)
+    assert px.tobytes() == jx.tobytes() and py.tobytes() == jy.tobytes()
+    poly = np.array([[50, 40], [300, 80], [200, 400], [90, 300]], np.float32)
+    np.testing.assert_array_equal(PC.point_in_polygon(px, py, poly),
+                                  JC.point_in_polygon(jx, jy, poly))
+    np.testing.assert_array_equal(PC.largest_component(f, len(v)),
+                                  JC.largest_component(f, len(v)))
+    n_cut = 0
+    for seg in segs:
+        for size in (512, 256):
+            p = PC.extract_cloth(v, f, seg, image_size=size)
+            j = JC.extract_cloth(v, f, seg, image_size=size)
+            assert (p is None) == (j is None), seg["type"]
+            if p is not None:
+                n_cut += 1
+                for a, b in zip(p, j):
+                    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert n_cut >= 3
+    parts = {"a": list(range(0, 300)), "b": list(range(300, 642))}
+    p = PC.smpl_to_recon_labels(v[::3], v[:642], parts)
+    j = JC.smpl_to_recon_labels(v[::3], v[:642], parts)
+    assert list(p) == list(j)
+    for k in j:
+        np.testing.assert_array_equal(p[k], j[k])
+
+
+def test_save_video_matches(tmp_path, monkeypatch):
+    """``save_video`` hands OpenCV the same calls (path, fourcc, fps,
+    size, the BGR frames) as the JAX package's."""
+    import cv2
+    rng = np.random.RandomState(12)
+    frames = [rng.randint(0, 256, (24, 40, 3)).astype(np.uint8)
+              for _ in range(3)]
+    calls = {}
+
+    class Writer:
+        def __init__(self, *args):
+            self.log = calls.setdefault(args[0], [args[1:]])
+
+        def write(self, fr):
+            self.log.append(fr.tobytes())
+
+        def release(self):
+            self.log.append("release")
+
+    monkeypatch.setattr(cv2, "VideoWriter", Writer)
+    PIO.save_video(str(tmp_path / "p" / "a.mp4"), frames, fps=12)
+    JIO.save_video(str(tmp_path / "j" / "a.mp4"), frames, fps=12)
+    p, j = calls[str(tmp_path / "p" / "a.mp4")], \
+        calls[str(tmp_path / "j" / "a.mp4")]
+    assert p == j and len(p) == 5 and p[-1] == "release"

@@ -10,7 +10,10 @@ so the recon is body-shaped and small) and PyMAF's seeded random weights:
   written body is the override's, to 1e-5;
 - the checkpoint load rules against the JAX package's
   ``port_icon_checkpoint`` on the same files: every tensor equal;
-- each refused flag raises, naming its ROADMAP item.
+- each refused flag raises, naming its ROADMAP item; ``-export_video``
+  and ``-seg_dir`` (A7 (rest), now ported) run and write ``_cloth.mp4``
+  (read back with cv2, the turntable's frame count patched down to 4) and
+  the garment OBJs of a seeded polygon JSON.
 
 The JAX CLI itself is a slow test (``tests/test_infer_e2e.py``)."""
 
@@ -182,13 +185,19 @@ def test_checkpoint_rules_match_the_jax_port(demo, tmp_path):
     (["-export_video"], "A7 \\(rest\\)"),
     (["-seg_dir", "segs"], "A7 \\(rest\\)"),
     (["-ckpt", "DIR"], "A10"),
-    (["-hps_type", "pare"], "A8 \\(rest\\)"),
+    (["-hps_type", "pixie"], "A8 \\(rest\\)"),
     (["prior", "pamir"], "A9"),
     (["prior", "pifu"], "A9"),
 ])
-def test_unported_options_raise(demo, tmp_path, extra, item):
+def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
+    """Each option the port lacks raises, naming its ROADMAP item. The A7
+    (rest) options are ported: they run on one photo and write their
+    artifacts."""
     from icon_tpu_torch.apps.infer import main
     in_dir, cfg_path = demo[0], demo[1]
+    if item.startswith("A7"):
+        _video_and_garments(demo, tmp_path, monkeypatch, extra[0])
+        return
     if extra[0] == "prior":
         data = yaml.safe_load(open(cfg_path))
         data["net"]["prior_type"] = extra[1]
@@ -201,6 +210,72 @@ def test_unported_options_raise(demo, tmp_path, extra, item):
         main(["-cfg", cfg_path, "-in_dir", in_dir, "-out_dir",
               str(tmp_path / "out"), "-allow_random_hps", *extra],
              device="cpu")
+
+
+def test_export_video_needs_cv2(demo, tmp_path, monkeypatch):
+    """Without OpenCV, ``-export_video`` raises ImportError naming cv2
+    before any work: no output directory is made."""
+    import sys
+    from icon_tpu_torch.apps.infer import main
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError, match="cv2"):
+        main(_argv(demo, tmp_path / "out", "-export_video"), device="cpu")
+    assert not osp.exists(tmp_path / "out")
+
+
+def _video_and_garments(demo, tmp_path, monkeypatch, flag):
+    """The CLI with ``flag`` on the scene photo (one fit and one cloth
+    iteration, no remesh): ``-export_video`` writes ``scene_cloth.mp4``
+    (4 frames of the photo, its normals and the two meshes at 256^2, read
+    back with cv2) and captures the fit gif; ``-seg_dir`` writes each
+    garment of ``scene.json`` whose polygons select faces, its OBJ the
+    size the record gives."""
+    import functools
+    import json
+    import shutil
+    import cv2
+    import icon_tpu_torch.apps.infer as infer
+    from icon_tpu_torch.utils.io import load_obj
+    from icon_tpu_torch.utils.synthetic import garment_polygons
+    from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    shutil.copy(osp.join(demo[0], "scene.png"), in_dir / "scene.png")
+    monkeypatch.setattr(infer, "export_turntable_video", functools.partial(
+        infer.export_turntable_video, n_frames=4))
+    segs = tmp_path / "segs"
+    segs.mkdir()
+    with open(segs / "scene.json", "w") as f:
+        json.dump(garment_polygons(_synthetic_smpl24(subdiv=2)) +
+                  [{"type": "far", "coordinates": [[0, 0, 4, 0, 4, 4]]}], f)
+    out = tmp_path / "out"
+    extra = ["-export_video"] if flag == "-export_video" else \
+        ["-seg_dir", str(segs)]
+    argv = _argv(demo, out, "-loop_smpl", "1", "-loop_cloth", "1",
+                 "-no_remesh", *extra)
+    argv[argv.index("-in_dir") + 1] = str(in_dir)
+    (record,) = infer.main(argv, device="cpu")
+    if flag == "-export_video":
+        cap = cv2.VideoCapture(str(out / "scene_cloth.mp4"))
+        shapes = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            shapes.append(frame.shape)
+        cap.release()
+        assert shapes == [(256, 4 * 256, 3)] * 4
+        assert osp.exists(out / "scene_smpl.gif")      # capture_every 1
+        assert record["stages"]["video"] > 0 and record["garments"] == {}
+        assert not osp.exists(out / "scene_upper.obj")
+    else:
+        assert sorted(record["garments"]) == ["lower", "upper"]
+        for kind, (nv, nf) in record["garments"].items():
+            v, f = load_obj(out / f"scene_{kind}.obj")
+            assert (len(v), len(f)) == (nv, nf) and nf > 20
+            assert nf < record["final"][1]
+        assert not osp.exists(out / "scene_far.obj")
+        assert not osp.exists(out / "scene_cloth.mp4")
 
 
 def _write_cmap_assets(root, n_cmap: int, n_smpl: int, rng):

@@ -2,9 +2,12 @@
 icon_tpu_torch and running one tiny CPU frame of each kind (normals given;
 normals predicted by the NormalNet from the body's renders; the demo's fit
 frame: body fit, recon, remesh, cloth refinement, colours) and the demo CLI
-on a photo (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
-colours) leaves ``jax``, ``flax`` and ``icon_tpu`` out of ``sys.modules``,
-and no file of the package nor ``chip_smoke.py`` imports them."""
+on photos (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
+colours; then the RGB photo with the YOLO detector, U^2-Net matting and
+PARE installed, the turntable video and the garments) leaves ``jax``,
+``flax`` and ``icon_tpu`` out of ``sys.modules``, and no file of the
+package (the photo path's modules among them) nor ``chip_smoke.py``
+imports them."""
 
 import os
 import os.path as osp
@@ -66,6 +69,23 @@ with tempfile.TemporaryDirectory() as d:
                for r in recs) and len(recs) == 2
     assert os.path.exists(os.path.join(p["out_dir"],
                                        "scene_recon_color.obj"))
+    import functools
+    import icon_tpu_torch.apps.infer as infer
+    p = write_demo_inputs(os.path.join(d, "w"), cfg, photo_size=64, subdiv=2,
+                          detector=True, segmenter="lite", pare_ckpt=True,
+                          seg_dir=True)
+    os.remove(os.path.join(p["in_dir"], "matte.png"))
+    os.environ["ICON_TPU_DATA_DIR"] = p["data_dir"]
+    infer.export_turntable_video = functools.partial(
+        infer.export_turntable_video, n_frames=2)
+    (rec,) = main(["-cfg", p["cfg"], "-in_dir", p["in_dir"], "-out_dir",
+                   p["out_dir"], "-ckpt", p["ckpt"], "-normal_ckpt",
+                   p["normal_ckpt"], "-loop_smpl", "1", "-loop_cloth", "1",
+                   "-mcube_res", "64", "-img_size", "32", "-no_remesh",
+                   "-hps_type", "pare", "-export_video", "-seg_dir",
+                   p["seg_dir"]], device="cpu")
+    assert {"detect", "matte", "video", "garments"} <= set(rec["stages"])
+    assert os.path.exists(os.path.join(p["out_dir"], "scene_cloth.mp4"))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
@@ -82,17 +102,25 @@ def test_port_imports_no_jax():
     assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
+# the photo path's modules, which the scans below must reach
+PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
+              "models/pare/hrnet.py", "models/pare/net.py",
+              "models/pare/convert.py", "ops/cloth_extraction.py",
+              "data/test_dataset.py", "apps/infer.py", "render/render.py")
+
+
 def test_no_jax_import_in_package_sources():
     pkg = osp.join(ROOT, "icon_tpu_torch")
     pat = re.compile(r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b)", re.M)
-    checked = 0
+    checked = []
     for dirpath, _, files in os.walk(pkg):
         for name in files:
             if name.endswith((".py", ".cu")):
                 with open(osp.join(dirpath, name)) as f:
                     assert not pat.search(f.read()), name
-                checked += 1
-    assert checked >= 20
+                checked.append(osp.relpath(osp.join(dirpath, name), pkg))
+    assert len(checked) >= 20
+    assert set(PHOTO_PATH) <= set(checked)
 
 
 def _port_sources():
@@ -109,10 +137,11 @@ def test_no_icon_tpu_import_in_port_sources():
     even its modules that do not import JAX: the port keeps its own copies
     (config, clean_mesh, the synthetic body, the lattice decoder)."""
     pat = re.compile(r"^\s*(from|import)\s+icon_tpu(\.|\s|$)", re.M)
-    checked = 0
+    checked = []
     for path in _port_sources():
         with open(path) as f:
             hit = pat.search(f.read())
         assert hit is None, f"{path}: {hit.group(0)!r}"
-        checked += 1
-    assert checked >= 40
+        checked.append(osp.relpath(path, osp.join(ROOT, "icon_tpu_torch")))
+    assert len(checked) >= 40
+    assert set(PHOTO_PATH) <= set(checked)

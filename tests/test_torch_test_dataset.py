@@ -4,10 +4,14 @@ the same two photos (an RGBA matte and an RGB scene that takes the saliency
 path), with both packages' ``get_hps`` monkeypatched to one small-width
 PyMAF (``torch_port_helpers.pymaf_pair``; nothing of the JAX package is
 edited): the images, masks and crop parameters byte-equal, the estimate
-(betas, rotations, vertices, scale, translation) to 1e-4. Then the guards:
-no checkpoint without ``allow_random_hps``, an installed U^2-Net or YOLO
-weight file, another ``hps_type``."""
+(betas, rotations, vertices, scale, translation) to 1e-4. Installed
+U^2-Net (full, lite) and YOLO weight files, written from seeds in their
+published layouts, are used by both datasets on the RGB photo alike. PARE
+through ``get_hps`` and ``TestDataset`` against the JAX ``PAREWrapper`` on
+one seeded checkpoint. Then the guards: no checkpoint without
+``allow_random_hps``, another ``hps_type``."""
 
+import pickle
 import warnings
 
 import numpy as np
@@ -31,6 +35,11 @@ class _Hps:
         return self.fwd(img)["smpl_out"][-1]
 
 
+class _PareHps(_Hps):
+    def __call__(self, img):
+        return self.fwd(img)
+
+
 @pytest.fixture(scope="module")
 def photos(tmp_path_factory):
     from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24
@@ -42,13 +51,21 @@ def photos(tmp_path_factory):
     return str(d)
 
 
-def test_items_match_the_jax_dataset(photos, monkeypatch):
-    import icon_tpu.data.test_dataset as J
-    import icon_tpu_torch.data.test_dataset as P
+@pytest.fixture(scope="module")
+def hps_pair():
+    """Both packages' HPS callables around one small-width PyMAF."""
     jnet, variables, pnet, (jbody, pbody, _) = pymaf_pair()
     jfwd = jax.jit(lambda x: jnet.apply(variables, x, train=False))
-    jhps = _Hps(lambda x: jfwd(jnp.asarray(x)), jbody)
-    phps = _Hps(lambda x: pnet(x), pbody)
+    return (_Hps(lambda x: jfwd(jnp.asarray(x)), jbody),
+            _Hps(lambda x: pnet(x), pbody))
+
+
+def _items(photos, monkeypatch, hps_pair, indices=(0, 1)):
+    """The port's and the JAX dataset's items of ``photos``, both with the
+    small PyMAF of ``hps_pair``; and the port's dataset."""
+    import icon_tpu.data.test_dataset as J
+    import icon_tpu_torch.data.test_dataset as P
+    jhps, phps = hps_pair
     monkeypatch.setattr(J, "get_hps", lambda *a, **k: jhps)
     monkeypatch.setattr(P, "get_hps", lambda *a, **k: phps)
     jds = J.TestDataset(photos, icon_size=96)
@@ -56,7 +73,11 @@ def test_items_match_the_jax_dataset(photos, monkeypatch):
     assert len(pds) == len(jds) == 2
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
-        items = [(pds[i], jds[i]) for i in range(2)]
+        items = [(pds[i], jds[i]) for i in indices]
+    return items, pds
+
+
+def _assert_items_equal(items):
     for got, want in items:
         assert got["name"] == want["name"]
         for k in ("image", "mask"):
@@ -71,6 +92,11 @@ def test_items_match_the_jax_dataset(photos, monkeypatch):
                                        atol=ATOL, err_msg=k)
         assert got["scale"] == pytest.approx(want["scale"], abs=ATOL)
         assert got["mask"].sum() > 200
+
+
+def test_items_match_the_jax_dataset(photos, monkeypatch, hps_pair):
+    items, _ = _items(photos, monkeypatch, hps_pair)
+    _assert_items_equal(items)
     assert items[0][0]["body_pose"].shape == (1, 23, 3, 3)
 
 
@@ -85,19 +111,93 @@ def test_random_hps_needs_the_flag(photos):
 @pytest.mark.parametrize("name", ["u2net.pth", "u2netp.pth",
                                   "yolov3-tiny.weights"])
 def test_installed_detector_weights_raise(photos, tmp_path, monkeypatch,
-                                          name):
-    """The JAX package would use these files; the port refuses rather than
-    quietly taking the saliency path."""
-    from icon_tpu_torch.data.test_dataset import TestDataset
-    (tmp_path / "HPS").mkdir()
-    (tmp_path / "HPS" / name).write_bytes(b"")
+                                          hps_pair, name):
+    """Installed weights (A8 (rest), now ported; the test keeps its
+    earlier name): a seeded file in the published layout under
+    ``ICON_TPU_DATA_DIR/HPS`` is built on the dataset's device and used on
+    the RGB photo, as the JAX dataset uses it; the items are equal as
+    above. A file that does not load raises: no saliency fallback."""
+    import torch
+    from icon_tpu_torch.models import u2net, yolo
+    from icon_tpu_torch.utils.synthetic import (seeded_u2net_state,
+                                                write_darknet_weights)
+    hps = tmp_path / "HPS"
+    hps.mkdir()
+    if name == "yolov3-tiny.weights":
+        write_darknet_weights(str(hps / name), np.random.RandomState(4),
+                              head="frame")
+    else:
+        torch.save(seeded_u2net_state(name == "u2netp.pth", 5), hps / name)
     monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A8 \\(rest\\)"):
-        TestDataset(photos, allow_random_hps=True, device="cpu")[0]
+    items, pds = _items(photos, monkeypatch, hps_pair, indices=(1,))
+    _assert_items_equal(items)
+    if name.startswith("u2net"):
+        assert isinstance(pds.segmenter, u2net.Segmenter)
+        assert pds.segmenter.net.stage1.rebnconv1.conv_s1.out_channels == \
+            (16 if name == "u2netp.pth" else 32)
+        assert pds.detector is None
+    else:
+        assert isinstance(pds.detector, yolo.PersonDetector)
+        assert pds.segmenter is None
+    (hps / name).write_bytes(b"\0" * 64)
+    with pytest.raises((RuntimeError, ValueError, pickle.UnpicklingError)):
+        type(pds)(photos, allow_random_hps=True, device="cpu")[1]
 
 
 def test_other_hps_types_raise():
     from icon_tpu_torch.data.test_dataset import get_hps
-    for hps_type in ("pare", "pixie", "hybrik", "bev"):
+    for hps_type in ("pixie", "hybrik", "bev"):
         with pytest.raises(NotImplementedError, match="A8 \\(rest\\)"):
             get_hps(hps_type, device="cpu")
+
+
+def test_pare_items_match_the_jax_dataset(photos, tmp_path, monkeypatch):
+    """``-hps_type pare``: ``get_hps`` takes the default checkpoint path
+    under ``ICON_TPU_DATA_DIR`` (a seeded published-width file, the seeded
+    mean camera); then the pare branch of both datasets' adaptation on one
+    narrow PARE (width 8; its state carried into the JAX tree by
+    ``port_pare``): the items equal, the estimate to 1e-4."""
+    import torch
+    import icon_tpu.data.test_dataset as J
+    import icon_tpu_torch.data.test_dataset as P
+    from icon_tpu.models.pare.convert import port_pare
+    from icon_tpu.models.pare.net import PARE as JPARE
+    from icon_tpu_torch.models.pare.net import PARE as PPARE
+    from icon_tpu_torch.utils.synthetic import seeded_pare_state
+    d = tmp_path / "HPS" / "pare_data"
+    d.mkdir(parents=True)
+    torch.save({"state_dict": {"model." + k: v for k, v in
+                               seeded_pare_state(6).items()}},
+               d / "pare_checkpoint.ckpt")
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    hps = P.get_hps("pare", device="cpu")
+    assert isinstance(hps, P.PAREWrapper) and not hps.random_init
+    cam = hps(torch.zeros(1, 224, 224, 3))["pred_cam"][0]
+    assert abs(float(cam[0]) - 0.9) < 0.05
+
+    _, _, _, (jbody, pbody, _) = pymaf_pair()
+
+    def smpl(body, b, r):
+        return body.forward(betas=b, global_orient=r[:, :1].reshape(-1, 9),
+                            body_pose=r[:, 1:].reshape(r.shape[0], -1),
+                            pose2rot=False)
+
+    torch.manual_seed(0)
+    pnet = PPARE(lambda b, r: smpl(pbody, b, r), 8, (1, 1, 1)).eval()
+    jnet = JPARE(smpl_forward=lambda b, r: smpl(jbody, b, r),
+                 backbone_width=8, stage_modules=(1, 1, 1))
+    shapes = jax.eval_shape(lambda: jnet.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3)), train=False))
+    variables, _ = port_pare(
+        {k: v.numpy() for k, v in pnet.state_dict().items()},
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes))
+    jfwd = jax.jit(lambda x: jnet.apply(variables, x, train=False))
+    for mod, hps in ((J, _PareHps(lambda x: jfwd(jnp.asarray(x)), jbody)),
+                     (P, _PareHps(pnet, pbody))):
+        monkeypatch.setattr(mod, "get_hps", lambda *a, _h=hps, **k: _h)
+    jds = J.TestDataset(photos, hps_type="pare", icon_size=96)
+    pds = P.TestDataset(photos, hps_type="pare", icon_size=96,
+                        device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        _assert_items_equal([(pds[i], jds[i]) for i in range(2)])
