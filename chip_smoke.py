@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[11], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[12], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -99,9 +99,23 @@ JSON line ``{"ok": true, "device": {...}}``):
    kernels against the plain version on both turntable meshes at azimuths
    0, 90, 180 and 270 (256^2, K=128, forward only: bin lists, pix_to_face,
    overflow and the composited uint8 frame identical), with the whole
-   frame's CUDA-event time.
+   frame's CUDA-event time;
+12. the demo's other estimators: seeded files in their published layouts
+   and widths under a temporary ``ICON_TPU_DATA_DIR/HPS`` (PIXIE's
+   ``pixie_model.tar``: HRNet-W48 and two ResNet-50s; HybrIK's
+   ``pretrained_w_cam.pth``: ResNet-34 at 256^2); both nets on the card
+   against the CPU on the CLI's own input (NET_RTOL of each array's largest
+   magnitude; HybrIK's IK on its chain body by its swings, on SMPL's tree
+   against the CPU), with each wrapper's build and load time and each
+   forward alone; then the CLI on the RGB scene photo with ``-hps_type
+   pixie`` (the SMPL-X body: 21 body joints, its faces) and with
+   ``-hps_type hybrik``, 100 fit and 200 cloth iterations, ``-no_remesh``:
+   the stage split, the artifacts, the loops, the recon; and the kernels
+   against their plain versions on the PIXIE run's inputs, as in phase 10
+   (every kNN call against the SMPL-X body; the raster kernels on its
+   fitted body, recon and refined mesh).
 
-Each main path (phases 4, 6, 9, 10 and 11) runs with the kernels' launch
+Each main path (phases 4, 6, 9, 10, 11 and both runs of 12) runs with the kernels' launch
 counts set to 0 just before it and read just after; a kernel of the path
 that did not launch fails the run. Any failed check raises, so the script exits non-zero
 and prints no result.
@@ -175,6 +189,7 @@ HPS_RTOL = 1e-3
 # YOLO, U^2-Net and PARE on the card against the CPU (phase 11): the max
 # error over each array's largest magnitude, TF32 off
 NET_RTOL = 1e-4
+IK_DET_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -1047,13 +1062,8 @@ def phase_cli(dev, card):
     import os
     import tempfile
     from icon_tpu_torch.apps.infer import main
-    from icon_tpu_torch.data.render_dataset import make_calib
     from icon_tpu_torch.data.test_dataset import TestDataset
-    from icon_tpu_torch.kernels import knn
-    from icon_tpu_torch.ops import sdf_fast
-    from icon_tpu_torch.ops.projection import project
     from icon_tpu_torch.recon.frame import bench_config
-    from icon_tpu_torch.render.camera import verts_to_ndc
     from icon_tpu_torch.utils.synthetic import write_demo_inputs
 
     with tempfile.TemporaryDirectory() as d:
@@ -1089,22 +1099,15 @@ def phase_cli(dev, card):
                 "-no_remesh", "-allow_random_hps", "-img_size",
                 str(FIT_SIZE), "-mcube_res", str(FIT_RES)]
         knn_calls = []
-        kernel = sdf_fast.nearest_vertices_kernel
-
-        def spy(points, verts, k):
-            knn_calls.append((points.detach().clone(),
-                              verts.detach().clone(), k))
-            return kernel(points, verts, k)
-
         torch.cuda.synchronize()
-        sdf_fast.nearest_vertices_kernel = spy
+        remove_spy = knn_spy(knn_calls)
         reset_launches()              # count only the main path's launches
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
             records = main(argv, device=dev, keep_meshes=True)
         finally:
-            sdf_fast.nearest_vertices_kernel = kernel
+            remove_spy()
         total_s = time.perf_counter() - t0
         launched = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1140,7 +1143,41 @@ def phase_cli(dev, card):
         if any(v for k, v in r["stats"].items() if k.endswith("overflow")):
             raise AssertionError(f"{r['name']}: engine overflow {r['stats']}")
 
-    # the kernels against their plain versions on the run's own inputs
+    return launched, cli_kernels_agree("[10]", records, knn_calls, launched,
+                                       dev, seed=12)
+
+
+def knn_spy(calls: list):
+    """A pass-through spy on ``sdf_fast``'s kNN wrapper that records each
+    call's inputs (cloned) in ``calls`` and counts nothing; returns a
+    function that removes it."""
+    from icon_tpu_torch.ops import sdf_fast
+    kernel = sdf_fast.nearest_vertices_kernel
+
+    def spy(points, verts, k):
+        calls.append((points.detach().clone(), verts.detach().clone(), k))
+        return kernel(points, verts, k)
+
+    sdf_fast.nearest_vertices_kernel = spy
+
+    def remove():
+        sdf_fast.nearest_vertices_kernel = kernel
+    return remove
+
+
+def cli_kernels_agree(tag, records, knn_calls, launched, dev, seed):
+    """The kernels of a CLI run against their plain versions on the run's
+    own inputs: every recorded kNN call (keys, picks), and per photo the
+    raster kernels on the fitted body at K=96 (the fit), the recon at
+    azimuth 0 and the final mesh at 180 with K=256 (the cloth loop's input
+    and output), and at 1024^2 with K=512 the recon's visibility raster of
+    the fitted body and the colour stage's of the final mesh, with their
+    bin lists and overflow. Returns {kernel: worst error}."""
+    from icon_tpu_torch.data.render_dataset import make_calib
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.ops.projection import project
+    from icon_tpu_torch.render.camera import verts_to_ndc
+
     worst = dict.fromkeys(("knn_f32", *RASTER_REPLACES), 0.0)
     if len(knn_calls) != launched["knn_f32"]:
         raise AssertionError(f"{len(knn_calls)} kNN calls recorded, "
@@ -1150,16 +1187,16 @@ def phase_cli(dev, card):
         torch.cuda.synchronize()
         rel, same, share, _, key0 = knn_picks_agree(idx, key, pts, verts, k)
         err = float((key - key0).abs().max())
-        print(f"[10] knn call {i} N={len(pts)} V={len(verts)} k={k}: max|dkey|"
-              f" {err:.3g} (rel {rel:.3g}), every pick equal where gaps>"
-              f"{KEY_GAP:g}: {same} ({share:.1%} of picks)", flush=True)
+        print(f"{tag} knn call {i} N={len(pts)} V={len(verts)} k={k}: "
+              f"max|dkey| {err:.3g} (rel {rel:.3g}), every pick equal where "
+              f"gaps>{KEY_GAP:g}: {same} ({share:.1%} of picks)", flush=True)
         if rel > KEY_RTOL or not same:
-            raise AssertionError(f"knn kernel disagrees with plain on the "
-                                 f"CLI's call {i}")
+            raise AssertionError(f"{tag} knn kernel disagrees with plain "
+                                 f"on the CLI's call {i}")
         worst["knn_f32"] = max(worst["knn_f32"], err)
     calib8 = make_calib(0.0)            # the CLI's calib (apps/infer.py)
     calib = torch.as_tensor(calib8[4:8] @ calib8[:4], device=dev)
-    rng = np.random.RandomState(12)
+    rng = np.random.RandomState(seed)
     overflow = {}
     for r in records:
         (bv, bf), (cv, cf), (fv, ff) = (
@@ -1179,12 +1216,12 @@ def phase_cli(dev, card):
                  512)):
             name = f"{r['name']} {name}"
             errs, overflow[name], _ = compare_raster(
-                "[10]", f"{name} {res}^2", ndc, f, attrs, res, K, rng,
+                tag, f"{name} {res}^2", ndc, f, attrs, res, K, rng,
                 backward=K != 512)
             for k, e in errs.items():
                 worst[k] = max(worst[k], e)
-    print(f"[10] bin_overflow {overflow}", flush=True)
-    return launched, worst
+    print(f"{tag} bin_overflow {overflow}", flush=True)
+    return worst
 
 
 def rel_err(got, want) -> float:
@@ -1427,6 +1464,197 @@ def photo_nets_agree(dev, paths) -> None:
                              f"{bad}")
 
 
+def phase_other_hps(dev, card):
+    """Phase 12: the demo's other estimators on the card. Seeded published
+    files of PIXIE (HRNet-W48 and two ResNet-50s) and HybrIK (ResNet-34 at
+    256^2) under a temporary ``ICON_TPU_DATA_DIR``; both nets on the card
+    against the CPU on the CLI's own input (:func:`other_nets_agree`); the
+    CLI on the RGB scene photo with ``-hps_type pixie`` (the SMPL-X body
+    through the fit frame; every kNN call recorded) and then ``-hps_type
+    hybrik``, each with 100 fit and 200 cloth iterations, ``-no_remesh``,
+    its launches counted; the artifacts, the loops, the recon; then the
+    kernels against their plain versions on the PIXIE run's own inputs
+    (:func:`cli_kernels_agree`: the kNN calls against the SMPL-X body, the
+    raster kernels on its fitted body, recon and refined mesh). Returns
+    ([the launches of each run], {kernel: worst error})."""
+    import os
+    import tempfile
+    from icon_tpu_torch.apps.infer import main
+    from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+
+    old_root = os.environ.get("ICON_TPU_DATA_DIR")
+    records, runs, knn_calls = {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = write_demo_inputs(d, bench_config(), pixie_ckpt=True,
+                                  hybrik_ckpt=True)
+        os.remove(os.path.join(paths["in_dir"], "matte.png"))
+        os.environ["ICON_TPU_DATA_DIR"] = paths["data_dir"]
+        inputs_s = time.perf_counter() - t0
+        try:
+            other_nets_agree(dev, card, paths)
+            for hps_type in ("pixie", "hybrik"):
+                out = os.path.join(d, f"out_{hps_type}")
+                argv = ["-cfg", paths["cfg"], "-in_dir", paths["in_dir"],
+                        "-out_dir", out, "-ckpt", paths["ckpt"],
+                        "-normal_ckpt", paths["normal_ckpt"], "-hps_type",
+                        hps_type, "-img_size", str(FIT_SIZE), "-mcube_res",
+                        str(FIT_RES), "-loop_smpl", "100", "-loop_cloth",
+                        "200", "-no_remesh"]
+                torch.cuda.synchronize()
+                remove_spy = knn_spy(knn_calls if hps_type == "pixie"
+                                     else [])
+                reset_launches()      # count only the main path's launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    (record,) = main(argv, device=dev, keep_meshes=True)
+                finally:
+                    remove_spy()
+                record["total_s"] = time.perf_counter() - t0
+                record["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+                record["written"] = sorted(os.listdir(out))
+                record["fit"] = np.load(os.path.join(out, "scene_smpl.npy"),
+                                        allow_pickle=True).item()
+                records[hps_type], runs[hps_type] = record, read_launches()
+        finally:
+            if old_root is None:
+                os.environ.pop("ICON_TPU_DATA_DIR", None)
+            else:
+                os.environ["ICON_TPU_DATA_DIR"] = old_root
+
+    want = sorted(f"scene{s}" for s in CLI_ARTIFACTS)
+    for hps_type, r in records.items():
+        st = r["stages"]
+        n_fit, n_cloth = len(r["fit_losses"]), len(r["cloth_losses"])
+        print(f"[12] scene, -hps_type {hps_type}: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in st.items())
+            + f"; fit {st['fit'] / max(n_fit, 1):.4f} s/iteration "
+            f"({r['fit_losses'][0]:.5f} -> {r['fit_losses'][-1]:.5f}), "
+            f"cloth {st.get('cloth', 0.0) / max(n_cloth, 1):.4f} s/iteration"
+            f"; body {r['meshes']['body'][0].shape[0]} verts / "
+            f"{len(r['meshes']['body'][1])} faces, pose "
+            f"{r['fit']['pose'].shape}, betas {r['fit']['betas'].shape}; "
+            f"recon {r['recon'][0]} verts / {r['recon'][1]} tris, levels "
+            f"{r['stats']}; main {r['total_s']:.2f} s, launches "
+            f"{runs[hps_type]}, peak {r['peak_gb']:.2f} GiB on {card}, TF32 "
+            f"off; inputs written in {inputs_s:.2f} s", flush=True)
+        check_launched(runs[hps_type], ("knn_f32", *RASTER_REPLACES),
+                       f"phase 12 ({hps_type})")
+        if r["written"] != want:
+            raise AssertionError(f"phase 12 {hps_type} artifacts "
+                                 f"{r['written']}, want {want}")
+        if n_fit != 100 or n_cloth != 200 or not np.isfinite(
+                r["fit_losses"] + r["cloth_losses"]).all():
+            raise AssertionError(f"phase 12 {hps_type}: loops short or "
+                                 "non-finite")
+        if r["recon"][1] < 10000 or any(
+                v for k, v in r["stats"].items() if k.endswith("overflow")):
+            raise AssertionError(f"phase 12 {hps_type}: recon {r['recon']}"
+                                 f", {r['stats']}")
+        n_joints = 21 if hps_type == "pixie" else 23
+        if r["fit"]["pose"].shape != (1, n_joints, 3, 3) or \
+                r["fit"]["betas"].shape != (1, 10):
+            raise AssertionError(f"phase 12 {hps_type}: fit pose "
+                                 f"{r['fit']['pose'].shape}")
+    worst = cli_kernels_agree("[12]", [records["pixie"]], knn_calls,
+                              runs["pixie"], dev, seed=14)
+    return [runs["pixie"], runs["hybrik"]], worst
+
+
+def other_nets_agree(dev, card, paths) -> None:
+    """PIXIE and HybrIK on the card against the CPU on phase 12's input
+    (the dataset's HPS crop of the scene photo), each output within NET_RTOL
+    of its largest magnitude: PIXIE's SMPL-X vertices, joints, rotations,
+    shape, expression and camera; HybrIK's uvd, xyz, twists, shape and
+    camera. HybrIK's IK and body: the synthetic SMPL's tree is a chain, so
+    the root's Procrustes leaves the twist about its one bone to the SVD,
+    which cuSOLVER and LAPACK may choose apart; the card's rotations must be
+    proper and put every rest bone on the bone they solve for
+    (``bone_alignment``), and the IK alone on a seeded skeleton of SMPL's
+    tree (each Procrustes well posed) must equal the CPU's. Prints each
+    wrapper's build and load time, each forward alone on the card (CUDA
+    events) and the IK's share."""
+    from icon_tpu_torch.data.test_dataset import (HybrIKWrapper,
+                                                  PIXIEWrapper, TestDataset)
+    from icon_tpu_torch.models.hybrik import ik
+    from icon_tpu_torch.models.smplx.lbs import batch_rodrigues
+
+    img_hps = TestDataset(paths["in_dir"], icon_size=FIT_SIZE,
+                          device="cpu").preprocess(0)[1][1]
+    x = torch.from_numpy(img_hps)[None]
+    errs, ms, build_s, outs = {}, {}, {}, {}
+    for name, cls, ckpt, keys in (
+            ("pixie", PIXIEWrapper, paths["pixie_ckpt"],
+             ("vertices", "joints", "global_pose", "body_pose", "jaw_pose",
+              "left_hand_pose", "right_hand_pose", "shape", "exp", "cam")),
+            ("hybrik", HybrIKWrapper, paths["hybrik_ckpt"],
+             ("pred_uvd_jts", "pred_xyz_jts", "pred_phi", "pred_shape",
+              "pred_camera"))):
+        outs[name, "cpu"] = cls(ckpt, device="cpu")(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_hps = cls(ckpt, device=dev)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        outs[name, str(dev)] = card_hps(x)
+        for k in keys:
+            errs[f"{name} {k}"] = rel_err(outs[name, str(dev)][k],
+                                          outs[name, "cpu"][k])
+        ms[name] = cuda_ms(lambda: card_hps(x))
+    # HybrIK's IK on the card (card_hps is HybrIK's wrapper)
+    got = outs["hybrik", str(dev)]
+    net = card_hps.net
+    J = len(net.parents)
+    skel = got["pred_xyz_jts"][:, :J] * 2.2
+    rest = net.rest_joints[None].expand(1, J, 3)
+    rot = got["pred_theta_mats"]
+    det = torch.linalg.det(rot)
+    align = float(ik.bone_alignment(rot, skel, rest, net.parents).min())
+    chain_diff = rel_err(rot, outs["hybrik", "cpu"]["pred_theta_mats"])
+    with torch.no_grad():
+        ms["hybrik IK"] = cuda_ms(lambda: ik.hybrik_ik(
+            skel, got["pred_phi"], rest, net.parents))
+    smpl_tree = (0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14,
+                 16, 17, 18, 19, 20, 21)
+    rng = np.random.RandomState(15)
+    R = batch_rodrigues(torch.from_numpy(
+        (0.5 * rng.randn(J, 3)).astype(np.float32))).to(dev)
+    glob, pos = [R[0]], [rest[0, 0]]
+    for i in range(1, J):
+        p = smpl_tree[i]
+        glob.append(glob[p] @ R[i])
+        pos.append(pos[p] + glob[p] @ (rest[0, i] - rest[0, p]))
+    tree_skel = torch.stack(pos)[None] - pos[0]
+    phi = torch.from_numpy(rng.randn(1, J - 1, 2).astype(np.float32)).to(dev)
+    tree = {n: ik.hybrik_ik(tree_skel.to(n), phi.to(n), rest.to(n),
+                            smpl_tree) for n in ("cpu", dev)}
+    errs["hybrik IK on SMPL's tree"] = rel_err(tree[dev], tree["cpu"])
+    print(f"[12] nets on the card vs the CPU (max error over each array's "
+          f"largest magnitude): " + ", ".join(
+              f"{k} {e:.3g}" for k, e in errs.items())
+          + f"; HybrIK on the chain body: rotations det in "
+          f"[{float(det.min()):.6f}, {float(det.max()):.6f}], least bone "
+          f"cosine {align:.7f}, rotations vs the CPU's {chain_diff:.3g} (the "
+          f"root's twist is the SVD's choice); build and load, s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in build_s.items())
+          + "; forward alone on the card (CUDA events, the IK's SVDs on "
+          f"cuSOLVER included), ms: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ms.items()) + f" on {card}",
+          flush=True)
+    bad = {k: e for k, e in errs.items() if not e <= NET_RTOL}
+    if bad:
+        raise AssertionError(f"nets on the card disagree with the CPU: "
+                             f"{bad}")
+    # a bone nearly parallel to its rest bone leaves the swing's axis short
+    # of unit length by the algorithm's 1e-8 guard (both packages): det
+    # within IK_DET_TOL
+    if not (align > 1 - 1e-4 and float((det - 1).abs().max()) < IK_DET_TOL):
+        raise AssertionError("HybrIK's IK on the card is not a proper "
+                             "rotation onto the solved bones")
+
+
 def normal_inputs(verts, faces, azimuth):
     """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
     in the view frame)."""
@@ -1498,11 +1726,14 @@ def main() -> int:
     runs.append(launched)
     launched, photo_errs = phase_photo_path(dev, card)
     runs.append(launched)
+    launched, hps_errs = phase_other_hps(dev, card)
+    runs += launched
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
-        entry["max_abs_err"] = max(entry["max_abs_err"],
-                                   *(errs.get(entry["name"], 0.0) for errs
-                                     in (fit_errs, cli_errs, photo_errs)))
+        entry["max_abs_err"] = max(
+            entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
+                                    (fit_errs, cli_errs, photo_errs,
+                                     hps_errs)))
 
     print(json.dumps({"kernels": summary}))
     print(card_line())

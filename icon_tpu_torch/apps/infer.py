@@ -4,7 +4,8 @@ apps/infer.py).
 Per photo of ``-in_dir``:
 
 1. ``TestDataset`` preprocessing (the crop around the person matte) and
-   PyMAF's SMPL estimate; a ``<name>_smpl.npz`` fit beside the photo
+   the body estimate of ``-hps_type`` (pymaf, pare, pixie, hybrik or bev;
+   PIXIE's is an SMPL-X body); a ``<name>_smpl.npz`` fit beside the photo
    overrides the estimate;
 2. the SMPL fit against the NormalNet's cloth normals and the matte
    (``-loop_smpl`` iterations), or with ``-loop_smpl 0`` the estimated
@@ -31,8 +32,7 @@ The published ``-ckpt`` (``icon-filter.ckpt``) and ``-normal_ckpt``
 (``normal.ckpt``) load by the reference's rules
 (lib/dataset/mesh_util.py:187-237, apps/train.py:201-218). What the port
 does not have yet raises, naming its ROADMAP item: checkpoint directories
-and ``-num_devices`` > 1 (A10), the pifu and pamir priors (A9), the HPS
-types but pymaf and pare (A8 (rest)).
+and ``-num_devices`` > 1 (A10), the pifu and pamir priors (A9).
 """
 
 from __future__ import annotations
@@ -342,6 +342,10 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
         else:
             init = {k: data[k].astype(np.float32) for k in
                     ("betas", "body_pose", "global_orient", "trans")}
+            # the body's shape space: PIXIE estimates 200 betas and decodes
+            # its vertices from the first ones (the JAX CLI passes all 200
+            # and fails in the body's blend shapes)
+            init["betas"] = init["betas"][:, :body.shapedirs.shape[-1]]
             scale = data["scale"]
         image = torch.as_tensor(data["image"], device=device)
         smpl_fit = frame.fit(

@@ -9,12 +9,15 @@ YOLOv3-tiny person box when ``data/HPS/yolov3-tiny.weights`` is installed
 U^2-Net matte when ``data/HPS/u2net.pth`` or ``u2netp.pth`` is installed
 (the reference's rembg), else the saliency matte. Both nets run on the
 dataset's device; an installed file that does not load raises. The HPS is
-PyMAF or PARE; the others are ROADMAP Queue A item A8 (rest).
+one of the demo's five (``get_hps``): PyMAF, PARE, PIXIE (an SMPL-X body),
+HybrIK, or BEV around the external ``simple-romp`` package.
 
 An item holds (TestDataset.py:232-287): ``image [S, S, 3]`` in [-1, 1]
 masked, ``mask [S, S]``, ``betas [1, 10]``, ``body_pose [1, 23, 3, 3]``,
 ``global_orient [1, 1, 3, 3]``, ``smpl_verts``, ``scale``, ``trans [3]``,
-all numpy.
+all numpy; PIXIE's has ``betas [1, 200]`` (its whole shape space), a
+21-joint ``body_pose`` and also ``exp``, ``jaw_pose``, ``left_hand_pose``
+and ``right_hand_pose``.
 """
 
 from __future__ import annotations
@@ -25,11 +28,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-_NOT_PORTED = "is not ported (ROADMAP Queue A item A8 (rest))"
 
 
 def alpha_bbox(alpha: np.ndarray, thresh: float = 0.5,
@@ -54,13 +56,16 @@ def alpha_bbox(alpha: np.ndarray, thresh: float = 0.5,
 def process_image(path: str, icon_size: int = 512, hps_size: int = 224,
                   segmenter: Optional[Callable] = None,
                   detector: Optional[Callable] = None,
-                  stages: Optional[Dict[str, float]] = None):
+                  stages: Optional[Dict[str, float]] = None,
+                  return_raw: bool = False):
     """(img_icon ``[S, S, 3]`` in [-1, 1] times the mask, img_hps ``[224,
     224, 3]`` ImageNet-normalized, mask ``[S, S]``, crop_param), numpy;
     PIL's bilinear resize on uint8, as the JAX package. An RGB photo takes
     ``detector``'s box and ``segmenter``'s matte when given
     (``detect_and_matte``, which adds its ``detect`` and ``matte`` seconds
-    to ``stages``)."""
+    to ``stages``). With ``return_raw`` a fifth entry, the unmasked crop
+    as uint8 ``[S, S, 3]``, for an HPS that runs its own detection (BEV;
+    the reference hands it the raw crop, imutils.py process_image)."""
     from PIL import Image
 
     from icon_tpu_torch.models.detector import detect_and_matte
@@ -93,8 +98,11 @@ def process_image(path: str, icon_size: int = 512, hps_size: int = 224,
     img_hps = (hps_rgb - IMAGENET_MEAN) / IMAGENET_STD
 
     crop_param = {"top": top, "left": left, "size": size, "ori_hw": (H, W)}
-    return (img_icon.astype(np.float32), img_hps.astype(np.float32),
-            (icon_a > 0.5).astype(np.float32), crop_param)
+    out = (img_icon.astype(np.float32), img_hps.astype(np.float32),
+           (icon_a > 0.5).astype(np.float32), crop_param)
+    if return_raw:
+        return out + ((resize(crop_rgb, icon_size) * 255).astype(np.uint8),)
+    return out
 
 
 class PyMAFWrapper:
@@ -146,20 +154,153 @@ class PAREWrapper:
         return self.net(img.to(self.device))
 
 
+class PIXIEWrapper:
+    """Callable HPS: ``[B, 224, 224, 3]`` -> PIXIE's SMPL-X output dict, on
+    ``device``. Without a checkpoint the weights are PIXIE's seeded random
+    initialization (``random_init``)."""
+
+    def __init__(self, ckpt: str = "", device="cuda"):
+        from icon_tpu_torch.models.pixie.convert import load_pixie_checkpoint
+        from icon_tpu_torch.models.pixie.net import build_pixie
+        self.device = torch.device(device)
+        self.est, self.body = build_pixie()
+        self.faces = self.body.faces
+        self.random_init = not (ckpt and osp.exists(ckpt))
+        if not self.random_init:
+            load_pixie_checkpoint(self.est.net, ckpt)
+        else:
+            print("[hps] no PIXIE checkpoint found — RANDOM weights")
+        self.est.to(self.device)
+
+    @torch.no_grad()
+    def __call__(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.est(img.to(self.device))
+
+
+class HybrIKWrapper:
+    """Callable HPS: ``[B, H, W, 3]`` -> HybrIK's output dict, on
+    ``device``; the image is resized to HybrIK's 256^2 as
+    ``jax.image.resize(..., "bilinear")`` upsamples it (half-pixel
+    centres). Without a checkpoint the weights are HybrIK's seeded random
+    initialization (``random_init``)."""
+
+    def __init__(self, ckpt: str = "", device="cuda"):
+        from icon_tpu_torch.models.hybrik.convert import \
+            load_hybrik_checkpoint
+        from icon_tpu_torch.models.hybrik.net import build_hybrik
+        self.device = torch.device(device)
+        self.net, self.body = build_hybrik()
+        self.faces = self.body.faces
+        self.random_init = not (ckpt and osp.exists(ckpt))
+        if not self.random_init:
+            load_hybrik_checkpoint(self.net, ckpt)
+        else:
+            print("[hps] no HybrIK checkpoint found — RANDOM weights")
+        self.net.to(self.device).eval()
+        self.body.to(self.device)
+
+    @torch.no_grad()
+    def __call__(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = img.to(self.device).permute(0, 3, 1, 2)
+        if tuple(x.shape[2:]) != (256, 256):
+            x = F.interpolate(x, size=(256, 256), mode="bilinear",
+                              align_corners=False)
+        return self.net(x)
+
+
+def _rodrigues_np(aa: np.ndarray) -> np.ndarray:
+    """``[N, 3]`` axis-angle -> ``[N, 3, 3]`` rotation matrices on the host
+    (BEV's thetas arrive as numpy from the external package)."""
+    theta = np.linalg.norm(aa, axis=-1, keepdims=True).clip(1e-8)
+    k = aa / theta
+    K = np.zeros((len(aa), 3, 3), np.float32)
+    K[:, 0, 1], K[:, 0, 2] = -k[:, 2], k[:, 1]
+    K[:, 1, 0], K[:, 1, 2] = k[:, 2], -k[:, 0]
+    K[:, 2, 0], K[:, 2, 1] = -k[:, 1], k[:, 0]
+    s = np.sin(theta)[..., None]
+    c = np.cos(theta)[..., None]
+    return (np.eye(3, dtype=np.float32)[None] + s * K
+            + (1 - c) * (K @ K)).astype(np.float32)
+
+
+def adapt_bev_output(preds: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """simple-romp BEV's numpy outputs -> the common HPS layout (reference
+    TestDataset.py:263-276): ``betas[:10]``, the 72 axis-angle thetas as
+    ``[1, 24, 3, 3]`` rotations, person 0's vertices, and the reference's
+    empirical camera (scale ``cam[0] * 1.1``, tranX from the metric
+    ``cam_trans``, tranY ``cam[1] + 0.28``)."""
+    thetas = np.asarray(preds["smpl_thetas"])[0].reshape(-1, 3)
+    rotmat = _rodrigues_np(thetas.astype(np.float32))[None]
+    cam = np.asarray(preds["cam"], np.float32)
+    cam_trans = np.asarray(preds["cam_trans"], np.float32)
+    return {
+        "rotmat": rotmat,
+        "pred_shape": np.asarray(preds["smpl_betas"],
+                                 np.float32)[0:1, :10],
+        "verts": np.asarray(preds["verts"], np.float32)[0:1],
+        "cam": np.array([[cam[0, 0] * 1.1, cam_trans[0, 0],
+                          cam[0, 1] + 0.28]], np.float32),
+    }
+
+
+class BEVWrapper:
+    """Callable HPS around the external ``simple-romp`` package's BEV
+    (reference TestDataset.py:111-125; only the output adaptation is
+    first-party, there as here). It takes the raw uint8 crop
+    (``wants_raw``) and runs its own person detection. Its ``body`` is the
+    SMPL model when it is installed, else the 24-joint synthetic stand-in,
+    and ``faces`` are that body's."""
+
+    wants_raw = True
+    random_init = False             # the package ships trained weights
+
+    def __init__(self, ckpt: str = "", device="cuda"):
+        try:
+            import bev
+        except ImportError as e:
+            raise RuntimeError(
+                "hps_type 'bev' wraps the external `simple-romp` package "
+                "(the reference installs it via pip, TestDataset.py:113-117)"
+                " — `pip install simple-romp==1.0.3` to use it") from e
+        settings = bev.main.default_settings
+        settings.mode = "image"
+        settings.show_largest = True    # single-subject pipeline
+        self._bev = bev.BEV(settings)
+        from icon_tpu_torch.models.pymaf.net import smpl_body
+        self.body = smpl_body()
+        self.faces = self.body.faces
+
+    def __call__(self, raw_rgb: np.ndarray) -> Dict[str, np.ndarray]:
+        # BEV takes BGR uint8 (cv2 conventions)
+        preds = self._bev(np.ascontiguousarray(raw_rgb[..., ::-1]))
+        if preds is None:
+            raise RuntimeError("BEV found no person in the image")
+        return adapt_bev_output(preds)
+
+
+# the published checkpoints under data/HPS (reference TestDataset.py:90-126)
+HPS_CKPTS = {
+    "pymaf": ("pymaf_data", "pretrained_model", "PyMAF_model_checkpoint.pt"),
+    "pare": ("pare_data", "pare_checkpoint.ckpt"),
+    "pixie": ("pixie_data", "pixie_model.tar"),
+    "hybrik": ("hybrik_data", "pretrained_w_cam.pth"),
+}
+
+
 def get_hps(hps_type: str = "pymaf", ckpt: str = "", device="cuda"):
-    """The HPS registry (reference TestDataset.py:90-126): PyMAF and PARE."""
+    """The HPS registry (reference TestDataset.py:90-126): ``ckpt``, or the
+    published file under ``data/HPS``, on ``device``."""
     from icon_tpu_torch.models.smplx.assets import data_root
-    if hps_type == "pymaf":
-        if not ckpt:
-            ckpt = osp.join(data_root(), "HPS", "pymaf_data",
-                            "pretrained_model", "PyMAF_model_checkpoint.pt")
-        return PyMAFWrapper(ckpt, device)
-    if hps_type == "pare":
-        if not ckpt:
-            ckpt = osp.join(data_root(), "HPS", "pare_data",
-                            "pare_checkpoint.ckpt")
-        return PAREWrapper(ckpt, device)
-    raise NotImplementedError(f"hps_type {hps_type!r} {_NOT_PORTED}")
+    wrappers = {"pymaf": PyMAFWrapper, "pare": PAREWrapper,
+                "pixie": PIXIEWrapper, "hybrik": HybrIKWrapper,
+                "bev": BEVWrapper}
+    if hps_type not in wrappers:
+        raise NotImplementedError(
+            f"hps_type {hps_type!r} unknown (available: pymaf, pare, "
+            "hybrik, pixie, bev)")
+    if not ckpt and hps_type in HPS_CKPTS:
+        ckpt = osp.join(data_root(), "HPS", *HPS_CKPTS[hps_type])
+    return wrappers[hps_type](ckpt, device)
 
 
 class TestDataset:
@@ -241,28 +382,48 @@ class TestDataset:
         name = osp.splitext(osp.basename(path))[0]
         return name, process_image(
             path, icon_size=self.icon_size, segmenter=self.segmenter,
-            detector=self.detector, stages=stages)
+            detector=self.detector, stages=stages,
+            return_raw=self.hps_type == "bev")
 
     @torch.no_grad()
     def estimate(self, name: str, processed) -> Dict[str, Any]:
         """The item of a :meth:`preprocess` result: the HPS on the device
         and its branch of the adaptation (TestDataset.py:232-287)."""
-        img_icon, img_hps, mask, crop_param = processed
-        out = self.hps(torch.from_numpy(img_hps)[None])
+        img_icon, img_hps, mask, crop_param = processed[:4]
+        out = self.hps(processed[4]) if self.hps_type == "bev" \
+            else self.hps(torch.from_numpy(img_hps)[None])
+        out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+               for k, v in out.items()}
+        item = {"name": name, "image": img_icon, "mask": mask,
+                "crop_param": crop_param, "smpl_faces": self.hps.faces}
+        betas = out.get("pred_shape")
         if self.hps_type == "pare":
             rotmat, verts, cam = (out["pred_pose"], out["smpl_vertices"],
                                   out["pred_cam"])
+        elif self.hps_type == "hybrik":
+            # the reference doubles HybrIK's scale (TestDataset.py:262)
+            rotmat, verts = out["pred_theta_mats"], out["pred_vertices"]
+            cam = out["pred_camera"] * np.array([2.0, 1.0, 1.0], np.float32)
+        elif self.hps_type == "bev":            # adapted by BEVWrapper
+            rotmat, verts, cam = out["rotmat"], out["verts"], out["cam"]
+        elif self.hps_type == "pixie":
+            # SMPL-X (TestDataset.py:248-254): the face and hand
+            # parameters stay in the item
+            for k in ("exp", "jaw_pose", "left_hand_pose",
+                      "right_hand_pose"):
+                item[k] = out[k]
+            rotmat = np.concatenate([out["global_pose"], out["body_pose"]],
+                                    axis=1)
+            verts, cam, betas = out["vertices"], out["cam"], out["shape"]
         else:                                        # pymaf
             rotmat, verts, cam = out["rotmat"], out["verts"], out["pred_cam"]
-        scale, tran_x, tran_y = (float(v) for v in cam[0, :3].cpu().numpy())
-        rotmat = rotmat.cpu().numpy()
-        return {
-            "name": name, "image": img_icon, "mask": mask,
-            "crop_param": crop_param, "smpl_faces": self.hps.faces,
-            "betas": out["pred_shape"].cpu().numpy(),
-            "body_pose": rotmat[:, 1:], "global_orient": rotmat[:, 0:1],
-            "smpl_verts": verts.cpu().numpy(), "scale": scale,
-            "trans": np.array([tran_x, tran_y, 0.0], np.float32)}
+        scale, tran_x, tran_y = (float(v) for v in np.asarray(cam)[0, :3])
+        item.update({
+            "betas": np.asarray(betas), "body_pose": rotmat[:, 1:],
+            "global_orient": rotmat[:, 0:1], "smpl_verts": np.asarray(verts),
+            "scale": scale,
+            "trans": np.array([tran_x, tran_y, 0.0], np.float32)})
+        return item
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         return self.estimate(*self.preprocess(index))

@@ -9,7 +9,8 @@ PARE deploys climbs each lower branch to the 1/4 grid through learned
 all four (15 * width channels: 480 at 56^2 for a 224^2 input with W32).
 The module names are the published checkpoint's (``conv1``, ``layer1.k``,
 ``transition{1,2,3}``, ``stage{2,3,4}.m.branches / fuse_layers``,
-``upsample_stage_{2,3,4}``). Channel-first inside.
+``upsample_stage_{2,3,4}``). The trunk (:class:`HRTrunk`) also carries
+PIXIE's HRNet-W48 (``models/pixie/hrnet.py``). Channel-first inside.
 """
 
 from __future__ import annotations
@@ -109,24 +110,28 @@ class HRModule(nn.Module):
         return fused
 
 
-class HRNet(nn.Module):
-    """HRNet-W{width} with the '-conv' head: ``[B, 3, H, W]`` -> ``[B, 15 *
-    width, H/4, W/4]``."""
+class HRTrunk(nn.Module):
+    """The multi-resolution trunk shared by PARE's and PIXIE's HRNets:
+    ``[B, 3, H, W]`` -> the four branches at 1/4 .. 1/32 with ``width``,
+    ``2 width``, ``4 width`` and ``8 width`` channels; ``stem`` channels in
+    the stem (64 published)."""
 
     def __init__(self, width: int = 32,
-                 stage_modules: Sequence[int] = (1, 4, 3)):
+                 stage_modules: Sequence[int] = (1, 4, 3), stem: int = 64):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
-        self.conv2 = nn.Conv2d(64, 64, 3, stride=2, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(64)
+        self.conv1 = nn.Conv2d(3, stem, 3, stride=2, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(stem)
+        self.conv2 = nn.Conv2d(stem, stem, 3, stride=2, padding=1,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(stem)
         self.layer1 = nn.Sequential(
-            Bottleneck(64, 64, downsample=True),
-            *[Bottleneck(256, 64) for _ in range(3)])
+            Bottleneck(stem, stem, downsample=True),
+            *[Bottleneck(4 * stem, stem) for _ in range(3)])
         w = (width, 2 * width, 4 * width, 8 * width)
+        self.widths = w
         self.transition1 = nn.ModuleList([
-            nn.Sequential(*_conv_bn(256, w[0])),
-            nn.Sequential(nn.Sequential(*_conv_bn(256, w[1], 3, 2)))])
+            nn.Sequential(*_conv_bn(4 * stem, w[0])),
+            nn.Sequential(nn.Sequential(*_conv_bn(4 * stem, w[1], 3, 2)))])
         self.stage2 = nn.Sequential(*[HRModule(w[:2])
                                       for _ in range(stage_modules[0])])
         self.transition2 = nn.ModuleList([None, None, nn.Sequential(
@@ -137,16 +142,8 @@ class HRNet(nn.Module):
             nn.Sequential(*_conv_bn(w[2], w[3], 3, 2)))])
         self.stage4 = nn.Sequential(*[HRModule(w)
                                       for _ in range(stage_modules[2])])
-        # upsample_stage_{b+1}: b steps of (Upsample, conv, bn, relu); the
-        # Upsample slots carry no weights and are applied in the forward
-        for b in range(1, 4):
-            layers: List[nn.Module] = []
-            for _ in range(b):
-                layers += [nn.Identity(), *_conv_bn(w[b], w[b])]
-            self.add_module(f"upsample_stage_{b + 1}",
-                            nn.Sequential(*layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = self.layer1(x)
@@ -159,6 +156,28 @@ class HRNet(nn.Module):
         xs = xs + [self.transition3[3](xs[-1])]
         for m in self.stage4:
             xs = m(xs)
+        return xs
+
+
+class HRNet(HRTrunk):
+    """HRNet-W{width} with the '-conv' head: ``[B, 3, H, W]`` -> ``[B, 15 *
+    width, H/4, W/4]``."""
+
+    def __init__(self, width: int = 32,
+                 stage_modules: Sequence[int] = (1, 4, 3)):
+        super().__init__(width, stage_modules)
+        w = self.widths
+        # upsample_stage_{b+1}: b steps of (Upsample, conv, bn, relu); the
+        # Upsample slots carry no weights and are applied in the forward
+        for b in range(1, 4):
+            layers: List[nn.Module] = []
+            for _ in range(b):
+                layers += [nn.Identity(), *_conv_bn(w[b], w[b])]
+            self.add_module(f"upsample_stage_{b + 1}",
+                            nn.Sequential(*layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = self.trunk(x)
         ups = [xs[0]]
         for b in range(1, 4):
             h = xs[b]

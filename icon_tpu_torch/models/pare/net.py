@@ -138,17 +138,9 @@ def build_pare(backbone_width: int = 32,
     stand-in otherwise; its random initialization drawn under seed 0 (the
     caller's generator is untouched). Returns (net, body model), both on
     the CPU, the net in eval mode."""
-    import os.path as osp
-    from icon_tpu_torch.models.pymaf.net import _synthetic_smpl24
-    from icon_tpu_torch.models.smplx.assets import SMPLX
-    from icon_tpu_torch.models.smplx.body import load_body_model
+    from icon_tpu_torch.models.pymaf.net import smpl_body
 
-    model_dir = SMPLX().model_dir
-    found = [p for p in (osp.join(model_dir, "smpl", f"SMPL_{g}.{ext}")
-                         for g in ("NEUTRAL", "MALE")
-                         for ext in ("npz", "pkl")) if osp.exists(p)]
-    body = load_body_model(found[0], model_type="smpl") if found \
-        else _synthetic_smpl24()
+    body = smpl_body()
 
     def smpl_forward(betas, rotmats):
         return body(betas=betas, global_orient=rotmats[:, :1].reshape(-1, 9),

@@ -191,13 +191,19 @@ class PyMAF(nn.Module):
         return {"smpl_out": outs}
 
 
-def _find_smpl_model(model_dir: str) -> Optional[str]:
+def smpl_body() -> BodyModel:
+    """The installed SMPL model (``smpl/SMPL_{NEUTRAL,MALE}.{pkl,npz}``
+    under the registry's model directory), else the 24-joint synthetic
+    stand-in; on the CPU."""
+    from icon_tpu_torch.models.smplx.assets import SMPLX
+    from icon_tpu_torch.models.smplx.body import load_body_model
+    model_dir = SMPLX().model_dir
     for g in ("NEUTRAL", "MALE"):
         for ext in ("pkl", "npz"):
             p = osp.join(model_dir, "smpl", f"SMPL_{g}.{ext}")
             if osp.exists(p):
-                return p
-    return None
+                return load_body_model(p, model_type="smpl")
+    return _synthetic_smpl24()
 
 
 def build_pymaf(backbone_width: int = 64,
@@ -208,13 +214,9 @@ def build_pymaf(backbone_width: int = 64,
     ``data/``), synthetic stand-ins otherwise; its random initialization
     drawn under seed 0 (the caller's generator is untouched). Returns
     (net, body model), both on the CPU."""
-    from icon_tpu_torch.models.smplx.assets import SMPLX, data_root
-    from icon_tpu_torch.models.smplx.body import load_body_model
+    from icon_tpu_torch.models.smplx.assets import data_root
 
-    reg = SMPLX()
-    smpl_path = _find_smpl_model(reg.model_dir)
-    body = load_body_model(smpl_path, model_type="smpl") if smpl_path \
-        else _synthetic_smpl24()
+    body = smpl_body()
 
     V = body.v_template.shape[0]
     smpl_data = osp.join(data_root(), "smpl_related", "smpl_data")

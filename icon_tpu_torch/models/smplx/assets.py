@@ -1,5 +1,6 @@
 """SMPL-related asset registry (a copy of ``icon_tpu.models.smplx.assets``'s
-``data_root`` and ``SMPLX``; reference lib/dataset/mesh_util.py:830-886).
+``data_root``, ``SMPLX`` and ``get_smpl_model``; reference
+lib/dataset/mesh_util.py:830-886 and lib/renderer/mesh.py:25-43).
 
 The on-disk layout is the reference's ``data/smpl_related`` tree, under
 ``$ICON_TPU_DATA_DIR`` (default ``<repo>/data``), the same variable the JAX
@@ -61,3 +62,20 @@ class SMPLX:
         tree = cKDTree(self.verts, leafsize=1)
         _, ind = tree.query(self.smpl_verts, k=1)
         return self.cmap[ind]
+
+
+def get_smpl_model(model_type: str = "smplx", gender: str = "male",
+                   root: Optional[str] = None):
+    """The body model ``<MODEL_TYPE>_<GENDER>.{npz,pkl}`` of the registry's
+    model directory when it is installed, else the synthetic SMPL-X
+    stand-in ``synthetic_smplx_model(subdiv=4)`` (the licensed files cannot
+    be redistributed). Each call builds a new ``BodyModel`` on the CPU: the
+    caller may move it to its device."""
+    from icon_tpu_torch.models.smplx.body import (load_body_model,
+                                                  synthetic_smplx_model)
+    mdir = osp.join(SMPLX(root).model_dir, model_type)
+    for ext in ("npz", "pkl"):
+        p = osp.join(mdir, f"{model_type.upper()}_{gender.upper()}.{ext}")
+        if osp.exists(p):
+            return load_body_model(p, model_type=model_type)
+    return synthetic_smplx_model(subdiv=4)

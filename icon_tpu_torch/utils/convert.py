@@ -28,6 +28,21 @@ same weights. The mapping is the inverse of
 ``maf_extractor.{i}`` (Dense (in, out) -> Conv1d (out, in, 1));
 ``regressor_{i}`` -> ``regressor.{i}`` (Dense -> Linear (out, in)).
 
+:func:`pixie_state_from_flax` and :func:`hybrik_state_from_flax` do the
+same for the JAX package's PIXIE and HybrIK (the inverses of
+``icon_tpu/models/pixie/convert.py`` and ``icon_tpu/models/hybrik/
+convert.py``), into the published files' names: ``encoder_body`` ->
+``Encoder_body.encoder`` with the HRNet's ``layer1_{k}``, ``t{n}_conv``/
+``t{n}_bn`` -> ``transition{n}.*``, ``stage{s}_{m}/branch{b}_block{k}`` ->
+``stage{s}.{m}.branches.{b}.{k}``, ``fuse{i}_{j}_conv[{k}]`` ->
+``fuse_layers.{i}.{j}.[{k}.]0``, ``subsample{S}_conv{k}`` ->
+``subsample_{S}.{3k}``, ``convlayers_{i}`` -> ``conv_layers.{i}`` (its
+``downsample_conv`` a bare ``downsample``); ``regressor_*``,
+``extractor_*`` and ``moderator_*`` -> ``Regressor_*``, ... with
+``layers_{i}`` -> ``layers.{i}``; HybrIK's ``deconv{k}``/``deconv_bn{k}``
+-> ``deconv_layers.{3k}``/``{3k+1}`` and its ``init_shape`` parameter ->
+the buffer of that name.
+
 :func:`body_model_from_jax` turns the JAX package's ``BodyModel`` into the
 port's, array for array, so one body runs through both packages.
 """
@@ -214,6 +229,111 @@ def pymaf_state_from_flax(variables: Any) -> Dict[str, np.ndarray]:
         out[f"{key}.{names[leaf]}"] = arr
         out[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
     return out
+
+
+def _state_from_flax(variables: Any, module_key, weight) -> Dict[str,
+                                                                np.ndarray]:
+    """A torch state dict from flax ``variables``: ``module_key(path)`` the
+    torch module of a flax module path, ``weight(path, kernel)`` the torch
+    weight of a kernel."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(variables["params"]).items():
+        *mods, leaf = path
+        key = module_key(tuple(mods))
+        if leaf == "kernel":
+            out[f"{key}.weight"] = weight(tuple(mods), arr)
+        elif leaf == "scale":
+            out[f"{key}.weight"] = arr
+        elif leaf in ("bias", "temperature", "init_shape"):
+            out[f"{key}.{leaf}" if key else leaf] = arr
+        else:
+            raise KeyError(f"unexpected flax parameter {'/'.join(path)}")
+    names = {"mean": "running_mean", "var": "running_var"}
+    for path, arr in _flatten(variables.get("batch_stats", {})).items():
+        *mods, leaf = path
+        key = module_key(tuple(mods))
+        out[f"{key}.{names[leaf]}"] = arr
+        out[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
+    return out
+
+
+# one flax module name of the HRNet -> its torch key (PIXIE's body encoder)
+_HRNET_NAMES = (
+    (r"layer1_(\d+)", r"layer1.\1"),
+    (r"stage(\d)_(\d+)", r"stage\1.\2"),
+    (r"branch(\d)_block(\d+)", r"branches.\1.\2"),
+    (r"fuse(\d)_(\d)_conv", r"fuse_layers.\1.\2.0"),
+    (r"fuse(\d)_(\d)_bn", r"fuse_layers.\1.\2.1"),
+    (r"fuse(\d)_(\d)_conv(\d)", r"fuse_layers.\1.\2.\3.0"),
+    (r"fuse(\d)_(\d)_bn(\d)", r"fuse_layers.\1.\2.\3.1"),
+    (r"t1_conv0", "transition1.0.0"), (r"t1_bn0", "transition1.0.1"),
+    (r"t1_conv1", "transition1.1.0.0"), (r"t1_bn1", "transition1.1.0.1"),
+    (r"t([23])_conv", r"transition\1.\1.0.0"),
+    (r"t([23])_bn", r"transition\1.\1.0.1"),
+    (r"convlayers_(\d)", r"conv_layers.\1"),
+    (r"downsample_bn", "downsample.1"),
+)
+
+
+def _pixie_module(mods: tuple) -> str:
+    """flax PIXIE module path -> the published file's ``module.key``."""
+    top, rest = mods[0], mods[1:]
+    out = [top[0].upper() + top[1:]]
+    if top == "encoder_body":
+        out.append("encoder")
+        head = any(n.startswith("convlayers_") for n in rest)
+        for name in rest:
+            sub = re.fullmatch(r"subsample(\d)_(conv|bn)(\d)", name)
+            if sub:
+                out.append(f"subsample_{sub.group(1)}."
+                           f"{3 * int(sub.group(3)) + (sub.group(2) == 'bn')}")
+                continue
+            if name == "downsample_conv":
+                out.append("downsample" if head else "downsample.0")
+                continue
+            for pat, rep in _HRNET_NAMES:
+                if re.fullmatch(pat, name):
+                    name = re.sub(pat, rep, name)
+                    break
+            out.append(name)
+    elif top.startswith("encoder_"):
+        out += ["encoder", _pymaf_module(rest)] if rest else ["encoder"]
+    else:
+        out += [re.sub(r"layers_(\d+)", r"layers.\1", n) for n in rest
+                if n != "layers"]
+    return ".".join(n for n in out if n)
+
+
+def pixie_state_from_flax(variables: Any) -> Dict[str, np.ndarray]:
+    """``{torch key: numpy array}`` for the port's ``PIXIE`` from the JAX
+    PIXIE's ``variables`` (``params`` and ``batch_stats``)."""
+    def weight(mods, arr):
+        return arr.T if arr.ndim == 2 else _convert_kernel(arr)
+    return _state_from_flax(variables, _pixie_module, weight)
+
+
+def _hybrik_module(mods: tuple) -> str:
+    if not mods:
+        return ""
+    d = re.fullmatch(r"deconv(_bn)?(\d)", mods[0])
+    if d:
+        return f"deconv_layers.{3 * int(d.group(2)) + bool(d.group(1))}"
+    if mods[0] == "preact":
+        return ".".join(("preact", _pymaf_module(mods[1:])))
+    return _pymaf_module(mods)
+
+
+def hybrik_state_from_flax(variables: Any) -> Dict[str, np.ndarray]:
+    """``{torch key: numpy array}`` for the port's ``HybrIK`` from the JAX
+    HybrIK's ``variables`` (``params`` and ``batch_stats``)."""
+    def weight(mods, arr):
+        if arr.ndim == 2:
+            return arr.T                            # Dense -> Linear
+        if mods[0].startswith("deconv"):
+            # flax transpose_kernel [kh, kw, O, I] -> torch [I, O, kh, kw]
+            return np.transpose(arr, (3, 2, 0, 1))
+        return _convert_kernel(arr)
+    return _state_from_flax(variables, _hybrik_module, weight)
 
 
 def body_model_from_jax(body: Any):

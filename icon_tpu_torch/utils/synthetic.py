@@ -523,10 +523,118 @@ def seeded_pare_state(seed: int) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _seeded_batch_stats(state: Dict[str, torch.Tensor],
+                        rng: np.random.RandomState) -> None:
+    """BatchNorm running statistics of ``state`` drawn from ``rng``, in
+    place."""
+    for k, v in state.items():
+        if k.endswith("running_mean"):
+            state[k] = torch.from_numpy(
+                (0.1 * rng.randn(*v.shape)).astype(np.float32))
+        elif k.endswith("running_var"):
+            state[k] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+
+
+def _last_linear(state: Dict[str, torch.Tensor], module: str) -> str:
+    """The key prefix of ``module``'s last ``layers.{i}`` Linear."""
+    idx = max(int(k.split(".")[2]) for k in state
+              if k.startswith(f"{module}.layers.") and k.endswith(".weight"))
+    return f"{module}.layers.{idx}"
+
+
+def pixie_rest_biases(cfg) -> Dict[str, list]:
+    """Per PIXIE regressor (``Regressor_<name>``), the output of the rest
+    body: each 6D pose the identity, the body camera the mean camera (0.9,
+    0, 0), every other entry 0."""
+    eye6 = [1.0, 0.0, 0.0, 1.0, 0.0, 0.0]
+    return {"body": [0.9, 0.0, 0.0] + eye6 * 19,
+            "head": [0.0] * (3 + cfg.n_tex + cfg.n_light),
+            "head_share": [0.0] * (cfg.n_shape + cfg.n_exp) + eye6
+            + [0.0] * 3,
+            "hand": [0.0] * 3, "hand_share": eye6 * 16}
+
+
+def seeded_pixie_state(seed: int, cfg=None) -> Dict[str, torch.Tensor]:
+    """A PIXIE state dict at ``cfg``'s widths (the published ones by
+    default): the seeded initialization with BatchNorm statistics drawn
+    from ``seed``, and the last layer of every regressor at 1/100 with its
+    bias at the rest body (:func:`pixie_rest_biases`); the moderators' last
+    layers at 1/100 with
+    biases (0, 0) for the head and (0, 2) for the hands, whose expert
+    weight 0.88 then snaps to 1."""
+    from icon_tpu_torch.models.pixie.net import PIXIE, PixieConfig
+    cfg = cfg or PixieConfig()
+    rng = np.random.RandomState(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        state = PIXIE(cfg).state_dict()
+    _seeded_batch_stats(state, rng)
+    for name, bias in pixie_rest_biases(cfg).items():
+        last = _last_linear(state, f"Regressor_{name}")
+        state[f"{last}.weight"] = state[f"{last}.weight"] * 0.01
+        state[f"{last}.bias"] = torch.tensor(bias)
+    for part, bias in (("head", [0.0, 0.0]), ("hand", [0.0, 2.0])):
+        last = _last_linear(state, f"Moderator_{part}_share")
+        state[f"{last}.weight"] = state[f"{last}.weight"] * 0.01
+        state[f"{last}.bias"] = torch.tensor(bias)
+    return state
+
+
+def pixie_file_layout(state: Dict[str, torch.Tensor]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A PIXIE state dict in the published ``pixie_model.tar`` layout: one
+    state dict per module, the encoders with their ImageNet ``MEAN``/``STD``
+    buffers."""
+    from icon_tpu_torch.models.pixie.net import IMAGENET_MEAN, IMAGENET_STD
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, v in state.items():
+        module, key = k.split(".", 1)
+        out.setdefault(module, {})[key] = v
+    for module in ("Encoder_body", "Encoder_head", "Encoder_hand"):
+        out[module]["MEAN"] = torch.tensor(IMAGENET_MEAN)[None, :, None, None]
+        out[module]["STD"] = torch.tensor(IMAGENET_STD)[None, :, None, None]
+    return out
+
+
+def seeded_hybrik_state(seed: int) -> Dict[str, torch.Tensor]:
+    """A HybrIK state dict at the published widths (ResNet-34, 29 x 64
+    heatmap channels): the seeded initialization with BatchNorm statistics
+    drawn from ``seed``; ``final_layer`` at 1/100 with a bias of 20 on one
+    depth slice per joint (joint j at depth index 8 + 48 j / 28 of 64) and
+    0 elsewhere. A 1x1 layer's bias has no spatial reach, so every joint's
+    heatmap is near uniform over x and y and peaks in depth: the skeleton
+    is a line through the image centre along the depth axis, z from -0.375
+    to 0.375 of the unit cube (a peaked depth keeps the soft-argmax, a sum
+    over 64^3 bins, well conditioned in float32). The heads at 1/100 with
+    the shape at 0 (``init_shape`` 0), every twist at angle 0 (cos, sin =
+    1, 0) and the camera at the mean (0.9, 0, 0, the constant the net
+    adds)."""
+    from icon_tpu_torch.models.hybrik.net import build_hybrik
+    rng = np.random.RandomState(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net, _ = build_hybrik()
+    state = net.state_dict()
+    _seeded_batch_stats(state, rng)
+    for name in ("final_layer", "decshape", "decphi", "deccam"):
+        state[f"{name}.weight"] = state[f"{name}.weight"] * 0.01
+        state[f"{name}.bias"] = torch.zeros_like(state[f"{name}.bias"])
+    state["decphi.bias"] = torch.tensor([1.0, 0.0]).repeat(
+        len(state["decphi.bias"]) // 2)
+    n_joints = net.num_hm_joints
+    depth = net.depth_dim
+    for j in range(n_joints):
+        d = round(depth * (0.125 + 0.75 * j / (n_joints - 1)))
+        state["final_layer.bias"][j * depth + d] = 20.0
+    return state
+
+
 def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
                       seed: int = 0, hps_ckpt: bool = False,
                       detector: bool = False, segmenter: str = "",
-                      pare_ckpt: bool = False, seg_dir: bool = False
+                      pare_ckpt: bool = False, seg_dir: bool = False,
+                      pixie_ckpt: bool = False, hybrik_ckpt: bool = False
                       ) -> Dict[str, str]:
     """The demo CLI's inputs under the directory ``d``, made from ``seed``:
     ``photos/`` with the two :func:`synthetic_photos` of the 24-joint
@@ -548,13 +656,18 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     ``pare_data/pare_checkpoint.ckpt`` (:func:`seeded_pare_state` as a
     Lightning ``state_dict`` under ``model.``, with three entries the
     loader drops: an SMPL buffer, an ``init_pose`` buffer and the
-    backbone's ``final_layer``). With ``seg_dir``, ``segs/<photo>.json``:
-    :func:`garment_polygons` at 512^2.
+    backbone's ``final_layer``); with ``pixie_ckpt``,
+    ``pixie_data/pixie_model.tar`` (:func:`seeded_pixie_state` at the
+    published widths, one state dict per module with the encoders'
+    ``MEAN``/``STD``, :func:`pixie_file_layout`); with ``hybrik_ckpt``,
+    ``hybrik_data/pretrained_w_cam.pth`` (:func:`seeded_hybrik_state`, with
+    entries the loader drops: SMPL-layer buffers and ``init_cam``). With
+    ``seg_dir``, ``segs/<photo>.json``: :func:`garment_polygons` at 512^2.
 
     Returns the paths by the CLI's flag names (``in_dir``, ``cfg``,
     ``ckpt``, ``normal_ckpt``, ``hps_ckpt``, ``seg_dir``), ``out_dir``
     (not created) and ``data_dir``; and the weight files written
-    (``yolo``, ``u2net``, ``pare_ckpt``)."""
+    (``yolo``, ``u2net``, ``pare_ckpt``, ``pixie_ckpt``, ``hybrik_ckpt``)."""
     import json
 
     from PIL import Image
@@ -602,6 +715,22 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
                      "model.backbone.final_layer.weight":
                          torch.zeros(24, 32, 1, 1)})
         torch.save({"state_dict": pare, "epoch": 0}, paths["pare_ckpt"])
+    if pixie_ckpt:
+        paths["pixie_ckpt"] = os.path.join(hps_dir, "pixie_data",
+                                           "pixie_model.tar")
+        os.makedirs(os.path.dirname(paths["pixie_ckpt"]))
+        torch.save(pixie_file_layout(seeded_pixie_state(seed + 4)),
+                   paths["pixie_ckpt"])
+    if hybrik_ckpt:
+        paths["hybrik_ckpt"] = os.path.join(hps_dir, "hybrik_data",
+                                            "pretrained_w_cam.pth")
+        os.makedirs(os.path.dirname(paths["hybrik_ckpt"]))
+        hybrik = seeded_hybrik_state(seed + 5)
+        hybrik.update({"init_cam": torch.tensor([0.9, 0.0, 0.0]),
+                       "smpl.v_template": torch.zeros(6890, 3),
+                       "smpl.J_regressor_h36m": torch.zeros(17, 6890),
+                       "smpl.children_map": torch.zeros(24, dtype=torch.long)})
+        torch.save(hybrik, paths["hybrik_ckpt"])
     if seg_dir:
         paths["seg_dir"] = os.path.join(d, "segs")
         os.makedirs(paths["seg_dir"])

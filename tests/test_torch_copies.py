@@ -3,7 +3,8 @@ their originals: the config tree's field names and defaults, ``clean_mesh``,
 the host lattice decoder, the synthetic body's arrays, the photo path's
 host code (the saliency detector, ``process_image``, YOLO's darknet parser,
 letterbox and NMS, the matting net's host pre- and post-processing), the
-garment extraction and ``save_video``."""
+garment extraction, ``save_video``, ``get_smpl_model``, BEV's output
+adaptation and ``process_image``'s raw crop."""
 
 import dataclasses
 
@@ -492,3 +493,89 @@ def test_save_video_matches(tmp_path, monkeypatch):
     p, j = calls[str(tmp_path / "p" / "a.mp4")], \
         calls[str(tmp_path / "j" / "a.mp4")]
     assert p == j and len(p) == 5 and p[-1] == "release"
+
+
+def test_get_smpl_model_matches(tmp_path, monkeypatch):
+    """``get_smpl_model``: without the licensed files both packages give
+    the synthetic SMPL-X stand-in (subdiv 4), array for array; with a
+    model file installed both pick the same file (npz before pkl) and
+    model type."""
+    from icon_tpu.models.smplx import assets as JA
+    from icon_tpu.models.smplx import body as JB
+    from icon_tpu_torch.models.smplx import assets as PA
+    from icon_tpu_torch.models.smplx import body as PB
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    p = PA.get_smpl_model("smplx", "neutral")
+    j = JA.get_smpl_model.__wrapped__("smplx", "neutral")
+    for name in ("v_template", "shapedirs", "posedirs", "J_regressor",
+                 "lbs_weights", "expr_dirs", "hands_components_l",
+                 "hands_mean_l", "hands_mean_r"):
+        np.testing.assert_array_equal(getattr(p, name).numpy(),
+                                      np.asarray(getattr(j, name)), name)
+    np.testing.assert_array_equal(p.faces, np.asarray(j.faces))
+    assert p.parents == tuple(j.parents) and p.model_type == "smplx"
+    assert p is not PA.get_smpl_model("smplx", "neutral")   # no cache
+    mdir = tmp_path / "smpl_related" / "models" / "smplx"
+    mdir.mkdir(parents=True)
+    calls = []
+    for mod in (JB, PB):
+        monkeypatch.setattr(mod, "load_body_model",
+                            lambda path, model_type=None: calls.append(
+                                (path, model_type)))
+    for ext in ("pkl", "npz"):
+        (mdir / f"SMPLX_NEUTRAL.{ext}").write_bytes(b"")
+        PA.get_smpl_model("smplx", "neutral")
+        JA.get_smpl_model.__wrapped__("smplx", "neutral")
+        assert calls[-1] == calls[-2] == (
+            str(mdir / f"SMPLX_NEUTRAL.{ext}"), "smplx")
+
+
+def test_bev_adapter_matches():
+    """``_rodrigues_np`` and ``adapt_bev_output`` on seeded BEV outputs
+    (two people, 11 betas): identical arrays."""
+    from icon_tpu.data import test_dataset as JD
+    from icon_tpu_torch.data import test_dataset as PD
+    rng = np.random.RandomState(9)
+    aa = np.concatenate([np.zeros((1, 3)), rng.randn(15, 3)]).astype(
+        np.float32)
+    np.testing.assert_array_equal(PD._rodrigues_np(aa), JD._rodrigues_np(aa))
+    preds = {"smpl_thetas": rng.randn(2, 72).astype(np.float32),
+             "smpl_betas": rng.randn(2, 11).astype(np.float32),
+             "verts": rng.randn(2, 6890, 3).astype(np.float32),
+             "cam": rng.randn(2, 3).astype(np.float32),
+             "cam_trans": rng.randn(2, 3).astype(np.float32)}
+    got, want = PD.adapt_bev_output(preds), JD.adapt_bev_output(preds)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], k)
+
+
+@pytest.mark.parametrize("mode", ["RGBA", "RGB"])
+def test_process_image_raw_crop_is_byte_equal(tmp_path, mode):
+    """``process_image(..., return_raw=True)`` (BEV's input): the fifth
+    entry, the unmasked crop as uint8, equals the JAX package's byte for
+    byte; the first four are those without it."""
+    import warnings
+    from PIL import Image
+    from icon_tpu.data.test_dataset import process_image as jproc
+    from icon_tpu_torch.data.test_dataset import process_image as pproc
+    rgb = (_photo(np.random.RandomState(10), (90, 120)) * 255).astype(
+        np.uint8)
+    im = Image.fromarray(rgb)
+    if mode == "RGBA":
+        alpha = np.zeros(rgb.shape[:2], np.uint8)
+        alpha[10:80, 40:90] = 255
+        im = Image.fromarray(np.concatenate([rgb, alpha[..., None]], -1))
+    im.save(tmp_path / "x.png")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        got = pproc(str(tmp_path / "x.png"), icon_size=64, return_raw=True)
+        want = jproc(str(tmp_path / "x.png"), icon_size=64, return_raw=True)
+        plain = pproc(str(tmp_path / "x.png"), icon_size=64)
+    assert len(got) == len(want) == 5
+    assert got[4].dtype == want[4].dtype == np.uint8
+    assert got[4].shape == (64, 64, 3)
+    assert got[4].tobytes() == want[4].tobytes()
+    for g, p in zip(got[:3], plain[:3]):
+        assert g.tobytes() == p.tobytes()

@@ -13,7 +13,9 @@ so the recon is body-shaped and small) and PyMAF's seeded random weights:
 - each refused flag raises, naming its ROADMAP item; ``-export_video``
   and ``-seg_dir`` (A7 (rest), now ported) run and write ``_cloth.mp4``
   (read back with cv2, the turntable's frame count patched down to 4) and
-  the garment OBJs of a seeded polygon JSON.
+  the garment OBJs of a seeded polygon JSON; ``-hps_type pixie`` (A8
+  (rest), now ported) runs with a seeded published-width
+  ``pixie_model.tar`` and fits the SMPL-X body.
 
 The JAX CLI itself is a slow test (``tests/test_infer_e2e.py``)."""
 
@@ -191,12 +193,15 @@ def test_checkpoint_rules_match_the_jax_port(demo, tmp_path):
 ])
 def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
     """Each option the port lacks raises, naming its ROADMAP item. The A7
-    (rest) options are ported: they run on one photo and write their
-    artifacts."""
+    (rest) and A8 (rest) options are ported: they run on one photo and
+    write their artifacts."""
     from icon_tpu_torch.apps.infer import main
     in_dir, cfg_path = demo[0], demo[1]
     if item.startswith("A7"):
         _video_and_garments(demo, tmp_path, monkeypatch, extra[0])
+        return
+    if item.startswith("A8"):
+        _pixie_run(demo, tmp_path, monkeypatch)
         return
     if extra[0] == "prior":
         data = yaml.safe_load(open(cfg_path))
@@ -276,6 +281,54 @@ def _video_and_garments(demo, tmp_path, monkeypatch, flag):
             assert nf < record["final"][1]
         assert not osp.exists(out / "scene_far.obj")
         assert not osp.exists(out / "scene_cloth.mp4")
+
+
+def _pixie_run(demo, tmp_path, monkeypatch):
+    """``-hps_type pixie`` on the scene photo (two fit iterations and one
+    cloth iteration, no remesh) with a seeded ``pixie_model.tar`` at the
+    published widths under ``ICON_TPU_DATA_DIR/HPS/pixie_data`` and an
+    SMPL-X cmap asset of the body's length: the loader reads the file, the
+    fit frame takes the cmap asset, and the artifacts are those of the
+    synthetic SMPL-X body (21 body joints, its 10 betas of PIXIE's 200,
+    its vertices and faces)."""
+    import shutil
+    import icon_tpu_torch.recon.frame as frame
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    from icon_tpu_torch.utils.io import load_obj
+    from icon_tpu_torch.utils.synthetic import (pixie_file_layout,
+                                                seeded_pixie_state)
+    pixie = tmp_path / "HPS" / "pixie_data"
+    pixie.mkdir(parents=True)
+    torch.save(pixie_file_layout(seeded_pixie_state(4)),
+               pixie / "pixie_model.tar")
+    body = synthetic_smplx_model(subdiv=4)
+    n = body.v_template.shape[0]
+    _write_cmap_assets(tmp_path, n, 300, np.random.RandomState(9))
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    cmaps = []
+    asset_cmap = frame.asset_cmap
+    monkeypatch.setattr(frame, "asset_cmap", lambda k: cmaps.append(
+        (k, asset_cmap(k))) or cmaps[-1][1])
+    in_dir = tmp_path / "in"
+    in_dir.mkdir()
+    shutil.copy(osp.join(demo[0], "scene.png"), in_dir / "scene.png")
+    out = tmp_path / "out"
+    argv = _argv(demo, out, "-loop_smpl", "2", "-loop_cloth", "1",
+                 "-no_remesh", "-hps_type", "pixie")
+    argv[argv.index("-in_dir") + 1] = str(in_dir)
+    argv.remove("-allow_random_hps")
+    from icon_tpu_torch.apps.infer import main
+    (record,) = main(argv, device="cpu")
+    for suffix in ARTIFACTS:
+        assert osp.exists(out / f"scene{suffix}"), suffix
+    fit = np.load(out / "scene_smpl.npy", allow_pickle=True).item()
+    assert fit["pose"].shape == (1, 21, 3, 3)
+    assert fit["betas"].shape == (1, 10)
+    v, f = load_obj(out / "scene_smpl.obj")
+    assert (len(v), len(f)) == (n, len(body.faces))
+    assert [k for k, _ in cmaps] == [n] and cmaps[0][1] is not None
+    assert np.isfinite(record["fit_losses"] + record["cloth_losses"]).all()
+    assert record["recon"][1] > 100
 
 
 def _write_cmap_assets(root, n_cmap: int, n_smpl: int, rng):

@@ -4,10 +4,11 @@ normals predicted by the NormalNet from the body's renders; the demo's fit
 frame: body fit, recon, remesh, cloth refinement, colours) and the demo CLI
 on photos (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
 colours; then the RGB photo with the YOLO detector, U^2-Net matting and
-PARE installed, the turntable video and the garments) leaves ``jax``,
-``flax`` and ``icon_tpu`` out of ``sys.modules``, and no file of the
-package (the photo path's modules among them) nor ``chip_smoke.py``
-imports them."""
+PARE installed, the turntable video and the garments) and PIXIE and HybrIK
+at narrow widths leaves ``jax``, ``flax`` and ``icon_tpu`` out of
+``sys.modules``, and no file of the package (the photo path's and the
+other estimators' modules among them) nor ``chip_smoke.py`` imports
+them."""
 
 import os
 import os.path as osp
@@ -86,6 +87,18 @@ with tempfile.TemporaryDirectory() as d:
                    p["seg_dir"]], device="cpu")
     assert {"detect", "matte", "video", "garments"} <= set(rec["stages"])
     assert os.path.exists(os.path.join(p["out_dir"], "scene_cloth.mp4"))
+from icon_tpu_torch.models.hybrik.net import build_hybrik
+from icon_tpu_torch.models.pixie.net import PixieConfig, build_pixie
+est, _ = build_pixie(PixieConfig(n_shape=12, n_exp=6, n_tex=4, n_light=5,
+    feat_dim=256, hr_width=8, hr_stem=16, resnet_width=8,
+    resnet_layers=(1, 1, 1, 1), reg_channels=(32,), share_channels=(32, 32),
+    mod_channels=(32,)))
+hybrik, _ = build_hybrik(backbone_width=8, backbone_layers=(1, 1, 1, 1))
+with torch.no_grad():
+    out = est(torch.rand(1, 64, 64, 3))
+    assert bool(torch.isfinite(out["vertices"]).all())
+    out = hybrik(torch.rand(1, 3, 64, 64))
+    assert bool(torch.isfinite(out["pred_vertices"]).all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
@@ -102,11 +115,15 @@ def test_port_imports_no_jax():
     assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
-# the photo path's modules, which the scans below must reach
+# the photo path's modules and the other estimators', which the scans below
+# must reach
 PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "models/pare/hrnet.py", "models/pare/net.py",
               "models/pare/convert.py", "ops/cloth_extraction.py",
-              "data/test_dataset.py", "apps/infer.py", "render/render.py")
+              "data/test_dataset.py", "apps/infer.py", "render/render.py",
+              "models/pixie/hrnet.py", "models/pixie/net.py",
+              "models/pixie/convert.py", "models/hybrik/ik.py",
+              "models/hybrik/net.py", "models/hybrik/convert.py")
 
 
 def test_no_jax_import_in_package_sources():

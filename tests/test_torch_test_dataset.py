@@ -8,8 +8,11 @@ edited): the images, masks and crop parameters byte-equal, the estimate
 U^2-Net (full, lite) and YOLO weight files, written from seeds in their
 published layouts, are used by both datasets on the RGB photo alike. PARE
 through ``get_hps`` and ``TestDataset`` against the JAX ``PAREWrapper`` on
-one seeded checkpoint. Then the guards: no checkpoint without
-``allow_random_hps``, another ``hps_type``."""
+one seeded checkpoint; PIXIE and HybrIK through the datasets with both
+packages' wrappers around narrow nets (``torch_port_helpers.pixie_pair``,
+``hybrik_pair``) and BEV through a stubbed ``simple-romp`` package, each
+item equal to the JAX dataset's. Then the guards: no checkpoint without
+``allow_random_hps``, an unknown ``hps_type``, BEV without its package."""
 
 import pickle
 import warnings
@@ -18,9 +21,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 from PIL import Image
 
-from torch_port_helpers import pymaf_pair
+from torch_port_helpers import hybrik_pair, pixie_pair, pymaf_pair
 
 ATOL = 1e-4
 
@@ -144,11 +148,145 @@ def test_installed_detector_weights_raise(photos, tmp_path, monkeypatch,
         type(pds)(photos, allow_random_hps=True, device="cpu")[1]
 
 
-def test_other_hps_types_raise():
+def test_other_hps_types_raise(monkeypatch):
+    """Every HPS of the demo is ported (A8): an unknown ``hps_type`` raises,
+    naming the five; ``bev`` without the external ``simple-romp`` package
+    raises, naming it."""
+    import sys
     from icon_tpu_torch.data.test_dataset import get_hps
-    for hps_type in ("pixie", "hybrik", "bev"):
-        with pytest.raises(NotImplementedError, match="A8 \\(rest\\)"):
-            get_hps(hps_type, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="pymaf, pare, hybrik, pixie, bev"):
+        get_hps("romp", device="cpu")
+    monkeypatch.setitem(sys.modules, "bev", None)
+    with pytest.raises(RuntimeError, match="simple-romp"):
+        get_hps("bev", device="cpu")
+
+
+def _wrapper(cls, **attrs):
+    """An instance of the HPS wrapper ``cls`` holding ``attrs`` (the nets
+    of a test), so that its own ``__call__`` runs."""
+    w = cls.__new__(cls)
+    w.__dict__.update(random_init=False, **attrs)
+    return w
+
+
+def _hps_items(photos, monkeypatch, hps_type, jhps, phps):
+    import icon_tpu.data.test_dataset as J
+    import icon_tpu_torch.data.test_dataset as P
+    for mod, hps in ((J, jhps), (P, phps)):
+        monkeypatch.setattr(mod, "get_hps", lambda *a, _h=hps, **k: _h)
+    jds = J.TestDataset(photos, hps_type=hps_type, icon_size=96)
+    pds = P.TestDataset(photos, hps_type=hps_type, icon_size=96,
+                        device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return [(pds[i], jds[i]) for i in range(2)]
+
+
+def test_pixie_items_match_the_jax_dataset(photos, monkeypatch):
+    """``-hps_type pixie``: both ``PIXIEWrapper``s around one narrow PIXIE
+    (the JAX package's estimator takes the ImageNet-normalized crop and
+    normalizes it again, and so does the port's): the SMPL-X items equal,
+    with the 21-joint body pose, the whole shape vector as betas, and the
+    expression, jaw and hand poses kept."""
+    import icon_tpu.data.test_dataset as J
+    import icon_tpu_torch.data.test_dataset as P
+    jest, _, pest = pixie_pair()
+    items = _hps_items(
+        photos, monkeypatch, "pixie",
+        _wrapper(J.PIXIEWrapper, est=jest, body=jest.body,
+                 faces=jest.body.faces),
+        _wrapper(P.PIXIEWrapper, est=pest, body=pest.body,
+                 faces=pest.body.faces, device=torch.device("cpu")))
+    _assert_items_equal(items)
+    for got, want in items:
+        assert got["body_pose"].shape == (1, 21, 3, 3)
+        assert got["betas"].shape == (1, pest.cfg.n_shape)
+        for k in ("exp", "jaw_pose", "left_hand_pose", "right_hand_pose"):
+            np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=0,
+                                       atol=ATOL, err_msg=k)
+        assert got["smpl_verts"].shape[1] == len(got["smpl_faces"]) // 2 + 2
+
+
+def test_hybrik_items_match_the_jax_dataset(photos, tmp_path, monkeypatch):
+    """``-hps_type hybrik``: ``get_hps`` takes the default checkpoint path
+    under ``ICON_TPU_DATA_DIR`` (a seeded published-width file: the mean
+    camera); then both ``HybrIKWrapper``s (each resizing the 224^2 crop to
+    256^2 its own way) around one narrow HybrIK on the synthetic SMPL with
+    SMPL's tree: the items equal, the camera scale doubled."""
+    import icon_tpu.data.test_dataset as J
+    import icon_tpu_torch.data.test_dataset as P
+    from icon_tpu_torch.utils.synthetic import seeded_hybrik_state
+    d = tmp_path / "HPS" / "hybrik_data"
+    d.mkdir(parents=True)
+    torch.save(seeded_hybrik_state(6), d / "pretrained_w_cam.pth")
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    hps = P.get_hps("hybrik", device="cpu")
+    assert isinstance(hps, P.HybrIKWrapper) and not hps.random_init
+    out = hps(torch.zeros(1, 224, 224, 3))
+    np.testing.assert_allclose(out["pred_camera"][0].numpy(),
+                               [0.9, 0.0, 0.0], atol=0.05)
+    assert torch.isfinite(out["pred_vertices"]).all()
+
+    jnet, variables, pnet, (jbody, pbody, _) = hybrik_pair(img=256)
+    items = _hps_items(
+        photos, monkeypatch, "hybrik",
+        _wrapper(J.HybrIKWrapper, net=jnet, body=jbody, faces=jbody.faces,
+                 variables=variables, _fwd=jax.jit(
+                     lambda v, x: jnet.apply(v, x, train=False))),
+        _wrapper(P.HybrIKWrapper, net=pnet, body=pbody, faces=pbody.faces,
+                 device=torch.device("cpu")))
+    _assert_items_equal(items)
+    for got, _ in items:
+        assert got["body_pose"].shape == (1, 23, 3, 3)
+
+
+def test_bev_items_match_the_jax_dataset(photos, monkeypatch):
+    """``-hps_type bev`` through a stubbed ``simple-romp`` package: both
+    datasets hand it the same raw BGR crop (``process_image(...,
+    return_raw=True)``) and adapt its output alike; the port's faces are
+    its body's (the SMPL model, or the synthetic SMPL without it)."""
+    import sys
+    import types
+    import icon_tpu_torch.data.test_dataset as P
+    raw = []
+
+    class FakeBEV:
+        def __init__(self, settings):
+            assert (settings.mode, settings.show_largest) == ("image", True)
+
+        def __call__(self, bgr):
+            raw.append(bgr.copy())
+            rs = np.random.RandomState((len(raw) - 1) // 2)
+            return {"smpl_thetas": rs.randn(2, 72).astype(np.float32) * 0.3,
+                    "smpl_betas": rs.randn(2, 11).astype(np.float32),
+                    "verts": rs.randn(2, 6890, 3).astype(np.float32),
+                    "cam": np.array([[0.8, 0.1, -0.2]] * 2, np.float32),
+                    "cam_trans": np.array([[0.05, 0.3, 2.0]] * 2,
+                                          np.float32)}
+
+    fake = types.ModuleType("bev")
+    fake.main = types.SimpleNamespace(default_settings=types.SimpleNamespace(
+        mode=None, show_largest=None))
+    fake.BEV = FakeBEV
+    monkeypatch.setitem(sys.modules, "bev", fake)
+    phps = P.get_hps("bev", device="cpu")
+    assert phps.wants_raw and not phps.random_init
+    np.testing.assert_array_equal(phps.faces, phps.body.faces)
+    import icon_tpu.data.test_dataset as J
+    items = _hps_items(photos, monkeypatch, "bev", J.get_hps("bev"), phps)
+    for got, want in items:
+        for k in ("image", "mask"):
+            assert got[k].tobytes() == want[k].tobytes(), k
+        for k in ("betas", "body_pose", "global_orient", "smpl_verts",
+                  "trans"):
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), k)
+        assert got["scale"] == want["scale"]
+        assert got["body_pose"].shape == (1, 23, 3, 3)
+    # per photo the port's dataset asks first, the JAX one second
+    assert len(raw) == 4 and raw[0].dtype == np.uint8
+    for i in (0, 2):
+        np.testing.assert_array_equal(raw[i + 1], raw[i])
 
 
 def test_pare_items_match_the_jax_dataset(photos, tmp_path, monkeypatch):
