@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[12], then a kernel summary, the card, and a last
+Phases (lines tagged [1]..[13], then a kernel summary, the card, and a last
 JSON line ``{"ok": true, "device": {...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
@@ -113,12 +113,33 @@ JSON line ``{"ok": true, "device": {...}}``):
    the stage split, the artifacts, the loops, the recon; and the kernels
    against their plain versions on the PIXIE run's inputs, as in phase 10
    (every kNN call against the SMPL-X body; the raster kernels on its
-   fitted body, recon and refined mesh).
+   fitted body, recon and refined mesh);
+13. the pifu and pamir priors: small fit frames (image 64^2, res 128,
+   ``-loop_smpl 0``, bench.py's widths for the prior, the variant field)
+   on the card against the CPU (raw net occupancy from the CPU's body to
+   1e-4, level and triangle counts equal); the voxelize kernels against
+   their plain versions on the small pamir frame's own voxel inputs at
+   128^3 (``box_smooth3d`` bit-identical, ``voxel_splat`` within 2 m 2^-24
+   of each voxel's sum of m non-negative terms), each kernel alone beside
+   its bound, its plain version and its library call (``index_add_``,
+   ``avg_pool3d``); the pamir serving frame at full width (the subdiv-5
+   body, 512^2 normals, the 128^3 volume with 32 features, MLP
+   38-512-256-128-1, res 256 on the variant field): 3 warm-up and 5 timed
+   recons with the stage split (filter; prep = voxelize and the volume
+   encoder; engine; march; decode), peak memory, level counts against the
+   JAX package's; then the CLI on the RGB scene photo with a pifu config
+   (no filter: its seeded readout extrudes the photo's silhouette) and a
+   pamir config, seeded reference-layout ``.ckpt`` files (pamir's with the
+   volume encoder's dead modules), ``-loop_smpl 100 -loop_cloth 20
+   -no_remesh``: the artifact set per prior (no ``_smpl.*`` for pifu), the
+   loops, the recon, the stage split, and every voxelize launch of the
+   pamir run held to the plain version on that launch's inputs.
 
-Each main path (phases 4, 6, 9, 10, 11 and both runs of 12) runs with the kernels' launch
-counts set to 0 just before it and read just after; a kernel of the path
-that did not launch fails the run. Any failed check raises, so the script exits non-zero
-and prints no result.
+Each main path (phases 4, 6, 9, 10, 11, both runs of 12, and in 13 the
+pamir frame and both CLI runs) runs with the kernels' launch counts set to
+0 just before it and read just after; a kernel of the path that did not
+launch fails the run. Any failed check raises, so the script exits
+non-zero and prints no result.
 
 The kernel summary gives, for every kernel, its launches in the main
 paths, its error against the plain version, its time and the plain
@@ -127,7 +148,8 @@ memory rate and its operations over the float32 peak, from this run's
 inputs; for the kNN also its tensor-core products over the TF32 peak and
 one compare per pair over the float32 instruction rate) and the time of
 one PyTorch call computing the same function where one exists (the kNN's
-``cdist`` + ``topk``; none for the rasterizer).
+``cdist`` + ``topk``, the splat's ``index_add_``, the smooth's
+``avg_pool3d``; none for the rasterizer).
 """
 
 import json
@@ -190,6 +212,23 @@ HPS_RTOL = 1e-3
 # error over each array's largest magnitude, TF32 off
 NET_RTOL = 1e-4
 IK_DET_TOL = 1e-3
+# phase 13: PaMIR's volume (the config's default resolution); the splat's
+# tolerance: two summation orders of a voxel's m non-negative terms differ by
+# at most 2 m 2^-24 of its sum
+VOXEL_RES = 128
+ORDER_EPS = 2.0 ** -24
+# float32 operations of the splat per vertex: its voxel coordinates (15) and
+# per corner three differences, two weight products, three code products and
+# four atomic adds (12)
+SPLAT_OPS_PER_VERTEX = 15 + 8 * 12
+VOXEL_REPLACES = {"voxel_splat": "icon_tpu/ops/voxelize.py:80",
+                  "box_smooth3d": "icon_tpu/ops/voxelize.py:107"}
+# the JAX package's level counts for the pamir frame (its own network at the
+# same widths, the variant field, the subdiv-5 body, res 256; see
+# CHANGES.md): the variant field's, the net's preds * 1e-6 term moves no
+# voxel across 0.5
+JAX_PAMIR_LEVEL1_POINTS = JAX_VARIANT_LEVEL1_POINTS
+JAX_PAMIR_LEVEL2_POINTS = JAX_VARIANT_LEVEL2_POINTS
 
 
 def card_line() -> str:
@@ -1654,6 +1693,372 @@ def other_nets_agree(dev, card, paths) -> None:
         raise AssertionError("HybrIK's IK on the card is not a proper "
                              "rotation onto the solved bones")
 
+def voxel_spy(calls: list):
+    """A pass-through spy on the voxelize wrapper's two kernels that records
+    each call's inputs (cloned) in ``calls`` as (kernel, arguments) and
+    counts nothing; returns a function that removes it."""
+    from icon_tpu_torch.kernels import voxelize as kv
+    splat, smooth = kv.voxel_splat, kv.box_smooth3d
+
+    def spy_splat(verts, codes, res):
+        calls.append(("voxel_splat", (verts.detach().clone(),
+                                      codes.detach().clone(), res)))
+        return splat(verts, codes, res)
+
+    def spy_smooth(acc, k):
+        calls.append(("box_smooth3d", (acc.detach().clone(), k)))
+        return smooth(acc, k)
+
+    kv.voxel_splat, kv.box_smooth3d = spy_splat, spy_smooth
+
+    def remove():
+        kv.voxel_splat, kv.box_smooth3d = splat, smooth
+    return remove
+
+
+def voxel_agrees(name, args):
+    """(max |kernel - plain|, whether the kernel passes, a note) of one
+    voxelize kernel against its plain version on ``args``: ``box_smooth3d``
+    bit-identical; ``voxel_splat`` within 2 m 2^-24 of each voxel's plain
+    sum of m terms (``ops/voxelize.py:splat_terms``)."""
+    from icon_tpu_torch.kernels import voxelize as kv
+    from icon_tpu_torch.ops import voxelize as pv
+    if name == "box_smooth3d":
+        got, want = kv.box_smooth3d(*args), pv.box_smooth3d_plain(*args)
+        torch.cuda.synchronize()
+        return float((got - want).abs().max()), torch.equal(got, want), \
+            "identical" if torch.equal(got, want) else "differs"
+    verts, codes, res = args
+    got, want = kv.voxel_splat(*args), pv.voxel_splat_plain(*args)
+    torch.cuda.synchronize()
+    terms = pv.splat_terms(verts, res)[..., None].float()
+    diff = (got - want).abs()
+    ok = bool((diff <= 2.0 * terms * ORDER_EPS * want.abs()).all())
+    ulps = float((diff / (want.abs() * ORDER_EPS).clamp(min=1e-30)).max())
+    return float(diff.max()), ok, (f"within the order bound: {ok}, at most "
+                                   f"{int(terms.max())} terms a voxel, "
+                                   f"{ulps:.3g} x 2^-24 of a sum")
+
+
+def phase_small_prior_frames(dev):
+    """[13] The pifu and pamir fit frames at image 64^2, res 128, the
+    subdiv-3 SMPL-X-layout body, ``-loop_smpl 0`` (the body's normals
+    through the NormalNet), bench.py's widths for the prior and its variant
+    field, one cloth iteration, on the card vs on the CPU: level and
+    marched triangle counts equal; from the CPU's body, the raw net
+    occupancy at the level-0 points to 1e-4 (PaMIR's voxel volume through
+    the kernels on the card, the plain version on the CPU). Returns the
+    card's pamir voxel inputs (``pamir_feats`` of its fit)."""
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    from icon_tpu_torch.recon.engine import reconstruction_resolutions
+    from icon_tpu_torch.recon.frame import (bench_config, build_fit_frame,
+                                            pamir_feats, seeded_state,
+                                            variant_occ)
+    from icon_tpu_torch.utils.synthetic import synthetic_fit_item
+    res0 = reconstruction_resolutions(128)[0]
+    vox = None
+    for prior in ("pifu", "pamir"):
+        cfg = bench_config(prior)
+        state = seeded_state(cfg, 1, normal_net=True)
+        item = synthetic_fit_item(synthetic_smplx_model(subdiv=3), 64,
+                                  seed=1)
+        frames, out, raw = {}, {}, {}
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            frames[name] = build_fit_frame(
+                cfg, state, synthetic_smplx_model(subdiv=3), 128, device,
+                loop_smpl=0, loop_cloth=1, field=variant_occ)
+            out[name] = frames[name].frame(item)
+        c, g = out["cpu"], out["gpu"]
+        counts = [(int(r.stats["level1_points"]), len(r.recon[1]))
+                  for r in (c, g)]
+        scale = float(item["scale"])
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            calib = torch.from_numpy(item["calib"]).to(device)
+            smpl, feats = frames[name].prep(
+                torch.from_numpy(item["image"]).to(device),
+                fit_on(c.fit, device), calib, scale)
+            with torch.no_grad():
+                raw[name] = frames[name].net_occ(
+                    level0_points(res0, device), smpl, feats,
+                    calib).cpu().numpy()
+        occ_err = float(np.abs(raw["cpu"] - raw["gpu"]).max())
+        print(f"[13] small {prior} frame, card vs CPU: level1, marched "
+              f"triangles {counts[1]} vs {counts[0]}; from the CPU's body: "
+              f"raw occupancy max|d| {occ_err:.3g} (std "
+              f"{raw['cpu'].std():.3g}); cloth losses {g.cloth_losses} vs "
+              f"{c.cloth_losses}", flush=True)
+        if counts[0] != counts[1] or not occ_err <= 1e-4 or \
+                not raw["cpu"].std() > 0 or \
+                not np.isfinite(g.cloth_losses).all():
+            raise AssertionError(f"small {prior} frame on the card "
+                                 "disagrees with the CPU")
+        if prior == "pamir":
+            vox = pamir_feats(g.fit.verts, frames["gpu"].body, g.fit.params,
+                              scale, torch.from_numpy(item["calib"]).to(dev))
+    return vox
+
+
+def voxel_kernel_entries(dev, vox):
+    """[13] The voxelize kernels against their plain versions on the pamir
+    frame's own voxel inputs at 128^3 (the box smooth on the plain splat's
+    accumulator); each kernel alone (its launches on preallocated buffers
+    behind a device sleep), the plain version, one library call (the
+    splat: ``index_add_`` of the 8 corners' precomputed rows into a zeroed
+    buffer; the smooth: ``avg_pool3d`` with ``count_include_pad``, which
+    leaves out the division by the weights) and the bound. Returns the
+    summary entries."""
+    import torch.nn.functional as F
+    from icon_tpu_torch.kernels import voxelize as kv
+    from icon_tpu_torch.ops import voxelize as pv
+    res = VOXEL_RES
+    k = pv.smooth_kernel_size(res, 0.05)
+    verts, codes = vox["voxel_verts"], vox["voxel_codes"]
+    n = res ** 3
+    acc = pv.voxel_splat_plain(verts, codes, res).view(1, res, res, res, 4)
+    errs = {}
+    for name, args in (("voxel_splat", (verts, codes, res)),
+                       ("box_smooth3d", (acc, k))):
+        err, ok, note = voxel_agrees(name, args)
+        print(f"[13] {name} vs plain on the pamir frame's {verts.shape[1]} "
+              f"voxel vertices at {res}^3 (k={k}): max|d| {err:.3g}, "
+              f"{note}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        errs[name] = err
+
+    buf = torch.empty((1, n, 4), device=dev)
+    tmp1, tmp2 = torch.empty_like(acc), torch.empty_like(acc)
+    vol = torch.empty(acc.shape[:4] + (3,), device=dev)
+    corners = list(pv._corners(verts, res))
+    lin = torch.cat([c[0].reshape(-1) for c in corners])
+    rows = torch.cat([torch.cat([w[..., None] * codes[None], w[..., None]],
+                                -1).reshape(-1, 4) for _, w in corners])
+    lib_buf = torch.empty((n, 4), device=dev)
+    pool_in = acc.permute(0, 4, 1, 2, 3)
+    times = {
+        "voxel_splat": (
+            kernel_ms(lambda: kv._splat(verts, codes, res, buf)),
+            cuda_ms(lambda: pv.voxel_splat_plain(verts, codes, res)),
+            cuda_ms(lambda: lib_buf.zero_().index_add_(0, lin, rows)),
+            bound(4.0 * (verts.numel() + codes.numel() + 4 * n),
+                  SPLAT_OPS_PER_VERTEX * verts.shape[1])),
+        "box_smooth3d": (
+            kernel_ms(lambda: kv._smooth(acc, k, tmp1, tmp2, vol)),
+            cuda_ms(lambda: pv.box_smooth3d_plain(acc, k)),
+            cuda_ms(lambda: F.avg_pool3d(pool_in, k, stride=1,
+                                         padding=k // 2,
+                                         count_include_pad=True)),
+            bound(4.0 * (4 + 3) * n, (3 * 4 * (k + 1) + 3) * n))}
+    entries = []
+    for name, (ms, plain_ms, lib_ms, (bound_ms, by)) in times.items():
+        print(f"[13] {name} alone {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+              f"{by}, {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms", flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "icon_tpu_torch/csrc/voxelize.cu",
+            "replaces": VOXEL_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
+def phase_pamir_frame(dev, card, iters: int = 5):
+    """[13] The pamir serving frame at full width (bench.py's widths for
+    pamir, the subdiv-5 SMPL-X-layout body, 512^2, res 256, the variant
+    field): the body as estimated (``-loop_smpl 0``), then 3 warm-up and
+    ``iters`` timed recons, each stage ended by a synchronize: filter, prep
+    (voxelize: ``pamir_feats`` and the two kernels; ve: the volume
+    encoder), engine, march (with the pack), decode; peak memory; level
+    counts against the JAX package's. Returns the launches."""
+    from icon_tpu_torch.kernels.voxelize import voxelize_semantic
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    from icon_tpu_torch.recon.frame import (bench_config, build_fit_frame,
+                                            pamir_feats, seeded_state,
+                                            variant_occ)
+    from icon_tpu_torch.utils.synthetic import synthetic_fit_item
+    cfg = bench_config("pamir")
+    t0 = time.perf_counter()
+    fr = build_fit_frame(cfg, seeded_state(cfg, 0, normal_net=True),
+                         synthetic_smplx_model(subdiv=FIT_SUBDIV), FIT_RES,
+                         dev, loop_smpl=0, field=variant_occ)
+    item = synthetic_fit_item(fr.body, FIT_SIZE, seed=0)
+    image = torch.from_numpy(item["image"]).to(dev)
+    calib = torch.from_numpy(item["calib"]).to(dev)
+    scale = float(item["scale"])
+    fit = fr.fit(item)
+    nml_f, nml_b = fit.normals
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    @torch.no_grad()
+    def recon():
+        stage = {}
+
+        def timed(name, fn, *args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage[name] = time.perf_counter() - t
+            return out
+
+        feats = timed("filter", fr.net.filter, {
+            "image": image[None], "normal_F": nml_f[None],
+            "normal_B": nml_b[None]})
+
+        def voxelize():
+            vox = pamir_feats(fit.verts, fr.body, fit.params, scale, calib)
+            return voxelize_semantic(vox["voxel_verts"], vox["voxel_codes"],
+                                     res=cfg.net.voxel_res)
+        vol = timed("voxelize", voxelize)
+        vol_feats = timed("ve", lambda: [f.permute(0, 2, 3, 4, 1) for f in
+                                         fr.net.ve(vol.permute(0, 4, 1, 2,
+                                                               3))])
+        stage["prep"] = stage["voxelize"] + stage["ve"]
+        occ, stats = timed("engine", fr.engine, fr.query_fn, query_args=(
+            {"voxel_feats": vol_feats}, feats, calib))
+        token = timed("march", lambda: fr.marcher.pack(fr.marcher(
+            occ, coarse_occ=stats["coarse_occ"])))
+        verts, faces = timed("decode", fr.marcher.unpack, token)
+        return stage, stats, verts, faces
+
+    reset_launches()                  # count only the main path's launches
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        recon()
+    runs = [recon() for _ in range(iters)]
+    launched = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, stats, verts, faces = runs[-1]
+    med = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
+    total = [sum(v for k, v in r[0].items() if k not in ("voxelize", "ve"))
+             for r in runs]
+    l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
+    ov = [int(stats[k]) for k in sorted(stats) if k.endswith("_overflow")]
+    print(f"[13] pamir frame (median of {iters}, s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in med.items()) + f"; recon median "
+        f"{statistics.median(total):.4f} all {[round(x, 4) for x in total]}; "
+        f"level1 {l1} (JAX {JAX_PAMIR_LEVEL1_POINTS}), level2 {l2} (JAX "
+        f"{JAX_PAMIR_LEVEL2_POINTS}), {len(verts)} verts / {len(faces)} tris, "
+        f"overflow {ov}; launches {launched}; peak {peak_gb:.2f} GiB; setup "
+        f"{setup_s:.2f} s on {card}, TF32 off", flush=True)
+    check_launched(launched, tuple(VOXEL_REPLACES), "the pamir frame")
+    if len(faces) < 10000 or not np.isfinite(verts).all() or any(ov):
+        raise AssertionError("the pamir frame's mesh is empty, non-finite "
+                             "or overflowed")
+    for name, got, ref in (("level1_points", l1, JAX_PAMIR_LEVEL1_POINTS),
+                           ("level2_points", l2, JAX_PAMIR_LEVEL2_POINTS)):
+        if abs(got - ref) > COUNT_RTOL * ref:
+            raise AssertionError(f"{name} {got} vs JAX {ref}")
+    return launched
+
+
+def phase_prior_cli(dev, card):
+    """[13] The CLI on the card on the RGB scene photo with a pifu config
+    (bench.py's widths without the filter) and a pamir config (bench.py's
+    widths), seeded reference-layout checkpoints (``prior_readout``;
+    pamir's with the volume encoder's dead modules) and the seeded PyMAF,
+    ``-loop_smpl 100 -loop_cloth 20 -no_remesh`` at 512^2 and res 256,
+    launches counted; the artifacts (no ``_smpl.*`` for pifu), the loops,
+    the recon, the stage split; then every voxelize launch of the pamir
+    run (recorded by :func:`voxel_spy`) against the plain version on that
+    launch's inputs. Returns ([the launches of each run], {kernel: worst
+    error})."""
+    import dataclasses
+    import os
+    import tempfile
+    from icon_tpu_torch.apps.infer import main
+    from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+
+    records, runs, calls = {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        for prior in ("pifu", "pamir"):
+            cfg = bench_config(prior)
+            if prior == "pifu":
+                cfg = cfg.replace(net=dataclasses.replace(cfg.net,
+                                                          use_filter=False))
+            paths = write_demo_inputs(os.path.join(d, prior), cfg,
+                                      hps_ckpt=True)
+            os.remove(os.path.join(paths["in_dir"], "matte.png"))
+            argv = ["-cfg", paths["cfg"], "-in_dir", paths["in_dir"],
+                    "-out_dir", paths["out_dir"], "-ckpt", paths["ckpt"],
+                    "-normal_ckpt", paths["normal_ckpt"], "-hps_ckpt",
+                    paths["hps_ckpt"], "-hps_type", "pymaf", "-loop_smpl",
+                    "100", "-loop_cloth", "20", "-no_remesh", "-img_size",
+                    str(FIT_SIZE), "-mcube_res", str(FIT_RES)]
+            torch.cuda.synchronize()
+            remove_spy = voxel_spy(calls if prior == "pamir" else [])
+            reset_launches()          # count only the main path's launches
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                (record,) = main(argv, device=dev)
+            finally:
+                remove_spy()
+            record["total_s"] = time.perf_counter() - t0
+            record["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            record["written"] = sorted(os.listdir(paths["out_dir"]))
+            records[prior], runs[prior] = record, read_launches()
+
+    for prior, r in records.items():
+        st = r["stages"]
+        n_fit, n_cloth = len(r["fit_losses"]), len(r["cloth_losses"])
+        print(f"[13] scene, {prior} prior: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in st.items())
+            + (f"; fit {st['fit'] / n_fit:.4f} s/iteration "
+               f"({r['fit_losses'][0]:.5f} -> {r['fit_losses'][-1]:.5f})"
+               if n_fit else "; no fit")
+            + f", cloth {st.get('cloth', 0.0) / max(n_cloth, 1):.4f} "
+            f"s/iteration; recon {r['recon'][0]} verts / {r['recon'][1]} "
+            f"tris, levels {r['stats']}; main {r['total_s']:.2f} s, launches "
+            f"{runs[prior]}, peak {r['peak_gb']:.2f} GiB on {card}, TF32 off",
+            flush=True)
+        kernels = RASTER_REPLACES if prior == "pifu" else \
+            (*RASTER_REPLACES, *VOXEL_REPLACES)
+        check_launched(runs[prior], kernels, f"the {prior} CLI")
+        want = sorted(f"scene{s}" for s in CLI_ARTIFACTS
+                      if prior == "pamir" or not s.startswith("_smpl"))
+        if r["written"] != want:
+            raise AssertionError(f"{prior} CLI artifacts {r['written']}, "
+                                 f"want {want}")
+        if n_fit != (100 if prior == "pamir" else 0) or n_cloth != 20 or \
+                not np.isfinite(r["fit_losses"] + r["cloth_losses"]).all():
+            raise AssertionError(f"{prior} CLI: loops short or non-finite")
+        if r["recon"][1] < 10000 or any(
+                v for k, v in r["stats"].items() if k.endswith("overflow")):
+            raise AssertionError(f"{prior} CLI: recon {r['recon']}, "
+                                 f"{r['stats']}")
+        if "cloth" not in st or "recon" not in st:
+            raise AssertionError(f"{prior} CLI stages {sorted(st)}")
+
+    worst = dict.fromkeys(VOXEL_REPLACES, 0.0)
+    for name in VOXEL_REPLACES:
+        n = sum(1 for c, _ in calls if c == name)
+        if n != runs["pamir"][name]:
+            raise AssertionError(f"{n} {name} calls recorded, "
+                                 f"{runs['pamir'][name]} launched")
+    for i, (name, args) in enumerate(calls):
+        err, ok, note = voxel_agrees(name, args)
+        print(f"[13] pamir CLI {name} call {i}: max|d| {err:.3g}, {note}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the CLI's call {i}")
+        worst[name] = max(worst[name], err)
+    return [runs["pifu"], runs["pamir"]], worst
+
+
+def phase_priors(dev, card):
+    """Phase 13: the pifu and pamir priors. Returns (the voxelize kernels'
+    summary entries, the launches of its main-path runs, {kernel: worst
+    error})."""
+    vox = phase_small_prior_frames(dev)
+    entries = voxel_kernel_entries(dev, vox)
+    runs = [phase_pamir_frame(dev, card)]
+    cli_runs, errs = phase_prior_cli(dev, card)
+    return entries, runs + cli_runs, errs
+
 
 def normal_inputs(verts, faces, azimuth):
     """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
@@ -1667,18 +2072,21 @@ def normal_inputs(verts, faces, azimuth):
 
 
 def reset_launches() -> None:
-    from icon_tpu_torch.kernels import knn, raster
+    from icon_tpu_torch.kernels import knn, raster, voxelize
     knn.launches = 0
     raster.launches_setup = raster.launches_bin = 0
     raster.launches_fwd = raster.launches_bwd = 0
+    voxelize.launches_splat = voxelize.launches_smooth = 0
 
 
 def read_launches() -> dict:
-    from icon_tpu_torch.kernels import knn, raster
+    from icon_tpu_torch.kernels import knn, raster, voxelize
     return {"knn_f32": knn.launches, "raster_setup": raster.launches_setup,
             "raster_bin": raster.launches_bin,
             "raster_fwd": raster.launches_fwd,
-            "raster_bwd": raster.launches_bwd}
+            "raster_bwd": raster.launches_bwd,
+            "voxel_splat": voxelize.launches_splat,
+            "box_smooth3d": voxelize.launches_smooth}
 
 
 def check_launched(counts: dict, names, path: str) -> None:
@@ -1728,12 +2136,15 @@ def main() -> int:
     runs.append(launched)
     launched, hps_errs = phase_other_hps(dev, card)
     runs += launched
+    entries, launched, prior_errs = phase_priors(dev, card)
+    summary += entries
+    runs += launched
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
                                     (fit_errs, cli_errs, photo_errs,
-                                     hps_errs)))
+                                     hps_errs, prior_errs)))
 
     print(json.dumps({"kernels": summary}))
     print(card_line())

@@ -10,9 +10,11 @@ crop) it keeps its own copy, pinned to the original by the tests.
 Layout: ``apps`` (the demo CLI, ``python -m icon_tpu_torch.apps.infer``),
 ``data`` (the photo dataset: crop, PyMAF estimate; the demo's calib),
 ``ops`` (stateless tensor ops, the differentiable rasterizer, mesh losses,
-the host remesher), ``models`` (HGPIFuNet filter and query, the NormalNet,
-PyMAF, the saliency detector, the SMPL-family body model and its asset
-registry, the local affine deformation), ``render`` (camera and renders),
+the host remesher), ``models`` (HGPIFuNet filter and query for the icon,
+pamir and pifu priors, PaMIR's volume encoder, the NormalNet, the body
+estimators, the detector and the matting net, the SMPL-family body model
+with its tetrahedral variant and its asset registry, the local affine
+deformation), ``render`` (camera and renders),
 ``infer`` (the demo's fit and cloth loops), ``kernels`` + ``csrc``
 (hand-written CUDA kernels with plain PyTorch twins), ``recon``
 (coarse-to-fine engine, lattice marching, the frames), ``utils`` (mesh IO,

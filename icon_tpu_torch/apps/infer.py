@@ -8,12 +8,16 @@ Per photo of ``-in_dir``:
    PIXIE's is an SMPL-X body); a ``<name>_smpl.npz`` fit beside the photo
    overrides the estimate;
 2. the SMPL fit against the NormalNet's cloth normals and the matte
-   (``-loop_smpl`` iterations), or with ``-loop_smpl 0`` the estimated
-   body's normal renders at 0 and 180 degrees through the NormalNet;
-3. ``<name>_smpl.obj``, ``_smpl.npy``, ``_smpl.gif`` and ``_overlap.png``;
+   (``-loop_smpl`` iterations), or with ``-loop_smpl 0`` (and always for
+   the pifu prior) the estimated body's normal renders at 0 and 180
+   degrees through the NormalNet;
+3. ``<name>_smpl.obj``, ``_smpl.npy``, ``_smpl.gif`` (none of them for the
+   pifu prior) and ``_overlap.png``;
 4. the occupancy reconstruction at ``-mcube_res`` (engine with fixed
-   budgets, the export marcher, y flipped to world, ``clean_mesh``), with
-   the SMPL-X cmap asset when installed; ``<name>_recon.obj``;
+   budgets, the export marcher, y flipped to world, ``clean_mesh``) with the
+   config's prior: icon's body features (the SMPL-X cmap asset when
+   installed), PaMIR's semantic volume (the tetrahedral SMPL when
+   installed) or PIFu's z; ``<name>_recon.obj``;
 5. the isotropic remesh unless ``-no_remesh``;
 6. the cloth refinement (``-loop_cloth`` iterations); ``<name>_refine.obj``;
 7. the vertex colours from the photo; ``<name>_recon_color.obj``;
@@ -28,11 +32,11 @@ Usage (on the card):
     python -m icon_tpu_torch.apps.infer -cfg icon-filter.yaml \\
         -in_dir photos -out_dir results [-loop_smpl 100] [-loop_cloth 200]
 
-The published ``-ckpt`` (``icon-filter.ckpt``) and ``-normal_ckpt``
-(``normal.ckpt``) load by the reference's rules
-(lib/dataset/mesh_util.py:187-237, apps/train.py:201-218). What the port
-does not have yet raises, naming its ROADMAP item: checkpoint directories
-and ``-num_devices`` > 1 (A10), the pifu and pamir priors (A9).
+The published ``-ckpt`` (``icon-filter.ckpt``, ``pifu.ckpt``,
+``pamir.ckpt``) and ``-normal_ckpt`` (``normal.ckpt``) load by the
+reference's rules (lib/dataset/mesh_util.py:187-237, apps/train.py:
+201-218). What the port does not have yet raises, naming its ROADMAP item:
+checkpoint directories and ``-num_devices`` > 1 (A10).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from __future__ import annotations
 import argparse
 import os
 import os.path as osp
+import re
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -47,6 +52,9 @@ import numpy as np
 import torch
 
 _GEOMETRY_SKIP = ("normal_filter", "voxelization", "reconEngine")
+# modules of the reference's volume encoder that its forward never runs
+# (lib/net/VE.py), present in pamir.ckpt
+_VE_DEAD = re.compile(r"ve\.(conv_out[12]|res\d+\.(bn|conv3))\.")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -77,7 +85,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace, prior_type: str) -> None:
+def refuse_unported(args: argparse.Namespace) -> None:
     """Raise for each option the port does not have yet, naming its ROADMAP
     item (none is ignored), and for ``-export_video`` without cv2, before
     any work."""
@@ -101,10 +109,6 @@ def refuse_unported(args: argparse.Namespace, prior_type: str) -> None:
         except ImportError as e:
             raise ImportError("-export_video writes the mp4 with OpenCV: "
                               "cv2 is not installed") from e
-    if prior_type != "icon":
-        raise NotImplementedError(
-            f"prior_type {prior_type!r}: the pifu and pamir priors are "
-            "ROADMAP Queue A item A9")
 
 
 def _torch_state(path: str) -> Mapping[str, torch.Tensor]:
@@ -116,19 +120,23 @@ def checkpoint_state(base: Mapping[str, torch.Tensor], geometry: str = "",
                      normal: str = "") -> Dict[str, torch.Tensor]:
     """``base`` (an ``HGPIFuNet`` state dict) with the published checkpoints
     loaded over it: the geometry file's ``netG.*`` entries but the
-    ``normal_filter``, ``voxelization`` and ``reconEngine`` ones, and the
-    normal file's ``netG.*`` entries renamed to ``netG.normal_filter.*``,
-    each with the ``netG.`` prefix stripped. Raises on an entry the port
-    has no tensor for, and on a tensor of a loaded scope that the file
-    lacks; prints the count loaded."""
+    ``normal_filter``, ``voxelization`` and ``reconEngine`` ones and the
+    volume encoder's modules that the reference never runs
+    (``ve.conv_out1``, ``ve.conv_out2``, ``ve.res{i}.bn``,
+    ``ve.res{i}.conv3``), and the normal file's ``netG.*`` entries renamed
+    to ``netG.normal_filter.*``, each with the ``netG.`` prefix stripped.
+    Raises on an entry the port has no tensor for, and on a tensor of a
+    loaded scope (``F_filter``, ``if_regressor`` and PaMIR's ``ve``; the
+    NormalNet's) that the file lacks; prints the count loaded."""
     loaded: Dict[str, torch.Tensor] = {}
     scopes = []
     if geometry:
         for k, v in _torch_state(geometry).items():
             if k.startswith("netG.") and \
-                    not any(s in k for s in _GEOMETRY_SKIP):
+                    not any(s in k for s in _GEOMETRY_SKIP) and \
+                    not _VE_DEAD.match(k[len("netG."):]):
                 loaded[k[len("netG."):]] = v
-        scopes += ["F_filter.", "if_regressor."]
+        scopes += ["F_filter.", "if_regressor.", "ve."]
     if normal:
         for k, v in _torch_state(normal).items():
             if k.startswith("netG."):
@@ -287,7 +295,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
     args = parse_args(argv)
     cfg = load_config(args.config_file).replace(test_mode=False,
                                                 mcube_res=args.mcube_res)
-    refuse_unported(args, cfg.net.prior_type)
+    refuse_unported(args)
+    fits = cfg.net.prior_type != "pifu"
     device = torch.device(device)
     dataset = TestDataset(args.in_dir, hps_type=args.hps_type,
                           hps_ckpt=args.hps_ckpt, icon_size=args.img_size,
@@ -361,20 +370,22 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
 
         faces_np = np.asarray(data["smpl_faces"])
         body_verts = smpl_fit.verts.cpu().numpy()
-        save_obj(out_path(name, "_smpl.obj"), body_verts * flip_y, faces_np)
-        p = {k: v.cpu().numpy() for k, v in smpl_fit.params.items()}
-        np.save(out_path(name, "_smpl.npy"),
-                {"betas": p["betas"], "pose": p["body_pose"],
-                 "orient": p["global_orient"], "trans": p["trans"],
-                 "scale": scale}, allow_pickle=True)
-        if smpl_fit.frames:
-            save_gif(out_path(name, "_smpl.gif"), smpl_fit.frames, fps=2)
+        if fits:
+            save_obj(out_path(name, "_smpl.obj"), body_verts * flip_y,
+                     faces_np)
+            p = {k: v.cpu().numpy() for k, v in smpl_fit.params.items()}
+            np.save(out_path(name, "_smpl.npy"),
+                    {"betas": p["betas"], "pose": p["body_pose"],
+                     "orient": p["global_orient"], "trans": p["trans"],
+                     "scale": scale}, allow_pickle=True)
+            if smpl_fit.frames:
+                save_gif(out_path(name, "_smpl.gif"), smpl_fit.frames, fps=2)
         nml_f, _ = smpl_fit.normals
         export_overlap(out_path(name, "_overlap.png"), data["image"],
                        nml_f.cpu().numpy(), data["mask"])
         lap("writes")
 
-        verts, faces, stats = frame.recon(image, smpl_fit, calib)
+        verts, faces, stats = frame.recon(image, smpl_fit, calib, scale)
         for k, v in stats.items():
             if k.endswith("overflow") and int(v) > 0:
                 print(f"  WARNING: recon {k}={int(v)} — geometry may be "

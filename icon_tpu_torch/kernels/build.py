@@ -24,7 +24,7 @@ _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _SRC_DIR = osp.join(_PKG, "csrc")
 _CACHE_DIR = osp.join(_PKG, "_build")
 
-SOURCES = ("knn.cu", "raster.cu")
+SOURCES = ("knn.cu", "raster.cu", "voxelize.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 HOST_SOURCE = "latticecodec.cc"

@@ -50,15 +50,20 @@ class HGFilter(nn.Module):
                  hg_down: str = "ave_pool",
                  conv1_ksdp: Sequence[int] = (7, 2, 1, 3)):
         super().__init__()
-        if hg_down != "ave_pool":
-            raise NotImplementedError(
-                f"hg_down {hg_down!r} is not ported (ROADMAP Queue A item 2)")
         self.num_stack = num_stack
+        self.hg_down = hg_down
         k, s, d, p = conv1_ksdp
         self.conv1 = nn.Conv2d(in_dim, 64, k, stride=s, dilation=d,
                                padding=p)
         self.bn1 = make_norm(norm, 64)
-        self.conv2 = ConvBlock(64, 128, norm)
+        if hg_down == "ave_pool":
+            self.conv2 = ConvBlock(64, 128, norm)
+        elif hg_down in ("conv64", "conv128"):
+            mid = 64 if hg_down == "conv64" else 128
+            self.conv2 = ConvBlock(64, mid, norm)
+            self.down_conv2 = nn.Conv2d(mid, 128, 3, stride=2, padding=1)
+        else:
+            raise ValueError(f"unknown hg_down {hg_down!r}")
         self.conv3 = ConvBlock(128, 128, norm)
         self.conv4 = ConvBlock(128, 256, norm)
         for i in range(num_stack):
@@ -73,7 +78,8 @@ class HGFilter(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
-        x = avg_pool2(self.conv2(x))
+        x = self.conv2(x)
+        x = avg_pool2(x) if self.hg_down == "ave_pool" else self.down_conv2(x)
         x = self.conv4(self.conv3(x))
         previous, outputs = x, []
         for i in range(self.num_stack):

@@ -15,7 +15,8 @@ import torch.nn.functional as F
 def make_norm(norm: str, channels: int, dim: int = 2) -> nn.Module:
     """group -> GroupNorm(32, eps 1e-5); batch -> BatchNorm{1,2}d (eps 1e-5,
     momentum 0.1, the torch twin of flax's 0.9); instance ->
-    InstanceNorm2d without affine or running stats (eps 1e-5)."""
+    InstanceNorm2d without affine or running stats (eps 1e-5); none ->
+    the identity, which holds no tensors."""
     if norm == "group":
         return nn.GroupNorm(32, channels, eps=1e-5)
     if norm == "batch":
@@ -23,8 +24,9 @@ def make_norm(norm: str, channels: int, dim: int = 2) -> nn.Module:
         return cls(channels, eps=1e-5)
     if norm == "instance":
         return nn.InstanceNorm2d(channels, eps=1e-5, affine=False)
-    raise NotImplementedError(
-        f"norm {norm!r} is not ported (ROADMAP Queue A item 2)")
+    if norm in ("none", None):
+        return nn.Identity()
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 class ConvBlock(nn.Module):

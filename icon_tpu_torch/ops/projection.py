@@ -1,7 +1,6 @@
-"""Calibration-matrix projection of 3D points (``icon_tpu.ops.projection``).
-
-Points are channel-last ``[B, N, 3]``, as in the JAX package. Only the
-orthogonal mode is ported; ICON's published configs use it.
+"""Calibration-matrix projections of 3D points (``icon_tpu.ops.projection``;
+reference lib/net/geometry.py:46-82). Points are channel-last ``[B, N, 3]``,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -9,13 +8,26 @@ from __future__ import annotations
 import torch
 
 
+def _homogeneous(points: torch.Tensor,
+                 calibrations: torch.Tensor) -> torch.Tensor:
+    rot = calibrations[:, :3, :3]
+    trans = calibrations[:, :3, 3]
+    return torch.matmul(points, rot.transpose(1, 2)) + trans[:, None, :]
+
+
 def orthogonal(points: torch.Tensor,
                calibrations: torch.Tensor) -> torch.Tensor:
     """``[B, N, 3]`` points through ``[B, 3or4, 4]`` calibrations ->
     ``[B, N, 3]`` xyz in normalized image coordinates."""
-    rot = calibrations[:, :3, :3]
-    trans = calibrations[:, :3, 3]
-    return torch.matmul(points, rot.transpose(1, 2)) + trans[:, None, :]
+    return _homogeneous(points, calibrations)
+
+
+def perspective(points: torch.Tensor,
+                calibrations: torch.Tensor) -> torch.Tensor:
+    """Perspective projection: ``[B, N, 3]`` = (x/z, y/z, z) of the points
+    through ``[B, 3or4, 4]`` calibrations."""
+    homo = _homogeneous(points, calibrations)
+    return torch.cat([homo[..., :2] / homo[..., 2:3], homo[..., 2:3]], -1)
 
 
 def project(points: torch.Tensor, calibrations: torch.Tensor,
@@ -23,6 +35,5 @@ def project(points: torch.Tensor, calibrations: torch.Tensor,
     if mode == "orthogonal":
         return orthogonal(points, calibrations)
     if mode == "perspective":
-        raise NotImplementedError(
-            "perspective projection is not ported (ROADMAP Queue A item 1)")
+        return perspective(points, calibrations)
     raise ValueError(f"unknown projection mode {mode!r}")

@@ -15,16 +15,18 @@ prep (:func:`icon_feats`: projection, vertex visibility, cmap, crossing
 columns), then the engine on bench.py's variant field, marching, pack and
 decode.
 
-:func:`build_fit_frame` (``apps/infer.py:121-292``, the icon prior, with
+:func:`build_fit_frame` (``apps/infer.py:121-292``, every prior, with
 the dataset item given): the demo's per-image path after HPS. The SMPL fit
-(``refine_smpl_live``, its NormalNet normals), ``filter``, the per-body
-prep of the fitted body with its crossing columns, the engine on the net's
-occupancy (or on a field the caller derives from it, such as bench.py's
-variant field :func:`variant_occ`), marching, the mesh in world
-coordinates, ``clean_mesh``, ``remesh``, the cloth refinement and the
-vertex colours. It reuses the NormalNet frame's pieces (:func:`body_bins`,
-:func:`icon_feats`, :func:`crossing_columns`). The demo CLI
-(``apps/infer.py``) runs it with the CLI's own engine and marcher.
+(``refine_smpl_live``, its NormalNet normals; PIFu takes the estimated body
+as it is), ``filter``, the per-body prep (icon: the fitted body with its
+crossing columns; PaMIR: the semantic volume of :func:`pamir_feats` through
+the volume encoder; PIFu: none), the engine on the net's occupancy (or on a
+field the caller derives from it, such as bench.py's variant field
+:func:`variant_occ`), marching, the mesh in world coordinates,
+``clean_mesh``, ``remesh``, the cloth refinement and the vertex colours. It
+reuses the NormalNet frame's pieces (:func:`body_bins`, :func:`icon_feats`,
+:func:`crossing_columns`). The demo CLI (``apps/infer.py``) runs it with the
+CLI's own engine and marcher.
 
 The frames run on the card unless the caller asks for the CPU.
 """
@@ -59,16 +61,21 @@ from icon_tpu_torch.utils.io import clean_mesh
 from icon_tpu_torch.utils.synthetic import clothed_human_occ
 
 
-def bench_config() -> Config:
+def bench_config(prior: str = "icon") -> Config:
     """bench.py's icon-filter config (``bench.py:77-85``): 2-stack
     hourglass, ``hourglass_dim`` 6, MLP 13-512-256-128-1 with batch norm
-    (the first entry of ``mlp_dim`` becomes the 13 input features)."""
+    (the first entry of ``mlp_dim`` becomes the 13 input features), the
+    published NormalNet widths. With ``prior`` pifu or pamir, the same
+    widths for that prior: the filter takes image + normals (9 channels),
+    PaMIR's volume is the config's default 128^3 with 32 features, so the
+    MLP is 38-512-256-128-1 (pamir) or 7-512-256-128-1 (pifu)."""
+    geo = (("normal_F", 3), ("normal_B", 3))
     return Config(
         test_mode=False,
         net=NetConfig(
             mlp_dim=(256, 512, 256, 128, 1), res_layers=(2, 3, 4),
-            num_stack=2, prior_type="icon", use_filter=True,
-            in_geo=(("normal_F", 3), ("normal_B", 3)),
+            num_stack=2, prior_type=prior, use_filter=True,
+            in_geo=geo if prior == "icon" else (("image", 3),) + geo,
             in_nml=(("image", 3), ("T_normal_F", 3), ("T_normal_B", 3)),
             smpl_feats=("sdf", "norm", "vis", "cmap"),
             norm_mlp="batch", hourglass_dim=6, smpl_dim=7))
@@ -164,6 +171,62 @@ def icon_feats(verts: torch.Tensor, faces: torch.Tensor,
             "smpl_cmap": cmap[None], "smpl_vis": vis[None],
             "smpl_vf_table": bins.vf_table,
             "smpl_cross_meta": bins.cross_meta}
+
+
+VOXEL_VERTS = 8000   # PaMIR's fixed vertex count (datasets.load_smpl_voxel)
+
+
+def load_tetra() -> Optional[BodyModel]:
+    """The installed tetrahedral SMPL (``SMPL_MALE.pkl`` with
+    ``tetra_male_adult_smpl.npz``, the demo's choice), or None."""
+    from icon_tpu_torch.models.smplx.tetra import load_tetra_body_model
+    reg = SMPLX()
+    model = osp.join(reg.model_dir, "smpl", "SMPL_MALE.pkl")
+    added = osp.join(reg.tedra_dir, "tetra_male_adult_smpl.npz")
+    if not (osp.exists(model) and osp.exists(added)):
+        return None
+    return load_tetra_body_model(model, added)[0]
+
+
+def pamir_feats(verts: torch.Tensor, body: BodyModel,
+                params: Mapping[str, torch.Tensor], scale: float,
+                calib: torch.Tensor, tetra: Optional[BodyModel] = None
+                ) -> Dict[str, torch.Tensor]:
+    """PaMIR's voxel inputs for the demo (``apps/infer.py:_pamir_feats``;
+    reference apps/infer.py:379-388 -> TestDataset.compute_voxel_verts):
+    the ``tetra`` body (:func:`load_tetra`, on the CPU) posed with the fit's
+    ``params`` (``body_pose [1, J-1, 3, 3]`` padded with identities to 23
+    joints, ``global_orient``, the first 10 ``betas``, ``trans``, then
+    ``scale``) and coded by its template, or without it the fitted surface
+    ``verts [V, 3]`` coded by ``body``'s template; padded (or cut) to
+    8,000 vertices, projected by ``calib [4, 4]`` and halved
+    (PIFuDataset.py:466-481): ``voxel_verts [1, 8000, 3]`` and
+    ``voxel_codes [8000, 3]`` on ``calib``'s device."""
+    if tetra is not None:
+        bp = params["body_pose"].detach().cpu().float()       # [1, J-1, 3, 3]
+        pose = torch.eye(3).expand(1, 23, 3, 3).clone()
+        nb = min(bp.shape[1], 23)   # SMPL-X HPS (pixie) has 21 body joints
+        pose[:, :nb] = bp[:, :nb]
+        go = params["global_orient"].detach().cpu().float().reshape(1, 9)
+        betas = params["betas"].detach().cpu().float()[:, :10]
+        with torch.no_grad():
+            v, _ = tetra(betas=betas, global_orient=go,
+                         body_pose=pose.reshape(1, 23 * 9), pose2rot=False)
+        trans = params["trans"].detach().cpu().float().reshape(1, 3)
+        verts = ((v[0] + trans) * scale).numpy()
+        t = tetra.v_template.numpy()
+    else:
+        verts = verts.detach().cpu().numpy()
+        t = body.v_template.cpu().numpy()[:len(verts)]
+    codes = (t - t.min(0)) / np.maximum(t.max(0) - t.min(0), 1e-6)
+    n = VOXEL_VERTS
+    pad = max(n - len(verts), 0)
+    verts = np.pad(verts[:n], ((0, pad), (0, 0)))
+    codes = np.pad(codes[:n], ((0, pad), (0, 0)))
+    v = torch.as_tensor(verts, dtype=torch.float32, device=calib.device)
+    return {"voxel_verts": project(v[None], calib[None]) * 0.5,
+            "voxel_codes": torch.as_tensor(codes.astype(np.float32),
+                                           device=calib.device)}
 
 
 def crossing_columns(smpl_feat: Dict[str, torch.Tensor], bins: BodyBins):
@@ -384,14 +447,21 @@ class FitResult(NamedTuple):
 class FitFrame:
     frame: Callable     # (item) -> FitResult: the whole per-image path
     fit: Callable       # (item, capture_every=0) -> SmplFit
-    prep: Callable      # (image, SmplFit, calib) -> (smpl_feat, features)
+    prep: Callable      # (image, SmplFit, calib, scale=1.0)
+                        # -> (smpl_feat, features)
     net_occ: Callable   # (points [1,N,3], smpl_feat, features, calib)
                         # -> the net's occupancy [1, N, 1]
-    recon: Callable     # (image, SmplFit, calib) -> (verts, faces, stats)
+    recon: Callable     # (image, SmplFit, calib, scale=1.0)
+                        # -> (verts, faces, stats)
     remesh: Callable    # (verts, faces) -> (verts, faces), host numpy
     cloth: Callable     # (verts, faces, SmplFit) -> (verts, losses)
     color: Callable     # (verts, faces, image) -> colors [V, 3]
     body: BodyModel     # on the frame's device
+    net: HGPIFuNet      # eval mode, on the frame's device
+    query_fn: Callable  # the engine's field: (points, smpl_feat, features,
+                        # calib) -> occupancy
+    engine: ReconEngine
+    marcher: AutoMarcher
 
 
 def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
@@ -412,13 +482,18 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     or ``field(preds, pts)`` of it when ``field`` is given (bench.py's
     :func:`variant_occ` gives random weights a human's level set).
 
-    ``loop_smpl`` 0 takes the body as the item's ``init`` gives it, with
-    the NormalNet's normals from its renders (``hps_body_normals``). The
-    engine defaults to ``auto_budget`` with headroom 1.3 and the marcher to
-    one sized for ``res``; the demo CLI passes its own (fixed budgets,
-    ``export.make_marcher``). The body features take the SMPL-X cmap asset
-    when it is installed for a body of this vertex count, as the demo does
-    (:func:`asset_cmap`, read once here)."""
+    ``loop_smpl`` 0, and the pifu prior always, take the body as the item's
+    ``init`` gives it, with the NormalNet's normals from its renders
+    (``hps_body_normals``). The engine defaults to ``auto_budget`` with
+    headroom 1.3 and the marcher to one sized for ``res``; the demo CLI
+    passes its own (fixed budgets, ``export.make_marcher``). The prep
+    builds each prior's body features: for icon the fitted body's
+    (:func:`icon_feats`, with the SMPL-X cmap asset when it is installed for
+    a body of this vertex count, as the demo does: :func:`asset_cmap`, read
+    once here), for pamir the volume features of :func:`pamir_feats` (the
+    tetrahedral SMPL, when installed, posed with the fit's parameters and
+    the item's ``scale``: :func:`load_tetra`, read once here), once a
+    frame; for pifu none."""
     device = torch.device(device)
     net = _load_net(cfg, state, device, normal_net=True)
     body = body.to(device)
@@ -435,13 +510,17 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=device)
 
-    # the demo's cmap choice (apps/infer.py:384-400), once per body model
-    cmap = asset_cmap(body.v_template.shape[-2])
-    cmap = None if cmap is None else dev(cmap)
+    prior = cfg.net.prior_type
+    if prior == "icon":
+        # the demo's cmap choice (apps/infer.py:384-400), once per body model
+        cmap = asset_cmap(body.v_template.shape[-2])
+        cmap = None if cmap is None else dev(cmap)
+    elif prior == "pamir":
+        tetra = load_tetra()
 
     def fit(item, capture_every: int = 0):
         size = item["image"].shape[0]
-        if loop_smpl == 0:
+        if loop_smpl == 0 or prior == "pifu":
             return hps_body_normals(body, body_faces, dev(item["image"]),
                                     item["init"], net.predict_normals,
                                     float(item["scale"]), size=size)
@@ -459,10 +538,17 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return preds if field is None else field(preds, pts)
 
     @torch.no_grad()
-    def prep(image, smpl_fit: SmplFit, calib):
+    def prep(image, smpl_fit: SmplFit, calib, scale: float = 1.0):
         nml_f, nml_b = smpl_fit.normals
         feats = net.filter({"image": image[None], "normal_F": nml_f[None],
                             "normal_B": nml_b[None]})
+        if prior == "pamir":
+            vox = pamir_feats(smpl_fit.verts, body, smpl_fit.params, scale,
+                              calib, tetra)
+            return {"voxel_feats": net.volume_features(
+                vox["voxel_verts"], vox["voxel_codes"])}, feats
+        if prior != "icon":
+            return {}, feats
         v_cal = project(smpl_fit.verts[None], calib[None])[0]
         bins = body_bins(v_cal.cpu().numpy(), body.faces,
                          engine.resolutions[-1], device)
@@ -471,8 +557,8 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return smpl, feats
 
     @torch.no_grad()
-    def recon(image, smpl_fit: SmplFit, calib):
-        smpl, feats = prep(image, smpl_fit, calib)
+    def recon(image, smpl_fit: SmplFit, calib, scale: float = 1.0):
+        smpl, feats = prep(image, smpl_fit, calib, scale)
         occ, stats = engine(query_fn, query_args=(smpl, feats, calib))
         verts, faces = extract_mesh(occ, marcher=marcher,
                                     coarse_occ=stats["coarse_occ"])
@@ -494,7 +580,8 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     def frame(item):
         image = dev(item["image"])
         smpl_fit = fit(item)
-        verts, faces, stats = recon(image, smpl_fit, dev(item["calib"]))
+        verts, faces, stats = recon(image, smpl_fit, dev(item["calib"]),
+                                    float(item["scale"]))
         if not len(faces):
             raise ValueError("the reconstruction is empty")
         rverts, rfaces = remesh(verts, faces)
@@ -505,4 +592,4 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                          color(refined, faces_t, image))
 
     return FitFrame(frame, fit, prep, net_occ, recon, remesh, cloth, color,
-                    body)
+                    body, net, query_fn, engine, marcher)

@@ -6,7 +6,8 @@ variables (as numpy arrays) into the torch state dict of
 same weights. The mapping is the inverse of
 ``icon_tpu/utils/torch_port.py``'s checkpoint port:
 
-- Conv kernels HWIO -> OIHW; Dense (in, out) -> Conv1d (out, in, 1);
+- Conv kernels HWIO -> OIHW and DHWIO -> OIDHW (PaMIR's volume encoder,
+  ``ve.*``); Dense (in, out) -> Conv1d (out, in, 1);
 - norm ``scale``/``bias`` -> ``weight``/``bias``; batch stats ``mean``/
   ``var`` -> ``running_mean``/``running_var`` (+ ``num_batches_tracked``);
 - MLP ``conv{i}``/``norm{i}`` -> ``filters.{i}``/``norms.{i}``;
@@ -85,6 +86,8 @@ def _module_path(path: tuple) -> list:
 
 
 def _convert_kernel(w: np.ndarray) -> np.ndarray:
+    if w.ndim == 5:                      # DHWIO -> OIDHW
+        return np.transpose(w, (4, 3, 0, 1, 2))
     if w.ndim == 4:                      # HWIO -> OIHW
         return np.transpose(w, (3, 2, 0, 1))
     if w.ndim == 2:                      # Dense (in, out) -> Conv1d

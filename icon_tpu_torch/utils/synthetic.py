@@ -3,8 +3,8 @@ the posed clothed-human occupancy field in PyTorch (``clothed_human_sdf`` /
 ``clothed_human_occ``), the numpy ICON batch (``synthetic_icon_batch``), the demo's per-image
 item for the body fit (``synthetic_fit_item``), the demo's input photos
 (``synthetic_photos``), HGPIFuNet weights whose occupancy is the body's
-(``sdf_readout``), and a directory of the demo CLI's inputs
-(``write_demo_inputs``).
+(``sdf_readout``; ``prior_readout`` for every prior), and a directory of
+the demo CLI's inputs (``write_demo_inputs``).
 
 The body mesh and the capsule skeleton are copies of the JAX package's
 numpy helpers (``icosphere``, ``synthetic_body``, ``posed_skeleton``,
@@ -20,7 +20,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["clothed_human_sdf", "clothed_human_occ", "sdf_readout",
+__all__ = ["clothed_human_sdf", "clothed_human_occ", "prior_readout",
+           "sdf_readout",
            "synthetic_body", "synthetic_fit_item", "synthetic_icon_batch",
            "synthetic_photos", "write_demo_inputs"]
 
@@ -399,6 +400,104 @@ def sdf_readout(cfg, state: Dict[str, torch.Tensor]
             f"if_regressor.filters.{last}.bias": torch.zeros_like(b)}
 
 
+def ve_dead_modules(cfg, seed: int) -> Dict[str, torch.Tensor]:
+    """Seeded ``netG.ve.*`` tensors of the modules the reference's volume
+    encoder registers and never runs (lib/net/VE.py: ``conv_out1``,
+    ``conv_out2``, and per residual stack ``bn`` and ``conv3``), as
+    ``pamir.ckpt`` holds them."""
+    c = cfg.net.voxel_dim
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        mods = {"conv_out1": torch.nn.Conv3d(c, c, 3, padding=1),
+                "conv_out2": torch.nn.Conv3d(c, c, 3, padding=1)}
+        for i in range(cfg.net.num_stack):
+            mods[f"res{i}.bn"] = torch.nn.BatchNorm3d(c)
+            mods[f"res{i}.conv3"] = torch.nn.Conv3d(c, c, 3, padding=1)
+    return {f"netG.ve.{m}.{k}": v for m, mod in mods.items()
+            for k, v in mod.state_dict().items()}
+
+
+def prior_readout(cfg, state: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """``state`` (an ``HGPIFuNet`` state dict for ``cfg``) with the MLP's
+    last layers reading the point features, so that seeded random weights
+    give a bounded reconstruction while every layer still runs:
+
+    - icon: the signed distance to the body (:func:`sdf_readout`);
+    - pamir: the volume encoder made a pass-through of the code sum (each
+      stride-2 convolution's centre tap carries the sum on channel 0, the
+      batch norms are the identity, the residual branches are zero), the
+      occupancy ``sigmoid(50 (sum - 0.5))``: a shell around the body's
+      surface where its codes sum above 0.5;
+    - pifu (``use_filter`` False, so the features are the input maps): the
+      layer before the last computes ``|n_x|, |n_y|, |n_z|`` of the front
+      normal map (``leaky_relu`` of both signs; the NormalNet's normals are
+      unit vectors on the person and 0 off it) and the query's distance
+      outside the slab ``|z| < 0.1``; the occupancy ``sigmoid(50 (0.99 sum
+      |n| - 0.5 - 10 slab distance))`` is the photo's silhouette extruded
+      through the slab."""
+    from icon_tpu_torch.models.hgpifu import mlp_first_dim
+    net = cfg.net
+    if net.prior_type == "icon":
+        return sdf_readout(cfg, state)
+    dims = net.mlp_dim
+    last = len(dims) - 2
+    if last not in net.res_layers or (net.prior_type != "pamir" and
+                                      last - 1 not in net.res_layers):
+        raise ValueError("the last MLP layers do not see the point "
+                         "features (res_layers)")
+    c0 = mlp_first_dim(cfg)
+    out = dict(state)
+
+    def zeroed(key):
+        out[key] = torch.zeros_like(state[key])
+        return out[key]
+
+    w = zeroed(f"if_regressor.filters.{last}.weight")
+    b = zeroed(f"if_regressor.filters.{last}.bias")
+    if net.prior_type == "pamir":
+        w[0, dims[last] + c0 - net.voxel_dim, 0] = 50.0
+        b -= 25.0
+        for k, v in state.items():
+            if k.startswith("ve.") and k.rsplit(".", 1)[-1] in (
+                    "weight", "bias", "running_mean", "running_var"):
+                bn_unit = k.endswith("running_var") or (
+                    v.ndim == 1 and k.endswith("weight"))
+                out[k] = torch.ones_like(v) if bn_unit else \
+                    torch.zeros_like(v)
+        for conv, cin in (("ve.conv1", None), ("ve.conv2", 1)):
+            wc = out[f"{conv}.weight"]
+            c = wc.shape[-1] // 2
+            wc[0, :cin, c, c, c] = 1.0
+        return out
+    if net.use_filter or "normal_F" not in net.in_geo_names:
+        raise ValueError("the pifu readout reads the front normal map: it "
+                         "needs use_filter False and normal_F in in_geo")
+    nf = 3 if "image" in net.in_geo_names else 0    # normal_F's columns
+    hid = last - 1
+    wh = zeroed(f"if_regressor.filters.{hid}.weight")
+    bh = zeroed(f"if_regressor.filters.{hid}.bias")
+    for i in range(3):                              # +-n_i -> units 2i, 2i+1
+        wh[2 * i, dims[hid] + nf + i, 0] = 1.0
+        wh[2 * i + 1, dims[hid] + nf + i, 0] = -1.0
+    wh[6, dims[hid] + c0 - 1, 0], bh[6] = 1.0, -0.1      # z - 0.1
+    wh[7, dims[hid] + c0 - 1, 0], bh[7] = -1.0, -0.1     # -z - 0.1
+    norm = f"if_regressor.norms.{hid}"
+    if f"{norm}.running_mean" in state:             # batch norm: identity
+        zeroed(f"{norm}.running_mean")
+        zeroed(f"{norm}.bias")
+        out[f"{norm}.running_var"] = torch.ones_like(
+            state[f"{norm}.running_var"])
+        out[f"{norm}.weight"] = torch.ones_like(state[f"{norm}.weight"])
+    elif net.norm_mlp != "none":
+        raise ValueError("the pifu readout needs a batch-norm or no-norm "
+                         "MLP")
+    w[0, :6, 0] = 50.0
+    w[0, 6:8, 0] = -500.0
+    b[0] = -25.0
+    return out
+
+
 def write_darknet_weights(path: str, rng: np.random.RandomState,
                           head: str = "seeded") -> None:
     """A darknet ``yolov3-tiny.weights`` (version 0.2 header, then per
@@ -640,9 +739,12 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     ``photos/`` with the two :func:`synthetic_photos` of the 24-joint
     synthetic SMPL body (``subdiv``) at ``photo_size``^2 (``matte.png``
     RGBA, ``scene.png`` RGB); ``cfg`` as YAML; the published checkpoints'
-    layout holding HGPIFuNet's seeded init under :func:`sdf_readout`, the
-    geometry ``icon-filter.ckpt`` (``netG.*`` but the NormalNet) and
-    ``normal.ckpt`` (the NormalNet under ``netG.``); with ``hps_ckpt`` also
+    layout holding HGPIFuNet's seeded init under :func:`prior_readout`, the
+    geometry ``icon-filter.ckpt`` (``netG.*`` but the NormalNet; for the
+    pamir prior with the volume encoder's modules that the reference
+    registers and never runs: ``ve.conv_out1``, ``ve.conv_out2``,
+    ``ve.res{i}.bn``, ``ve.res{i}.conv3``) and ``normal.ckpt`` (the
+    NormalNet under ``netG.``); with ``hps_ckpt`` also
     ``PyMAF_model_checkpoint.pt`` of ``build_pymaf``'s seeded init at the
     published geometry (keys under ``model.``, one
     IUV-head entry the loader drops, the regressor's heads scaled by 0.05
@@ -688,10 +790,13 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     Image.fromarray(rgba).save(os.path.join(paths["in_dir"], "matte.png"))
     Image.fromarray(rgb).save(os.path.join(paths["in_dir"], "scene.png"))
     save_config(cfg, paths["cfg"])
-    state = sdf_readout(cfg, seeded_state(cfg, seed, normal_net=True))
+    state = prior_readout(cfg, seeded_state(cfg, seed, normal_net=True))
     nf = "normal_filter."
-    torch.save({"state_dict": {"netG." + k: v for k, v in state.items()
-                               if not k.startswith(nf)}}, paths["ckpt"])
+    geometry = {"netG." + k: v for k, v in state.items()
+                if not k.startswith(nf)}
+    if cfg.net.prior_type == "pamir":
+        geometry.update(ve_dead_modules(cfg, seed))
+    torch.save({"state_dict": geometry}, paths["ckpt"])
     torch.save({"state_dict": {"netG." + k[len(nf):]: v
                                for k, v in state.items()
                                if k.startswith(nf)}}, paths["normal_ckpt"])

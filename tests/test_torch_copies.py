@@ -4,9 +4,11 @@ the host lattice decoder, the synthetic body's arrays, the photo path's
 host code (the saliency detector, ``process_image``, YOLO's darknet parser,
 letterbox and NMS, the matting net's host pre- and post-processing), the
 garment extraction, ``save_video``, ``get_smpl_model``, BEV's output
-adaptation and ``process_image``'s raw crop."""
+adaptation, ``process_image``'s raw crop, and PaMIR's ``pamir_feats`` with
+the tetrahedral SMPL loader."""
 
 import dataclasses
+import pickle
 
 import numpy as np
 import pytest
@@ -579,3 +581,90 @@ def test_process_image_raw_crop_is_byte_equal(tmp_path, mode):
     assert got[4].tobytes() == want[4].tobytes()
     for g, p in zip(got[:3], plain[:3]):
         assert g.tobytes() == p.tobytes()
+
+
+def _write_tetra_assets(root, body, n_added: int, rng):
+    """A seeded SMPL release pickle of ``body``'s arrays (the JAX synthetic
+    SMPL) and a tetra npz of ``n_added`` interior vertices, where the demo
+    looks for them."""
+    v = np.asarray(body.v_template)
+    V, J = len(v), len(body.parents)
+    posedirs = np.asarray(body.posedirs).T.reshape(V, 3, -1)
+    models = root / "smpl_related" / "models" / "smpl"
+    models.mkdir(parents=True)
+    kintree = np.stack([np.asarray(body.parents), np.arange(J)])
+    kintree[0, 0] = 4294967295
+    with open(models / "SMPL_MALE.pkl", "wb") as f:
+        pickle.dump({"v_template": v, "shapedirs": np.asarray(body.shapedirs),
+                     "posedirs": posedirs,
+                     "J_regressor": np.asarray(body.J_regressor),
+                     "weights": np.asarray(body.lbs_weights),
+                     "kintree_table": kintree,
+                     "f": np.asarray(body.faces)}, f)
+    tedra = root / "tedra_data"
+    tedra.mkdir()
+    w = rng.rand(n_added, J)
+    np.savez(tedra / "tetra_male_adult_smpl.npz",
+             v_template_added=(0.5 * rng.randn(n_added, 3)).astype(
+                 np.float32),
+             shapedirs_added=(0.01 * rng.randn(n_added, 3, 10)),
+             posedirs_added=(0.01 * rng.randn(n_added, 3,
+                                              posedirs.shape[-1])),
+             weights_added=w / w.sum(1, keepdims=True),
+             tetrahedrons=rng.randint(0, V, (20, 4)))
+
+
+@pytest.mark.parametrize("installed", [True, False])
+def test_pamir_feats_match(tmp_path, monkeypatch, installed):
+    """The demo's voxel inputs against the JAX CLI's ``_pamir_feats`` on
+    one fit: with the tetra assets written by the test (the loader's
+    arrays equal the JAX loader's; the tetra body posed on the host with
+    the fit's rotation matrices), and without them (the fitted surface);
+    padded to 8,000 vertices, projected and halved."""
+    from icon_tpu.apps.infer import _pamir_feats
+    from icon_tpu.models.pymaf.net import _synthetic_smpl24
+    from icon_tpu.models.smplx.lbs import batch_rodrigues
+    from icon_tpu.models.smplx.tetra import load_tetra_body_model as jload
+    from icon_tpu_torch.models.smplx.tetra import load_tetra_body_model
+    from icon_tpu_torch.recon.frame import load_tetra, pamir_feats
+    from icon_tpu_torch.utils.convert import body_model_from_jax
+    jbody = _synthetic_smpl24(subdiv=2)
+    rng = np.random.RandomState(11)
+    if installed:
+        _write_tetra_assets(tmp_path, jbody, 150, rng)
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", str(tmp_path))
+    rot = np.asarray(batch_rodrigues(jnp.asarray(
+        0.2 * rng.randn(24, 3).astype(np.float32))))
+    params = {"betas": (0.5 * rng.randn(1, 10)).astype(np.float32),
+              "body_pose": rot[None, 1:], "global_orient": rot[None, :1],
+              "trans": (0.05 * rng.randn(3)).astype(np.float32)}
+    scale = 0.9
+    verts = np.asarray(jbody.v_template) * 0.8
+    calib = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    want = _pamir_feats(jnp.asarray(verts), jbody, params, scale, calib)
+    tetra = load_tetra()
+    assert (tetra is None) == (not installed)
+    got = pamir_feats(t(verts), body_model_from_jax(jbody),
+                      {k: t(v) for k, v in params.items()}, scale,
+                      t(calib), tetra)
+    assert got["voxel_verts"].shape == (1, 8000, 3)
+    assert got["voxel_codes"].shape == (8000, 3)
+    np.testing.assert_allclose(got["voxel_verts"].numpy(),
+                               np.asarray(want["voxel_verts"]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got["voxel_codes"].numpy(),
+                                  np.asarray(want["voxel_codes"]))
+    if installed:
+        root = tmp_path / "smpl_related"
+        args = (str(root / "models" / "smpl" / "SMPL_MALE.pkl"),
+                str(tmp_path / "tedra_data" / "tetra_male_adult_smpl.npz"))
+        pm, pe = load_tetra_body_model(*args)
+        jm, je = jload(*args)
+        for name in ("v_template", "shapedirs", "posedirs", "J_regressor",
+                     "lbs_weights"):
+            np.testing.assert_array_equal(getattr(pm, name).numpy(),
+                                          np.asarray(getattr(jm, name)))
+        assert pm.parents == tuple(jm.parents) and pe["n_surface"] == \
+            je["n_surface"] == len(verts)
+        np.testing.assert_array_equal(pe["tetrahedrons"],
+                                      je["tetrahedrons"])

@@ -15,7 +15,10 @@ so the recon is body-shaped and small) and PyMAF's seeded random weights:
   (read back with cv2, the turntable's frame count patched down to 4) and
   the garment OBJs of a seeded polygon JSON; ``-hps_type pixie`` (A8
   (rest), now ported) runs with a seeded published-width
-  ``pixie_model.tar`` and fits the SMPL-X body.
+  ``pixie_model.tar`` and fits the SMPL-X body;
+- the pifu and pamir priors (A9) through the CLI on the scene photo with
+  their own seeded checkpoints (``prior_readout``): pifu without the fit
+  or its artifacts, pamir with the body's volume once a photo.
 
 The JAX CLI itself is a slow test (``tests/test_infer_e2e.py``)."""
 
@@ -24,7 +27,6 @@ import os.path as osp
 import numpy as np
 import pytest
 import torch
-import yaml
 from PIL import Image
 
 from torch_port_helpers import normalnet_cfg, port_cfg
@@ -188,8 +190,6 @@ def test_checkpoint_rules_match_the_jax_port(demo, tmp_path):
     (["-seg_dir", "segs"], "A7 \\(rest\\)"),
     (["-ckpt", "DIR"], "A10"),
     (["-hps_type", "pixie"], "A8 \\(rest\\)"),
-    (["prior", "pamir"], "A9"),
-    (["prior", "pifu"], "A9"),
 ])
 def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
     """Each option the port lacks raises, naming its ROADMAP item. The A7
@@ -203,18 +203,61 @@ def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
     if item.startswith("A8"):
         _pixie_run(demo, tmp_path, monkeypatch)
         return
-    if extra[0] == "prior":
-        data = yaml.safe_load(open(cfg_path))
-        data["net"]["prior_type"] = extra[1]
-        cfg_path = str(tmp_path / "prior.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(data, f)
-        extra = []
     extra = [str(tmp_path) if a == "DIR" else a for a in extra]
     with pytest.raises(NotImplementedError, match=item):
         main(["-cfg", cfg_path, "-in_dir", in_dir, "-out_dir",
               str(tmp_path / "out"), "-allow_random_hps", *extra],
              device="cpu")
+
+
+@pytest.mark.parametrize("prior", ["pifu", "pamir"])
+def test_prior_cli_runs(tmp_path, monkeypatch, prior):
+    """The CLI with a pifu or a pamir config (image + normals; pifu's
+    without the filter, whose seeded readout extrudes the photo's
+    silhouette) on the scene photo, two fit and one cloth iteration, no
+    remesh,
+    with its seeded reference-layout checkpoint (``prior_readout``; pamir's
+    with the volume encoder's modules the reference never runs, which the
+    loader drops): pifu fits nothing and writes no ``_smpl.*`` artifact but
+    the overlap; pamir fits and voxelizes the fitted body's surface (no
+    tetra assets installed) once; both reconstruct a bounded mesh."""
+    import dataclasses
+    import os
+    from icon_tpu_torch.apps.infer import main
+    from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+    cfg = port_cfg(normalnet_cfg())
+    cfg = cfg.replace(net=dataclasses.replace(
+        cfg.net, prior_type=prior, voxel_res=64, use_filter=prior == "pamir",
+        in_geo=(("image", 3), ("normal_F", 3), ("normal_B", 3))))
+    paths = write_demo_inputs(str(tmp_path / "inputs"), cfg, photo_size=96,
+                              subdiv=2, seed=3)
+    os.remove(osp.join(paths["in_dir"], "matte.png"))
+    monkeypatch.setenv("ICON_TPU_DATA_DIR", paths["data_dir"])
+    geo = torch.load(paths["ckpt"], weights_only=False)["state_dict"]
+    assert ("netG.ve.conv_out1.weight" in geo) == (prior == "pamir")
+    assert ("netG.ve.res1.conv3.weight" in geo) == (prior == "pamir")
+    calls = []
+    volume_features = HGPIFuNet.volume_features
+    monkeypatch.setattr(HGPIFuNet, "volume_features", lambda self, *a: (
+        calls.append(a[0].shape), volume_features(self, *a))[1])
+    argv = ["-cfg", paths["cfg"], "-in_dir", paths["in_dir"], "-out_dir",
+            paths["out_dir"], "-ckpt", paths["ckpt"], "-normal_ckpt",
+            paths["normal_ckpt"], "-mcube_res", str(RES), "-img_size",
+            str(SIZE), "-allow_random_hps", "-loop_smpl", "2",
+            "-loop_cloth", "1", "-no_remesh"]
+    (record,) = main(argv, device="cpu")
+    written = sorted(os.listdir(paths["out_dir"]))
+    fitted = prior == "pamir"
+    want = [s for s in ARTIFACTS if fitted or not s.startswith("_smpl")]
+    assert written == sorted(f"scene{s}" for s in want)
+    assert len(record["fit_losses"]) == (2 if fitted else 0)
+    assert calls == ([(1, 8000, 3)] if fitted else [])
+    assert np.isfinite(record["fit_losses"] + record["cloth_losses"]).all()
+    assert len(record["cloth_losses"]) == 1 and record["recon"][1] > 100
+    from icon_tpu_torch.utils.io import load_obj
+    v, _ = load_obj(osp.join(paths["out_dir"], "scene_recon.obj"))
+    assert np.abs(v).max() <= 1.0 + 1e-6
 
 
 def test_export_video_needs_cv2(demo, tmp_path, monkeypatch):

@@ -71,8 +71,10 @@ def test_layer_primitives():
     assert (gn.num_groups, gn.eps, bn.eps, inst.eps) == (32, 1e-5, 1e-5,
                                                          1e-5)
     assert not inst.affine
-    with pytest.raises(NotImplementedError):
-        make_norm("none", 8)
+    assert isinstance(make_norm("none", 8), torch.nn.Identity)
+    assert not list(make_norm("none", 8).parameters())
+    with pytest.raises(ValueError):
+        make_norm("layer", 8)
 
 
 def test_state_dict_keys_match_reference_layout(icon_pair):
@@ -193,8 +195,34 @@ def test_query_parity(icon_pair):
                   {k: x for k, x in smpl.items() if k != "smpl_cross_z"})
 
 
-def test_unported_priors_raise():
+@pytest.mark.parametrize("prior", ["pifu", "pamir"])
+def test_priors_build_and_run(prior):
+    """The pifu and pamir priors build with the NormalNet and run filter
+    (normals predicted from the renders) and query end to end: finite
+    occupancy in [0, 1] inside the box, 0 outside; PaMIR's volume features
+    are ``[B, voxel_res / 4, ..., voxel_dim]``."""
     cfg = icon_cfg()
-    pifu = cfg.replace(net=dataclasses.replace(cfg.net, prior_type="pifu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        HGPIFuNet(port_cfg(pifu))
+    cfg = port_cfg(cfg.replace(net=dataclasses.replace(
+        cfg.net, prior_type=prior, voxel_res=16, voxel_dim=4, ngf=4,
+        n_downsampling=1, n_blocks=1,
+        in_geo=(("image", 3), ("normal_F", 3), ("normal_B", 3)))))
+    torch.manual_seed(0)
+    net = HGPIFuNet(cfg).eval()
+    assert hasattr(net, "ve") == (prior == "pamir")
+    maps = {k: t(RNG.randn(1, 32, 32, 3).astype(np.float32))
+            for k in ("image", "T_normal_F", "T_normal_B")}
+    pts = t(RNG.uniform(-1.2, 1.2, (1, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        feats = net.filter(maps)
+        smpl = None
+        if prior == "pamir":
+            vol = net.volume_features(
+                t(RNG.uniform(-0.5, 0.5, (1, 40, 3)).astype(np.float32)),
+                t(RNG.rand(40, 3).astype(np.float32)))
+            assert vol[0].shape == (1, 4, 4, 4, 4)
+            smpl = {"voxel_feats": vol}
+        out = net.query(feats, pts, torch.eye(4)[None], smpl)[-1]
+    assert feats[0].shape == (1, 8, 8, 6) and out.shape == (1, 64, 1)
+    inside = (pts.abs() < 1).all(-1)[0]
+    assert bool(((out >= 0) & (out <= 1)).all())
+    assert float(out[0, ~inside].abs().max()) == 0.0

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package: importing
 icon_tpu_torch and running one tiny CPU frame of each kind (normals given;
 normals predicted by the NormalNet from the body's renders; the demo's fit
-frame: body fit, recon, remesh, cloth refinement, colours) and the demo CLI
+frame: body fit, recon, remesh, cloth refinement, colours; and with the
+pifu and pamir priors) and the demo CLI
 on photos (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
 colours; then the RGB photo with the YOLO detector, U^2-Net matting and
 PARE installed, the turntable video and the garments) and PIXIE and HybrIK
@@ -56,6 +57,14 @@ out = build_fit_frame(cfg, state, body, 64, "cpu", loop_smpl=1, loop_cloth=1,
                       field=variant_occ).frame(synthetic_fit_item(body, 32))
 assert len(out.faces) > 1000 and bool(torch.isfinite(out.verts).all())
 assert np.isfinite(out.fit.losses + out.cloth_losses).all()
+for prior in ("pifu", "pamir"):
+    pcfg = cfg.replace(net=dataclasses.replace(
+        cfg.net, prior_type=prior, voxel_res=32,
+        in_geo=(("image", 3), ("normal_F", 3), ("normal_B", 3))))
+    out = build_fit_frame(pcfg, HGPIFuNet(pcfg).state_dict(), body, 64, "cpu",
+                          loop_smpl=1, loop_cloth=1, field=variant_occ).frame(
+        synthetic_fit_item(body, 32))
+    assert len(out.faces) > 1000 and len(out.fit.losses) == (prior == "pamir")
 import tempfile
 from icon_tpu_torch.apps.infer import main
 from icon_tpu_torch.utils.synthetic import write_demo_inputs
@@ -115,15 +124,19 @@ def test_port_imports_no_jax():
     assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
-# the photo path's modules and the other estimators', which the scans below
-# must reach
+# the photo path's modules, the other estimators' and the priors', which
+# the scans below must reach
 PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "models/pare/hrnet.py", "models/pare/net.py",
               "models/pare/convert.py", "ops/cloth_extraction.py",
               "data/test_dataset.py", "apps/infer.py", "render/render.py",
               "models/pixie/hrnet.py", "models/pixie/net.py",
               "models/pixie/convert.py", "models/hybrik/ik.py",
-              "models/hybrik/net.py", "models/hybrik/convert.py")
+              "models/hybrik/net.py", "models/hybrik/convert.py",
+              # the priors' modules
+              "models/volume_encoder.py", "models/smplx/tetra.py",
+              "ops/voxelize.py", "kernels/voxelize.py", "csrc/voxelize.cu",
+              "ops/grid_sample.py", "ops/projection.py", "models/hgpifu.py")
 
 
 def test_no_jax_import_in_package_sources():

@@ -33,8 +33,12 @@ def test_project_orthogonal(rows):
     calib = RNG.randn(2, rows, 4).astype(np.float32)
     ref = jproj.project(jnp.asarray(pts), jnp.asarray(calib))
     _close(projection.project(t(pts), t(calib)), ref)
-    with pytest.raises(NotImplementedError):
-        projection.project(t(pts), t(calib), mode="perspective")
+    # perspective (ported): depths kept away from 0 by the calibration
+    calib[:, 2, :3] *= 0.1
+    calib[:, 2, 3] = 3.0
+    ref = jproj.project(jnp.asarray(pts), jnp.asarray(calib),
+                        mode="perspective")
+    _close(projection.project(t(pts), t(calib), mode="perspective"), ref)
 
 
 def test_grid_sample_2d_zero_padding():

@@ -69,17 +69,37 @@ def normalnet_cfg(ngf=8, n_downsampling=2, n_blocks=2, **net) -> Config:
         cfg.net, ngf=ngf, n_downsampling=n_downsampling, n_blocks=n_blocks))
 
 
+def prior_cfg(prior: str, use_filter: bool = True, hg_down="ave_pool",
+              norm="group", voxel_res: int = 32, voxel_dim: int = 8,
+              image: bool = True) -> Config:
+    """:func:`icon_cfg` with ``prior`` (icon, pifu or pamir) and the image
+    filter's options; with ``image`` the in_geo stack is image + normals (9
+    channels), otherwise the normals; PaMIR's volume at ``voxel_res`` with
+    ``voxel_dim`` features (narrow; the config's defaults are 128 and
+    32)."""
+    cfg = icon_cfg()
+    in_geo = ((("image", 3),) if image else ()) + (("normal_F", 3),
+                                                   ("normal_B", 3))
+    return cfg.replace(net=dataclasses.replace(
+        cfg.net, prior_type=prior, use_filter=use_filter, hg_down=hg_down,
+        norm=norm, voxel_res=voxel_res, voxel_dim=voxel_dim,
+        in_geo=in_geo))
+
+
 def init_jax_icon(cfg: Config, seed: int = 0, normal_net: bool = False):
     """(flax HGPIFuNet, variables as numpy trees) with randomized norms and
-    biases. With ``normal_net`` the init batch holds the NormalNet's inputs
-    (image, T_normal_F/B) instead of the normal maps, so the params carry
-    the ``normal_filter`` scope."""
+    biases, for any prior. With ``normal_net`` the init batch holds the
+    NormalNet's inputs (image, T_normal_F/B) instead of the normal maps, so
+    the params carry the ``normal_filter`` scope."""
     from icon_tpu.models.hgpifu import HGPIFuNet
     net = HGPIFuNet(cfg)
     small = jnp.zeros((1, 64, 64, 3))
     maps = ("image", "T_normal_F", "T_normal_B") if normal_net \
-        else ("normal_F", "normal_B")
-    batch = {**{k: small for k in maps},
+        else ("image", "normal_F", "normal_B")
+    voxels = {"voxel_verts": jnp.zeros((1, 64, 3)),
+              "voxel_codes": jnp.zeros((64, 3))} \
+        if cfg.net.prior_type == "pamir" else {}
+    batch = {**{k: small for k in maps}, **voxels,
              "sample": jnp.zeros((1, 8, 3)), "calib": jnp.eye(4)[None],
              "smpl_verts": jnp.zeros((1, 32, 3)),
              "smpl_faces": jnp.zeros((16, 3), jnp.int32),
