@@ -119,10 +119,13 @@ JSON line ``{"ok": true, "device": {...}}``):
    on the card against the CPU (raw net occupancy from the CPU's body to
    1e-4, level and triangle counts equal); the voxelize kernels against
    their plain versions on the small pamir frame's own voxel inputs at
-   128^3 (``box_smooth3d`` bit-identical, ``voxel_splat`` within 2 m 2^-24
-   of each voxel's sum of m non-negative terms), each kernel alone beside
-   its bound, its plain version and its library call (``index_add_``,
-   ``avg_pool3d``); the pamir serving frame at full width (the subdiv-5
+   128^3 and on a stress input with 7,358 of the 8,000 vertices at the
+   frame's padding point (``box_smooth3d`` bit-identical, ``voxel_splat``
+   within 2 m 2^-24 of each voxel's sum of m non-negative terms), the
+   smooth's division by k against IEEE division for every float32
+   significand, each kernel alone beside its bound, its plain version, its
+   library call (``index_add_``, ``avg_pool3d``) and its time in the
+   previous design (``PERF.md`` §6, "Before"); the pamir serving frame at full width (the subdiv-5
    body, 512^2 normals, the 128^3 volume with 32 features, MLP
    38-512-256-128-1, res 256 on the variant field): 3 warm-up and 5 timed
    recons with the stage split (filter; prep = voxelize and the volume
@@ -223,6 +226,13 @@ ORDER_EPS = 2.0 ** -24
 SPLAT_OPS_PER_VERTEX = 15 + 8 * 12
 VOXEL_REPLACES = {"voxel_splat": "icon_tpu/ops/voxelize.py:80",
                   "box_smooth3d": "icon_tpu/ops/voxelize.py:107"}
+# the voxelize kernels alone in their previous design (one thread a vertex
+# with 32 scalar atomics; three smooth passes), ms on one NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §6, "Before")
+VOXEL_BEFORE_MS = {"voxel_splat": (0.1054, 0.1012),
+                "box_smooth3d": (0.1919, 0.1925)}
+# the splat's stress input: vertices of the 8,000 at the padding point
+VOXEL_STRESS_PADS = 7358
 # the JAX package's level counts for the pamir frame (its own network at the
 # same widths, the variant field, the subdiv-5 body, res 256; see
 # CHANGES.md): the variant field's, the net's preds * 1e-6 term moves no
@@ -1798,68 +1808,105 @@ def phase_small_prior_frames(dev):
     return vox
 
 
+def voxel_stress(vox):
+    """The splat's stress input: the pamir frame's voxel inputs with their
+    last :data:`VOXEL_STRESS_PADS` vertices at the frame's padding point
+    (its last vertex, ``pamir_feats``'s zero padding projected) and zero
+    codes."""
+    verts, codes = vox["voxel_verts"].clone(), vox["voxel_codes"].clone()
+    verts[:, -VOXEL_STRESS_PADS:] = verts[:, -1:]
+    codes[-VOXEL_STRESS_PADS:] = 0.0
+    return verts, codes
+
+
 def voxel_kernel_entries(dev, vox):
     """[13] The voxelize kernels against their plain versions on the pamir
     frame's own voxel inputs at 128^3 (the box smooth on the plain splat's
-    accumulator); each kernel alone (its launches on preallocated buffers
-    behind a device sleep), the plain version, one library call (the
-    splat: ``index_add_`` of the 8 corners' precomputed rows into a zeroed
-    buffer; the smooth: ``avg_pool3d`` with ``count_include_pad``, which
-    leaves out the division by the weights) and the bound. Returns the
-    summary entries."""
+    accumulator) and the splat also on :func:`voxel_stress`; the smooth's
+    division by k against IEEE division; each kernel alone (its launches
+    on preallocated buffers behind a device sleep), the plain version, one
+    library call (the splat: ``index_add_`` of the 8 corners' precomputed
+    rows into a zeroed buffer; the smooth: ``avg_pool3d`` with
+    ``count_include_pad``, which leaves out the division by the weights),
+    the bound and the previous design's time. Returns the summary entries (the frame's
+    inputs)."""
     import torch.nn.functional as F
     from icon_tpu_torch.kernels import voxelize as kv
     from icon_tpu_torch.ops import voxelize as pv
     res = VOXEL_RES
     k = pv.smooth_kernel_size(res, 0.05)
-    verts, codes = vox["voxel_verts"], vox["voxel_codes"]
     n = res ** 3
-    acc = pv.voxel_splat_plain(verts, codes, res).view(1, res, res, res, 4)
+    inputs = {"frame": (vox["voxel_verts"], vox["voxel_codes"]),
+              "stress": voxel_stress(vox)}
+    acc = pv.voxel_splat_plain(*inputs["frame"], res).view(
+        1, res, res, res, 4)
     errs = {}
-    for name, args in (("voxel_splat", (verts, codes, res)),
-                       ("box_smooth3d", (acc, k))):
+    for name, label, args in (
+            ("voxel_splat", "frame", (*inputs["frame"], res)),
+            ("voxel_splat", "stress", (*inputs["stress"], res)),
+            ("box_smooth3d", "frame", (acc, k))):
         err, ok, note = voxel_agrees(name, args)
-        print(f"[13] {name} vs plain on the pamir frame's {verts.shape[1]} "
-              f"voxel vertices at {res}^3 (k={k}): max|d| {err:.3g}, "
-              f"{note}", flush=True)
+        pads = int((inputs[label][0][0] == inputs[label][0][0, -1]).all(
+            -1).sum())
+        print(f"[13] {name} vs plain on the pamir {label}'s 8,000 voxel "
+              f"vertices ({pads} at the padding point) at {res}^3 "
+              f"(k={k}): max|d| {err:.3g}, {note}", flush=True)
         if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        errs[name] = err
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the {label} input")
+        errs[name] = max(errs.get(name, 0.0), err)
+    bad = kv.division_mismatches()
+    print(f"[13] box_smooth3d's division by k vs IEEE division: {bad} "
+          f"mismatches over every float32 in [1, 2) and k <= {kv.MAX_K}",
+          flush=True)
+    if bad:
+        raise AssertionError("box_smooth3d's division by k is not "
+                             "correctly rounded")
 
-    buf = torch.empty((1, n, 4), device=dev)
-    tmp1, tmp2 = torch.empty_like(acc), torch.empty_like(acc)
+    def splat_times(verts, codes):
+        buf = torch.empty((1, n, 4), device=dev)
+        corners = list(pv._corners(verts, res))
+        lin = torch.cat([c[0].reshape(-1) for c in corners])
+        rows = torch.cat([torch.cat([w[..., None] * codes[None],
+                                     w[..., None]], -1).reshape(-1, 4)
+                          for _, w in corners])
+        lib_buf = torch.empty((n, 4), device=dev)
+        return (kernel_ms(lambda: kv._splat(verts, codes, res, buf)),
+                cuda_ms(lambda: pv.voxel_splat_plain(verts, codes, res)),
+                cuda_ms(lambda: lib_buf.zero_().index_add_(0, lin, rows)),
+                bound(4.0 * (verts.numel() + codes.numel() + 4 * n),
+                      SPLAT_OPS_PER_VERTEX * verts.shape[1]))
+
+    t1 = torch.empty_like(acc)
     vol = torch.empty(acc.shape[:4] + (3,), device=dev)
-    corners = list(pv._corners(verts, res))
-    lin = torch.cat([c[0].reshape(-1) for c in corners])
-    rows = torch.cat([torch.cat([w[..., None] * codes[None], w[..., None]],
-                                -1).reshape(-1, 4) for _, w in corners])
-    lib_buf = torch.empty((n, 4), device=dev)
     pool_in = acc.permute(0, 4, 1, 2, 3)
     times = {
-        "voxel_splat": (
-            kernel_ms(lambda: kv._splat(verts, codes, res, buf)),
-            cuda_ms(lambda: pv.voxel_splat_plain(verts, codes, res)),
-            cuda_ms(lambda: lib_buf.zero_().index_add_(0, lin, rows)),
-            bound(4.0 * (verts.numel() + codes.numel() + 4 * n),
-                  SPLAT_OPS_PER_VERTEX * verts.shape[1])),
-        "box_smooth3d": (
-            kernel_ms(lambda: kv._smooth(acc, k, tmp1, tmp2, vol)),
+        ("voxel_splat", "frame"): splat_times(*inputs["frame"]),
+        ("voxel_splat", "stress"): splat_times(*inputs["stress"]),
+        ("box_smooth3d", "frame"): (
+            kernel_ms(lambda: kv._smooth(acc, k, t1, vol)),
             cuda_ms(lambda: pv.box_smooth3d_plain(acc, k)),
             cuda_ms(lambda: F.avg_pool3d(pool_in, k, stride=1,
                                          padding=k // 2,
                                          count_include_pad=True)),
             bound(4.0 * (4 + 3) * n, (3 * 4 * (k + 1) + 3) * n))}
     entries = []
-    for name, (ms, plain_ms, lib_ms, (bound_ms, by)) in times.items():
-        print(f"[13] {name} alone {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-              f"{by}, {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms", flush=True)
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "icon_tpu_torch/csrc/voxelize.cu",
-            "replaces": VOXEL_REPLACES[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+    for (name, label), (ms, plain_ms, lib_ms, (bound_ms, by)) in \
+            times.items():
+        before = " / ".join(f"{t:.4f}" for t in VOXEL_BEFORE_MS[name])
+        print(f"[13] {name} on the {label} input alone {ms:.4f} ms (bound "
+              f"{bound_ms:.4f} ms by {by}, {bound_ms / ms:.1%}), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"({lib_ms / ms:.2f}x the kernel), the previous design "
+              f"{before} ms",
+              flush=True)
+        if label == "frame":
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "icon_tpu_torch/csrc/voxelize.cu",
+                "replaces": VOXEL_REPLACES[name], "launches": 0,
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
     return entries
 
 

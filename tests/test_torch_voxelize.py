@@ -79,6 +79,35 @@ def test_splat_weights_and_terms():
                                               3).numpy())
 
 
+@pytest.mark.parametrize("k,rz,tile", [
+    (11, 8, (64, 16)),           # PaMIR's box at res 128, sigma 0.05
+    (23, 16, (64, 16)),          # the default box of a 256^3 volume
+    (1, 2, (64, 16)), (2, 2, (64, 16)), (3, 4, (64, 16)), (4, 4, (64, 16)),
+    (80, 16, (32, 16)), (90, 16, (16, 16)), (100, 16, (16, 8)),
+    (kv.MAX_K, 16, (8, 8))])
+def test_smooth_geometry(k, rz, tile):
+    """The launch ``box_smooth3d`` picks per k: the D pass's outputs a
+    thread (its ``slide`` needs k >= rz - 1), the first tile whose halo and
+    H lines fit 227 KB of shared memory, 256 threads."""
+    g = kv.smooth_geometry(k)
+    assert (g.rz, (g.tx, g.ty), g.threads) == (rz, tile, 256)
+    assert k >= g.rz - 1
+    hx = g.tx + k - 1                             # csrc/voxelize.cu's smem
+    assert g.smem == 16 * (hx * (g.ty + k - 1) + g.ty * hx) <= kv.MAX_SMEM
+    bigger = kv.TILES[:kv.TILES.index(tile)]
+    assert all(kv.smooth_smem(k, *t) > kv.MAX_SMEM for t in bigger)
+
+
+def test_smooth_geometry_refuses_past_the_limit():
+    """k = 109 is the largest box whose 8 x 8 tile fits; past it, and below
+    1, the wrapper raises with the limit before any launch."""
+    assert kv.MAX_K == 109
+    assert kv.smooth_smem(110, 8, 8) > kv.MAX_SMEM
+    for k in (0, kv.MAX_K + 1):
+        with pytest.raises(ValueError, match="1 <= k <= 109"):
+            kv.smooth_geometry(k)
+
+
 def test_plain_voxelize_is_differentiable():
     """On the CPU the plain version carries gradients to the vertices (the
     kernels are forward only)."""
