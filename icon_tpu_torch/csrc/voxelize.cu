@@ -28,24 +28,26 @@
 // their exact sum, as the plain version's sequential sum is: the two differ
 // by at most 2 m 2^-24 of the sum.
 //
-// box_smooth3d: two launches; the one-launch design measured slower
-// (kernels/experiments/, PERF.md §6). The D pass: a thread per (b, y, x) column and rz
+// box_smooth3d: two launches. A one-launch design (a ring of the last k
+// planes of a tile's halo in shared memory, streamed through z) summed D
+// over the whole halo and took 0.155-0.172 ms against these passes' 0.070
+// (PERF.md §6). The D pass: a thread per (b, y, x) column and rz
 // consecutive z, neighbouring threads on neighbouring x; it reads the rz +
 // k - 1 planes of its window once each, in order, and adds each to every
 // sum whose window holds it (slide), so each output still sums its k terms
 // from 0.0 in the order of the offsets. It writes t1 [B, D, H, W, 4], the
-// one scratch of the accumulator's size. The H and W passes: a block per
-// (b, z) plane's tx x ty tile copies the (tx + k - 1) x (ty + k - 1) halo
-// of t1 into shared memory with cp.async (16 bytes a thread, zero filled
-// outside the volume: the plain version's zero padding), sums k rows of
-// each halo column into T2 [ty][tx + k - 1], then k columns of each T2 row,
-// and writes the codes over max(w, 1e-3) as 3 floats. Every step is the
-// plain version's: __fadd_rn from 0.0 in offset order (adding the
-// padding's zeros changes no sum), a correctly rounded division by k
-// (div_k: Markstein's correction of x * RN(1/k), held to __fdiv_rn for
-// every float32 significand by icon_voxel_div_check), then __fdiv_rn by
-// the weight: bit for bit. The wrapper picks rz, the tile (64 x 16 first)
-// and the threads per k; shared memory is 16 (tx + k - 1) (2 ty + k - 1)
+// one scratch of the accumulator's size. The H and W passes: a block of
+// 256 threads per (b, z) plane's tx x ty tile copies the (tx + k - 1) x
+// (ty + k - 1) halo of t1 into shared memory with cp.async (16 bytes a
+// thread, zero filled outside the volume: the plain version's zero
+// padding), sums k rows of each halo column into T2 [ty][tx + k - 1], then
+// k columns of each T2 row, and writes the codes over max(w, 1e-3) as 3
+// floats. Every step is the plain version's: __fadd_rn from 0.0 in offset
+// order (adding the padding's zeros changes no sum), a correctly rounded
+// division by k (div_k: Markstein's correction of x * RN(1/k), held to
+// __fdiv_rn for every float32 significand by icon_voxel_div_check), then
+// __fdiv_rn by the weight: bit for bit. The wrapper picks rz and the tile
+// (64 x 16 first) per k; shared memory is 16 (tx + k - 1) (2 ty + k - 1)
 // bytes, at most 227 KB: k <= 109 (an 8 x 8 tile). Bound: the accumulator
 // read once and the volume written once (58.7 MB at res 128: ~17.5 us);
 // t1 adds a write and a read of 33.5 MB each, the halos mostly L2 hits.
@@ -55,7 +57,7 @@
 namespace {
 
 constexpr int kSplatThreads = 256;      // 8 warps: one per trilinear corner
-constexpr int kMaxSmoothThreads = 512;
+constexpr int kHwThreads = 256;        // the H and W passes' block
 constexpr int kMaxSmem = 232448;        // 227 KB of dynamic shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -267,7 +269,7 @@ struct Walk {
 // K, TX, TY fix k and the tile at compile time (0: from sh), so that the
 // sums' shared offsets are immediates.
 template <int K, int TX, int TY>
-__global__ void __launch_bounds__(kMaxSmoothThreads)
+__global__ void __launch_bounds__(kHwThreads)
 smooth_hw_kernel(const float4* __restrict__ t1, float* __restrict__ out,
                  HwShape sh) {
   extern __shared__ float4 smem[];
@@ -345,18 +347,14 @@ cudaError_t launch_d(const float4* acc, float4* t1, int B, int D,
 
 template <int K, int TX, int TY>
 cudaError_t launch_hw(const float4* t1, float* out, const HwShape& sh,
-                      long long blocks, int threads, int smem,
-                      cudaStream_t stream) {
-  static bool sized = false;     // a benign race: the attribute is idempotent
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        smooth_hw_kernel<K, TX, TY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
-  smooth_hw_kernel<K, TX, TY><<<static_cast<unsigned>(blocks), threads, smem,
-                                stream>>>(t1, out, sh);
+                      long long blocks, int smem, cudaStream_t stream) {
+  // per call: the attribute holds for the current device only
+  const cudaError_t err = cudaFuncSetAttribute(
+      smooth_hw_kernel<K, TX, TY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return err;
+  smooth_hw_kernel<K, TX, TY><<<static_cast<unsigned>(blocks), kHwThreads,
+                                smem, stream>>>(t1, out, sh);
   return cudaGetLastError();
 }
 
@@ -387,14 +385,13 @@ int icon_voxel_splat(const float* verts, const float* codes, int B, int V,
 
 // acc [B, D, H, W, 4] f32 (read only, 16-byte aligned), t1 scratch of its
 // size (16-byte aligned); writes out [B, D, H, W, 3] f32: the D pass with
-// rz outputs a thread, then the H and W passes on (tx, ty) tiles with
-// `threads` threads a block. Returns a cudaError_t.
+// rz outputs a thread, then the H and W passes on (tx, ty) tiles. Returns
+// a cudaError_t.
 int icon_box_smooth3d(const float* acc, float* t1, float* out, int B, int D,
                       int H, int W, int k, int rz, int tx, int ty,
-                      int threads, void* stream) {
+                      void* stream) {
   if (B < 0 || D < 1 || H < 1 || W < 1 || k < 1 || tx < 1 || ty < 1 ||
       (rz != 2 && rz != 4 && rz != 8 && rz != 16) || k < rz - 1 ||
-      threads < 32 || threads > kMaxSmoothThreads || threads % 32 ||
       reinterpret_cast<unsigned long long>(acc) % 16 != 0 ||
       reinterpret_cast<unsigned long long>(t1) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -418,11 +415,13 @@ int icon_box_smooth3d(const float* acc, float* t1, float* out, int B, int D,
                 : launch_d<2>(a, t, B, D, plane, k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int m = static_cast<int>(smem);
-  // PaMIR's box (res 128, sigma 0.05) and its tile at compile time
+  // PaMIR's box (res 128, sigma 0.05) and its tile at compile time: its H
+  // and W pass takes 0.040 ms at 128^3, the generic build 0.044 (PERF.md
+  // §6)
   return static_cast<int>(
       k == 11 && tx == 64 && ty == 16
-          ? launch_hw<11, 64, 16>(t, out, sh, blocks, threads, m, s)
-          : launch_hw<0, 0, 0>(t, out, sh, blocks, threads, m, s));
+          ? launch_hw<11, 64, 16>(t, out, sh, blocks, m, s)
+          : launch_hw<0, 0, 0>(t, out, sh, blocks, m, s));
 }
 
 // Adds to *bad (zeroed by the caller) the count of (k, x), k in [1, kmax],

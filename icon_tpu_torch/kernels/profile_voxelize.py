@@ -1,20 +1,17 @@
 """Where the time of the voxelize kernels goes, on one CUDA card.
 
-PaMIR's voxel input at its real size: 8,000 vertices, the first of the
-subdiv-5 synthetic body's (coded by their normalized coordinates) and the
-rest at one point with zero codes, as ``recon/frame.py:pamir_feats`` pads a
-body, splatted into a 128^3 volume and smoothed with k = 11.
-On the card, with TF32 off:
+What ``chip_smoke.py``'s phase 13 does not time: PaMIR's voxel input at
+its real size with no padding (the first 8,000 vertices of the subdiv-5
+synthetic body, coded by their normalized coordinates), splatted into a
+128^3 volume and smoothed with k = 11. On the card, with TF32 off:
 
-1. ``voxel_splat`` alone at 0, 5,438 and 7,358 padded vertices (the range
-   chip_smoke.py's phase 13 meets) beside ``index_add_`` of the same rows
-   into a zeroed buffer and the zeroing alone (``zero_``);
-2. ``box_smooth3d`` alone, its two passes' device times (torch.profiler),
-   and the two copies that move the passes' compulsory bytes: the
-   accumulator into the scratch (``copy_``, the D pass's read and write)
-   and the scratch's codes into the volume (the H and W pass's);
-3. the one-launch design (``kernels/experiments/voxelize_fused_ring.cu``)
-   at a few tiles, held bit for bit to the plain version.
+1. ``voxel_splat`` alone beside the zeroing of its accumulator alone
+   (``zero_``), the floor of its memset;
+2. ``box_smooth3d`` alone, held bit for bit to the plain version, its two
+   passes' device times (torch.profiler), and the two copies that move the
+   passes' compulsory bytes: the accumulator into the scratch (``copy_``,
+   the D pass's read and write) and the scratch's codes into the volume
+   (the H and W pass's).
 
 Each time is the median of 5 CUDA-event timings of 20 launches queued
 behind a device sleep. Usage, from the repository root on the card:
@@ -23,23 +20,17 @@ behind a device sleep. Usage, from the repository root on the card:
 """
 
 import argparse
-import ctypes
 import json
 import os
 import os.path as osp
 import statistics
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import torch
 
 RES, K, VERTS = 128, 11, 8000
-PADS = (0, 5438, 7358)
-# the one-launch design's (tx, ty, z chunk, threads)
-RING_GEOMETRIES = ((32, 8, 64, 512), (32, 8, 64, 384), (16, 16, 64, 512),
-                   (16, 8, 64, 256))
 
 
 def kernel_ms(launch, reps: int = 20) -> float:
@@ -61,34 +52,15 @@ def kernel_ms(launch, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def voxel_input(pads: int, dev):
-    """(verts [1, 8000, 3], codes [8000, 3]): 8000 - ``pads`` of the body's
-    vertices, then ``pads`` at one point with zero codes."""
+def voxel_input(dev):
+    """(verts [1, 8000, 3], codes [8000, 3]): the body's first 8,000
+    vertices and their normalized coordinates."""
     from icon_tpu_torch.utils.synthetic import synthetic_body
     v, _ = synthetic_body(subdiv=5)
     codes = (v - v.min(0)) / (v.max(0) - v.min(0))
-    real = VERTS - pads
-    verts = np.zeros((VERTS, 3), np.float32)
-    verts[:real] = v[:real] * 1.4
-    verts[real:] = (0.02, -0.05, 0.01)
-    full = np.zeros((VERTS, 3), np.float32)
-    full[:real] = codes[:real]
+    verts = (v[:VERTS] * 1.4).astype(np.float32)
     return (torch.from_numpy(verts[None]).to(dev),
-            torch.from_numpy(full).to(dev))
-
-
-def build_ring() -> ctypes.CDLL:
-    """nvcc the one-launch experiment into a temporary library."""
-    from icon_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
-    src = osp.join(osp.dirname(osp.abspath(__file__)), "experiments",
-                   "voxelize_fused_ring.cu")
-    out = osp.join(tempfile.mkdtemp(), "libring.so")
-    subprocess.run([find_nvcc(), *NVCC_FLAGS, src, "-o", out], check=True)
-    lib = ctypes.CDLL(out)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.icon_voxel_fused_ring.argtypes = [vp, vp] + [ci] * 9 + [vp]
-    lib.icon_voxel_fused_ring.restype = ci
-    return lib
+            torch.from_numpy(codes[:VERTS].astype(np.float32)).to(dev))
 
 
 def main() -> int:
@@ -107,24 +79,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    result = {"card": card, "splat": {}, "smooth": {}, "ring": {}}
-    n = RES ** 3
-    buf = torch.empty((1, n, 4), device=dev)
-    lib_buf = torch.empty((n, 4), device=dev)
-    for pads in PADS:
-        verts, codes = voxel_input(pads, dev)
-        corners = list(pv._corners(verts, RES))
-        lin = torch.cat([c[0].reshape(-1) for c in corners])
-        rows = torch.cat([torch.cat([w[..., None] * codes[None],
-                                     w[..., None]], -1).reshape(-1, 4)
-                          for _, w in corners])
-        result["splat"][pads] = {
-            "kernel_ms": kernel_ms(lambda: kv._splat(verts, codes, RES,
-                                                     buf)),
-            "index_add_ms": kernel_ms(
-                lambda: lib_buf.zero_().index_add_(0, lin, rows)),
-            "zero_ms": kernel_ms(lambda: buf.zero_())}
-        print(f"splat, {pads} padded: {result['splat'][pads]}", flush=True)
+    verts, codes = voxel_input(dev)
+    buf = torch.empty((1, RES ** 3, 4), device=dev)
+    result = {"card": card, "splat": {
+        "kernel_ms": kernel_ms(lambda: kv._splat(verts, codes, RES, buf)),
+        "zero_ms": kernel_ms(lambda: buf.zero_())}}
+    print(f"splat, unpadded: {result['splat']}", flush=True)
 
     acc = pv.voxel_splat_plain(verts, codes, RES).view(1, RES, RES, RES, 4)
     want = pv.box_smooth3d_plain(acc, K)
@@ -145,29 +105,11 @@ def main() -> int:
         "copy_codes_ms": kernel_ms(lambda: vol.copy_(t1[..., :3])),
         "geometry": kv.smooth_geometry(K)._asdict()}
     print(f"smooth: {result['smooth']}", flush=True)
-
-    ring = build_ring()
-    stream = torch.cuda.current_stream().cuda_stream
-    for tx, ty, zc, threads in RING_GEOMETRIES:
-        def launch():
-            err = ring.icon_voxel_fused_ring(
-                acc.data_ptr(), vol.data_ptr(), 1, RES, RES, RES, K, tx, ty,
-                zc, threads, stream)
-            if err:
-                raise RuntimeError(f"fused ring launch failed ({err})")
-        vol.fill_(float("nan"))
-        launch()
-        torch.cuda.synchronize()
-        result["ring"][f"{tx}x{ty} z{zc} t{threads}"] = {
-            "kernel_ms": kernel_ms(launch),
-            "identical": bool(torch.equal(vol, want))}
-    print(f"one-launch ring: {result['ring']}", flush=True)
     print(card)
     os.makedirs(osp.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
-    return 0 if result["smooth"]["identical"] and all(
-        r["identical"] for r in result["ring"].values()) else 1
+    return 0 if result["smooth"]["identical"] else 1
 
 
 if __name__ == "__main__":

@@ -19,9 +19,9 @@ tensor launches ``csrc/voxelize.cu``, a CPU tensor takes the plain version
   writes the codes over ``max(w, 1e-3)``. Each window is summed from 0.0
   in the order of its offsets and divided by k correctly rounded:
   bit-identical to the plain version. :func:`smooth_geometry` picks the D
-  pass's outputs a thread, the tile and the threads per k, within 227 KB
-  of shared memory: k up to :data:`MAX_K`. :func:`division_mismatches`
-  holds the kernels' division by k to IEEE division.
+  pass's outputs a thread and the tile per k, within 227 KB of shared
+  memory: k up to :data:`MAX_K`. :func:`division_mismatches` holds the
+  kernels' division by k to IEEE division.
 
 Both kernels need 16-byte aligned float32 tensors. They are forward only:
 the backward (training, ROADMAP A10) is not ported, so the wrapper raises
@@ -54,18 +54,17 @@ _lib: Optional[ctypes.CDLL] = None
 
 class SmoothGeometry(NamedTuple):
     """A ``box_smooth3d`` launch: ``rz`` outputs a thread in the D pass;
-    the H and W passes on ``(tx, ty)`` tiles of a plane, ``threads`` a
-    block and ``smem`` bytes of shared memory."""
+    the H and W passes on ``(tx, ty)`` tiles of a plane."""
     rz: int
     tx: int
     ty: int
-    threads: int
-    smem: int
 
 
 def smooth_smem(k: int, tx: int, ty: int) -> int:
     """Shared bytes of an H and W block: the ``(tx + k - 1) x (ty + k -
-    1)`` halo tile and the H pass's ``ty`` lines of ``tx + k - 1``."""
+    1)`` halo tile and the H pass's ``ty`` lines of ``tx + k - 1``. Must
+    match ``icon_box_smooth3d``'s check in ``csrc/voxelize.cu``, which
+    refuses a tile past ``MAX_SMEM``."""
     return 16 * (tx + k - 1) * (2 * ty + k - 1)
 
 
@@ -75,15 +74,15 @@ MAX_K = max(k for k in range(1, 256) if smooth_smem(k, *TILES[-1]) <= MAX_SMEM)
 def smooth_geometry(k: int) -> SmoothGeometry:
     """The ``box_smooth3d`` launch for box ``k``: the D pass's outputs a
     thread, the most (up to 16) its ``slide`` takes (``k >= rz - 1``); the
-    first of :data:`TILES` whose shared memory fits :data:`MAX_SMEM`; 256
-    threads. Raises ``ValueError`` past :data:`MAX_K`."""
+    first of :data:`TILES` whose shared memory fits :data:`MAX_SMEM`.
+    Raises ``ValueError`` past :data:`MAX_K`."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"box_smooth3d's kernel takes 1 <= k <= {MAX_K} "
                          f"(the halo of an 8 x 8 tile in {MAX_SMEM} bytes "
                          f"of shared memory), got k={k}")
     rz = next(rz for rz in (16, 8, 4, 2) if k >= rz - 1)
     tx, ty = next(t for t in TILES if smooth_smem(k, *t) <= MAX_SMEM)
-    return SmoothGeometry(rz, tx, ty, 256, smooth_smem(k, tx, ty))
+    return SmoothGeometry(rz, tx, ty)
 
 
 def _load() -> ctypes.CDLL:
@@ -96,7 +95,7 @@ def _load() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.icon_voxel_splat.argtypes = [vp, vp] + [ci] * 4 + [vp, vp]
             lib.icon_voxel_splat.restype = ci
-            lib.icon_box_smooth3d.argtypes = [vp] * 3 + [ci] * 9 + [vp]
+            lib.icon_box_smooth3d.argtypes = [vp] * 3 + [ci] * 8 + [vp]
             lib.icon_box_smooth3d.restype = ci
             lib.icon_voxel_div_check.argtypes = [ci, vp, vp]
             lib.icon_voxel_div_check.restype = ci
@@ -229,7 +228,7 @@ def _smooth(acc, k: int, t1, out) -> None:
     with torch.cuda.device(acc.device):
         err = lib.icon_box_smooth3d(
             acc.data_ptr(), t1.data_ptr(), out.data_ptr(), B, D, H, W, k,
-            g.rz, g.tx, g.ty, g.threads,
+            g.rz, g.tx, g.ty,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "box_smooth3d")
 

@@ -88,12 +88,13 @@ def test_splat_weights_and_terms():
 def test_smooth_geometry(k, rz, tile):
     """The launch ``box_smooth3d`` picks per k: the D pass's outputs a
     thread (its ``slide`` needs k >= rz - 1), the first tile whose halo and
-    H lines fit 227 KB of shared memory, 256 threads."""
+    H lines fit 227 KB of shared memory."""
     g = kv.smooth_geometry(k)
-    assert (g.rz, (g.tx, g.ty), g.threads) == (rz, tile, 256)
+    assert (g.rz, (g.tx, g.ty)) == (rz, tile)
     assert k >= g.rz - 1
     hx = g.tx + k - 1                             # csrc/voxelize.cu's smem
-    assert g.smem == 16 * (hx * (g.ty + k - 1) + g.ty * hx) <= kv.MAX_SMEM
+    assert kv.smooth_smem(k, g.tx, g.ty) == \
+        16 * (hx * (g.ty + k - 1) + g.ty * hx) <= kv.MAX_SMEM
     bigger = kv.TILES[:kv.TILES.index(tile)]
     assert all(kv.smooth_smem(k, *t) > kv.MAX_SMEM for t in bigger)
 
