@@ -156,6 +156,8 @@ one PyTorch call computing the same function where one exists (the kNN's
 """
 
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -241,11 +243,28 @@ JAX_PAMIR_LEVEL1_POINTS = JAX_VARIANT_LEVEL1_POINTS
 JAX_PAMIR_LEVEL2_POINTS = JAX_VARIANT_LEVEL2_POINTS
 
 
+def run_cmd(args, timeout: float) -> str:
+    """A command's standard output. It runs in a session of its own and is
+    waited for in a ``finally``; if it outlives ``timeout`` (or anything
+    else fails), its whole process group is killed first."""
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if proc.returncode != 0:
+        raise subprocess.CalledProcessError(proc.returncode, args, out, err)
+    return out
+
+
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"],
+                   timeout=60).strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -297,8 +316,7 @@ def knn_hmma(lib: str) -> None:
     import os.path as osp
     from icon_tpu_torch.kernels.build import find_nvcc
     cuobjdump = osp.join(osp.dirname(find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    sass = run_cmd([cuobjdump, "-sass", lib], timeout=300)
     fn, hmma = "", []
     for line in sass.splitlines():
         if "Function :" in line:
@@ -2107,6 +2125,352 @@ def phase_priors(dev, card):
     return entries, runs + cli_runs, errs
 
 
+# phase 14: the geometry trainer and the evaluator at the published width
+# (data/fixture.py:train_config: batch 4, 512^2, 8,000 samples an item)
+TRAIN_SIZE, TRAIN_SAMPLES, TRAIN_BATCH = 512, 8000, 4
+TRAIN_STEPS, RESUME_STEPS = 6, 8
+# the small card-vs-CPU steps (c): the first step's loss (the same weights)
+# to TRAIN_LOSS_RTOL; after a step a parameter may differ by up to the
+# optimizer's largest move (RMSprop's |u| <= lr / sqrt(1 - 0.9)) where its
+# gradient is at rounding level, so the later losses to TRAIN_LATER_RTOL;
+# the median |d| of each parameter tensor to TRAIN_PARAM_MEDIAN, the
+# BatchNorm statistics to TRAIN_BN_ATOL
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LATER_RTOL = 2e-3
+TRAIN_BN_ATOL = 2e-3
+TRAIN_PARAM_MEDIAN = 1e-5
+
+
+def write_train_config(cfg, d: str) -> str:
+    from icon_tpu_torch.config import save_config
+    path = os.path.join(d, f"{cfg.name}.yaml")
+    save_config(cfg, path)
+    return path
+
+
+def train_items_agree(dev, root):
+    """[14b] The full-width dataset's items: labels balanced, and each
+    item's ``smpl_query_inside`` (the host's ray parity) equal to
+    ``ray_parity_inside`` on the card for the same points and body."""
+    from icon_tpu_torch.data.datasets import PIFuDataset, projection_np
+    from icon_tpu_torch.data.fixture import train_config
+    from icon_tpu_torch.ops.sdf_fast import build_ray_bins, ray_parity_inside
+    ds = PIFuDataset(train_config(root))
+    for i in (0, len(ds) - 1):
+        t0 = time.perf_counter()
+        item = ds[i]
+        t_item = time.perf_counter() - t0
+        q = projection_np(item["sample"], item["calib"]).astype(np.float32)
+        bins, grid = build_ray_bins(item["smpl_verts"], item["smpl_faces"],
+                                    n_tiles=32)
+        card = ray_parity_inside(
+            torch.from_numpy(q).to(dev),
+            torch.from_numpy(item["smpl_verts"]).to(dev),
+            torch.from_numpy(item["smpl_faces"]).to(dev),
+            torch.from_numpy(bins).to(dev), torch.from_numpy(grid).to(dev))
+        differ = int((card.cpu().numpy() != item["smpl_query_inside"]).sum())
+        inside = float(item["label"].mean())
+        print(f"[14] item {i} ({item['subject']} rot {item['rotation']}, "
+              f"{t_item:.2f} s on the host): {len(q)} samples, label inside "
+              f"share {inside:.3f}, body inside share "
+              f"{float(item['smpl_query_inside'].mean()):.3f}; card ray "
+              f"parity differs from the dataset's at {differ}", flush=True)
+        if differ or not 0.3 <= inside <= 0.7:
+            raise AssertionError("phase 14 dataset item signs or balance")
+
+
+def params_agree(a: dict, b: dict, lr: float, steps: int):
+    """(largest |d| over every parameter, largest median |d| of a tensor,
+    whether both hold the tolerance of the small steps)."""
+    worst, med = 0.0, 0.0
+    for k, v in a.items():
+        d = (v.detach().cpu() - b[k].detach().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        med = max(med, float(d.median()))
+    return worst, med, worst <= steps * lr / (1 - 0.9) ** 0.5 * 1.01 and \
+        med <= TRAIN_PARAM_MEDIAN
+
+
+def train_small_agrees(dev, d):
+    """[14c] A small train step on the card against the same on the CPU:
+    a 64^2 fixture (2 subjects, 2 views), the narrow-width config, one
+    batch of 2, the same initial weights; 3 RMSprop steps: the loss of each
+    step, the parameters and BatchNorm statistics after them, then an eval
+    step's loss."""
+    import copy
+    from icon_tpu_torch.data.datasets import PIFuDataset, collate
+    from icon_tpu_torch.data.fixture import (fixture_config,
+                                             make_synthetic_dataset)
+    from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.training.train_step import (batch_to, eval_step,
+                                                    make_optimizer,
+                                                    train_step)
+    root = os.path.join(d, "small")
+    make_synthetic_dataset(root, n_subjects=2, n_views=2, size=64,
+                           vis_res=256, device=dev)
+    cfg = fixture_config(root, n_views=2, num_sample_geo=512, image_size=64)
+    batch = collate([PIFuDataset(cfg)[i] for i in range(2)])
+    torch.manual_seed(0)
+    nets = {"cpu": HGPIFuNet(cfg, normal_net=False)}
+    nets["card"] = copy.deepcopy(nets["cpu"]).to(dev)
+    losses = {}
+    for where, net in nets.items():
+        opt = make_optimizer(net, cfg, steps_per_epoch=1)
+        b = batch_to(batch, net.if_regressor.filters[0].weight.device)
+        losses[where] = [float(train_step(net, opt, b)["loss"])
+                         for _ in range(3)]
+        losses[where].append(float(eval_step(net, b)["loss"]))
+    first_err = abs(losses["card"][0] / losses["cpu"][0] - 1.0)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                       losses["cpu"]))
+    sd = {w: n.state_dict() for w, n in nets.items()}
+    names = [n for n, _ in nets["cpu"].named_parameters()]
+    worst, med, ok = params_agree({k: sd["card"][k] for k in names},
+                                  {k: sd["cpu"][k] for k in names},
+                                  cfg.lr_G, 3)
+    bn_err = max(float((sd["card"][k].cpu() - v).abs().max())
+                 for k, v in sd["cpu"].items() if "running" in k)
+    print(f"[14] small steps card vs CPU: losses {losses['card']} vs "
+          f"{losses['cpu']} (rel {first_err:.3g} at the first, "
+          f"{loss_err:.3g} at most), parameters max|d| "
+          f"{worst:.3g} (bound {3 * cfg.lr_G / 0.1 ** 0.5:.3g}), largest "
+          f"tensor median |d| {med:.3g}, BatchNorm stats max|d| {bn_err:.3g}",
+          flush=True)
+    if first_err > TRAIN_LOSS_RTOL or loss_err > TRAIN_LATER_RTOL or \
+            not ok or bn_err > TRAIN_BN_ATOL:
+        raise AssertionError("phase 14 small train steps: card and CPU "
+                             "disagree")
+
+
+def run_cli(argv, tag):
+    """``apps/train.py:main`` in this process with the launch counts set to
+    0 just before and read just after; returns (record, launches)."""
+    from icon_tpu_torch.apps.train import main
+    reset_launches()                  # count only the main path's launches
+    record = main(argv)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    print(f"[14] {tag}: launches {launched}", flush=True)
+    return record, launched
+
+
+def phase_train(dev, card):
+    """Phase 14: the geometry trainer and the evaluator on the card.
+    Returns (the launches of its main-path runs, {kernel: worst error})."""
+    import tempfile
+    from icon_tpu_torch.data.fixture import (make_synthetic_dataset,
+                                             train_config)
+    runs, worst = [], dict.fromkeys(("knn_f32", "raster_setup",
+                                     "raster_bin", "raster_fwd",
+                                     "voxel_splat", "box_smooth3d"), 0.0)
+    with tempfile.TemporaryDirectory() as d:
+        root = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        reset_launches()              # count only the main path's launches
+        make_synthetic_dataset(root, n_subjects=2, n_views=3,
+                               size=TRAIN_SIZE, vis_res=1024, device=dev)
+        torch.cuda.synchronize()
+        runs.append(read_launches())
+        print(f"[14] fixture 2 subjects x 3 views at {TRAIN_SIZE}^2, vis "
+              f"1024^2: {time.perf_counter() - t0:.2f} s, launches "
+              f"{runs[-1]}", flush=True)
+        check_launched(runs[-1], ("raster_setup", "raster_bin",
+                                  "raster_fwd"), "phase 14 fixture")
+        train_items_agree(dev, root)
+        train_small_agrees(dev, d)
+
+        cfg_path = write_train_config(
+            train_config(root, d, num_epoch=RESUME_STEPS), d)
+        knn_calls = []
+        remove = knn_spy(knn_calls)
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec, launched = run_cli(["-cfg", cfg_path, "--max_steps",
+                                     str(TRAIN_STEPS)], "train")
+        finally:
+            remove()
+        runs.append(launched)
+        check_launched(launched, ("knn_f32",), "phase 14 train")
+        losses = rec["losses"]
+        print(f"[14] train CLI at full width (batch {TRAIN_BATCH}, "
+              f"{TRAIN_SIZE}^2, {TRAIN_SAMPLES} samples, 4 loader workers) "
+              f"on {card}: {rec['steps']} steps in {rec['seconds']:.2f} s; "
+              f"s/step cold {rec['step_s'][0]:.3f}, warm "
+              f"{statistics.median(rec['step_s'][1:]):.4f} (median of "
+              f"{len(rec['step_s']) - 1}); wait for a batch "
+              f"{[round(w, 3) for w in rec['wait_s']]}; kNN launches a step "
+              f"{launched['knn_f32'] / rec['steps']:.2f} (validation and "
+              f"panels included); peak {rec['peak_gib']} GiB; losses "
+              f"{losses}; val {rec['val_loss']}; checkpoints "
+              f"{[os.path.basename(p) for p in rec['ckpts']]}; panels "
+              f"{len(rec['panels'])}", flush=True)
+        if rec["steps"] != TRAIN_STEPS or not np.isfinite(losses).all() \
+                or not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"phase 14: losses {losses}")
+        kept = [p for p in rec["ckpts"] if os.path.exists(p)]
+        panels = [p for p in rec["panels"] if os.path.getsize(p) > 0]
+        print(f"[14] checkpoints kept (top 3 by val loss + latest): "
+              f"{[os.path.basename(p) for p in kept]}, "
+              f"{os.path.getsize(kept[-1]) / 2**20:.1f} MiB each; panels "
+              f"written {len(panels)}", flush=True)
+        if kept[-1] != rec["ckpts"][-1] or not 1 <= len(kept) <= 4 or \
+                len(panels) != TRAIN_STEPS:
+            raise AssertionError("phase 14: checkpoints or panels missing")
+
+        rec2, launched = run_cli(["-cfg", cfg_path, "-resume", "--max_steps",
+                                  str(RESUME_STEPS)], "resume")
+        runs.append(launched)
+        print(f"[14] resume: from step {rec2['start_step']} to "
+              f"{rec2['steps']}, losses {rec2['losses']}", flush=True)
+        if rec2["start_step"] != TRAIN_STEPS or \
+                rec2["steps"] != RESUME_STEPS or \
+                not np.isfinite(rec2["losses"]).all():
+            raise AssertionError("phase 14: resume did not continue")
+
+        remove = knn_spy(knn_calls)
+        try:
+            rec3, launched = run_cli(["-cfg", cfg_path, "-test",
+                                      "--max_eval_items", "2"], "eval")
+        finally:
+            remove()
+        runs.append(launched)
+        check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
+                                  "raster_fwd"), "phase 14 eval")
+        items = rec3["items"]
+        for r in items:
+            print(f"[14] eval {r['subject']} rot {r['rotation']}: chamfer "
+                  f"{r['chamfer']:.4f} P2S {r['p2s']:.4f} NC {r['NC']:.4f}, "
+                  f"levels {r['levels']}, {r['n_tris']} tris, {r['s']:.3f} "
+                  f"s/item", flush=True)
+        if len(items) != 2 or not all(
+                np.isfinite([r["chamfer"], r["p2s"], r["NC"]]).all()
+                for r in items):
+            raise AssertionError("phase 14: eval metrics missing or "
+                                 "non-finite")
+
+        voxel_calls = []
+        remove = voxel_spy(voxel_calls)
+        try:
+            pcfg = write_train_config(
+                train_config(root, d, "pamir", num_epoch=RESUME_STEPS), d)
+            rec4, launched = run_cli(["-cfg", pcfg, "--max_steps", "2"],
+                                     "pamir train")
+        finally:
+            remove()
+        runs.append(launched)
+        check_launched(launched, ("voxel_splat", "box_smooth3d"),
+                       "phase 14 pamir train")
+        print(f"[14] pamir train: {rec4['steps']} steps, losses "
+              f"{rec4['losses']}, s/step {rec4['step_s']}, voxelize "
+              f"launches a step {launched['voxel_splat'] / rec4['steps']:.2f}"
+              f" (validation and panels included)", flush=True)
+        if not np.isfinite(rec4["losses"]).all():
+            raise AssertionError("phase 14: pamir losses")
+        worst.update(train_kernels_agree(dev, root, knn_calls, voxel_calls,
+                                         items))
+    return runs, worst
+
+
+def train_kernels_agree(dev, root, knn_calls, voxel_calls, items):
+    """[14g] The kernels against their plain versions on phase 14's own
+    inputs: up to 24 of the recorded kNN calls (the train steps' and the
+    eval's), every voxelize launch of the pamir run, the raster forward on
+    the fixture's first scan at 512^2 (K=256), its body's visibility raster
+    at 1024^2 (K=512), and the evaluator's normal render of each item's
+    reconstruction. Returns {kernel: worst error}."""
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.render.camera import verts_to_ndc
+    from icon_tpu_torch.utils.io import load_obj
+    worst = {}
+    pick = np.unique(np.linspace(0, len(knn_calls) - 1,
+                                 min(24, len(knn_calls))).astype(int))
+    for i in pick:
+        pts, verts, k = knn_calls[i]
+        idx, key = knn.nearest_vertices_kernel(pts, verts, k)
+        torch.cuda.synchronize()
+        rel, same, _, _, key0 = knn_picks_agree(idx, key, pts, verts, k)
+        if rel > KEY_RTOL or not same:
+            raise AssertionError(f"phase 14 kNN call {i} disagrees")
+        worst["knn_f32"] = max(worst.get("knn_f32", 0.0),
+                               float((key - key0).abs().max()))
+    print(f"[14] kNN kernel vs plain on {len(pick)} of {len(knn_calls)} "
+          f"calls (N {sorted({len(knn_calls[i][0]) for i in pick})}): keys "
+          f"and picks agree, max|dkey| {worst.get('knn_f32', 0.0):.3g}",
+          flush=True)
+    for name, args in voxel_calls:
+        err, ok, note = voxel_agrees(name, args)
+        print(f"[14] {name} vs plain on the pamir run's input: max|d| "
+              f"{err:.3g}, {note}", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 14 {name} disagrees")
+        worst[name] = max(worst.get(name, 0.0), err)
+    rng = np.random.RandomState(14)
+    v, f = load_obj(os.path.join(root, "synth", "scans", "0000",
+                                 "0000.obj"))
+    v = torch.from_numpy(v).to(dev)
+    f = torch.from_numpy(np.asarray(f)).long().to(dev)
+    cases = [("scan normal 0", normal_inputs(v, f, 0.0), 512, 256),
+             ("scan visibility", (verts_to_ndc(v), f, v.new_zeros(
+                 (len(v), 1))), 1024, 512)]
+    for r in items:
+        mv, mf = r["meshes"][0]
+        mv = torch.as_tensor(mv, dtype=torch.float32, device=dev)
+        mf = torch.as_tensor(np.asarray(mf), dtype=torch.int64, device=dev)
+        cases.append((f"eval NC {r['subject']} {r['rotation']}",
+                      normal_inputs(mv, mf, 0.0), 512, 256))
+    for name, (ndc, faces, attrs), res, K in cases:
+        errs, _, _ = compare_raster("[14]", f"{name} {res}^2", ndc, faces,
+                                    attrs, res, K, rng, backward=False)
+        for k in ("raster_setup", "raster_bin", "raster_fwd"):
+            worst[k] = max(worst.get(k, 0.0), errs[k])
+    return worst
+
+
+def descendants(pid: int) -> list:
+    """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
+    parent id, followed down from ``pid``), zombies left out."""
+    children, state = {}, {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        state[int(name)] = fields[0]
+        children.setdefault(int(fields[1]), []).append(int(name))
+    out, todo = [], list(children.get(pid, []))
+    while todo:
+        p = todo.pop()
+        todo += children.get(p, [])
+        if state.get(p) != "Z":
+            out.append(p)
+    return sorted(out)
+
+
+def no_process_left(wait_s: float = 5.0) -> bool:
+    """Whether this process has no live descendant, allowing them
+    ``wait_s`` to exit; prints those that remain with their command
+    lines."""
+    deadline = time.monotonic() + wait_s
+    while True:
+        left = descendants(os.getpid())
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    for p in left:
+        try:
+            with open(f"/proc/{p}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = "?"
+        print(f"chip_smoke: process {p} still running: {cmd}",
+              file=sys.stderr)
+    print(f"[15] descendant processes left: {len(left)}", flush=True)
+    return not left
+
+
 def normal_inputs(verts, faces, azimuth):
     """``normal_raster``'s raster inputs: (ndc, faces, the vertex normals
     in the view frame)."""
@@ -2134,6 +2498,15 @@ def read_launches() -> dict:
             "raster_bwd": raster.launches_bwd,
             "voxel_splat": voxelize.launches_splat,
             "box_smooth3d": voxelize.launches_smooth}
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, printing its seconds as phase ``label``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {label}: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return out
 
 
 def check_launched(counts: dict, names, path: str) -> None:
@@ -2166,32 +2539,36 @@ def main() -> int:
     knn_hmma(so["knn.cu"])
 
     verts_np, faces_np = synthetic_body(subdiv=5)
-    phase_small_frame(dev)
-    launched, buckets = phase_full_frame(dev, card)
+    timed("4 small", phase_small_frame, dev)
+    launched, buckets = timed("4 full", phase_full_frame, dev, card)
     runs = [launched]
-    summary = [phase_knn(dev, verts_np, buckets)]
-    phase_raster(dev, verts_np, faces_np)
-    phase_small_normalnet_frame(dev)
-    runs.append(phase_full_normalnet_frame(dev, card))
-    summary += phase_raster_kernels(dev, verts_np, faces_np)
-    phase_small_fit_frame(dev)
-    launched, fit_errs = phase_full_fit_frame(dev, card)
+    summary = [timed("3", phase_knn, dev, verts_np, buckets)]
+    timed("5", phase_raster, dev, verts_np, faces_np)
+    timed("6 small", phase_small_normalnet_frame, dev)
+    runs.append(timed("6 full", phase_full_normalnet_frame, dev, card))
+    summary += timed("7", phase_raster_kernels, dev, verts_np, faces_np)
+    timed("8", phase_small_fit_frame, dev)
+    launched, fit_errs = timed("9", phase_full_fit_frame, dev, card)
     runs.append(launched)
-    launched, cli_errs = phase_cli(dev, card)
+    launched, cli_errs = timed("10", phase_cli, dev, card)
     runs.append(launched)
-    launched, photo_errs = phase_photo_path(dev, card)
+    launched, photo_errs = timed("11", phase_photo_path, dev, card)
     runs.append(launched)
-    launched, hps_errs = phase_other_hps(dev, card)
+    launched, hps_errs = timed("12", phase_other_hps, dev, card)
     runs += launched
-    entries, launched, prior_errs = phase_priors(dev, card)
+    entries, launched, prior_errs = timed("13", phase_priors, dev, card)
     summary += entries
+    runs += launched
+    launched, train_errs = timed("14", phase_train, dev, card)
     runs += launched
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
                                     (fit_errs, cli_errs, photo_errs,
-                                     hps_errs, prior_errs)))
+                                     hps_errs, prior_errs, train_errs)))
+    if not no_process_left():
+        return 3
 
     print(json.dumps({"kernels": summary}))
     print(card_line())

@@ -1,1 +1,2 @@
-"""Command-line applications of the port (the demo CLI)."""
+"""Command-line applications of the port (the demo CLI and the geometry
+trainer)."""

@@ -1,1 +1,3 @@
-"""Inputs of the demo: the in-the-wild photo dataset and the demo's calib."""
+"""Inputs: the in-the-wild photo dataset, the demo's calib, the geometry
+trainer's dataset and loader, the offline renders and the synthetic
+fixture."""

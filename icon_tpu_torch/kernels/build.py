@@ -16,6 +16,7 @@ import hashlib
 import os
 import os.path as osp
 import shutil
+import signal
 import subprocess
 import tempfile
 from typing import Dict
@@ -75,9 +76,10 @@ def build(verbose: bool = False) -> Dict[str, str]:
             os.close(fd)
             cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                    osp.join(_SRC_DIR, name), "-o", tmp_path]
+            # a session of its own, so that a kill takes nvcc's children
             jobs.append((name, tmp_path, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                text=True, start_new_session=True)))
         failed = []
         for name, tmp_path, cmd, proc in jobs:
             out, _ = proc.communicate()
@@ -93,7 +95,7 @@ def build(verbose: bool = False) -> Dict[str, str]:
     finally:
         for _, tmp_path, _, proc in jobs:
             if proc.poll() is None:
-                proc.kill()
+                os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait()
             if osp.exists(tmp_path):
                 os.unlink(tmp_path)

@@ -27,9 +27,16 @@ normal maps are not given (HGPIFuNet.py:167-192). Its keys
 (``normal_filter.netF.model.*``) are those of the published ``normal.ckpt``
 after the reference's ``netG -> netG.normal_filter`` rename.
 
-The icon prior's body features are the fast ones (``smpl_vf_table``),
-signed by the per-column crossings (``smpl_cross_z``); its other sign paths
-raise ``NotImplementedError`` (ROADMAP Queue A item A3).
+The icon prior's body features are the fast ones when the body's
+vertex-face table (``smpl_vf_table``) is given, signed by the training
+samples' known signs (``smpl_query_inside``), the per-column crossings
+(``smpl_cross_z``) or the ray bins (``smpl_ray_bins``); without the table
+they come from the exact sweep (``ops/sdf.py:cal_sdf_batch``).
+
+In training mode (``.train()``) the filter returns every stack, PaMIR's
+volume encoder every stack's output, the MLP's BatchNorms use the batch's
+statistics, and :meth:`HGPIFuNet.forward` averages the loss over the stacks
+(HGPIFuNet.py:389-410).
 """
 
 from __future__ import annotations
@@ -134,22 +141,27 @@ class HGPIFuNet(nn.Module):
                ) -> List[torch.Tensor]:
         """NHWC inputs (``normal_F`` and ``normal_B``, or what the NormalNet
         needs to predict them; ``image`` when the config's in_geo has it)
-        -> ``[features [B, h, w, C]]`` of the last stack (eval mode,
-        HGPIFuNet.py:204-266): icon's front and back features side by side,
-        the other priors' one global stack; without the filter
-        (``use_filter`` False) the selected input channels themselves."""
+        -> ``[features [B, h, w, C]]`` of the last stack in eval mode, of
+        every stack in training (HGPIFuNet.py:204-266): icon's front and
+        back features side by side, the other priors' one global stack;
+        without the filter (``use_filter`` False) the selected input
+        channels themselves."""
         in_filter = self.get_normal(in_tensor_dict).permute(0, 3, 1, 2)
 
         def features(chans):
             x = in_filter[:, chans]
-            return x if self.F_filter is None else self.F_filter(x)[-1]
+            if self.F_filter is None:
+                return [x]
+            stacks = self.F_filter(x)
+            return stacks if self.training else stacks[-1:]
 
         if self.prior_type == "icon":
-            feats = torch.cat([features(self.channels_filter[0]),
-                               features(self.channels_filter[1])], dim=1)
+            feats = [torch.cat(fb, dim=1) for fb in zip(
+                features(self.channels_filter[0]),
+                features(self.channels_filter[1]))]
         else:
             feats = features(self.channels_filter[0])
-        return [feats.permute(0, 2, 3, 1)]
+        return [f.permute(0, 2, 3, 1) for f in feats]
 
     def volume_features(self, voxel_verts: torch.Tensor,
                         voxel_codes: torch.Tensor) -> List[torch.Tensor]:
@@ -157,12 +169,15 @@ class HGPIFuNet(nn.Module):
         ``voxel_verts [B, V, 3]`` (calib space) with ``voxel_codes [V, 3]``
         at ``voxel_res`` (the kernels' wrapper: the card launches
         ``voxel_splat`` and ``box_smooth3d``), through the volume encoder:
-        ``[features [B, D, H, W, voxel_dim]]`` of the last stack."""
+        ``[features [B, D, H, W, voxel_dim]]`` of the last stack (of every
+        stack in training). The voxelization is not differentiated: its
+        vertices and codes are data."""
         from icon_tpu_torch.kernels.voxelize import voxelize_semantic
-        vol = voxelize_semantic(voxel_verts, voxel_codes,
+        vol = voxelize_semantic(voxel_verts.detach(), voxel_codes.detach(),
                                 res=self.cfg.net.voxel_res)
         return [f.permute(0, 2, 3, 4, 1)
-                for f in self.ve(vol.permute(0, 4, 1, 2, 3))]
+                for f in self.ve(vol.permute(0, 4, 1, 2, 3),
+                                 intermediate_output=self.training)]
 
     def query(self, features: Sequence[torch.Tensor], points: torch.Tensor,
               calibs: torch.Tensor,
@@ -172,9 +187,11 @@ class HGPIFuNet(nn.Module):
         [B, N, 3]`` (HGPIFuNet.py:268-367).
 
         ``smpl_feat`` by prior: icon, smpl_verts [B,V,3], smpl_faces [F,3],
-        smpl_cmap [B,V,3], smpl_vis [B,V,1], smpl_vf_table [V,deg],
+        smpl_cmap [B,V,3], smpl_vis [B,V,1], and for the fast features
+        smpl_vf_table [V,deg] with a sign: smpl_query_inside [B,N] bool,
         smpl_cross_z and smpl_cross_meta
-        (``build_crossing_columns_blocked``); pamir, ``voxel_feats`` (the
+        (``build_crossing_columns_blocked``), or smpl_ray_bins and
+        smpl_ray_grid (``build_ray_bins``); pamir, ``voxel_feats`` (the
         output of :meth:`volume_features`) or ``voxel_verts`` [B,V,3]
         (projected) and ``voxel_codes`` [V,3]; pifu, none."""
         net = self.cfg.net
@@ -214,20 +231,23 @@ class HGPIFuNet(nn.Module):
         """The icon prior's body-local features ``[B, N, D]`` at the
         projected ``xyz``; far points (|sdf| >= sdf_clip) get uniform
         ones."""
-        from icon_tpu_torch.ops.sdf_fast import cal_sdf_batch_fast
         net = self.cfg.net
-        if "smpl_vf_table" not in smpl_feat or \
-                "smpl_cross_z" not in smpl_feat:
-            raise NotImplementedError(
-                "only the fast SMPL features signed by crossing columns are "
-                "ported (smpl_vf_table + smpl_cross_z); the exact "
-                "cal_sdf_batch and the ray-bin / winding signs are ROADMAP "
-                "Queue A item 3")
-        sdf, norm, cmap, vis = cal_sdf_batch_fast(
-            smpl_feat["smpl_verts"], smpl_feat["smpl_faces"],
-            smpl_feat["smpl_cmap"], smpl_feat["smpl_vis"], xyz,
-            smpl_feat["smpl_vf_table"], cross_z=smpl_feat["smpl_cross_z"],
-            cross_meta=smpl_feat["smpl_cross_meta"])
+        if "smpl_vf_table" in smpl_feat:
+            from icon_tpu_torch.ops.sdf_fast import cal_sdf_batch_fast
+            sdf, norm, cmap, vis = cal_sdf_batch_fast(
+                smpl_feat["smpl_verts"], smpl_feat["smpl_faces"],
+                smpl_feat["smpl_cmap"], smpl_feat["smpl_vis"], xyz,
+                smpl_feat["smpl_vf_table"],
+                cross_z=smpl_feat.get("smpl_cross_z"),
+                cross_meta=smpl_feat.get("smpl_cross_meta"),
+                ray_bins=smpl_feat.get("smpl_ray_bins"),
+                ray_grid=smpl_feat.get("smpl_ray_grid"),
+                known_inside=smpl_feat.get("smpl_query_inside"))
+        else:
+            from icon_tpu_torch.ops.sdf import cal_sdf_batch
+            sdf, norm, cmap, vis = cal_sdf_batch(
+                smpl_feat["smpl_verts"], smpl_feat["smpl_faces"],
+                smpl_feat["smpl_cmap"], smpl_feat["smpl_vis"], xyz)
         outlier = torch.abs(sdf) >= self.sdf_clip
         sdf = torch.where(outlier, torch.sign(sdf), sdf)
         feat_lst = [sdf]
@@ -238,3 +258,31 @@ class HGPIFuNet(nn.Module):
         if "vis" in net.smpl_feats:
             feat_lst.append(vis)
         return torch.cat(feat_lst, dim=-1)
+
+    def forward(self, in_tensor_dict: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Filter, then query the batch's ``sample`` points (HGPIFuNet.py:
+        389-410): (the last stack's occupancy ``[B, N, 1]``, the loss or
+        None). The loss against ``label`` is the MSE, or the smooth L1 with
+        ``cfg.sdf``, averaged over the stacks."""
+        features = self.filter(in_tensor_dict)
+        smpl_feat = {k: v for k, v in in_tensor_dict.items()
+                     if k.startswith(("smpl_", "voxel_"))}
+        preds_list = self.query(features, in_tensor_dict["sample"],
+                                in_tensor_dict["calib"], smpl_feat or None)
+        error = None
+        if "label" in in_tensor_dict:
+            label = in_tensor_dict["label"]
+            if self.cfg.sdf:
+                err = sum(smooth_l1(p, label) for p in preds_list)
+            else:
+                err = sum(torch.mean((p - label) ** 2) for p in preds_list)
+            error = err / len(preds_list)
+        return preds_list[-1], error
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              beta: float = 1.0) -> torch.Tensor:
+    d = torch.abs(pred - target)
+    return torch.mean(torch.where(d < beta, 0.5 * d * d / beta,
+                                  d - 0.5 * beta))

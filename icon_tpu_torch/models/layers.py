@@ -12,15 +12,50 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class _FlaxRunningStats:
+    """Training-mode BatchNorm whose running statistics follow flax's
+    ``BatchNorm``: the batch's *biased* variance enters ``running_var``
+    (torch's own update takes the unbiased one). The normalization itself,
+    by the batch's mean and biased variance, and eval mode are torch's.
+    A torch ``momentum`` m is flax's ``1 - m``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(x.mean(dims), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(
+                x.var(dims, unbiased=False), alpha=m)
+            self.num_batches_tracked += 1
+        return y
+
+
+class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    pass
+
+
 def make_norm(norm: str, channels: int, dim: int = 2) -> nn.Module:
     """group -> GroupNorm(32, eps 1e-5); batch -> BatchNorm{1,2}d (eps 1e-5,
-    momentum 0.1, the torch twin of flax's 0.9); instance ->
+    momentum 0.1, the torch twin of flax's 0.9; running stats as flax
+    updates them); instance ->
     InstanceNorm2d without affine or running stats (eps 1e-5); none ->
     the identity, which holds no tensors."""
     if norm == "group":
         return nn.GroupNorm(32, channels, eps=1e-5)
     if norm == "batch":
-        cls = nn.BatchNorm2d if dim == 2 else nn.BatchNorm1d
+        cls = BatchNorm2d if dim == 2 else BatchNorm1d
         return cls(channels, eps=1e-5)
     if norm == "instance":
         return nn.InstanceNorm2d(channels, eps=1e-5, affine=False)

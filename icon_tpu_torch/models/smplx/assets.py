@@ -1,6 +1,8 @@
 """SMPL-related asset registry (a copy of ``icon_tpu.models.smplx.assets``'s
-``data_root``, ``SMPLX`` and ``get_smpl_model``; reference
-lib/dataset/mesh_util.py:830-886 and lib/renderer/mesh.py:25-43).
+``data_root``, ``SMPLX``, ``get_smpl_model`` and ``load_smplx_param``;
+reference lib/dataset/mesh_util.py:830-886 and lib/renderer/mesh.py:25-88)
+and the fitted body of a training subject, :func:`load_fit_body`, on the
+port's body model.
 
 The on-disk layout is the reference's ``data/smpl_related`` tree, under
 ``$ICON_TPU_DATA_DIR`` (default ``<repo>/data``), the same variable the JAX
@@ -16,7 +18,8 @@ from __future__ import annotations
 import functools
 import os
 import os.path as osp
-from typing import Optional
+import pickle
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -79,3 +82,61 @@ def get_smpl_model(model_type: str = "smplx", gender: str = "male",
         if osp.exists(p):
             return load_body_model(p, model_type=model_type)
     return synthetic_smplx_model(subdiv=4)
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    """Fits pickled with trimesh's classes (TrackedArray) load as plain
+    ndarrays; anything else unknown degrades the same way."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except Exception:
+            return np.ndarray
+
+
+def load_smplx_param(path: str) -> Dict[str, np.ndarray]:
+    with open(path, "rb") as f:
+        raw = _TolerantUnpickler(f).load()
+    return {k: np.asarray(v) for k, v in raw.items()}
+
+
+@functools.lru_cache(maxsize=4)
+def cached_smpl_model(model_type: str = "smplx", gender: str = "male",
+                      root: Optional[str] = None):
+    """:func:`get_smpl_model`, built once per process (the dataset's
+    workers read it for every item)."""
+    return get_smpl_model(model_type, gender, root)
+
+
+def load_fit_body(fitted_path: str, scale: float,
+                  smpl_type: str = "smplx", smpl_gender: str = "male",
+                  noise_dict: Optional[Dict[str, np.ndarray]] = None,
+                  root: Optional[str] = None
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The fitted SMPL-X body in scan space (lib/renderer/mesh.py:57-88),
+    on the CPU: (verts [V, 3], joints [J, 3], faces [F, 3]). The body
+    model is built once per process."""
+    import torch
+    param = load_smplx_param(fitted_path)
+    model = cached_smpl_model(smpl_type, smpl_gender, root)
+    kwargs = dict(
+        betas=param["betas"], global_orient=param["global_orient"],
+        body_pose=param["body_pose"],
+        left_hand_pose=param.get("left_hand_pose"),
+        right_hand_pose=param.get("right_hand_pose"),
+        jaw_pose=param.get("jaw_pose"), leye_pose=param.get("leye_pose"),
+        reye_pose=param.get("reye_pose"),
+        expression=param.get("expression"))
+    if noise_dict:
+        kwargs.update(noise_dict)
+    kwargs = {k: torch.from_numpy(np.asarray(v, np.float32).reshape(1, -1))
+              for k, v in kwargs.items() if v is not None}
+    with torch.no_grad():
+        verts, joints = model(**kwargs)
+    fit_scale = float(np.asarray(param.get("scale", 1.0)).reshape(()))
+    transl = np.asarray(param.get("translation", np.zeros(3)),
+                        np.float32).reshape(3)
+    verts = (verts[0].numpy() * fit_scale + transl) * scale
+    joints = (joints[0].numpy() * fit_scale + transl) * scale
+    return verts.astype(np.float32), joints.astype(np.float32), model.faces

@@ -8,7 +8,8 @@ the reference's names (``conv1``, ``bn1``, ``conv2``, ``bn2``,
 ``res{i}.conv1/bn1/conv2/bn2/conv4``), so the published ``pamir.ckpt``'s
 ``netG.ve.*`` tensors load by name; the modules the reference registers but
 never runs (``conv_out1``, ``conv_out2``, ``res{i}.bn``, ``res{i}.conv3``)
-are left out.
+are left out. Its BatchNorms keep flax's default momentum, 0.99, which is
+torch's 0.01, and flax's running statistics (``layers.BatchNorm3d``).
 """
 
 from __future__ import annotations
@@ -19,14 +20,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from icon_tpu_torch.models.layers import BatchNorm3d
+
+
+def _bn(channels: int) -> BatchNorm3d:
+    return BatchNorm3d(channels, momentum=0.01)
+
 
 class Residual3D(nn.Module):
     def __init__(self, num_in: int, num_out: int):
         super().__init__()
         self.conv1 = nn.Conv3d(num_in, num_out, 3, padding=2, dilation=2)
-        self.bn1 = nn.BatchNorm3d(num_out)
+        self.bn1 = _bn(num_out)
         self.conv2 = nn.Conv3d(num_out, num_out, 3, padding=1)
-        self.bn2 = nn.BatchNorm3d(num_out)
+        self.bn2 = _bn(num_out)
         self.conv4 = nn.Conv3d(num_in, num_out, 1) if num_in != num_out \
             else None
 
@@ -42,10 +49,10 @@ class VolumeEncoder(nn.Module):
         self.num_stacks = num_stacks
         self.conv1 = nn.Conv3d(num_in, num_inter, 5, stride=2, padding=4,
                                dilation=2)
-        self.bn1 = nn.BatchNorm3d(num_inter)
+        self.bn1 = _bn(num_inter)
         self.conv2 = nn.Conv3d(num_inter, num_out, 5, stride=2, padding=4,
                                dilation=2)
-        self.bn2 = nn.BatchNorm3d(num_out)
+        self.bn2 = _bn(num_out)
         for i in range(num_stacks):
             self.add_module(f"res{i}", Residual3D(num_out, num_out))
 

@@ -44,6 +44,14 @@ convert.py``), into the published files' names: ``encoder_body`` ->
 -> ``deconv_layers.{3k}``/``{3k+1}`` and its ``init_shape`` parameter ->
 the buffer of that name.
 
+:func:`train_state_from_flax` turns a JAX ``TrainState`` (its params,
+batch_stats and optax state, as numpy) into the port's model state dict and
+:class:`~icon_tpu_torch.training.train_step.Optimizer` state: each
+parameter-shaped tree of the optax state (RMSprop's ``nu`` and ``trace``,
+Adam's ``mu`` and ``nu``, SGD's ``trace``) goes through the parameters'
+own mapping, and the schedule's and Adam's step counts carry over, so both
+packages train on from the same point.
+
 :func:`body_model_from_jax` turns the JAX package's ``BodyModel`` into the
 port's, array for array, so one body runs through both packages.
 """
@@ -348,3 +356,50 @@ def body_model_from_jax(body: Any):
     return BodyModel(faces=np.asarray(body.faces), parents=body.parents,
                      model_type=body.model_type, num_betas=body.num_betas,
                      flat_hand_mean=body.flat_hand_mean, **arrays)
+
+
+def _optax_leaves(opt_state: Any, found: dict) -> None:
+    """Collect the optax state's parameter-shaped trees and counts: optax
+    states are named tuples (``ScaleByRmsState(nu)``,
+    ``ScaleByScheduleState(count)``, ``TraceState(trace)``,
+    ``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``) nested in
+    chains' tuples."""
+    fields = getattr(opt_state, "_fields", None)
+    if fields is None:
+        if isinstance(opt_state, (tuple, list)):
+            for sub in opt_state:
+                _optax_leaves(sub, found)
+        return
+    kind = type(opt_state).__name__
+    for name in fields:
+        value = getattr(opt_state, name)
+        if name == "count":
+            found["adam_count" if kind == "ScaleByAdamState"
+                  else "count"] = int(np.asarray(value))
+        elif name in ("nu", "mu", "trace"):
+            found[name] = value
+        else:
+            _optax_leaves(value, found)
+
+
+def train_state_from_flax(params: Any, batch_stats: Any, opt_state: Any,
+                          optimizer) -> Dict[str, np.ndarray]:
+    """Load a JAX ``TrainState``'s optax state into the port's
+    ``optimizer`` (built for the same config) and return the model's state
+    dict (as :func:`state_dict_from_flax`). A parameter without a JAX
+    counterpart keeps zero state; the identity ``bn4`` of a ConvBlock
+    without a shortcut gets the mapping's filler, and never a gradient."""
+    import torch
+    found: dict = {}
+    _optax_leaves(opt_state, found)
+    sd = {"kind": optimizer.kind, "count": found.get("count", 0),
+          "adam_count": found.get("adam_count", 0), "state": {}}
+    trees = {k: state_dict_from_flax(found[k])
+             for k in ("nu", "mu", "trace") if k in found}
+    for name, st in optimizer.state.items():
+        sd["state"][name] = {
+            k: (torch.from_numpy(np.ascontiguousarray(trees[k][name]))
+                if name in trees.get(k, {}) else torch.zeros_like(v))
+            for k, v in st.items()}
+    optimizer.load_state_dict(sd)
+    return state_dict_from_flax(params, batch_stats)

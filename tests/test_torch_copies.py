@@ -4,8 +4,13 @@ the host lattice decoder, the synthetic body's arrays, the photo path's
 host code (the saliency detector, ``process_image``, YOLO's darknet parser,
 letterbox and NMS, the matting net's host pre- and post-processing), the
 garment extraction, ``save_video``, ``get_smpl_model``, BEV's output
-adaptation, ``process_image``'s raw crop, and PaMIR's ``pamir_feats`` with
-the tetrahedral SMPL loader."""
+adaptation, ``process_image``'s raw crop, PaMIR's ``pamir_feats`` with
+the tetrahedral SMPL loader, and the geometry trainer's host code:
+``stable_hash``, ``HoppeSDF``, ``sample_points_with_labels`` (with the copy
+of ``winding_np``), the fit loaders, the fixture writer's lighting and
+config, ``point_error_image`` (``ray_parity_inside_np`` and ``winding_np``
+are pinned in ``tests/test_torch_signs.py``, the fixture's files in
+``tests/test_torch_train.py``)."""
 
 import dataclasses
 import pickle
@@ -668,3 +673,100 @@ def test_pamir_feats_match(tmp_path, monkeypatch, installed):
             je["n_surface"] == len(verts)
         np.testing.assert_array_equal(pe["tetrahedrons"],
                                       je["tetrahedrons"])
+
+
+# -- the geometry trainer's host code -----------------------------------------
+
+def _scan(rng):
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    model = synthetic_smplx_model(subdiv=2)
+    v = model.v_template.numpy() + 0.01 * rng.randn(
+        *model.v_template.shape).astype(np.float32)
+    return v.astype(np.float32), np.asarray(model.faces, np.int64)
+
+
+def test_stable_hash_and_host_geometry_match():
+    from icon_tpu.data import datasets as JD
+    from icon_tpu_torch.data import datasets as PD
+    for text in ("synth/0000_0", "thuman2/0525_120", ""):
+        assert PD.stable_hash(text) == JD.stable_hash(text)
+    assert PD.SHARED_KEYS == JD.SHARED_KEYS
+    assert PD.NOISE_SMPLX_IDX == JD.NOISE_SMPLX_IDX
+    rng = np.random.RandomState(3)
+    v, f = _scan(rng)
+    np.testing.assert_array_equal(PD.vertex_normals_np(v, f),
+                                  JD.vertex_normals_np(v, f))
+    calib = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    np.testing.assert_array_equal(PD.projection_np(v, calib),
+                                  JD.projection_np(v, calib))
+    pts = rng.uniform(-1, 1, (500, 3)).astype(np.float32)
+    np.testing.assert_array_equal(PD.HoppeSDF(v, f).query(pts),
+                                  JD.HoppeSDF(v, f).query(pts))
+    np.testing.assert_array_equal(PD.HoppeSDF(v, f).contains(pts),
+                                  JD.HoppeSDF(v, f).contains(pts))
+
+
+@pytest.mark.parametrize("use_sdf", [False, True])
+def test_sample_points_with_labels_matches(use_sdf):
+    """The same samples and labels (the winding labels through the port's
+    copy of ``winding_np``)."""
+    from icon_tpu.data import datasets as JD
+    from icon_tpu_torch.data import datasets as PD
+    v, f = _scan(np.random.RandomState(4))
+    calib = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    for seed in (0, 7):
+        a = PD.sample_points_with_labels(v, f, calib, 256, 0.05, seed=seed,
+                                         use_sdf=use_sdf)
+        b = JD.sample_points_with_labels(v, f, calib, 256, 0.05, seed=seed,
+                                         use_sdf=use_sdf)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_fit_param_loader_and_body_match(tmp_path):
+    """``load_smplx_param`` and ``load_fit_body`` on one fit pickle: the
+    same parameters, the same body to 1e-5 (the body models' float32 sums
+    in another order)."""
+    from icon_tpu.models.smplx import assets as JA
+    from icon_tpu_torch.models.smplx import assets as PA
+    rng = np.random.RandomState(5)
+    param = {"betas": rng.randn(1, 10).astype(np.float32) * 0.3,
+             "global_orient": rng.randn(1, 3).astype(np.float32) * 0.1,
+             "body_pose": rng.randn(1, 63).astype(np.float32) * 0.1,
+             "scale": np.float64(1.3), "translation": np.ones(3) * 0.1}
+    path = tmp_path / "smplx_param.pkl"
+    with open(path, "wb") as fh:
+        pickle.dump(param, fh)
+    a, b = PA.load_smplx_param(str(path)), JA.load_smplx_param(str(path))
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    for got, want in zip(PA.load_fit_body(str(path), 2.0),
+                         JA.load_fit_body(str(path), 2.0)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_render_helpers_and_fixture_config_match():
+    """The SH lighting of the renders and the fixture's config."""
+    from icon_tpu.data import fixture as JF
+    from icon_tpu.data import render_dataset as JR
+    from icon_tpu_torch.data import fixture as PF
+    from icon_tpu_torch.data import render_dataset as PR
+    rng = np.random.RandomState(6)
+    n = rng.randn(50, 3).astype(np.float32)
+    np.testing.assert_array_equal(PR.sh_basis(n), JR.sh_basis(n))
+    np.testing.assert_array_equal(PR.random_sh(np.random.RandomState(1)),
+                                  JR.random_sh(np.random.RandomState(1)))
+    for prior in ("icon", "pamir"):
+        assert dataclasses.asdict(PF.fixture_config("/r", prior_type=prior)) \
+            == dataclasses.asdict(JF.fixture_config("/r", prior_type=prior))
+
+
+def test_point_error_image_matches():
+    from icon_tpu.training.visuals import point_error_image as jimg
+    from icon_tpu_torch.training.visuals import point_error_image as pimg
+    rng = np.random.RandomState(7)
+    xy = rng.uniform(-1, 1, (300, 2)).astype(np.float32)
+    pred, lab = rng.rand(300, 1), (rng.rand(300) > 0.5).astype(np.float32)
+    np.testing.assert_array_equal(pimg(xy, pred, lab, 64),
+                                  jimg(xy, pred, lab, 64))

@@ -6,7 +6,9 @@ pifu and pamir priors) and the demo CLI
 on photos (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
 colours; then the RGB photo with the YOLO detector, U^2-Net matting and
 PARE installed, the turntable video and the garments) and PIXIE and HybrIK
-at narrow widths leaves ``jax``, ``flax`` and ``icon_tpu`` out of
+at narrow widths, and the geometry trainer (the fixture, a train step
+with loader workers, the evaluation) leaves ``jax``, ``flax`` and
+``icon_tpu`` out of
 ``sys.modules``, and no file of the package (the photo path's and the
 other estimators' modules among them) nor ``chip_smoke.py`` imports
 them."""
@@ -108,6 +110,21 @@ with torch.no_grad():
     assert bool(torch.isfinite(out["vertices"]).all())
     out = hybrik(torch.rand(1, 3, 64, 64))
     assert bool(torch.isfinite(out["pred_vertices"]).all())
+from icon_tpu_torch.config import save_config
+from icon_tpu_torch.data.fixture import fixture_config, make_synthetic_dataset
+import icon_tpu_torch.apps.train as train
+with tempfile.TemporaryDirectory() as d:
+    make_synthetic_dataset(d, n_subjects=2, n_views=2, size=32, vis_res=64,
+                           device="cpu")
+    tcfg = fixture_config(d, n_views=2, num_sample_geo=64, image_size=32)
+    save_config(tcfg.replace(ckpt_dir=d, num_threads=2, mcube_res=32),
+                os.path.join(d, "t.yaml"))
+    rec = train.main(["-cfg", os.path.join(d, "t.yaml"), "--max_steps", "1"],
+                     device="cpu")
+    assert rec["steps"] == 1 and np.isfinite(rec["losses"]).all()
+    rec = train.main(["-cfg", os.path.join(d, "t.yaml"), "-test",
+                      "--max_eval_items", "1"], device="cpu")
+    assert len(rec["items"]) == 1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
@@ -124,7 +141,8 @@ def test_port_imports_no_jax():
     assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
-# the photo path's modules, the other estimators' and the priors', which
+# the photo path's modules, the other estimators', the priors' and the
+# trainer's, which
 # the scans below must reach
 PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "models/pare/hrnet.py", "models/pare/net.py",
@@ -136,7 +154,13 @@ PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               # the priors' modules
               "models/volume_encoder.py", "models/smplx/tetra.py",
               "ops/voxelize.py", "kernels/voxelize.py", "csrc/voxelize.cu",
-              "ops/grid_sample.py", "ops/projection.py", "models/hgpifu.py")
+              "ops/grid_sample.py", "ops/projection.py", "models/hgpifu.py",
+              # the geometry trainer's
+              "apps/train.py", "data/datasets.py", "data/fixture.py",
+              "data/render_dataset.py", "training/train_step.py",
+              "training/checkpoints.py", "training/logging.py",
+              "training/visuals.py", "eval/evaluator.py", "eval/test_loop.py",
+              "ops/sdf.py", "ops/winding_np.py", "utils/convert.py")
 
 
 def test_no_jax_import_in_package_sources():

@@ -250,15 +250,20 @@ def test_pamir_ckpt_loads_in_both_packages(tmp_path):
 
 
 def test_icon_prior_keeps_its_body_features():
-    """The icon prior still needs the fast body features; the other priors
-    take none (pifu) or the voxel inputs (pamir) and build without a
-    NotImplementedError."""
+    """The icon prior still needs its body features: the fast ones without
+    a sign (no known signs, crossing columns or ray bins) raise; the other
+    priors take none (pifu) or the voxel inputs (pamir) and build without
+    a NotImplementedError."""
     cfg = port_cfg(icon_cfg())
     net = HGPIFuNet(cfg, normal_net=False).eval()
     feats = [torch.zeros(1, 16, 16, 12)]
     with pytest.raises(NotImplementedError, match="item 3"):
         net.query(feats, torch.zeros(1, 4, 3), torch.eye(4)[None],
-                  {"smpl_verts": torch.zeros(1, 4, 3)})
+                  {"smpl_verts": torch.zeros(1, 4, 3),
+                   "smpl_faces": torch.zeros(2, 3, dtype=torch.int64),
+                   "smpl_cmap": torch.zeros(1, 4, 3),
+                   "smpl_vis": torch.zeros(1, 4, 1),
+                   "smpl_vf_table": torch.zeros(4, 8, dtype=torch.int64)})
     for prior in ("pifu", "pamir", "sdf"):
         net = HGPIFuNet(port_cfg(prior_cfg(prior)), normal_net=False)
         assert hasattr(net, "ve") == (prior == "pamir")
