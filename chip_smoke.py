@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[13], then a kernel summary, the card, and a last
-JSON line ``{"ok": true, "device": {...}}``):
+Phases (lines tagged [1]..[15], then the /proc check [16], a kernel
+summary, the card, and a last JSON line ``{"ok": true, "device":
+{...}}``):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions, and
    the TF32 settings; TF32 is turned off for every later phase, so float32
@@ -138,8 +139,33 @@ JSON line ``{"ok": true, "device": {...}}``):
    loops, the recon, the stage split, and every voxelize launch of the
    pamir run held to the plain version on that launch's inputs.
 
-Each main path (phases 4, 6, 9, 10, 11, both runs of 12, and in 13 the
-pamir frame and both CLI runs) runs with the kernels' launch counts set to
+14. the geometry trainer: the fixture (2 subjects x 3 views at 512^2) on
+   the card, its items' signs against the card's ray parity, 3 small
+   steps card vs CPU, the train CLI at the published width (6 steps,
+   ``-resume`` to 8, ``-test`` on 2 items, a pamir run of 2 steps), the
+   kernels against their plain versions on those runs' inputs;
+15. the dataset renderer and the NormalNet trainer on phase 14's scans and
+   fits, TF32 off: the render CLI at the reference's settings (``-views
+   36 -size 512 -prt -prt_dirs 64 -vis_res 4096``, ``-procs 1``; the file
+   set, every subject rendered with its body), the raster kernels against
+   the plain version on the first and last call of each raster kind of
+   that run (512^2 K=256 renders, the 4096^2 K=512 visibility with its
+   vertex sets against the run's ``vis/*.npy``, the PRT's 512^2 K=512
+   depth rasters), each kernel alone at 4096^2 K=512 and at 512^2 K=512
+   beside its bound, ``compute_prt`` card vs CPU, the CLI again with
+   ``-procs 2`` (a spawn pool) into a second root, one subject's render
+   split under the profiler; then three narrow NormalNet steps card vs CPU
+   on rendered items, a full-width step under TF32 off / off with
+   ``cudnn.benchmark`` / on, the train_normal CLI at the published width
+   (ngf 64, 4 downsamplings, 9 resblocks, batch 4 at 512^2, lr_N 2e-4, a
+   seeded VGG19 file in torchvision's layout) for 6 steps and ``-resume``
+   to 8; ``poisson_reconstruct`` card vs CPU at res 64 and on the card at
+   128; ``apps.tetrahedronize`` on a SMPL pickle of the synthetic body,
+   read back by the tetra loader.
+
+Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
+pamir frame and both CLI runs, 14's fixture, train and eval runs, and 15's
+render run) runs with the kernels' launch counts set to
 0 just before it and read just after; a kernel of the path that did not
 launch fails the run. Any failed check raises, so the script exits
 non-zero and prints no result.
@@ -161,6 +187,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -761,12 +788,14 @@ RASTER_REPLACES = {"raster_setup": "icon_tpu/ops/raster.py:106",
                    "raster_bwd": "icon_tpu/ops/raster.py:123"}
 
 
-def raster_kernel_times(ndc, faces, attrs, size, K, weights):
+def raster_kernel_times(ndc, faces, attrs, size, K, weights,
+                        plain_reps: int = 10):
     """Each raster kernel alone on this input (:func:`kernel_ms` of its
     launches on preallocated buffers), the plain version of the same step
-    (the per-face gathers, ``_bin_faces``, ``raster_plain`` forward), and
-    each kernel's bound on this input's busy tiles. Returns {kernel: (ms,
-    plain ms or None, bound ms, bound by)}."""
+    (the per-face gathers, ``_bin_faces``, ``raster_plain`` forward; the
+    median of ``plain_reps``), and each kernel's bound on this input's
+    busy tiles. Returns {kernel: (ms, plain ms or None, bound ms, bound
+    by)}."""
     from icon_tpu_torch.kernels import raster as rk
     lib = rk._load()
     dev = ndc.device
@@ -835,11 +864,13 @@ def raster_kernel_times(ndc, faces, attrs, size, K, weights):
     fl, cn, _ = rk._bin_faces(tri_xy, tiles, tiles, rk.TILE, size, size, K)
     plain = {
         "raster_setup": cuda_ms(lambda: (rk.pixel_xy(ndc, size, size)[f],
-                                         ndc[:, 2][f], attrs[f])),
+                                         ndc[:, 2][f], attrs[f]),
+                                plain_reps),
         "raster_bin": cuda_ms(lambda: rk._bin_faces(
-            tri_xy, tiles, tiles, rk.TILE, size, size, K)),
+            tri_xy, tiles, tiles, rk.TILE, size, size, K), plain_reps),
         "raster_fwd": cuda_ms(lambda: rk.raster_plain(
-            tri_xy, tri_z, tri_attr, fl, cn, size, size, rk.TILE, 1e-4, 16)),
+            tri_xy, tri_z, tri_attr, fl, cn, size, size, rk.TILE, 1e-4, 16),
+            plain_reps),
         "raster_bwd": None}
 
     slots = int(counts.sum())               # (tile, face) pairs listed
@@ -2254,120 +2285,120 @@ def run_cli(argv, tag):
     return record, launched
 
 
-def phase_train(dev, card):
-    """Phase 14: the geometry trainer and the evaluator on the card.
-    Returns (the launches of its main-path runs, {kernel: worst error})."""
-    import tempfile
+def phase_train(dev, card, d):
+    """Phase 14: the geometry trainer and the evaluator on the card, in
+    the directory ``d`` (its fixture under ``d/data``, which phase 15
+    renders again). Returns (the launches of its main-path runs, {kernel:
+    worst error})."""
     from icon_tpu_torch.data.fixture import (make_synthetic_dataset,
                                              train_config)
     runs, worst = [], dict.fromkeys(("knn_f32", "raster_setup",
                                      "raster_bin", "raster_fwd",
                                      "voxel_splat", "box_smooth3d"), 0.0)
-    with tempfile.TemporaryDirectory() as d:
-        root = os.path.join(d, "data")
-        t0 = time.perf_counter()
-        reset_launches()              # count only the main path's launches
-        make_synthetic_dataset(root, n_subjects=2, n_views=3,
-                               size=TRAIN_SIZE, vis_res=1024, device=dev)
-        torch.cuda.synchronize()
-        runs.append(read_launches())
-        print(f"[14] fixture 2 subjects x 3 views at {TRAIN_SIZE}^2, vis "
-              f"1024^2: {time.perf_counter() - t0:.2f} s, launches "
-              f"{runs[-1]}", flush=True)
-        check_launched(runs[-1], ("raster_setup", "raster_bin",
-                                  "raster_fwd"), "phase 14 fixture")
-        train_items_agree(dev, root)
-        train_small_agrees(dev, d)
+    root = os.path.join(d, "data")
+    t0 = time.perf_counter()
+    reset_launches()              # count only the main path's launches
+    make_synthetic_dataset(root, n_subjects=2, n_views=3,
+                           size=TRAIN_SIZE, vis_res=1024, device=dev)
+    torch.cuda.synchronize()
+    runs.append(read_launches())
+    print(f"[14] fixture 2 subjects x 3 views at {TRAIN_SIZE}^2, vis "
+          f"1024^2: {time.perf_counter() - t0:.2f} s, launches "
+          f"{runs[-1]}", flush=True)
+    check_launched(runs[-1], ("raster_setup", "raster_bin",
+                              "raster_fwd"), "phase 14 fixture")
+    train_items_agree(dev, root)
+    train_small_agrees(dev, d)
 
-        cfg_path = write_train_config(
-            train_config(root, d, num_epoch=RESUME_STEPS), d)
-        knn_calls = []
-        remove = knn_spy(knn_calls)
-        try:
-            torch.cuda.reset_peak_memory_stats(dev)
-            rec, launched = run_cli(["-cfg", cfg_path, "--max_steps",
-                                     str(TRAIN_STEPS)], "train")
-        finally:
-            remove()
-        runs.append(launched)
-        check_launched(launched, ("knn_f32",), "phase 14 train")
-        losses = rec["losses"]
-        print(f"[14] train CLI at full width (batch {TRAIN_BATCH}, "
-              f"{TRAIN_SIZE}^2, {TRAIN_SAMPLES} samples, 4 loader workers) "
-              f"on {card}: {rec['steps']} steps in {rec['seconds']:.2f} s; "
-              f"s/step cold {rec['step_s'][0]:.3f}, warm "
-              f"{statistics.median(rec['step_s'][1:]):.4f} (median of "
-              f"{len(rec['step_s']) - 1}); wait for a batch "
-              f"{[round(w, 3) for w in rec['wait_s']]}; kNN launches a step "
-              f"{launched['knn_f32'] / rec['steps']:.2f} (validation and "
-              f"panels included); peak {rec['peak_gib']} GiB; losses "
-              f"{losses}; val {rec['val_loss']}; checkpoints "
-              f"{[os.path.basename(p) for p in rec['ckpts']]}; panels "
-              f"{len(rec['panels'])}", flush=True)
-        if rec["steps"] != TRAIN_STEPS or not np.isfinite(losses).all() \
-                or not np.mean(losses[-3:]) < losses[0]:
-            raise AssertionError(f"phase 14: losses {losses}")
-        kept = [p for p in rec["ckpts"] if os.path.exists(p)]
-        panels = [p for p in rec["panels"] if os.path.getsize(p) > 0]
-        print(f"[14] checkpoints kept (top 3 by val loss + latest): "
-              f"{[os.path.basename(p) for p in kept]}, "
-              f"{os.path.getsize(kept[-1]) / 2**20:.1f} MiB each; panels "
-              f"written {len(panels)}", flush=True)
-        if kept[-1] != rec["ckpts"][-1] or not 1 <= len(kept) <= 4 or \
-                len(panels) != TRAIN_STEPS:
-            raise AssertionError("phase 14: checkpoints or panels missing")
+    cfg_path = write_train_config(
+        train_config(root, d, num_epoch=RESUME_STEPS), d)
+    knn_calls = []
+    remove = knn_spy(knn_calls)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec, launched = run_cli(["-cfg", cfg_path, "--max_steps",
+                                 str(TRAIN_STEPS)], "train")
+    finally:
+        remove()
+    runs.append(launched)
+    check_launched(launched, ("knn_f32",), "phase 14 train")
+    losses = rec["losses"]
+    print(f"[14] train CLI at full width (batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}^2, {TRAIN_SAMPLES} samples, 4 loader workers) "
+          f"on {card}: {rec['steps']} steps in {rec['seconds']:.2f} s; "
+          f"s/step cold {rec['step_s'][0]:.3f}, warm "
+          f"{statistics.median(rec['step_s'][1:]):.4f} (median of "
+          f"{len(rec['step_s']) - 1}); wait for a batch "
+          f"{[round(w, 3) for w in rec['wait_s']]}; kNN launches a step "
+          f"{launched['knn_f32'] / rec['steps']:.2f} (validation and "
+          f"panels included); peak {rec['peak_gib']} GiB; losses "
+          f"{losses}; val {rec['val_loss']}; checkpoints "
+          f"{[os.path.basename(p) for p in rec['ckpts']]}; panels "
+          f"{len(rec['panels'])}", flush=True)
+    if rec["steps"] != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"phase 14: losses {losses}")
+    kept = [p for p in rec["ckpts"] if os.path.exists(p)]
+    panels = [p for p in rec["panels"] if os.path.getsize(p) > 0]
+    print(f"[14] checkpoints kept (top 3 by val loss + latest): "
+          f"{[os.path.basename(p) for p in kept]}, "
+          f"{os.path.getsize(kept[-1]) / 2**20:.1f} MiB each; panels "
+          f"written {len(panels)}", flush=True)
+    if kept[-1] != rec["ckpts"][-1] or not 1 <= len(kept) <= 4 or \
+            len(panels) != TRAIN_STEPS:
+        raise AssertionError("phase 14: checkpoints or panels missing")
 
-        rec2, launched = run_cli(["-cfg", cfg_path, "-resume", "--max_steps",
-                                  str(RESUME_STEPS)], "resume")
-        runs.append(launched)
-        print(f"[14] resume: from step {rec2['start_step']} to "
-              f"{rec2['steps']}, losses {rec2['losses']}", flush=True)
-        if rec2["start_step"] != TRAIN_STEPS or \
-                rec2["steps"] != RESUME_STEPS or \
-                not np.isfinite(rec2["losses"]).all():
-            raise AssertionError("phase 14: resume did not continue")
+    rec2, launched = run_cli(["-cfg", cfg_path, "-resume", "--max_steps",
+                              str(RESUME_STEPS)], "resume")
+    runs.append(launched)
+    print(f"[14] resume: from step {rec2['start_step']} to "
+          f"{rec2['steps']}, losses {rec2['losses']}", flush=True)
+    if rec2["start_step"] != TRAIN_STEPS or \
+            rec2["steps"] != RESUME_STEPS or \
+            not np.isfinite(rec2["losses"]).all():
+        raise AssertionError("phase 14: resume did not continue")
 
-        remove = knn_spy(knn_calls)
-        try:
-            rec3, launched = run_cli(["-cfg", cfg_path, "-test",
-                                      "--max_eval_items", "2"], "eval")
-        finally:
-            remove()
-        runs.append(launched)
-        check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
-                                  "raster_fwd"), "phase 14 eval")
-        items = rec3["items"]
-        for r in items:
-            print(f"[14] eval {r['subject']} rot {r['rotation']}: chamfer "
-                  f"{r['chamfer']:.4f} P2S {r['p2s']:.4f} NC {r['NC']:.4f}, "
-                  f"levels {r['levels']}, {r['n_tris']} tris, {r['s']:.3f} "
-                  f"s/item", flush=True)
-        if len(items) != 2 or not all(
-                np.isfinite([r["chamfer"], r["p2s"], r["NC"]]).all()
-                for r in items):
-            raise AssertionError("phase 14: eval metrics missing or "
-                                 "non-finite")
+    remove = knn_spy(knn_calls)
+    try:
+        rec3, launched = run_cli(["-cfg", cfg_path, "-test",
+                                  "--max_eval_items", "2"], "eval")
+    finally:
+        remove()
+    runs.append(launched)
+    check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
+                              "raster_fwd"), "phase 14 eval")
+    items = rec3["items"]
+    for r in items:
+        print(f"[14] eval {r['subject']} rot {r['rotation']}: chamfer "
+              f"{r['chamfer']:.4f} P2S {r['p2s']:.4f} NC {r['NC']:.4f}, "
+              f"levels {r['levels']}, {r['n_tris']} tris, {r['s']:.3f} "
+              f"s/item", flush=True)
+    if len(items) != 2 or not all(
+            np.isfinite([r["chamfer"], r["p2s"], r["NC"]]).all()
+            for r in items):
+        raise AssertionError("phase 14: eval metrics missing or "
+                             "non-finite")
 
-        voxel_calls = []
-        remove = voxel_spy(voxel_calls)
-        try:
-            pcfg = write_train_config(
-                train_config(root, d, "pamir", num_epoch=RESUME_STEPS), d)
-            rec4, launched = run_cli(["-cfg", pcfg, "--max_steps", "2"],
-                                     "pamir train")
-        finally:
-            remove()
-        runs.append(launched)
-        check_launched(launched, ("voxel_splat", "box_smooth3d"),
-                       "phase 14 pamir train")
-        print(f"[14] pamir train: {rec4['steps']} steps, losses "
-              f"{rec4['losses']}, s/step {rec4['step_s']}, voxelize "
-              f"launches a step {launched['voxel_splat'] / rec4['steps']:.2f}"
-              f" (validation and panels included)", flush=True)
-        if not np.isfinite(rec4["losses"]).all():
-            raise AssertionError("phase 14: pamir losses")
-        worst.update(train_kernels_agree(dev, root, knn_calls, voxel_calls,
-                                         items))
+    voxel_calls = []
+    remove = voxel_spy(voxel_calls)
+    try:
+        pcfg = write_train_config(
+            train_config(root, d, "pamir", num_epoch=RESUME_STEPS), d)
+        rec4, launched = run_cli(["-cfg", pcfg, "--max_steps", "2"],
+                                 "pamir train")
+    finally:
+        remove()
+    runs.append(launched)
+    check_launched(launched, ("voxel_splat", "box_smooth3d"),
+                   "phase 14 pamir train")
+    print(f"[14] pamir train: {rec4['steps']} steps, losses "
+          f"{rec4['losses']}, s/step {rec4['step_s']}, voxelize "
+          f"launches a step {launched['voxel_splat'] / rec4['steps']:.2f}"
+          f" (validation and panels included)", flush=True)
+    if not np.isfinite(rec4["losses"]).all():
+        raise AssertionError("phase 14: pamir losses")
+    worst.update(train_kernels_agree(dev, root, knn_calls, voxel_calls,
+                                     items))
     return runs, worst
 
 
@@ -2426,6 +2457,492 @@ def train_kernels_agree(dev, root, knn_calls, voxel_calls, items):
     return worst
 
 
+RENDER_VIEWS, RENDER_SIZE, PRT_DIRS, VIS_RES = 36, 512, 64, 4096
+PRT_RES = 512                   # compute_prt's depth rasters, as render_one
+RENDER_DIRS = ("calib", "render", "normal_F", "normal_B", "T_normal_F",
+               "T_normal_B", "vis")
+# compute_prt on the card against the CPU, 16 directions at the PRT's
+# 512^2: T to PRT_CARD_ATOL on all but PRT_FLIP_SHARE of the vertices,
+# whose visibility may flip a PCF texel where a depth sits at the eps edge
+# (vertex normals summed in another order); those within one direction's
+# whole term, 4 / 16 (|Y_lm| < 1)
+PRT_CHECK_DIRS = 16
+PRT_CARD_ATOL = 1e-5
+PRT_FLIP_SHARE = 5e-3
+NORMAL_STEPS, NORMAL_RESUME, NORMAL_BATCH, NORMAL_LR = 6, 8, 4, 2e-4
+# three narrow Adam steps card vs CPU (tests/test_torch_normal_train.py's
+# bounds): the first loss to 1e-5 relative, the later ones to 1e-4, every
+# parameter within 2 lr a step (noise-level gradients), each tensor's
+# median to 1e-2 lr
+NORMAL_SMALL_MEDIAN = 1e-2
+# poisson_reconstruct at res 64 card vs CPU: the float32 CG drifts apart
+# with the order of its sums (the card's splat adds by atomics), and the
+# level set moves by that drift over chi's gradient, far where the field is
+# flat; so the counts to 1% and every vertex within one grid cell of the
+# other mesh (0.569 cells measured at the first run)
+POISSON_RES, POISSON_COUNT_RTOL, POISSON_CELLS = 64, 0.01, 1.0
+
+
+def raster_spy(calls: list):
+    """A pass-through spy on the raster kernels' wrapper that records each
+    call's inputs (cloned) in ``calls`` as (ndc, faces, attrs, size, K)
+    and counts nothing; returns a function that removes it."""
+    from icon_tpu_torch.kernels import raster as rk
+    kernel = rk.rasterize
+
+    def spy(verts_ndc, faces, attrs, H, W, *args):
+        calls.append((verts_ndc.detach().clone(), faces.detach().clone(),
+                      attrs.detach().clone(), H, args[1]))
+        return kernel(verts_ndc, faces, attrs, H, W, *args)
+
+    rk.rasterize = spy
+
+    def remove():
+        rk.rasterize = kernel
+    return remove
+
+
+def render_argv(root: str, procs: int) -> list:
+    return ["-root", root, "-dataset", "synth", "-views", str(RENDER_VIEWS),
+            "-size", str(RENDER_SIZE), "-prt", "-prt_dirs", str(PRT_DIRS),
+            "-vis_res", str(VIS_RES), "-procs", str(procs)]
+
+
+def rendered_files(recs) -> dict:
+    """{subject: sorted relative paths under its output folder}; raises
+    unless every subject rendered with its body and wrote the full set."""
+    want = sorted(f"{k}/{y:03d}." + {"calib": "txt", "vis": "npy"}.get(
+        k, "png") for k in RENDER_DIRS for y in range(0, 360,
+                                                      360 // RENDER_VIEWS))
+    out = {}
+    for r in recs:
+        if r["status"] != "rendered" or not r["body"]:
+            raise AssertionError(f"phase 15: subject {r['subject']}: {r}")
+        out[r["subject"]] = sorted(
+            os.path.relpath(os.path.join(dp, f), r["out_dir"])
+            for dp, _, fs in os.walk(r["out_dir"]) for f in fs)
+        if out[r["subject"]] != want:
+            raise AssertionError(f"phase 15: {r['subject']}'s files")
+    return out
+
+
+def visible_vertices(pix_to_face, faces, n_verts) -> torch.Tensor:
+    """``vertex_visibility``'s vertex set from a pix_to_face image."""
+    pf = pix_to_face.reshape(-1)
+    fv = faces[pf[pf >= 0]].reshape(-1)
+    vis = torch.zeros(n_verts, dtype=torch.bool, device=faces.device)
+    vis[fv] = True
+    return vis
+
+
+def render_kernels_agree(calls, recs, rng):
+    """[15b] The raster kernels against the plain version on the render
+    run's own inputs: of each raster kind, the first and the last call
+    (the scan's 6-channel normal and PRT-irradiance renders and the body's
+    normal renders at 512^2 K=256, the 4096^2 K=512 visibility, the PRT
+    depth rasters at 512^2 K=512) as in phase 7, forward only; for the
+    visibility also the vertex set against the plain raster's and against
+    the run's own ``vis/*.npy``. Returns ({kernel: worst error}, the calls
+    by kind)."""
+    from icon_tpu_torch.ops.raster import rasterize_plain
+    kinds = {
+        "scan normal+irradiance 512^2 K=256": lambda c: c[3] == RENDER_SIZE
+        and c[4] == 256 and c[2].shape[1] == 6,
+        "body normal 512^2 K=256": lambda c: c[3] == RENDER_SIZE
+        and c[4] == 256 and c[2].shape[1] == 3,
+        f"visibility {VIS_RES}^2 K=512": lambda c: c[3] == VIS_RES,
+        "PRT depth 512^2 K=512": lambda c: c[3] == PRT_RES and c[4] == 512}
+    per_subject = dict(zip(kinds, (2 * RENDER_VIEWS, 2 * RENDER_VIEWS,
+                                   RENDER_VIEWS, PRT_DIRS)))
+    by_kind = {k: [c for c in calls if test(c)] for k, test in kinds.items()}
+    print("[15] raster calls of the render run: " + ", ".join(
+        f"{k} {len(v)}" for k, v in by_kind.items()), flush=True)
+    if any(len(by_kind[k]) != per_subject[k] * len(recs) for k in kinds) \
+            or sum(map(len, by_kind.values())) != len(calls):
+        raise AssertionError("phase 15: raster calls of the render run")
+    worst = {}
+    for kind, cs in by_kind.items():
+        for i in (0, len(cs) - 1):
+            ndc, faces, attrs, size, K = cs[i]
+            errs, _, _ = compare_raster("[15]", f"{kind} call {i}", ndc,
+                                        faces, attrs, size, K, rng,
+                                        backward=False)
+            for k in ("raster_setup", "raster_bin", "raster_fwd"):
+                worst[k] = max(worst.get(k, 0.0), errs[k])
+            if size != VIS_RES:
+                continue
+            # call i of the visibility is view i % 36 of subject i // 36
+            rec = recs[i // RENDER_VIEWS]
+            y = (i % RENDER_VIEWS) * (360 // RENDER_VIEWS)
+            with torch.no_grad():
+                ref = rasterize_plain(ndc, faces, attrs, H=size, W=size, K=K)
+            vis = visible_vertices(ref.pix_to_face, faces, len(ndc))
+            saved = np.load(os.path.join(rec["out_dir"], "vis",
+                                         f"{y:03d}.npy"))[:, 0] > 0
+            same = bool((vis.cpu().numpy() == saved).all())
+            print(f"[15] {rec['subject']} view {y:03d}: the run's vertex "
+                  f"visibility ({int(saved.sum())} of {len(saved)} visible) "
+                  f"equals the plain raster's: {same}", flush=True)
+            if not same:
+                raise AssertionError("phase 15: visibility vertex sets")
+    return worst, by_kind
+
+
+def render_kernel_times(by_kind, rng):
+    """[15c] Each raster kernel alone at the new shapes (the first
+    visibility call at 4096^2 K=512, the first PRT depth raster at 512^2
+    K=512) beside its bound and the plain version's time (3 runs at
+    4096^2)."""
+    out = {}
+    for kind, reps in ((f"visibility {VIS_RES}^2 K=512", 3),
+                       ("PRT depth 512^2 K=512", 10)):
+        ndc, faces, attrs, size, K = by_kind[kind][0]
+        weights = [torch.from_numpy(rng.randn(*shape).astype(
+            np.float32)).to(ndc.device) for shape in (
+            (size, size, attrs.shape[1]), (size, size), (size, size))]
+        kern = raster_kernel_times(ndc, faces, attrs, size, K, weights,
+                                   plain_reps=reps)
+        out[kind] = kern
+        print(f"[15] kernels alone at {kind} ({len(faces)} faces): "
+              + "; ".join(f"{k} {m:.4f} ms (plain "
+                          + ("n/a" if p is None else f"{p:.4f}")
+                          + f", bound {b:.4f} ms by {by}, {b / m:.1%} of "
+                          f"it)" for k, (m, p, b, by) in kern.items()),
+              flush=True)
+    return out
+
+
+def prt_card_agrees(dev, root, subject):
+    """[15d] ``compute_prt`` of a subject's normalized scan on the card
+    against the CPU (PRT_CHECK_DIRS directions at 512^2)."""
+    from icon_tpu_torch.apps.render import load_subject
+    from icon_tpu_torch.data.render_dataset import compute_prt
+    scan_v, scan_f, _, _ = load_subject(root, "synth", subject, dev)
+    t0 = time.perf_counter()
+    card = compute_prt(scan_v, scan_f, n_dirs=PRT_CHECK_DIRS, device=dev)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = compute_prt(scan_v, scan_f, n_dirs=PRT_CHECK_DIRS, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    d = np.abs(card - cpu).max(1)
+    flips = float((d > PRT_CARD_ATOL).mean())
+    print(f"[15] compute_prt {subject} ({len(scan_v)} vertices, "
+          f"{PRT_CHECK_DIRS} dirs at 512^2) card vs CPU: max|dT| "
+          f"{d.max():.3g}, share of vertices beyond {PRT_CARD_ATOL} "
+          f"{flips:.4f}; card {t_card:.3f} s, CPU {t_cpu:.3f} s",
+          flush=True)
+    if flips > PRT_FLIP_SHARE or d.max() > 4.0 / PRT_CHECK_DIRS:
+        raise AssertionError("phase 15: compute_prt card vs CPU")
+
+
+def render_split(dev, root, subject):
+    """[15e] One subject's render at the same settings under
+    ``torch.profiler``: the wall time, the PRT, the PNG encodes and writes
+    (a timer around ``render_dataset._save_png``) and the device's kernel
+    time, so its busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from icon_tpu_torch.apps.render import render_one
+    from icon_tpu_torch.data import render_dataset
+    save, png = render_dataset._save_png, [0.0]
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        png[0] += time.perf_counter() - t0
+
+    render_dataset._save_png = timed_save
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rec = render_one(root, "synth", subject, RENDER_VIEWS,
+                             RENDER_SIZE, PRT_DIRS, VIS_RES, 0, dev)
+    finally:
+        render_dataset._save_png = save
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"[15] render split of {subject} under the profiler: "
+          f"{rec['seconds']:.2f} s, PRT {rec['prt_s']:.3f} s, PNG encodes "
+          f"and writes {png[0]:.2f} s ({5 * RENDER_VIEWS} files), device "
+          f"kernels {busy:.3f} s ({busy / rec['seconds']:.2%} busy); "
+          f"busiest: " + ", ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+              for e in top), flush=True)
+
+
+def normal_config(root: str, ckpt_dir: str):
+    """The NormalNet's published training widths (reference
+    configs/train/normal.yaml: ngf 64, 4 downsamplings, 9 resblocks, batch
+    4 at 512^2, lr_N 2e-4) on the rendered ``synth_36views``, 4 loader
+    workers."""
+    from icon_tpu_torch.config import Config, DatasetConfig, NetConfig
+    return Config(
+        name="normal", ckpt_dir=ckpt_dir, batch_size=NORMAL_BATCH,
+        num_threads=4, num_epoch=10, lr_N=NORMAL_LR,
+        net=NetConfig(in_nml=(("image", 3), ("T_normal_F", 3),
+                              ("T_normal_B", 3)),
+                      ngf=64, n_downsampling=4, n_blocks=9),
+        dataset=DatasetConfig(root=root, types=("synth",), scales=(1.0,),
+                              rotation_num=RENDER_VIEWS,
+                              input_size=RENDER_SIZE))
+
+
+def normal_small_agrees(dev, cfg, batch):
+    """[15f] Three Adam steps of a narrow NormalNet (ngf 8, 2
+    downsamplings, 1 resblock) on two rendered 512^2 items, on the card
+    against the CPU from the same weights."""
+    import copy
+    from icon_tpu_torch.models.normalnet import NormalNet
+    from icon_tpu_torch.training.normal_step import (make_normal_optimizer,
+                                                     normal_train_step)
+    from icon_tpu_torch.training.train_step import batch_to
+    torch.manual_seed(0)
+    nets = {"cpu": NormalNet(ngf=8, n_downsampling=2, n_blocks=1)}
+    nets["card"] = copy.deepcopy(nets["cpu"]).to(dev)
+    losses = {}
+    for where, net in nets.items():
+        opt = make_normal_optimizer(net, cfg, steps_per_epoch=18)
+        b = batch_to(batch, next(net.parameters()).device)
+        losses[where] = [float(normal_train_step(net, opt, b)["loss"])
+                         for _ in range(3)]
+    rel = [abs(a / b - 1.0) for a, b in zip(losses["card"], losses["cpu"])]
+    sd = {w: n.state_dict() for w, n in nets.items()}
+    worst = max(float((sd["card"][k].cpu() - v).abs().max())
+                for k, v in sd["cpu"].items())
+    med = max(float((sd["card"][k].cpu() - v).abs().median())
+              for k, v in sd["cpu"].items() if not k.endswith(".bias"))
+    print(f"[15] small NormalNet steps card vs CPU: losses {losses['card']}"
+          f" vs {losses['cpu']} (rel {[f'{r:.3g}' for r in rel]}), "
+          f"parameters max|d| {worst:.3g} (bound {6 * NORMAL_LR:.3g}), "
+          f"largest weight median |d| {med:.3g}", flush=True)
+    if rel[0] > 1e-5 or max(rel) > 1e-4 or worst > 6 * NORMAL_LR * 1.01 \
+            or med > NORMAL_SMALL_MEDIAN * NORMAL_LR:
+        raise AssertionError("phase 15 small NormalNet steps")
+
+
+def normal_step_modes(dev, cfg, batch) -> dict:
+    """[15g] One full-width NormalNet step on one batch, CUDA-event median
+    of 3 after one, with TF32 off (the parity setting), off with
+    ``cudnn.benchmark``, and on (torch's default for convolutions); the
+    peak memory of the step."""
+    from icon_tpu_torch.apps.train_normal import build_normal_net
+    from icon_tpu_torch.training.normal_step import (make_normal_optimizer,
+                                                     normal_train_step)
+    net = build_normal_net(cfg, dev)
+    opt = make_normal_optimizer(net, cfg, steps_per_epoch=18)
+
+    def step():
+        normal_train_step(net, opt, batch)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"tf32_off": cuda_ms(step, 3)}
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.backends.cudnn.benchmark = True
+    out["tf32_off_benchmark"] = cuda_ms(step, 3)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["tf32_on"] = cuda_ms(step, 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"[15] full-width NormalNet step (batch {NORMAL_BATCH}, "
+          f"{RENDER_SIZE}^2): TF32 off {out['tf32_off']:.1f} ms, off with "
+          f"cudnn.benchmark {out['tf32_off_benchmark']:.1f} ms, TF32 on "
+          f"{out['tf32_on']:.1f} ms; peak {out['peak_gib']:.2f} GiB",
+          flush=True)
+    return out
+
+
+def run_normal_cli(argv, tag):
+    """``apps/train_normal.py:main`` in this process; returns its
+    record."""
+    from icon_tpu_torch.apps.train_normal import main
+    rec = main(argv)
+    torch.cuda.synchronize()
+    print(f"[15] {tag}: {rec['steps']} steps from {rec['start_step']}, "
+          f"losses {[round(x, 4) for x in rec['losses']]}, val "
+          f"{rec['val_loss']} (VGG term {rec['vgg']})", flush=True)
+    return rec
+
+
+def phase_normal_train(dev, card, root, d):
+    """[15f-h] The NormalNet trainer on the rendered ``synth_36views``."""
+    from icon_tpu_torch.data.datasets import NormalDataset, collate
+    from icon_tpu_torch.training.train_step import batch_to
+    from icon_tpu_torch.utils.synthetic import write_vgg19
+    cfg = normal_config(root, d)
+    cfg_path = write_train_config(cfg, d)
+    t0 = time.perf_counter()
+    vgg = write_vgg19(os.path.join(d, "vgg", "vgg19.pth"), seed=15)
+    print(f"[15] seeded VGG19 in torchvision's layout: "
+          f"{os.path.getsize(vgg) / 2**20:.0f} MiB in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ds = NormalDataset(cfg)
+    normal_small_agrees(dev, cfg, collate([ds[0], ds[len(ds) - 1]]))
+    modes = normal_step_modes(dev, cfg, batch_to(
+        collate([ds[i] for i in range(NORMAL_BATCH)]), dev))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = run_normal_cli(["-cfg", cfg_path, "--max_steps",
+                          str(NORMAL_STEPS), "--vgg_ckpt", vgg], "train")
+    losses = rec["losses"]
+    print(f"[15] train_normal CLI at full width (batch {NORMAL_BATCH}, "
+          f"{RENDER_SIZE}^2, 4 loader workers) on {card}: {rec['steps']} "
+          f"steps in {rec['seconds']:.2f} s; s/step cold "
+          f"{rec['step_s'][0]:.3f}, warm "
+          f"{statistics.median(rec['step_s'][1:]):.4f} (median of "
+          f"{len(rec['step_s']) - 1}); wait for a batch "
+          f"{[round(w, 3) for w in rec['wait_s']]}; peak "
+          f"{rec['peak_gib']} GiB; checkpoints "
+          f"{[os.path.basename(p) for p in rec['ckpts']]}; panels "
+          f"{len(rec['panels'])}", flush=True)
+    if rec["steps"] != NORMAL_STEPS or not np.isfinite(losses).all() \
+            or not np.mean(losses[-3:]) < losses[0] or not rec["vgg"] \
+            or not np.isfinite(rec["val_loss"]).all():
+        raise AssertionError(f"phase 15 train_normal: {rec}")
+    panels = [p for p in rec["panels"] if os.path.getsize(p) > 0]
+    if len(panels) != NORMAL_STEPS:
+        raise AssertionError("phase 15 train_normal: panels missing")
+    rec2 = run_normal_cli(["-cfg", cfg_path, "-resume", "--max_steps",
+                           str(NORMAL_RESUME), "--vgg_ckpt", vgg], "resume")
+    kept = sorted(p for p in os.listdir(os.path.join(d, "normal"))
+                  if p.endswith(".pt"))
+    print(f"[15] checkpoints kept (top 3 by val loss + latest): {kept}",
+          flush=True)
+    if rec2["start_step"] != NORMAL_STEPS or \
+            rec2["steps"] != NORMAL_RESUME or \
+            not np.isfinite(rec2["losses"]).all() or \
+            not 1 <= len(kept) <= 4 or \
+            os.path.basename(rec2["ckpts"][-1]) not in kept:
+        raise AssertionError("phase 15 train_normal: resume")
+    return {"modes": modes, "train": rec, "resume": rec2}
+
+
+def phase_surface_tools(dev, root, d):
+    """[15i] ``poisson_reconstruct`` of the fixture's first scan on the
+    card against the CPU at res 64, then on the card at its default res
+    128; ``apps.tetrahedronize`` on a SMPL release pickle of the synthetic
+    body, read back by the tetra loader."""
+    from scipy.spatial import cKDTree
+    from icon_tpu_torch.apps import tetrahedronize
+    from icon_tpu_torch.models.smplx.assets import get_smpl_model
+    from icon_tpu_torch.models.smplx.tetra import load_tetra_body_model
+    from icon_tpu_torch.ops.poisson import poisson_reconstruct
+    from icon_tpu_torch.utils.io import load_obj
+    from icon_tpu_torch.utils.synthetic import write_smpl_pkl
+    v, f = load_obj(os.path.join(root, "synth", "scans", "0000",
+                                 "0000.obj"))
+    out, secs = {}, {}
+    for where, res in (("card", POISSON_RES), ("cpu", POISSON_RES),
+                       ("card128", 128)):
+        t0 = time.perf_counter()
+        out[where] = poisson_reconstruct(
+            v, f, res=res, device="cpu" if where == "cpu" else dev)
+        torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
+    cell = float((v.max(0) - v.min(0)).max()) * 1.16 / POISSON_RES
+    (cv, cf), (hv, hf) = out["card"], out["cpu"]
+    dist = np.concatenate([cKDTree(cv).query(hv)[0],
+                           cKDTree(hv).query(cv)[0]]) / cell
+    count_err = max(abs(len(cv) / len(hv) - 1), abs(len(cf) / len(hf) - 1))
+    print(f"[15] poisson_reconstruct of scan 0000 ({len(f)} faces) at res "
+          f"{POISSON_RES}: card {len(cv)} verts {len(cf)} faces in "
+          f"{secs['card']:.2f} s, CPU {len(hv)} verts {len(hf)} faces in "
+          f"{secs['cpu']:.2f} s; vertex to the other mesh, in cells: median "
+          f"{np.median(dist):.4f}, 99% {np.percentile(dist, 99):.4f}, max "
+          f"{dist.max():.4f}; at res 128 on the card "
+          f"{len(out['card128'][0])} verts in {secs['card128']:.2f} s",
+          flush=True)
+    if count_err > POISSON_COUNT_RTOL or dist.max() > POISSON_CELLS \
+            or not len(out["card128"][1]):
+        raise AssertionError("phase 15 poisson card vs CPU")
+    body = get_smpl_model()
+    pkl = write_smpl_pkl(os.path.join(d, "smpl", "SMPL_MALE.pkl"), body)
+    t0 = time.perf_counter()
+    npz = tetrahedronize.main(["-models", os.path.dirname(pkl), "-out",
+                               os.path.join(d, "tedra")])["male"]
+    t_tet = time.perf_counter() - t0
+    model, extras = load_tetra_body_model(pkl, npz)
+    n = len(body.v_template)
+    added = len(model.v_template) - n
+    with torch.no_grad():
+        rest, _ = model(betas=torch.zeros(1, 10))
+    rest_err = float((rest[0] - model.v_template).abs().max())
+    print(f"[15] tetrahedronize of the synthetic body ({n} vertices): "
+          f"+{added} interior nodes, {len(extras['tetrahedrons'])} tets in "
+          f"{t_tet:.2f} s; the loader's rest pose max|d| {rest_err:.3g}",
+          flush=True)
+    if extras["n_surface"] != n or added < 20 or rest_err > 1e-5 or \
+            not len(extras["tetrahedrons"]):
+        raise AssertionError("phase 15 tetrahedronize")
+
+
+def phase_render_normal(dev, card, d):
+    """Phase 15: the dataset renderer at the reference's settings on phase
+    14's scans and fits, its raster kernels against the plain version on
+    the run's own inputs and alone at the new shapes, the NormalNet
+    trainer on the renders, and the surface tools. Returns (the launches
+    of the render run, {kernel: worst error})."""
+    from icon_tpu_torch.apps import render
+    root = os.path.join(d, "data")
+    calls = []
+    remove = raster_spy(calls)
+    try:
+        reset_launches()              # count only the main path's launches
+        t0 = time.perf_counter()
+        recs = render.main(render_argv(root, 1))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = read_launches()
+    finally:
+        remove()
+    files = rendered_files(recs)
+    print(f"[15] render CLI ({RENDER_VIEWS} views at {RENDER_SIZE}^2, PRT "
+          f"{PRT_DIRS} dirs, visibility {VIS_RES}^2, -procs 1) on {card}: "
+          f"{len(recs)} subjects in {seconds:.2f} s; per subject "
+          + ", ".join(f"{r['subject']} {r['seconds']:.2f} s (PRT "
+                      f"{r['prt_s']:.2f} s)" for r in recs)
+          + f"; {sum(map(len, files.values()))} files; launches {launched}"
+          f" ({launched['raster_fwd'] / len(recs):.0f} a subject)",
+          flush=True)
+    check_launched(launched, ("raster_setup", "raster_bin", "raster_fwd"),
+                   "phase 15 render")
+    rng = np.random.RandomState(15)
+    worst, by_kind = render_kernels_agree(calls, recs, rng)
+    del calls
+    render_kernel_times(by_kind, rng)
+    del by_kind
+    prt_card_agrees(dev, root, recs[0]["subject"])
+
+    # the same subjects again through a spawn pool of 2 workers, into a
+    # second root that holds the same scans and fits
+    root2 = os.path.join(d, "data_procs2")
+    os.makedirs(os.path.join(root2, "synth"))
+    for sub in ("scans", "fits"):
+        os.symlink(os.path.join(root, "synth", sub),
+                   os.path.join(root2, "synth", sub))
+    t0 = time.perf_counter()
+    recs2 = render.main(render_argv(root2, 2))
+    seconds2 = time.perf_counter() - t0
+    files2 = rendered_files(recs2)
+    same = sum(
+        open(os.path.join(a["out_dir"], rel), "rb").read()
+        == open(os.path.join(b["out_dir"], rel), "rb").read()
+        for a, b in zip(recs, recs2) for rel in files[a["subject"]])
+    print(f"[15] render CLI -procs 2: {len(recs2)} subjects in "
+          f"{seconds2:.2f} s; file sets equal: {files2 == files}; files "
+          f"byte-equal to the -procs 1 run's: {same} of "
+          f"{sum(map(len, files.values()))}", flush=True)
+    if files2 != files:
+        raise AssertionError("phase 15: -procs 2 file set")
+    render_split(dev, root2, recs[0]["subject"])
+
+    phase_normal_train(dev, card, root, d)
+    phase_surface_tools(dev, root, d)
+    return [launched], worst
+
+
 def descendants(pid: int) -> list:
     """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
     parent id, followed down from ``pid``), zombies left out."""
@@ -2467,7 +2984,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[15] descendant processes left: {len(left)}", flush=True)
+    print(f"[16] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -2559,14 +3076,19 @@ def main() -> int:
     entries, launched, prior_errs = timed("13", phase_priors, dev, card)
     summary += entries
     runs += launched
-    launched, train_errs = timed("14", phase_train, dev, card)
-    runs += launched
+    with tempfile.TemporaryDirectory() as d:
+        launched, train_errs = timed("14", phase_train, dev, card, d)
+        runs += launched
+        launched, render_errs = timed("15", phase_render_normal, dev, card,
+                                      d)
+        runs += launched
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
                                     (fit_errs, cli_errs, photo_errs,
-                                     hps_errs, prior_errs, train_errs)))
+                                     hps_errs, prior_errs, train_errs,
+                                     render_errs)))
     if not no_process_left():
         return 3
 

@@ -7,11 +7,15 @@ framework-free code of that package (the config tree and its YAML loader,
 the mesh IO, the synthetic body, the lattice decoder, the detector, the
 crop) it keeps its own copy, pinned to the original by the tests.
 
-Layout: ``apps`` (the demo CLI, ``python -m icon_tpu_torch.apps.infer``),
-``data`` (the photo dataset: crop, PyMAF estimate; the demo's calib),
-``ops`` (stateless tensor ops, the differentiable rasterizer, mesh losses,
-the host remesher), ``models`` (HGPIFuNet filter and query for the icon,
-pamir and pifu priors, PaMIR's volume encoder, the NormalNet, the body
+Layout: ``apps`` (the demo CLI, ``python -m icon_tpu_torch.apps.infer``;
+the trainers ``train`` and ``train_normal``; the dataset renderer
+``render``; ``tetrahedronize``), ``data`` (the photo dataset: crop, PyMAF
+estimate; the demo's calib; the training datasets and the offline
+renders), ``training`` (steps, checkpoints, logs), ``eval``, ``ops``
+(stateless tensor ops, the differentiable rasterizer, mesh losses, the
+host remesher, screened Poisson), ``models`` (HGPIFuNet filter and query
+for the icon, pamir and pifu priors, PaMIR's volume encoder, the NormalNet,
+VGG19's perceptual features, the body
 estimators, the detector and the matting net, the SMPL-family body model
 with its tetrahedral variant and its asset registry, the local affine
 deformation), ``render`` (camera and renders),

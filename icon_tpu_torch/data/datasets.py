@@ -18,6 +18,9 @@ samples' signs against it by ray parity
 :func:`stable_hash` of the subject and rotation and by the epoch, so an item
 does not depend on which worker makes it.
 
+:class:`NormalDataset` gives the NormalNet trainer the five images of the
+same items, read alone.
+
 :func:`make_loader` batches them in the JAX loader's order, the items made
 by a ``torch.utils.data.DataLoader``'s ``num_workers`` worker processes
 (the JAX package decodes in threads), collating the keys of
@@ -354,6 +357,38 @@ class PIFuDataset(torch.utils.data.Dataset):
         return verts.astype(np.float32), codes.astype(np.float32)
 
 
+class NormalDataset(torch.utils.data.Dataset):
+    """The NormalNet's pairs (``icon_tpu.data.datasets.NormalDataset``;
+    reference NormalDataset.py): an item holds ``image``, ``T_normal_F``,
+    ``T_normal_B``, ``normal_F`` and ``normal_B`` (those whose files
+    exist), the same arrays as :class:`PIFuDataset`'s item for the same
+    index. Only the five images are read: the scan, the body and the
+    geometry samples of a full item are not made."""
+
+    def __init__(self, cfg: Config, split: str = "train"):
+        self.inner = PIFuDataset(cfg, split)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.inner.set_epoch(epoch)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        inner = self.inner
+        if inner.cfg.overfit:
+            index = 0
+        rotation = inner.rotations[index % len(inner.rotations)]
+        subject = inner.subjects[index // len(inner.rotations)]
+        p = inner._paths(subject, rotation)
+        item = {"image": imagepath2tensor(p["render"])}
+        for name in MAP_KEYS[1:]:
+            path = osp.join(p["folder"], name, f"{rotation:03d}.png")
+            if osp.exists(path):
+                item[name] = imagepath2tensor(path)
+        return item
+
+
 def _torch_load_np(path: str) -> np.ndarray:
     return torch.load(path, map_location="cpu", weights_only=True).numpy()
 
@@ -552,7 +587,7 @@ class _Batches:
             shutdown()
 
 
-def make_loader(dataset: PIFuDataset, batch_size: int = 4,
+def make_loader(dataset: torch.utils.data.Dataset, batch_size: int = 4,
                 shuffle: bool = True, num_workers: int = 4, seed: int = 0,
                 drop_last: bool = True, pad_last: bool = False) -> Loader:
     """The JAX ``DataLoader``'s batches, made by ``num_workers`` worker

@@ -16,11 +16,13 @@ the back images are inverse-depth renders (the farthest surface wins), so
 they are pixel-aligned with the front ones; ``render`` lights the scan's
 normals by a random order-2 spherical-harmonics environment per view. The
 rasterizer and the vertex visibility run on the device of the caller's
-choice: on the card they are the raster kernels. The PRT transport
-(``compute_prt``) and its render branch are ROADMAP Queue A item A11.
+choice: on the card they are the raster kernels. With a ``prt`` transport
+(:func:`compute_prt`: self-shadowed PRT, one depth raster a light
+direction) the render lights the scan by its per-vertex irradiance
+instead, interpolated by the same raster as the normals.
 
-:func:`make_calib`, :func:`sh_basis` and :func:`random_sh` are copies of
-the JAX module's.
+:func:`make_calib`, :func:`sh_basis`, :func:`random_sh` and
+:func:`fibonacci_sphere` are copies of the JAX module's.
 """
 
 from __future__ import annotations
@@ -77,6 +79,56 @@ def random_sh(rng: np.random.RandomState) -> np.ndarray:
     return sh
 
 
+def fibonacci_sphere(n: int) -> np.ndarray:
+    """[n, 3] near-uniform unit directions."""
+    i = np.arange(n, dtype=np.float64) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([np.sin(phi) * np.cos(theta),
+                     np.sin(phi) * np.sin(theta),
+                     np.cos(phi)], -1).astype(np.float32)
+
+
+def compute_prt(verts: np.ndarray, faces: np.ndarray, n_dirs: int = 64,
+                vis_res: int = 512, device="cuda") -> np.ndarray:
+    """Per-vertex diffuse PRT transport ``[V, 9]`` with self-shadowing
+    (reference prt_util.py computePRT): ``T_lm = (4 / K) sum_k vis_k
+    cos+ Y_lm(d_k)`` over ``n_dirs`` Fibonacci directions, ``vis_k`` by
+    :func:`~icon_tpu_torch.ops.raster.vertex_visibility_depth` from each
+    direction (K depth rasters instead of V * K rays).
+
+    The directions' frames, the vertex normals' cosines and the float32
+    sum of ``T`` stay host numpy, in the JAX function's order; the vertex
+    normals, the rasters and the visibility run on ``device``."""
+    from icon_tpu_torch.ops.mesh import vertex_normals
+    from icon_tpu_torch.ops.raster import vertex_visibility_depth
+
+    dev = torch.device(device)
+    f = torch.as_tensor(np.asarray(faces), dtype=torch.int64, device=dev)
+    v = torch.as_tensor(np.asarray(verts), dtype=torch.float32, device=dev)
+    vn = vertex_normals(v[None], f)[0].cpu().numpy()
+    dirs = fibonacci_sphere(n_dirs)
+    T = np.zeros((len(verts), 9), np.float32)
+    flip = np.array([1, -1, -1], np.float32)
+    for d in dirs:
+        # orthonormal frame with +z = d; the rasterizer looks along -z
+        z = d
+        up = np.array([0.0, 1.0, 0.0], np.float32)
+        if abs(np.dot(up, z)) > 0.95:
+            up = np.array([1.0, 0.0, 0.0], np.float32)
+        x = np.cross(up, z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        R = np.stack([x, y, z]).astype(np.float32)      # world -> view
+        ndc = (verts @ R.T) * flip
+        vis = vertex_visibility_depth(
+            torch.as_tensor(ndc, dtype=torch.float32, device=dev), f,
+            res=vis_res).cpu().numpy()
+        cos = np.maximum(vn @ d, 0.0)
+        T += (vis * cos)[:, None] * sh_basis(d)[None]
+    return T * (4.0 / n_dirs)
+
+
 def _save_png(path: str, rgb01: np.ndarray, mask01: np.ndarray) -> None:
     from PIL import Image
     os.makedirs(osp.dirname(path), exist_ok=True)
@@ -91,12 +143,17 @@ def render_subject_views(out_dir: str,
                          smpl_faces: Optional[np.ndarray],
                          rotations: Sequence[int], size: int = 512,
                          seed: int = 0, with_light: bool = True,
+                         prt: Optional[np.ndarray] = None,
                          vis_res: Optional[int] = None,
                          device="cuda") -> None:
     """Render every view of one subject into ``out_dir`` (its
     ``{dataset}_{R}views/{subject}`` folder). Vertices are in world units
-    that the calib maps into [-1, 1]. ``vis_res`` is the SMPL visibility's
-    raster size (the reference's 4096^2 by default, mesh_util.py:295)."""
+    that the calib maps into [-1, 1]. ``prt``: the scan's ``[V, 9]``
+    transport from :func:`compute_prt`; the renders are then ``0.75 *``
+    its irradiance under the view's light (concavities darken), carried
+    through the normals' raster as three more attribute channels.
+    ``vis_res`` is the SMPL visibility's raster size (the reference's
+    4096^2 by default, mesh_util.py:295)."""
     from icon_tpu_torch.ops.mesh import vertex_normals
     from icon_tpu_torch.ops.raster import rasterize, vertex_visibility
     from icon_tpu_torch.render.camera import view_matrix
@@ -132,12 +189,21 @@ def render_subject_views(out_dir: str,
         # view frame for normals: x right, y up, z toward the viewer;
         # images store (n + 1) / 2
         sh = random_sh(rng) if with_light else None
-        for suffix, nimg, mask in views((sv @ R.T) * flip, sf, s_vn @ R.T):
+        s_attr = s_vn @ R.T
+        lit = prt is not None and sh is not None
+        if lit:                    # the view's PRT irradiance, per vertex
+            irr = torch.as_tensor(np.clip(prt @ sh, 0, None),
+                                  dtype=torch.float32, device=dev)
+            s_attr = torch.cat([s_attr, irr], dim=-1)
+        for suffix, attr, mask in views((sv @ R.T) * flip, sf, s_attr):
+            nimg = attr[..., :3]
             _save_png(osp.join(out_dir, f"normal_{suffix}", f"{y:03d}.png"),
                       (nimg + 1) * 0.5, mask)
             if suffix == "F":
-                if sh is not None:
-                    albedo = np.full((size, size, 3), 0.75, np.float32)
+                albedo = np.full((size, size, 3), 0.75, np.float32)
+                if lit:
+                    rgb = np.clip(albedo * attr[..., 3:6], 0, 1)
+                elif sh is not None:
                     rgb = np.clip(albedo * (sh_basis(nimg) @ sh), 0, 1)
                 else:
                     rgb = (nimg + 1) * 0.5

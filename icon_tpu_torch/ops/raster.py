@@ -22,6 +22,10 @@ its chunks).
 Gradients reach ``verts_ndc`` and ``attrs`` through the winning face's
 barycentrics, the depth and the silhouette, as in the JAX function.
 
+On the raster: :func:`vertex_visibility` (face-id visibility, the
+reference's) and :func:`vertex_visibility_depth` (point visibility by a
+PCF depth compare, the PRT's).
+
 Conventions: verts in NDC [-1, 1], x right, y DOWN (image row =
 (y + 1) / 2 * H), smaller z is closer.
 """
@@ -88,3 +92,40 @@ def vertex_visibility(verts_ndc: torch.Tensor, faces: torch.Tensor,
     vis = verts_ndc.new_zeros((n_verts + 1,))
     vis[fv.reshape(-1)] = 1.0                             # slot V: empty px
     return vis[:n_verts, None]
+
+
+def vertex_visibility_depth(verts_ndc: torch.Tensor, faces: torch.Tensor,
+                            res: int = 512,
+                            eps_px: float = 1.0) -> torch.Tensor:
+    """Per-vertex *point* visibility ``[V]`` in [0, 1] by a shadow-map
+    depth compare (the PRT transport's visibility; reference prt_util.py
+    casts a ray per vertex).
+
+    One ``res``^2 depth raster (K=512); each vertex, offset by ``1e-3 *
+    ext`` along its vertex normal (``ext`` the smallest extent of the
+    vertices; prt_util.py's ray-origin ``delta``), passes a texel when its
+    depth is at most the texel's plus ``eps_px`` pixels (``2 / res`` NDC
+    each); the four texels around its pixel-centre position, clipped to
+    the image, blend bilinearly. Empty texels hold BIG, so they pass."""
+    from icon_tpu_torch.ops.mesh import vertex_normals
+    n_verts = verts_ndc.shape[0]
+    out = rasterize(verts_ndc, faces, verts_ndc.new_zeros((n_verts, 1)),
+                    H=res, W=res, K=512)
+    vn = vertex_normals(verts_ndc[None], faces)[0]
+    ext = torch.min(verts_ndc.amax(0) - verts_ndc.amin(0))
+    q = verts_ndc + (1e-3 * ext) * vn
+    xy = (q[:, :2] + 1.0) * 0.5 * res - 0.5            # pixel-centre coords
+    zq = q[:, 2]
+    x0 = torch.floor(xy[:, 0]).to(torch.int64)
+    y0 = torch.floor(xy[:, 1]).to(torch.int64)
+    fx = xy[:, 0] - x0
+    fy = xy[:, 1] - y0
+    eps = eps_px * (2.0 / res)                 # ~a pixel of surface slope
+    vis = verts_ndc.new_zeros((n_verts,))
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            xi = torch.clamp(x0 + dx, 0, res - 1)
+            yi = torch.clamp(y0 + dy, 0, res - 1)
+            d = out.depth[yi, xi]
+            vis = vis + (wx * wy) * (zq <= d + eps)
+    return vis

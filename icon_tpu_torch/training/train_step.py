@@ -11,7 +11,8 @@ update, so that both packages take the same step from the same state:
   scale — torch's ``RMSprop`` differs in all three (alpha 0.99, eps
   outside the root, momentum before the rate);
 - Adam as optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the root,
-  bias-corrected moments), and SGD as optax's ``sgd`` (trace, then rate);
+  moments bias-corrected by ``1 - b ** count`` in float32), and SGD as
+  optax's ``sgd`` (trace, then rate);
 - the rate is optax's ``piecewise_constant_schedule``: ``lr_G`` scaled by
   ``gamma`` from each boundary ``int(e) * steps_per_epoch`` of
   ``cfg.schedule`` on.
@@ -76,6 +77,9 @@ class Optimizer:
     def step(self) -> None:
         lr = self.lr()
         self.adam_count += self.kind == "adam"
+        # Adam's bias corrections in float32, as optax computes them
+        bias_mu, bias_nu = (1.0 - torch.tensor(b).pow(self.adam_count)
+                            for b in (ADAM_B1, ADAM_B2))
         for name, p in self.params.items():
             if p.grad is None:
                 continue
@@ -93,8 +97,8 @@ class Optimizer:
                 st["mu"].copy_((1.0 - ADAM_B1) * g + ADAM_B1 * st["mu"])
                 st["nu"].copy_((1.0 - ADAM_B2) * (g * g)
                                + ADAM_B2 * st["nu"])
-                mu_hat = st["mu"] / (1.0 - ADAM_B1 ** self.adam_count)
-                nu_hat = st["nu"] / (1.0 - ADAM_B2 ** self.adam_count)
+                mu_hat = st["mu"] / bias_mu
+                nu_hat = st["nu"] / bias_nu
                 u = -lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
             else:
                 st["trace"].copy_(g + self.momentum * st["trace"])

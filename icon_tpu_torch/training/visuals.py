@@ -6,14 +6,16 @@
   image, green where the prediction is on the label's side, red where not
   (a copy of the JAX function);
 - :func:`occupancy_slice_image`: a dense slice of the occupancy field
-  through the origin, a low-resolution preview without the engine.
+  through the origin, a low-resolution preview without the engine;
+- :func:`normal_pred_panels`: the NormalNet trainer's panels (a copy of
+  the JAX function).
 
-Both return numpy arrays in [0, 1] for ``MetricLogger.log_images``.
+They return numpy arrays for ``MetricLogger.log_images``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -74,3 +76,24 @@ def occupancy_slice_image(model: torch.nn.Module,
     model.train(was_training)
     sl = pred.reshape(res, res, 1).clamp(0.0, 1.0).cpu().numpy()
     return sl.repeat(3, axis=-1)
+
+
+def normal_pred_panels(batch: Dict[str, np.ndarray],
+                       pred_F: np.ndarray,
+                       pred_B: Optional[np.ndarray] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Panel dict for the normal trainer (reference Normal.py:117-129
+    render_func: [image, T_normal_F, pred, gt])."""
+    out = {}
+    if "image" in batch:
+        out["image"] = np.asarray(batch["image"])[0]
+    if "T_normal_F" in batch:
+        out["T_normal_F"] = np.asarray(batch["T_normal_F"])[0]
+    out["pred_F"] = np.asarray(pred_F)[0]
+    if "normal_F" in batch:
+        out["gt_F"] = np.asarray(batch["normal_F"])[0]
+    if pred_B is not None:
+        out["pred_B"] = np.asarray(pred_B)[0]
+        if "normal_B" in batch:
+            out["gt_B"] = np.asarray(batch["normal_B"])[0]
+    return out

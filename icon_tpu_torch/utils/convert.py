@@ -52,6 +52,11 @@ Adam's ``mu`` and ``nu``, SGD's ``trace``) goes through the parameters'
 own mapping, and the schedule's and Adam's step counts carry over, so both
 packages train on from the same point.
 
+:func:`normal_state_from_flax` does the same for the JAX package's
+``NormalTrainState`` (the generators ``net{F,B}``, Adam's ``mu`` and ``nu``
+and both counts), and :func:`vgg19_state_from_flax` turns its
+``Vgg19Features`` params back into torchvision's names.
+
 :func:`body_model_from_jax` turns the JAX package's ``BodyModel`` into the
 port's, array for array, so one body runs through both packages.
 """
@@ -403,3 +408,44 @@ def train_state_from_flax(params: Any, batch_stats: Any, opt_state: Any,
             for k, v in st.items()}
     optimizer.load_state_dict(sd)
     return state_dict_from_flax(params, batch_stats)
+
+
+def normal_state_from_flax(params: Any, opt_state: Any = None,
+                           optimizer=None) -> Dict[str, np.ndarray]:
+    """The port's ``NormalNet`` state dict from a JAX ``NormalTrainState``'s
+    ``params`` (``net{F,B}`` at the top level, each through
+    :func:`generator_state`); with ``opt_state`` and the port's Adam
+    ``optimizer`` (``training/normal_step.py:make_normal_optimizer``), its
+    ``mu`` and ``nu`` through the same mapping and both step counts are
+    loaded into ``optimizer``."""
+    def mapped(tree):
+        out: Dict[str, np.ndarray] = {}
+        for name, sub in tree.items():
+            out.update(generator_state(sub, f"{name}."))
+        return out
+
+    if opt_state is not None and optimizer is not None:
+        import torch
+        found: dict = {}
+        _optax_leaves(opt_state, found)
+        trees = {k: mapped(found[k]) for k in ("mu", "nu")}
+        optimizer.load_state_dict({
+            "kind": optimizer.kind, "count": found.get("count", 0),
+            "adam_count": found.get("adam_count", 0),
+            "state": {name: {k: torch.tensor(np.asarray(trees[k][name]))
+                             for k in st}
+                for name, st in optimizer.state.items()}})
+    return mapped(params)
+
+
+def vgg19_state_from_flax(params: Any) -> Dict[str, np.ndarray]:
+    """The port's ``Vgg19Features`` state dict (torchvision's
+    ``features.{i}`` names) from the JAX package's ``Vgg19Features`` params
+    (``conv{i}``, HWIO kernels): the inverse of
+    ``icon_tpu/models/vgg.py:port_vgg19``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        i = int(name[len("conv"):])
+        out[f"features.{i}.weight"] = _convert_kernel(np.asarray(p["kernel"]))
+        out[f"features.{i}.bias"] = np.asarray(p["bias"])
+    return out

@@ -856,3 +856,62 @@ def write_demo_inputs(d: str, cfg, photo_size: int = 640, subdiv: int = 4,
     hps["model.iuv_predictor.predict_u.weight"] = torch.zeros(25, 256, 1, 1)
     torch.save(hps, paths["hps_ckpt"])
     return paths
+
+
+# torchvision's VGG19 ``features``: conv channels, "M" a max-pool
+_VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
+
+
+def write_vgg19(path: str, seed: int = 0,
+                classifier_width: int = 4096) -> str:
+    """A seeded VGG19 state dict in torchvision's layout (the published
+    ``vgg19-dcbb9e9d.pth``'s names and shapes): its 16 convolutions at
+    ``features.{i}`` with He-scaled normal weights and small biases, and the
+    three ``classifier.{0,3,6}`` layers, ``classifier_width`` wide (4096 in
+    the published file; the perceptual loss never reads them). Returns
+    ``path``."""
+    gen = torch.Generator().manual_seed(seed)
+    state, cin, i = {}, 3, 0
+    for v in _VGG19_CFG:
+        if v == "M":
+            i += 1
+            continue
+        std = (2.0 / (9 * cin)) ** 0.5
+        state[f"features.{i}.weight"] = std * torch.randn(
+            (v, cin, 3, 3), generator=gen)
+        state[f"features.{i}.bias"] = 0.01 * torch.randn((v,), generator=gen)
+        cin, i = v, i + 2
+    dims = (512 * 7 * 7, classifier_width, classifier_width, 1000)
+    for j, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        state[f"classifier.{3 * j}.weight"] = (1.0 / a) ** 0.5 * torch.randn(
+            (b, a), generator=gen)
+        state[f"classifier.{3 * j}.bias"] = torch.zeros(b)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(state, path)
+    return path
+
+
+def write_smpl_pkl(path: str, body) -> str:
+    """A SMPL release pickle (``SMPL_{GENDER}.pkl``'s keys and layouts:
+    ``v_template``, ``f``, ``weights``, ``shapedirs [V, 3, B]``,
+    ``posedirs [V, 3, P]``, ``J_regressor``, ``kintree_table``) of the port's
+    ``BodyModel`` ``body``, for the tetrahedronizer and the tetra loader.
+    Returns ``path``."""
+    import pickle
+    v = body.v_template.cpu().numpy()
+    n_verts, n_joints = len(v), len(body.parents)
+    kintree = np.stack([np.asarray(body.parents, np.int64),
+                        np.arange(n_joints)])
+    kintree[0, 0] = 4294967295
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({
+            "v_template": v, "f": np.asarray(body.faces),
+            "weights": body.lbs_weights.cpu().numpy(),
+            "shapedirs": body.shapedirs.cpu().numpy(),
+            "posedirs": body.posedirs.cpu().numpy().T.reshape(
+                n_verts, 3, -1),
+            "J_regressor": body.J_regressor.cpu().numpy(),
+            "kintree_table": kintree}, f)
+    return path

@@ -10,7 +10,9 @@ the tetrahedral SMPL loader, and the geometry trainer's host code:
 of ``winding_np``), the fit loaders, the fixture writer's lighting and
 config, ``point_error_image`` (``ray_parity_inside_np`` and ``winding_np``
 are pinned in ``tests/test_torch_signs.py``, the fixture's files in
-``tests/test_torch_train.py``)."""
+``tests/test_torch_train.py``); the renderer's ``fibonacci_sphere``, the
+NormalNet trainer's ``normal_pred_panels`` and the tetra builder's host
+functions."""
 
 import dataclasses
 import pickle
@@ -770,3 +772,55 @@ def test_point_error_image_matches():
     pred, lab = rng.rand(300, 1), (rng.rand(300) > 0.5).astype(np.float32)
     np.testing.assert_array_equal(pimg(xy, pred, lab, 64),
                                   jimg(xy, pred, lab, 64))
+
+
+# -- the dataset renderer's, the NormalNet trainer's and the tetra builder's
+
+@pytest.mark.parametrize("n", [1, 16, 64, 101])
+def test_fibonacci_sphere_matches(n):
+    from icon_tpu.data.render_dataset import fibonacci_sphere as jfib
+    from icon_tpu_torch.data.render_dataset import fibonacci_sphere
+    got = fibonacci_sphere(n)
+    assert got.dtype == np.float32 and got.shape == (n, 3)
+    np.testing.assert_array_equal(got, jfib(n))
+
+
+def test_normal_pred_panels_copy_matches():
+    from icon_tpu.training.visuals import normal_pred_panels as jpanels
+    from icon_tpu_torch.training.visuals import normal_pred_panels
+    rng = np.random.RandomState(8)
+    keys = ("image", "T_normal_F", "normal_F", "normal_B")
+    batch = {k: rng.randn(3, 4, 4, 3).astype(np.float32) for k in keys}
+    pred = rng.randn(3, 4, 4, 3).astype(np.float32)
+    for pred_b in (None, -pred):
+        want = jpanels(batch, pred, pred_b)
+        got = normal_pred_panels(batch, pred, pred_b)
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_tetrahedronize_host_functions_match():
+    """``interior_nodes``, ``tetrahedralize``, ``transfer_weights`` and
+    ``build_tetra_npz`` on the synthetic body at subdiv 2, with seeded
+    blend directions."""
+    from icon_tpu.apps import tetrahedronize as J
+    from icon_tpu_torch.apps import tetrahedronize as P
+    v, f = JS.synthetic_body(subdiv=2)
+    rng = np.random.RandomState(9)
+    np.testing.assert_array_equal(P.interior_nodes(v, f, 0.05),
+                                  J.interior_nodes(v, f, 0.05))
+    for a, b in zip(P.tetrahedralize(v, f), J.tetrahedralize(v, f)):
+        np.testing.assert_array_equal(a, b)
+    w = rng.rand(len(v), 5).astype(np.float32)
+    sd = rng.randn(len(v), 3, 4).astype(np.float32)
+    pd = rng.randn(len(v), 3, 6).astype(np.float32)
+    added = P.interior_nodes(v, f, 0.05)
+    for a, b in zip(P.transfer_weights(added, v, w, sd, pd),
+                    J.transfer_weights(added, v, w, sd, pd)):
+        np.testing.assert_array_equal(a, b)
+    got, want = P.build_tetra_npz(v, f, w, sd, pd), \
+        J.build_tetra_npz(v, f, w, sd, pd)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])

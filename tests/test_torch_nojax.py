@@ -6,12 +6,13 @@ pifu and pamir priors) and the demo CLI
 on photos (YAML config, seeded checkpoint, PyMAF, fit, recon, cloth,
 colours; then the RGB photo with the YOLO detector, U^2-Net matting and
 PARE installed, the turntable video and the garments) and PIXIE and HybrIK
-at narrow widths, and the geometry trainer (the fixture, a train step
-with loader workers, the evaluation) leaves ``jax``, ``flax`` and
-``icon_tpu`` out of
-``sys.modules``, and no file of the package (the photo path's and the
-other estimators' modules among them) nor ``chip_smoke.py`` imports
-them."""
+at narrow widths, the geometry trainer (the fixture, a train step
+with loader workers, the evaluation), the dataset renderer (one subject
+with PRT), the NormalNet trainer (one step) and the Poisson
+reconstruction leaves ``jax``, ``flax`` and ``icon_tpu`` out of
+``sys.modules``, and no file of the package (the photo path's, the other
+estimators', the trainers' and the renderer's modules among them) nor
+``chip_smoke.py`` imports them."""
 
 import os
 import os.path as osp
@@ -125,6 +126,26 @@ with tempfile.TemporaryDirectory() as d:
     rec = train.main(["-cfg", os.path.join(d, "t.yaml"), "-test",
                       "--max_eval_items", "1"], device="cpu")
     assert len(rec["items"]) == 1
+from icon_tpu_torch.apps import render as render_app
+from icon_tpu_torch.apps import train_normal
+from icon_tpu_torch.ops.poisson import poisson_reconstruct
+from icon_tpu_torch.utils.synthetic import icosphere
+with tempfile.TemporaryDirectory() as d:
+    make_synthetic_dataset(d, n_subjects=1, n_views=2, size=32, vis_res=64,
+                           device="cpu")
+    recs = render_app.main(["-root", d, "-dataset", "synth", "-views", "2",
+                            "-size", "32", "-prt", "-prt_dirs", "2",
+                            "-vis_res", "64", "-procs", "1"], device="cpu")
+    assert [(r["status"], r["body"]) for r in recs] == [("rendered", True)]
+    ncfg = fixture_config(d, n_views=2, image_size=32)
+    save_config(ncfg.replace(ckpt_dir=d, num_threads=0, batch_size=1),
+                os.path.join(d, "n.yaml"))
+    rec = train_normal.main(["-cfg", os.path.join(d, "n.yaml"),
+                             "--max_steps", "1"], device="cpu")
+    assert rec["steps"] == 1 and np.isfinite(rec["losses"]).all()
+v, f = icosphere(2)
+pv, pf = poisson_reconstruct(v * 0.6, f, res=16, device="cpu")
+assert len(pf) > 100
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
@@ -141,9 +162,8 @@ def test_port_imports_no_jax():
     assert "ICON_TPU_MODULES []" in proc.stdout, proc.stdout[-2000:]
 
 
-# the photo path's modules, the other estimators', the priors' and the
-# trainer's, which
-# the scans below must reach
+# the photo path's modules, the other estimators', the priors', the
+# trainers' and the renderer's, which the scans below must reach
 PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "models/pare/hrnet.py", "models/pare/net.py",
               "models/pare/convert.py", "ops/cloth_extraction.py",
@@ -160,7 +180,12 @@ PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "data/render_dataset.py", "training/train_step.py",
               "training/checkpoints.py", "training/logging.py",
               "training/visuals.py", "eval/evaluator.py", "eval/test_loop.py",
-              "ops/sdf.py", "ops/winding_np.py", "utils/convert.py")
+              "ops/sdf.py", "ops/winding_np.py", "utils/convert.py",
+              # the dataset renderer's, the NormalNet trainer's and the
+              # surface tools'
+              "apps/render.py", "apps/train_normal.py",
+              "apps/tetrahedronize.py", "models/vgg.py",
+              "training/normal_step.py", "ops/poisson.py", "ops/raster.py")
 
 
 def test_no_jax_import_in_package_sources():
