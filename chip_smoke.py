@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[15], then the /proc check [16], a kernel
+Phases (lines tagged [1]..[16], then the /proc check [17], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -141,8 +141,8 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
 
 14. the geometry trainer: the fixture (2 subjects x 3 views at 512^2) on
    the card, its items' signs against the card's ray parity, 3 small
-   steps card vs CPU, the train CLI at the published width (6 steps,
-   ``-resume`` to 8, ``-test`` on 2 items, a pamir run of 2 steps), the
+   steps card vs CPU, the train CLI at the published width (4 steps,
+   ``-resume`` to 6, ``-test`` on 2 items, a pamir run of 2 steps), the
    kernels against their plain versions on those runs' inputs;
 15. the dataset renderer and the NormalNet trainer on phase 14's scans and
    fits, TF32 off: the render CLI at the reference's settings (``-views
@@ -161,11 +161,30 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    seeded VGG19 file in torchvision's layout) for 6 steps and ``-resume``
    to 8; ``poisson_reconstruct`` card vs CPU at res 64 and on the card at
    128; ``apps.tetrahedronize`` on a SMPL pickle of the synthetic body,
-   read back by the tetra loader.
+   read back by the tetra loader;
+16. data-parallel training and point-sharded recon, TF32 off: two ranks
+   spawned on the one card over gloo (NCCL refuses two ranks on one card),
+   each on its half of the same 4-item global batches of phase 14's
+   fixture at the reference's recipe, from the same seeded weights,
+   against one process on the whole batch (and on a rank's half): icon
+   for 3 steps (the first loss, the BatchNorm statistics after it, the
+   parameters after the last), pamir for 1 with its voxelize kernels;
+   the kNN kernel against its plain version on each rank's first and last
+   call; the gradient all-reduce's ms and bytes, each rank's peak memory;
+   a one-rank NCCL group's step against the plain step and an NCCL
+   all-reduce; phase 4's full-width frame with ``shard_query`` over two
+   shards of the card (``pad_multiple`` 2) against unsharded (level
+   counts, triangles, occupancy, latency; the kNN on a shard's first and
+   last call); exact mode at 257^3 (``clothed_human_occ``: no overflow and
+   no residual at any level; the frame's query beside faster mode); the
+   train and demo CLIs with 2 devices, which raise the JAX package's
+   too-few-devices error on one card (on two or more cards they run, and
+   the ranks run again over NCCL, one a card). Every rank is spawned and
+   joined in a ``finally``.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
-pamir frame and both CLI runs, 14's fixture, train and eval runs, and 15's
-render run) runs with the kernels' launch counts set to
+pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
+render run, and in 16 each rank's steps and the sharded recon) runs with the kernels' launch counts set to
 0 just before it and read just after; a kernel of the path that did not
 launch fails the run. Any failed check raises, so the script exits
 non-zero and prints no result.
@@ -772,11 +791,18 @@ def compare_raster(tag, name, ndc, faces, attrs, size, K, rng,
           + (f"; grads max|d| {grad_err:.3g} ({grad_rel:.3g} of the "
              f"largest)" if backward else "; forward only")
           + f"; bin_overflow {int(out.bin_overflow)}", flush=True)
-    if differ or any(errs[k] > tol for k, tol in RASTER_KERNEL_ATOL.items()) \
-            or grad_rel > RASTER_GRAD_RTOL or \
-            int(out.bin_overflow) != int(ref.bin_overflow):
+    faults = [f"pix_to_face at {differ} px"] if differ else []
+    faults += [f"{k} {errs[k]:.3g} > {tol}" for k, tol in
+               RASTER_KERNEL_ATOL.items() if errs[k] > tol]
+    if grad_rel > RASTER_GRAD_RTOL:
+        faults.append(f"grads {grad_rel:.3g} of the largest > "
+                      f"{RASTER_GRAD_RTOL}")
+    if int(out.bin_overflow) != int(ref.bin_overflow):
+        faults.append(f"bin_overflow {int(out.bin_overflow)} vs "
+                      f"{int(ref.bin_overflow)}")
+    if faults:
         raise AssertionError(f"{name}: the raster kernels disagree with the "
-                             f"plain version")
+                             f"plain version: {'; '.join(faults)}")
     errors = {"raster_setup": setup_err, "raster_bin": bin_err,
               "raster_fwd": max(errs.values()), "raster_bwd": grad_err}
     return errors, int(out.bin_overflow), run
@@ -2159,7 +2185,7 @@ def phase_priors(dev, card):
 # phase 14: the geometry trainer and the evaluator at the published width
 # (data/fixture.py:train_config: batch 4, 512^2, 8,000 samples an item)
 TRAIN_SIZE, TRAIN_SAMPLES, TRAIN_BATCH = 512, 8000, 4
-TRAIN_STEPS, RESUME_STEPS = 6, 8
+TRAIN_STEPS, RESUME_STEPS = 4, 6
 # the small card-vs-CPU steps (c): the first step's loss (the same weights)
 # to TRAIN_LOSS_RTOL; after a step a parameter may differ by up to the
 # optimizer's largest move (RMSprop's |u| <= lr / sqrt(1 - 0.9)) where its
@@ -2943,6 +2969,477 @@ def phase_render_normal(dev, card, d):
     return [launched], worst
 
 
+# phase 16: data-parallel training and point-sharded recon. Two ranks share
+# the one card over gloo (NCCL refuses two ranks on one card): each takes 2
+# of the 4 items of the same global batches, from the same initial weights,
+# against one process on the whole batch. The first loss to DIST_LOSS_RTOL,
+# the BatchNorm running statistics after the first step to DIST_BN_RTOL of
+# their layer's largest statistic (a running mean near 0 carries the
+# float32 rounding of sums over the layer's whole batch, 1e-7 of its
+# variance's scale, not of itself), the parameters after the last step as
+# phase 14's small steps are held (RMSprop: every one within the
+# optimizer's largest move, each tensor's median to TRAIN_PARAM_MEDIAN)
+DIST_STEPS, DIST_PAMIR_STEPS = 3, 1
+DIST_LOSS_RTOL = 1e-4
+DIST_BN_RTOL = 1e-5
+# the sharded frame's occupancy against the unsharded frame's
+SHARD_OCC_ATOL = 1e-5
+EXACT_RES = (33, 65, 129, 257)
+
+
+def dist_batches(root, prior, n):
+    """(config, the first global batch of each of epochs 0 .. n-1) of the
+    training split of phase 14's fixture: batch 4, made by 4 loader
+    workers."""
+    from icon_tpu_torch.data.datasets import (PIFuDataset, close_iter,
+                                              make_loader)
+    from icon_tpu_torch.data.fixture import train_config
+    cfg = train_config(root, prior=prior)
+    loader = make_loader(PIFuDataset(cfg), batch_size=TRAIN_BATCH,
+                         num_workers=4)
+    batches = []
+    for epoch in range(n):
+        loader.set_epoch(epoch)
+        it = iter(loader)
+        try:
+            batches.append(next(it))
+        finally:
+            close_iter(it)
+    return cfg, batches
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_steps(path, steps, dev):
+    """``steps`` train steps of the saved job (``path``: config, initial
+    state, global batches) on ``dev``, on this rank's slice of each batch
+    (the whole batch without a group): losses, seconds a step, the
+    BatchNorm statistics after the first step, the parameters after the
+    last, the kernels' launches, peak memory, the gradient all-reduce's
+    bytes and ms (several ranks only), and the kNN kernel and each voxelize
+    kernel against its plain version on its first and last call."""
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.parallel import dist
+    from icon_tpu_torch.parallel.mesh import shard_batch
+    from icon_tpu_torch.training.train_step import (batch_to, make_optimizer,
+                                                    train_step)
+    job = torch.load(path, weights_only=False)
+    net = HGPIFuNet(job["cfg"], normal_net=False).to(dev)
+    net.load_state_dict(job["state"])
+    opt = make_optimizer(net, job["cfg"], steps_per_epoch=100)
+    calls, voxel_calls = [], []
+    remove, remove_voxel = knn_spy(calls), voxel_spy(voxel_calls)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()               # count only the main path's launches
+    out = {"losses": [], "step_s": [], "rank": dist.rank(),
+           "world": dist.world()}
+    try:
+        for i in range(steps):
+            b = batch_to(shard_batch(job["batches"][i], dist.rank(),
+                                     dist.world()), dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            out["losses"].append(float(train_step(net, opt, b)["loss"]))
+            sync(dev)
+            out["step_s"].append(time.perf_counter() - t0)
+            if i == 0:
+                out["bn1"] = {k: v.cpu() for k, v in
+                              net.state_dict().items() if "running" in k}
+    finally:
+        remove()
+        remove_voxel()
+    out["launched"] = read_launches()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+    out["params"] = {k: p.detach().cpu() for k, p in net.named_parameters()}
+    out["bytes"], out["reduce_ms"] = 0, None
+    if dist.world() > 1:          # the last step's gradients, reduced again
+        times = []
+        for _ in range(5):
+            sync(dev)
+            t0 = time.perf_counter()
+            out["bytes"] = dist.all_reduce_mean_grads(net)
+            sync(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out["reduce_ms"] = statistics.median(times)
+    out["knn_calls"], out["knn_err"] = len(calls), 0.0
+    for pts, verts, k in (calls[0], calls[-1]) if calls else ():
+        idx, key = knn.nearest_vertices_kernel(pts, verts, k)
+        sync(dev)
+        rel, same, _, _, key0 = knn_picks_agree(idx, key, pts, verts, k)
+        if rel > KEY_RTOL or not same:
+            raise AssertionError(f"rank {dist.rank()}: the kNN kernel "
+                                 "disagrees with plain on a step's call")
+        out["knn_err"] = max(out["knn_err"], float((key - key0).abs().max()))
+    out["voxel_err"] = {}
+    for name in VOXEL_REPLACES:
+        args = [a for c, a in voxel_calls if c == name]
+        if len(args) != out["launched"][name]:
+            raise AssertionError(f"{len(args)} {name} calls recorded, "
+                                 f"{out['launched'][name]} launched")
+        for a in (args[0], args[-1]) if args else ():
+            err, ok, note = voxel_agrees(name, a)
+            if not ok:
+                raise AssertionError(f"rank {dist.rank()}: {name} disagrees "
+                                     f"with plain on a step's call: {note}")
+            out["voxel_err"][name] = max(out["voxel_err"].get(name, 0.0), err)
+    return out
+
+
+def dist_rank(rank, port, backend, devices, jobs, out):
+    """One rank of phase 16: the jobs' steps on ``devices[rank]`` in a
+    group of ``len(devices)`` ranks over ``backend`` (gloo, or None: the
+    default, NCCL for cards of their own); writes its results to
+    ``{out}.{rank}``."""
+    from icon_tpu_torch.parallel import dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = devices[rank]
+    dist.initialize_distributed(f"127.0.0.1:{port}", len(devices), rank,
+                                backend=backend, device=dev)
+    try:
+        res = [dist_steps(path, steps, dev) for path, steps in jobs]
+        res[0]["backend"] = torch.distributed.get_backend() \
+            if torch.distributed.is_initialized() else "none"
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        dist.shutdown()
+
+
+def nccl_rank(rank, port, path, out):
+    """A one-rank NCCL group on card 0: one train step of the job (a group
+    of one steps as one process does) and an NCCL all-reduce of 1e6 floats,
+    timed."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        res = dist_steps(path, 1, dev)
+        res["backend"] = torch.distributed.get_backend()
+        x = torch.arange(1e6, device=dev)
+        y = x.clone()
+        torch.distributed.all_reduce(y)
+        res["allreduce_ms"] = cuda_ms(lambda: torch.distributed.all_reduce(y))
+        res["allreduce_equal"] = bool(torch.equal(x, y))
+        torch.save(res, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dist_agree(tag, got, want, lr, steps):
+    """Print and check a run of ranks against the one-process run."""
+    first = abs(got["losses"][0] / want["losses"][0] - 1.0)
+    scale = {}                   # each layer's largest statistic
+    for k, v in want["bn1"].items():
+        layer = k.rsplit(".", 1)[0]
+        scale[layer] = max(scale.get(layer, 0.0), float(v.abs().max()))
+    bn = max((float((got["bn1"][k] - v).abs().max()) /
+              max(scale[k.rsplit(".", 1)[0]], 1e-30)
+              for k, v in want["bn1"].items()), default=0.0)
+    worst, med, ok = params_agree(got["params"], want["params"], lr, steps)
+    print(f"[16] {tag}: losses {got['losses']} vs one process "
+          f"{want['losses']} (rel {first:.3g} at the first); BatchNorm "
+          f"stats after step 1 max|d| {bn:.3g} of their layer's largest "
+          f"({len(want['bn1'])} tensors); "
+          f"parameters after step {steps} max|d| {worst:.3g} (bound "
+          f"{steps * lr / 0.1 ** 0.5:.3g}), largest tensor median |d| "
+          f"{med:.3g}", flush=True)
+    if first > DIST_LOSS_RTOL or bn > DIST_BN_RTOL or not ok:
+        raise AssertionError(f"phase 16 {tag}: ranks and one process "
+                             "disagree")
+
+
+def phase_dist(dev, card, d):
+    """Phase 16: two ranks on the card (gloo) against one process, for icon
+    and pamir; a one-rank NCCL group; the full-width icon frame sharded
+    over two shards of the card against unsharded; exact mode at 257^3;
+    the CLIs' too-few-devices errors (or, on >= 2 cards, their runs and the
+    ranks over NCCL). Returns (the launches of the main-path runs,
+    {kernel: worst error})."""
+    from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.parallel import dist
+    from icon_tpu_torch.parallel.mesh import shard_batch
+    root = os.path.join(d, "data")
+    jobs, lrs = [], []
+    t0 = time.perf_counter()
+    for prior, steps in (("icon", DIST_STEPS), ("pamir", DIST_PAMIR_STEPS)):
+        cfg, batches = dist_batches(root, prior, steps)
+        torch.manual_seed(0)
+        state = HGPIFuNet(cfg, normal_net=False).state_dict()
+        path = os.path.join(d, f"dist_{prior}.pt")
+        torch.save({"cfg": cfg, "state": state, "batches": batches}, path)
+        jobs.append((path, steps))
+        lrs.append(cfg.lr_G)
+    print(f"[16] {DIST_STEPS} icon and {DIST_PAMIR_STEPS} pamir global "
+          f"batches of {TRAIN_BATCH} ({TRAIN_SIZE}^2, {TRAIN_SAMPLES} "
+          f"samples) loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    one = [dist_steps(path, steps, dev) for path, steps in jobs]
+    # one process on a rank's slice (batch 2): whether a rank's step time
+    # comes from sharing the card or from the batch size alone
+    job = torch.load(jobs[0][0], weights_only=False)
+    job["batches"] = [shard_batch(b, 0, 2) for b in job["batches"]]
+    half_path = os.path.join(d, "dist_half.pt")
+    torch.save(job, half_path)
+    del job
+    half = dist_steps(half_path, DIST_STEPS, dev)
+    # both again in a fresh process of their own, with no group: whether a
+    # step's time follows the batch, the group or the process's history
+    out = os.path.join(d, "fresh_out")
+    dist.run_ranks(dist_rank, 1, (dist.free_port(), None, [dev],
+                                  [(half_path, DIST_STEPS), jobs[0]], out),
+                   timeout=300)
+    fresh = torch.load(f"{out}.0", weights_only=False)
+    out = os.path.join(d, "dist_out")
+    t0 = time.perf_counter()
+    dist.run_ranks(dist_rank, 2, (dist.free_port(), "gloo", [dev, dev], jobs,
+                                  out), timeout=400)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in (0, 1)]
+    runs, worst = [], dict.fromkeys(("knn_f32", *VOXEL_REPLACES), 0.0)
+    for j, (prior, steps) in enumerate((("icon", DIST_STEPS),
+                                        ("pamir", DIST_PAMIR_STEPS))):
+        for r in ranks:
+            dist_agree(f"{prior}, rank {r[j]['rank']} of 2 (gloo on one "
+                       "card)", r[j], one[j], lrs[j], steps)
+            runs.append(r[j]["launched"])
+            worst["knn_f32"] = max(worst["knn_f32"], r[j]["knn_err"])
+            for name, err in r[j]["voxel_err"].items():
+                worst[name] = max(worst[name], err)
+        for k, v in ranks[0][j]["params"].items():
+            if not torch.equal(v, ranks[1][j]["params"][k]):
+                raise AssertionError(f"phase 16 {prior}: the ranks' {k} "
+                                     "differ")
+    icon, pamir = (ranks[0][0], ranks[1][0]), (ranks[0][1], ranks[1][1])
+    check_launched(icon[0]["launched"], ("knn_f32",), "phase 16 rank step")
+    check_launched(pamir[0]["launched"], ("voxel_splat", "box_smooth3d"),
+                   "phase 16 pamir rank step")
+    print(f"[16] icon on {card}, TF32 off: s/step 2 ranks "
+          f"{[round(x, 4) for x in icon[0]['step_s']]} (backend "
+          f"{icon[0]['backend']}), 1 process "
+          f"{[round(x, 4) for x in one[0]['step_s']]}, 1 process on a "
+          f"rank's batch of 2 {[round(x, 4) for x in half['step_s']]}, a "
+          f"fresh process on 2 / 4 items "
+          f"{[round(x, 4) for x in fresh[0]['step_s']]} / "
+          f"{[round(x, 4) for x in fresh[1]['step_s']]}; gradient all-reduce "
+          f"{icon[0]['reduce_ms']:.2f} ms for {icon[0]['bytes']} bytes; kNN "
+          f"launches a rank step {icon[0]['launched']['knn_f32'] / DIST_STEPS}"
+          f" ({icon[0]['knn_calls']} calls, first and last vs plain max|dkey|"
+          f" {max(r['knn_err'] for r in icon):.3g}); peak GiB rank 0 "
+          f"{icon[0]['peak_gib']:.2f}, rank 1 {icon[1]['peak_gib']:.2f}, 1 "
+          f"process {one[0]['peak_gib']:.2f}; ranks spawned, run and joined "
+          f"in {ranks_s:.2f} s", flush=True)
+    print(f"[16] pamir: s/step 2 ranks "
+          f"{[round(x, 4) for x in pamir[0]['step_s']]}, 1 process "
+          f"{[round(x, 4) for x in one[1]['step_s']]}; "
+          f"all-reduce {pamir[0]['reduce_ms']:.2f} ms for "
+          f"{pamir[0]['bytes']} bytes; voxelize launches a rank step "
+          f"{pamir[0]['launched']['voxel_splat']} (first and last of each "
+          f"rank vs plain max|d|: splat {worst['voxel_splat']:.3g}, smooth "
+          f"{worst['box_smooth3d']:.3g}); peak GiB "
+          f"{pamir[0]['peak_gib']:.2f} / {pamir[1]['peak_gib']:.2f}",
+          flush=True)
+
+    out = os.path.join(d, "nccl_out")
+    dist.run_ranks(nccl_rank, 1, (dist.free_port(), jobs[0][0], out),
+                   timeout=200)
+    nccl = torch.load(out, weights_only=False)
+    print(f"[16] one-rank NCCL group (backend {nccl['backend']}): NCCL "
+          f"all-reduce of 1e6 floats {nccl['allreduce_ms']:.3f} ms, "
+          f"unchanged {nccl['allreduce_equal']}", flush=True)
+    dist_agree("one-rank NCCL group", nccl,
+               dist_steps(jobs[0][0], 1, dev), lrs[0], 1)
+    if nccl["backend"] != "nccl" or not nccl["allreduce_equal"]:
+        raise AssertionError("phase 16: the NCCL group")
+
+    launched, errs = shard_and_exact(dev, card)
+    runs.append(launched)
+    worst["knn_f32"] = max(worst["knn_f32"], errs)
+    cli_devices(dev, card, d, root, jobs)
+    return runs, worst
+
+
+def shard_and_exact(dev, card, iters: int = 5, size: int = 512,
+                    res: int = 256, subdiv: int = 5,
+                    exact_res=EXACT_RES):
+    """[16d] phase 4's full-width frame with its queries sharded over two
+    shards of the card (``pad_multiple`` 2) against unsharded, and [16e]
+    exact mode at 257^3 on ``clothed_human_occ`` and on the frame's query
+    beside faster mode. Returns (the sharded recon's launches, the kNN's
+    worst error against plain on its first and last call)."""
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.parallel.mesh import shard_query
+    from icon_tpu_torch.recon.engine import ReconEngine
+    from icon_tpu_torch.recon.frame import (bench_config, build_frame,
+                                            seeded_state)
+    from icon_tpu_torch.utils.synthetic import (clothed_human_occ,
+                                                synthetic_icon_batch)
+    cfg = bench_config()
+    batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
+                                 image_size=size, n_samples=64,
+                                 subdiv=subdiv)
+    state = seeded_state(cfg, 0)
+    mesh = [dev, dev]
+    fr = build_frame(cfg, state, batch, res, dev)
+    frs = build_frame(cfg, state, batch, res, dev, mesh=mesh)
+    with torch.no_grad():
+        cz, _ = fr.columns()
+        feats = fr.features()
+        occ_u, st_u = fr.engine(fr.query_fn, query_args=(cz, feats))
+        calls = []
+        remove = knn_spy(calls)
+        sync(dev)
+        reset_launches()           # count only the main path's launches
+        try:
+            occ_s, st_s = frs.engine(shard_query(frs.query_fn, mesh),
+                                     query_args=(cz, feats))
+            sync(dev)
+        finally:
+            remove()
+        launched = read_launches()
+    check_launched(launched, ("knn_f32",), "phase 16 sharded recon")
+    occ_err = float((occ_u - occ_s).abs().max())
+    counts_u = {k: int(v) for k, v in st_u.items() if k != "coarse_occ"}
+    counts_s = {k: int(v) for k, v in st_s.items() if k != "coarse_occ"}
+    knn_err = 0.0
+    for pts, verts, k in (calls[0], calls[-1]):
+        idx, key = knn.nearest_vertices_kernel(pts, verts, k)
+        sync(dev)
+        rel, same, _, _, key0 = knn_picks_agree(idx, key, pts, verts, k)
+        if rel > KEY_RTOL or not same:
+            raise AssertionError("phase 16: the kNN kernel disagrees with "
+                                 "plain on a shard's call")
+        knn_err = max(knn_err, float((key - key0).abs().max()))
+    times = {"unsharded": [], "sharded": []}
+    tris = {}
+    for _ in range(3):
+        fr.frame()
+        frs.frame()
+    for _ in range(iters):
+        for name, f in (("unsharded", fr), ("sharded", frs)):
+            t0 = time.perf_counter()
+            _, _, _, faces = f.frame()
+            sync(dev)
+            times[name].append(time.perf_counter() - t0)
+            tris[name] = len(faces)
+    print(f"[16] full-width frame sharded over 2 shards of the card "
+          f"(pad_multiple {frs.engine.pad_multiple}): level counts "
+          f"{counts_s} vs unsharded {counts_u}; occupancy max|d| "
+          f"{occ_err:.3g}; triangles {tris['sharded']} vs "
+          f"{tris['unsharded']}; kNN launches {launched['knn_f32']} "
+          f"({len(calls)} calls: {sorted({len(c[0]) for c in calls})} "
+          f"points), first and last vs plain max|dkey| {knn_err:.3g}",
+          flush=True)
+    print(f"[16] recon latency on {card}, TF32 off (median of {iters}, s): "
+          f"sharded {statistics.median(times['sharded']):.4f} "
+          f"{[round(x, 4) for x in times['sharded']]}, unsharded "
+          f"{statistics.median(times['unsharded']):.4f} "
+          f"{[round(x, 4) for x in times['unsharded']]}", flush=True)
+    if counts_s != counts_u or tris["sharded"] != tris["unsharded"] or \
+            not occ_err <= SHARD_OCC_ATOL:
+        raise AssertionError("phase 16: the sharded frame differs")
+
+    with torch.no_grad():
+        occ, st = ReconEngine(exact_res, exact=True, conflict_rounds=2,
+                              device=dev)(
+            lambda p: clothed_human_occ(p)[..., None])
+    counts = {k: int(v) for k, v in st.items()}
+    print(f"[16] exact mode on clothed_human_occ at {exact_res[-1]}^3: "
+          f"{counts}", flush=True)
+    if any(counts[f"level{lv}_{s}"] for lv in range(1, len(exact_res))
+           for s in ("overflow", "residual")) or \
+            not bool(torch.isfinite(occ).all()):
+        raise AssertionError("phase 16: exact mode left overflow or "
+                             "residual conflicts")
+    for mode, eng in (("faster", ReconEngine(exact_res, device=dev)),
+                      ("exact", ReconEngine(exact_res, exact=True,
+                                            device=dev))):
+        secs = []
+        with torch.no_grad():
+            for i in range(4):
+                sync(dev)
+                t0 = time.perf_counter()
+                occ, st = eng(fr.query_fn, query_args=(cz, feats))
+                sync(dev)
+                if i:
+                    secs.append(time.perf_counter() - t0)
+        print(f"[16] {mode} mode on the frame's query at "
+              f"{exact_res[-1]}^3: engine {statistics.median(secs):.4f} s "
+              f"(median of {len(secs)}) on {card}, TF32 off; "
+              f"{ {k: int(v) for k, v in st.items() if k != 'coarse_occ'} }",
+              flush=True)
+        if not bool(torch.isfinite(occ).all()):
+            raise AssertionError(f"phase 16: {mode} mode's grid")
+    return launched, knn_err
+
+
+def cli_devices(dev, card, d, root, jobs):
+    """[16f] ``apps.train`` with ``num_devices 2`` and ``apps.infer
+    -num_devices 2``: on one card both raise the JAX package's
+    too-few-devices error; on two or more they run, and the ranks of
+    [16a] run again over NCCL, one a card."""
+    from icon_tpu_torch.apps import infer, train
+    from icon_tpu_torch.config import save_config
+    from icon_tpu_torch.data.fixture import train_config
+    from icon_tpu_torch.parallel import dist
+    from icon_tpu_torch.recon.frame import bench_config
+    cfg_path = write_train_config(train_config(
+        root, os.path.join(d, "dist_ckpt"), num_epoch=1), d)
+    icfg = os.path.join(d, "bench.yaml")
+    save_config(bench_config(), icfg)
+    n = torch.cuda.device_count()
+    train_argv = ["-cfg", cfg_path, "--max_steps", "2", "num_devices", "2"]
+    infer_argv = ["-cfg", icfg, "-in_dir", d, "-out_dir",
+                  os.path.join(d, "dist_infer"), "-num_devices", "2"]
+    if n < 2:
+        for name, run in (("train", lambda: train.main(train_argv)),
+                          ("infer", lambda: infer.main(infer_argv))):
+            try:
+                run()
+            except SystemExit as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"phase 16: {name} with 2 devices on "
+                                     "one card did not raise")
+            print(f"[16] {name} with 2 devices on {n} card: raises "
+                  f"SystemExit({msg!r})", flush=True)
+            if msg != f"-num_devices 2 but only {n} devices visible":
+                raise AssertionError(f"phase 16: {name}'s error {msg!r}")
+        return
+    rec = train.main(train_argv)
+    print(f"[16] train CLI with 2 ranks on {n} cards: {rec['steps']} steps, "
+          f"losses {rec['losses']}, s/step {rec['step_s']}", flush=True)
+    if rec["ranks"] != 2 or not np.isfinite(rec["losses"]).all():
+        raise AssertionError("phase 16: the 2-card train CLI")
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+    paths = write_demo_inputs(os.path.join(d, "dist_demo"), bench_config())
+    recs = infer.main(["-cfg", paths["cfg"], "-in_dir", paths["in_dir"],
+                       "-out_dir", paths["out_dir"], "-ckpt", paths["ckpt"],
+                       "-normal_ckpt", paths["normal_ckpt"], "-loop_smpl",
+                       "10", "-loop_cloth", "0", "-no_remesh",
+                       "-allow_random_hps", "-img_size", str(FIT_SIZE),
+                       "-mcube_res", str(FIT_RES), "-num_devices", "2"])
+    print(f"[16] infer CLI with -num_devices 2: "
+          f"{[r['recon'] for r in recs]}", flush=True)
+    out = os.path.join(d, "dist_nccl_out")
+    dist.run_ranks(dist_rank, 2, (dist.free_port(), None,
+                                  [torch.device("cuda", r) for r in (0, 1)],
+                                  jobs[:1], out), timeout=300)
+    for r in (0, 1):
+        res = torch.load(f"{out}.{r}", weights_only=False)[0]
+        print(f"[16] icon rank {r} over {res['backend']}: losses "
+              f"{res['losses']}, s/step {res['step_s']}, all-reduce "
+              f"{res['reduce_ms']:.2f} ms", flush=True)
+
+
 def descendants(pid: int) -> list:
     """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
     parent id, followed down from ``pid``), zombies left out."""
@@ -2984,7 +3481,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[16] descendant processes left: {len(left)}", flush=True)
+    print(f"[17] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -3082,13 +3579,15 @@ def main() -> int:
         launched, render_errs = timed("15", phase_render_normal, dev, card,
                                       d)
         runs += launched
+        launched, dist_errs = timed("16", phase_dist, dev, card, d)
+        runs += launched
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run[entry["name"]] for run in runs)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
                                     (fit_errs, cli_errs, photo_errs,
                                      hps_errs, prior_errs, train_errs,
-                                     render_errs)))
+                                     render_errs, dist_errs)))
     if not no_process_left():
         return 3
 

@@ -35,8 +35,11 @@ Usage (on the card):
 The published ``-ckpt`` (``icon-filter.ckpt``, ``pifu.ckpt``,
 ``pamir.ckpt``) and ``-normal_ckpt`` (``normal.ckpt``) load by the
 reference's rules (lib/dataset/mesh_util.py:187-237, apps/train.py:
-201-218). What the port does not have yet raises, naming its ROADMAP item:
-checkpoint directories and ``-num_devices`` > 1 (A10).
+201-218); a checkpoint directory (the JAX package's orbax format, which
+ROADMAP "Leave these out" keeps out) raises. ``-num_devices`` n > 1
+point-shards the recon's queries over the first n cards (the engine's
+point buffers padded to n), as the JAX CLI does; too few cards raise the
+JAX CLI's error.
 """
 
 from __future__ import annotations
@@ -76,8 +79,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="working resolution for crops/renders/refinement")
     ap.add_argument("-export_video", action="store_true")
     ap.add_argument("-num_devices", type=int, default=1,
-                    help="point-shard the occupancy queries over n devices "
-                    "(not ported: 1 only)")
+                    help="point-shard the occupancy queries over an "
+                    "n-device mesh; 1 = one card")
     ap.add_argument("-no_remesh", action="store_true")
     ap.add_argument("-allow_random_hps", action="store_true",
                     help="proceed with a random-init HPS (smoke tests only; "
@@ -86,23 +89,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise for each option the port does not have yet, naming its ROADMAP
-    item (none is ignored), and for ``-export_video`` without cv2, before
-    any work."""
+    """Raise for a checkpoint directory (left out: ROADMAP "Leave these
+    out"), a missing checkpoint file and ``-export_video`` without cv2,
+    before any work."""
     for flag, path in (("-ckpt", args.ckpt),
                        ("-normal_ckpt", args.normal_ckpt)):
         if path and osp.isdir(path):
             raise NotImplementedError(
                 f"{flag} {path} is a checkpoint directory (the JAX "
-                "package's orbax format); the port loads the published "
-                "torch files, its own checkpoints are ROADMAP Queue A item "
-                "A10")
+                "package's orbax format), which the port leaves out "
+                "(ROADMAP \"Leave these out\"); it loads the published "
+                "torch files")
         if path and not osp.isfile(path):
             raise FileNotFoundError(f"{flag} {path} does not exist")
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "-num_devices > 1 (point-sharded recon) is ROADMAP Queue A item "
-            "A10")
     if args.export_video:
         try:
             import cv2  # noqa: F401
@@ -298,6 +297,15 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
     refuse_unported(args)
     fits = cfg.net.prior_type != "pifu"
     device = torch.device(device)
+    mesh = None
+    if args.num_devices > 1:
+        from icon_tpu_torch.parallel.mesh import (GROUP_NORM_WARNING,
+                                                  make_mesh)
+        mesh = make_mesh(args.num_devices, device)
+        print(f"[infer] point-sharding recon over {len(mesh)} devices",
+              flush=True)
+        if cfg.net.norm_mlp == "group":
+            print(f"[infer] {GROUP_NORM_WARNING}", flush=True)
     dataset = TestDataset(args.in_dir, hps_type=args.hps_type,
                           hps_ckpt=args.hps_ckpt, icon_size=args.img_size,
                           allow_random_hps=args.allow_random_hps,
@@ -341,8 +349,9 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
                 loop_smpl=args.loop_smpl, loop_cloth=args.loop_cloth,
                 patience=args.patience,
                 engine=ReconEngine(reconstruction_resolutions(
-                    args.mcube_res), device=device),
-                marcher=make_marcher())
+                    args.mcube_res), pad_multiple=len(mesh) if mesh else 1,
+                    device=device),
+                marcher=make_marcher(), mesh=mesh)
             lap("setup")
 
         override = osp.join(args.in_dir, f"{name}_smpl.npz")

@@ -15,10 +15,22 @@ slice) go to ``<ckpt_dir>/<name>/images`` every ``freq_show_train`` of an
 epoch. ``-test`` runs the benchmark evaluation (``eval/test_loop.py``) on
 the test split with the best or latest checkpoint.
 
-Every loader iterator the run opens is closed in a ``finally``, so no
-worker process outlives :func:`main`. One device: ``-dist`` and
-``num_devices`` > 1 are ROADMAP Queue A item A10 (``parallel/{dist,mesh}.py``
-as DDP) and raise.
+Data parallel (the reference's Lightning DDP with sync_batchnorm,
+apps/train.py:117-121): ``num_devices`` > 1 starts
+``make_mesh_for_batch``'s count of ranks on this host, one a card (CPU
+ranks when the caller asks for the CPU), in spawned processes joined in a
+``finally``; ``-dist`` joins the group the environment describes
+(``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``; see
+``parallel/dist.py``), and without one runs a single process, as the JAX
+trainer does. Each rank loads its contiguous slice of every global batch,
+BatchNorm takes the global moments and the gradients are averaged over
+the ranks each step; rank 0 alone writes checkpoints, logs, panels and the
+config snapshot, and ``-resume`` reads after a barrier, so every rank
+restores the same step. ``-test`` point-shards the recon over
+``num_devices`` devices instead (``eval/test_loop.py``).
+
+Every loader iterator a rank opens is closed in a ``finally``, so no
+worker process outlives :func:`main`.
 """
 
 from __future__ import annotations
@@ -31,6 +43,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from icon_tpu_torch.parallel import dist
+
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="icon_tpu_torch.apps.train")
@@ -41,7 +55,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max_steps", type=int, default=0,
                     help="stop after this many steps in all")
     ap.add_argument("--max_eval_items", type=int, default=0)
-    ap.add_argument("-dist", "--distributed", action="store_true")
+    ap.add_argument("-dist", "--distributed", action="store_true",
+                    help="multi-process: join the group of "
+                    "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID")
     ap.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return ap.parse_args(argv)
 
@@ -109,7 +125,8 @@ def run_test(cfg, args, device) -> dict:
     records: List[dict] = []
     table = run_evaluation(cfg, dataset, model,
                            max_items=args.max_eval_items, device=device,
-                           records=records)
+                           records=records,
+                           num_devices=cfg.num_devices or 1)
     return {"table": table, "items": records, "ckpt": path}
 
 
@@ -131,20 +148,23 @@ def run_train(cfg, args, device) -> dict:
         raise SystemExit(
             f"no training data found under {cfg.dataset.root!r} — see "
             "docs/dataset.md of the reference for the expected layout")
+    main_rank = dist.is_main_process()
+    shard = {"process_index": dist.rank(), "process_count": dist.world()}
     loader = make_loader(dataset, batch_size=cfg.batch_size,
-                         num_workers=cfg.num_threads)
+                         num_workers=cfg.num_threads, **shard)
     val_dataset = PIFuDataset(cfg, split="val")
     if len(val_dataset) == 0:
         val_dataset = PIFuDataset(cfg, split="test")
     val_loader = make_loader(val_dataset, batch_size=cfg.batch_size,
                              shuffle=False, num_workers=cfg.num_threads,
-                             drop_last=False, pad_last=True) \
+                             drop_last=False, pad_last=True, **shard) \
         if len(val_dataset) else None
     steps_per_epoch = len(loader)
 
     model = build_model(cfg, dataset, device)
     opt = make_optimizer(model, cfg, steps_per_epoch)
     ckpt_dir = osp.join(cfg.ckpt_dir, cfg.name)
+    dist.barrier()                # -resume: every rank reads one index
     mgr = CheckpointManager(ckpt_dir, top_k=3)
     step = 0
     if args.resume and mgr.latest and osp.exists(mgr.latest):
@@ -158,8 +178,8 @@ def run_train(cfg, args, device) -> dict:
                 model.load_state_dict(partial_warm_start(
                     model.state_dict(), load_checkpoint(path)["state_dict"],
                     rename))
-    logger = MetricLogger(ckpt_dir)
-    if not osp.exists(osp.join(ckpt_dir, "cfg.yaml")):
+    logger = MetricLogger(ckpt_dir, enabled=main_rank)
+    if main_rank and not osp.exists(osp.join(ckpt_dir, "cfg.yaml")):
         save_config(cfg, osp.join(ckpt_dir, "cfg.yaml"))
     show_every = max(int(cfg.freq_show_train * steps_per_epoch), 1)
 
@@ -183,7 +203,7 @@ def run_train(cfg, args, device) -> dict:
                 logger.log(step, m)
                 if step % 20 == 0:
                     print(f"epoch {epoch} step {step}: {m}", flush=True)
-                if step % show_every == 0:
+                if main_rank and step % show_every == 0:
                     try:
                         record["panels"].append(logger.log_images(
                             step, prediction_panels(
@@ -204,8 +224,10 @@ def run_train(cfg, args, device) -> dict:
                 logger.log(step, {"val_loss": val_loss})
                 print(f"epoch {epoch}: val_loss={val_loss:.4f}", flush=True)
             record["val_loss"].append(val_loss)
-            record["ckpts"].append(mgr.save(
-                step, model, opt, val_loss if np.isfinite(val_loss) else 1e9))
+            if main_rank:
+                record["ckpts"].append(mgr.save(
+                    step, model, opt,
+                    val_loss if np.isfinite(val_loss) else 1e9))
             if args.max_steps and step >= args.max_steps:
                 break
     finally:
@@ -213,6 +235,7 @@ def run_train(cfg, args, device) -> dict:
             close_iter(it)
         logger.close()
     record["steps"] = step
+    record["ranks"] = dist.world()
     record["seconds"] = time.perf_counter() - t0
     record["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 \
         if device.type == "cuda" else None
@@ -220,26 +243,47 @@ def run_train(cfg, args, device) -> dict:
     return record
 
 
-def main(argv: Optional[List[str]] = None, device="cuda") -> dict:
-    """Run the CLI on ``device`` (the card unless the caller asks for the
-    CPU); returns the run's record (training: the step count, the loss per
-    step, each step's seconds and the wait for its batch, the validation
-    losses, the checkpoints and panels written; ``-test``: the benchmark
-    table and each item's metrics)."""
+def _run_rank(argv: List[str], device) -> dict:
+    """One rank of a ``num_devices`` run (``dist.run_on_mesh``)."""
     from icon_tpu_torch.config import load_config
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "-dist (multi-process training) is ROADMAP Queue A item A10, "
-            "parallel/{dist,mesh}.py as DDP")
+    return run_train(load_config(args.config_file,
+                                 overrides=args.opts or None), args, device)
+
+
+def main(argv: Optional[List[str]] = None, device="cuda",
+         timeout: Optional[float] = None) -> dict:
+    """Run the CLI on ``device`` (the card unless the caller asks for the
+    CPU); returns the run's record, rank 0's when several ranks train
+    (training: the step count, the loss per step, each step's seconds and
+    the wait for its batch, the validation losses, the checkpoints and
+    panels written, the rank count; ``-test``: the benchmark table and each
+    item's metrics). ``timeout``: the seconds the spawned ranks of a
+    ``num_devices`` run may take before they are killed (None: no limit)."""
+    import sys
+    from icon_tpu_torch.config import load_config
+    from icon_tpu_torch.parallel.mesh import make_mesh_for_batch
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
     cfg = load_config(args.config_file, overrides=args.opts or None)
-    if (cfg.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"num_devices {cfg.num_devices} > 1 is ROADMAP Queue A item "
-            "A10, parallel/{dist,mesh}.py as DDP")
     device = torch.device(device)
+    if args.distributed and dist.initialize_distributed(device=device):
+        device = dist.rank_device(device, dist.rank())
+        print(f"[dist] rank {dist.rank()}/{dist.world()} on {device}, "
+              f"backend {torch.distributed.get_backend()}", flush=True)
+        try:
+            return (run_test if args.test_mode else run_train)(cfg, args,
+                                                               device)
+        finally:
+            dist.shutdown()
     if args.test_mode:
         return run_test(cfg, args, device)
+    if (cfg.num_devices or 1) > 1:
+        mesh = make_mesh_for_batch(cfg.batch_size, cfg.num_devices, device)
+        if len(mesh) > 1:
+            print(f"[train] {len(mesh)} ranks on {mesh}", flush=True)
+            return dist.run_on_mesh(_run_rank, mesh, (argv,),
+                                    timeout=timeout)
     return run_train(cfg, args, device)
 
 

@@ -17,9 +17,15 @@ reference's no-grad VGG perceptual value when VGG19 weights exist
 reference's. A log line every 20 steps; predicted-normal panels go to
 ``<ckpt_dir>/<name>/images`` every ``freq_show_train`` of an epoch.
 
-Every loader iterator the run opens is closed in a ``finally``, so no
-worker process outlives :func:`main`. One device: ``num_devices`` > 1 is
-ROADMAP Queue A item A10 (``parallel/{dist,mesh}.py`` as DDP) and raises.
+``num_devices`` > 1 trains data parallel as ``apps/train.py`` does:
+``make_mesh_for_batch``'s count of spawned ranks on this host, one a card
+(CPU ranks when the caller asks for the CPU), each on its slice of every
+global batch, the gradients averaged over the ranks each step (the
+NormalNet's instance norm needs no global moments); rank 0 alone writes
+checkpoints, logs and panels, and ``-resume`` reads after a barrier.
+
+Every loader iterator a rank opens is closed in a ``finally``, so no
+worker process outlives :func:`main`.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from icon_tpu_torch.parallel import dist
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -83,14 +91,16 @@ def run_train(cfg, args, device) -> dict:
     dataset = NormalDataset(cfg, split="train")
     if len(dataset) == 0:
         raise SystemExit(f"no training data under {cfg.dataset.root!r}")
+    main_rank = dist.is_main_process()
+    shard = {"process_index": dist.rank(), "process_count": dist.world()}
     loader = make_loader(dataset, batch_size=cfg.batch_size,
-                         num_workers=cfg.num_threads)
+                         num_workers=cfg.num_threads, **shard)
     val_dataset = NormalDataset(cfg, split="val")
     if len(val_dataset) == 0:
         val_dataset = NormalDataset(cfg, split="test")
     val_loader = make_loader(val_dataset, batch_size=cfg.batch_size,
                              shuffle=False, num_workers=cfg.num_threads,
-                             drop_last=False, pad_last=True) \
+                             drop_last=False, pad_last=True, **shard) \
         if len(val_dataset) else None
     steps_per_epoch = len(loader)
 
@@ -102,14 +112,15 @@ def run_train(cfg, args, device) -> dict:
               flush=True)
     opt = make_normal_optimizer(net, cfg, steps_per_epoch)
     ckpt_dir = osp.join(cfg.ckpt_dir, cfg.name)
+    dist.barrier()                # -resume: every rank reads one index
     mgr = CheckpointManager(ckpt_dir, top_k=3)
     step = 0
     if args.resume and mgr.latest and osp.exists(mgr.latest):
         step = restore(net, opt, mgr.latest)
         print(f"[train-normal] resumed step {step} from {mgr.latest}",
               flush=True)
-    logger = MetricLogger(ckpt_dir, "normal")
-    if not osp.exists(osp.join(ckpt_dir, "cfg.yaml")):
+    logger = MetricLogger(ckpt_dir, "normal", enabled=main_rank)
+    if main_rank and not osp.exists(osp.join(ckpt_dir, "cfg.yaml")):
         save_config(cfg, osp.join(ckpt_dir, "cfg.yaml"))
     show_every = max(int(cfg.freq_show_train * steps_per_epoch), 1)
 
@@ -135,7 +146,7 @@ def run_train(cfg, args, device) -> dict:
                 if step % 20 == 0:
                     logger.log(step, m)
                     print(f"epoch {epoch} step {step}: {m}", flush=True)
-                if step % show_every == 0:
+                if main_rank and step % show_every == 0:
                     record["panels"].append(logger.log_images(
                         step, prediction_panels(net, batch),
                         prefix="normal"))
@@ -154,8 +165,10 @@ def run_train(cfg, args, device) -> dict:
                 logger.log(step, {"val_loss": val_loss})
                 print(f"epoch {epoch}: val_loss={val_loss:.4f}", flush=True)
             record["val_loss"].append(val_loss)
-            record["ckpts"].append(mgr.save(
-                step, net, opt, val_loss if np.isfinite(val_loss) else 1e9))
+            if main_rank:
+                record["ckpts"].append(mgr.save(
+                    step, net, opt,
+                    val_loss if np.isfinite(val_loss) else 1e9))
             if args.max_steps and step >= args.max_steps:
                 break
     finally:
@@ -163,6 +176,7 @@ def run_train(cfg, args, device) -> dict:
             close_iter(it)
         logger.close()
     record["steps"] = step
+    record["ranks"] = dist.world()
     record["seconds"] = time.perf_counter() - t0
     record["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30 \
         if device.type == "cuda" else None
@@ -171,20 +185,37 @@ def run_train(cfg, args, device) -> dict:
     return record
 
 
-def main(argv: Optional[List[str]] = None, device="cuda") -> dict:
-    """Run the CLI on ``device`` (the card unless the caller asks for the
-    CPU); returns the run's record: the step count, the loss of each step,
-    each step's seconds and the wait for its batch, the validation losses,
-    whether they hold the VGG term, the checkpoints and the panels
-    written."""
+def _run_rank(argv: List[str], device) -> dict:
+    """One rank of a ``num_devices`` run (``dist.run_on_mesh``)."""
     from icon_tpu_torch.config import load_config
     args = parse_args(argv)
+    return run_train(load_config(args.config_file,
+                                 overrides=args.opts or None), args, device)
+
+
+def main(argv: Optional[List[str]] = None, device="cuda",
+         timeout: Optional[float] = None) -> dict:
+    """Run the CLI on ``device`` (the card unless the caller asks for the
+    CPU); returns the run's record, rank 0's when several ranks train: the
+    step count, the loss of each step, each step's seconds and the wait
+    for its batch, the validation losses, whether they hold the VGG term,
+    the checkpoints and the panels written, the rank count. ``timeout``:
+    the seconds the spawned ranks of a ``num_devices`` run may take before
+    they are killed (None: no limit)."""
+    import sys
+    from icon_tpu_torch.config import load_config
+    from icon_tpu_torch.parallel.mesh import make_mesh_for_batch
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
     cfg = load_config(args.config_file, overrides=args.opts or None)
+    device = torch.device(device)
     if (cfg.num_devices or 1) > 1:
-        raise NotImplementedError(
-            f"num_devices {cfg.num_devices} > 1 is ROADMAP Queue A item "
-            "A10, parallel/{dist,mesh}.py as DDP")
-    return run_train(cfg, args, torch.device(device))
+        mesh = make_mesh_for_batch(cfg.batch_size, cfg.num_devices, device)
+        if len(mesh) > 1:
+            print(f"[train-normal] {len(mesh)} ranks on {mesh}", flush=True)
+            return dist.run_on_mesh(_run_rank, mesh, (argv,),
+                                    timeout=timeout)
+    return run_train(cfg, args, device)
 
 
 if __name__ == "__main__":

@@ -49,7 +49,9 @@
 // w_i = e_i / area, its vertices; area is a constant where it was clamped)
 // by shared atomicAdd per pixel; the silhouette path ((1 - sil) sigmoid(z)
 // through z = m |m| / (scale^2 sigma), m = min(e_i sgn / l_i), ties split
-// equally at each of the two nested minima as torch.minimum does) summed
+// equally at each of the two nested minima as torch.minimum does; the
+// distances d_i are rounded as the plain version rounds them, (e_i / l_i)
+// sgn, so the minimum and its ties are the plain version's) summed
 // over a warp's 128 pixels before one shared atomicAdd per slot and
 // coordinate. The block then adds each slot's sums to the face's vertices
 // in [V, .] with one global atomicAdd per (slot, coordinate): no [F, 3, .]
@@ -59,11 +61,14 @@
 // area, the barycentrics, the depth and the attribute interpolation are
 // written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn in the plain
 // version's order, so no multiply-add contraction moves a pixel's inside
-// test or depth tie away from the plain PyTorch version. The silhouette
-// multiplies by the precomputed sign / length and folds 1 / scale^2 and
-// 1 / sigma into one constant (a few ulps from the plain version's
-// divisions); log(1 + exp(-|z|)) runs on the SFU's exp and reciprocal with
-// an atanh series (softplus_tail), a few ulps relative.
+// test or depth tie away from the plain PyTorch version. The forward's
+// silhouette multiplies by the precomputed sign / length and folds
+// 1 / scale^2 and 1 / sigma into one constant (a few ulps from the plain
+// version's divisions); the backward divides by the length as the plain
+// version does, since a minimum decided a few ulps apart sends a pair's
+// whole gradient down another edge; log(1 + exp(-|z|)) runs on the SFU's
+// exp and reciprocal with an atanh series (softplus_tail), a few ulps
+// relative.
 //
 // What bounds it on the card: FP32 work, about 30 operations per
 // (pixel, slot) pair forward and 60 backward, over the busy tiles' pixels
@@ -491,7 +496,8 @@ struct BSlot {
   float x[3], y[3];
   float ex[3], ey[3];                 // edge j runs from (j + 1) % 3 to (j + 2) % 3
   float z[3], il2[3], s[3];           // 1 / l^2, s = sgn / l
-  float area;
+  float l[3];                         // edge lengths, as the plain version's
+  float area, sgn;
   int clamped;
   int face;
 };
@@ -562,10 +568,11 @@ raster_bwd_kernel(const int* __restrict__ face_list,
     q.s[0] = Sg.x; q.s[1] = Sg.y; q.s[2] = Sg.z;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const float l = edge_len(q.ex[i], q.ey[i]);
-      q.il2[i] = 1.f / (l * l);
+      q.l[i] = edge_len(q.ex[i], q.ey[i]);
+      q.il2[i] = 1.f / (q.l[i] * q.l[i]);
     }
     q.area = B.z;
+    q.sgn = B.w;
     q.clamped = Fv.w != 0.f;
     q.face = f;
     sl[j] = q;
@@ -652,12 +659,15 @@ raster_bwd_kernel(const int* __restrict__ face_list,
       for (int k = 0; k < kPix; ++k) {
         if (gs[k] != 0.f) {
           const float py = p.py[k];
-          const float d0 = __fmul_rn(
-              __fsub_rn(__fmul_rn(q.ex[0], __fsub_rn(py, y1)), q0), q.s[0]);
-          const float d1 = __fmul_rn(
-              __fsub_rn(__fmul_rn(q.ex[1], __fsub_rn(py, y2)), q1), q.s[1]);
-          const float d2 = __fmul_rn(
-              __fsub_rn(__fmul_rn(q.ex[2], __fsub_rn(py, y0)), q2), q.s[2]);
+          // d_i = (e_i / l_i) sgn, rounded as the plain version rounds it:
+          // which edge is the minimum, and where two tie, decides the
+          // gradient's path, so it must be decided on the same floats
+          const float d0 = __fmul_rn(__fdiv_rn(__fsub_rn(
+              __fmul_rn(q.ex[0], __fsub_rn(py, y1)), q0), q.l[0]), q.sgn);
+          const float d1 = __fmul_rn(__fdiv_rn(__fsub_rn(
+              __fmul_rn(q.ex[1], __fsub_rn(py, y2)), q1), q.l[1]), q.sgn);
+          const float d2 = __fmul_rn(__fdiv_rn(__fsub_rn(
+              __fmul_rn(q.ex[2], __fsub_rn(py, y0)), q2), q.l[2]), q.sgn);
           const float m1 = fminf(d0, d1);
           const float mn = fminf(m1, d2);
           const float z = __fmul_rn(__fmul_rn(mn, fabsf(mn)), kz);

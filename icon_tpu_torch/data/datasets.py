@@ -501,13 +501,26 @@ class EpochSampler:
     """The JAX loader's batches: indices shuffled by
     ``RandomState(seed + epoch)``, cut into whole batches (``drop_last``),
     or with ``pad_last`` the ragged last batch wrapped around to full
-    size."""
+    size. With ``process_count`` > 1 each process takes its contiguous
+    ``batch_size / process_count`` slice of every global batch
+    (``process_index``-th), so the ranks' items tile the global batch. A
+    ragged final batch cannot split evenly and raises (the JAX loader keeps
+    it global on every process, which steps every rank on the same items:
+    ROADMAP Queue C, "Ragged final batch")."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int,
-                 drop_last: bool, pad_last: bool):
+                 drop_last: bool, pad_last: bool, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside "
+                             f"[0, {process_count})")
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
         self.n, self.batch_size = n, batch_size
         self.shuffle, self.seed = shuffle, seed
         self.drop_last, self.pad_last = drop_last, pad_last
+        self.process_index, self.process_count = process_index, process_count
         self.epoch = 0
 
     def batches(self) -> List[List[int]]:
@@ -523,6 +536,16 @@ class EpochSampler:
             short = len(batches[-1])
             fill = order[np.arange(self.batch_size - short) % self.n]
             batches[-1] = np.concatenate([batches[-1], fill])
+        if self.process_count > 1:
+            if batches and len(batches[-1]) != self.batch_size:
+                raise ValueError(
+                    f"the final batch holds {len(batches[-1])} of "
+                    f"{self.batch_size} items and cannot split over "
+                    f"{self.process_count} processes: pass drop_last or "
+                    "pad_last")
+            lb = self.batch_size // self.process_count
+            lo = self.process_index * lb
+            batches = [b[lo:lo + lb] for b in batches]
         return [[int(i) for i in b] for b in batches]
 
 
@@ -553,7 +576,8 @@ class Loader:
     def set_epoch(self, epoch: int) -> None:
         """Reseed the shuffle and the dataset's sampling."""
         self.sampler.epoch = int(epoch)
-        self.dataset.set_epoch(epoch)
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __iter__(self) -> "_Batches":
         return _Batches(self)
@@ -589,11 +613,14 @@ class _Batches:
 
 def make_loader(dataset: torch.utils.data.Dataset, batch_size: int = 4,
                 shuffle: bool = True, num_workers: int = 4, seed: int = 0,
-                drop_last: bool = True, pad_last: bool = False) -> Loader:
+                drop_last: bool = True, pad_last: bool = False,
+                process_index: int = 0, process_count: int = 1) -> Loader:
     """The JAX ``DataLoader``'s batches, made by ``num_workers`` worker
-    processes (0: in this process)."""
+    processes (0: in this process); with ``process_count`` > 1 this
+    process's slice of each (see :class:`EpochSampler`)."""
     return Loader(dataset, EpochSampler(len(dataset), batch_size, shuffle,
-                                        seed, drop_last, pad_last),
+                                        seed, drop_last, pad_last,
+                                        process_index, process_count),
                   num_workers)
 
 

@@ -6,9 +6,10 @@ engine in faster mode (its queries signed by ray bins built from the view's
 body, since the dataset's known signs belong to the training samples),
 march the lattice, then compare with the scan by chamfer and P2S (x100 over
 1,000 surface samples) and normal consistency over 4 orthographic renders,
-and average per dataset. Both meshes are compared in calib (NDC) space. One
-device; point-sharded recon over several is ROADMAP Queue A item A10
-(``parallel/{dist,mesh}.py``).
+and average per dataset. Both meshes are compared in calib (NDC) space.
+With ``num_devices`` > 1 the recon's queries split along the point axis
+over a mesh of devices (``parallel.mesh.shard_query``; the engine's point
+buffers padded to the mesh's size), as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ from icon_tpu_torch.eval.evaluator import chamfer_p2s, normal_consistency
 
 @torch.no_grad()
 def recon_one(model: torch.nn.Module, item: Dict[str, np.ndarray], engine,
-              marcher=None, device="cuda"):
+              marcher=None, device="cuda", mesh=None):
     """``netG.filter`` + engine + marching for one dataset item
     (ICON.test_single, apps/ICON.py:729-761): (verts, faces) in the
-    engine's [-1, 1] world, and the engine's stats."""
+    engine's [-1, 1] world, and the engine's stats. ``mesh``: a device
+    mesh the queries shard over (the engine built with ``pad_multiple =
+    len(mesh)``)."""
     from icon_tpu_torch.ops.sdf_fast import build_ray_bins
+    from icon_tpu_torch.parallel.mesh import Replicas, shard_query
     from icon_tpu_torch.recon.export import extract_mesh
 
     model.eval()
@@ -52,11 +56,15 @@ def recon_one(model: torch.nn.Module, item: Dict[str, np.ndarray], engine,
     if model.prior_type == "pamir":
         smpl["voxel_feats"] = model.volume_features(
             smpl["voxel_verts"], smpl["voxel_codes"])
+    model_on = Replicas(model)
 
-    def query_fn(pts):
-        return model.query(features, pts, calib, smpl or None)[-1]
+    def query_fn(pts, features, calib, smpl):
+        return model_on(pts.device).query(features, pts, calib,
+                                          smpl or None)[-1]
 
-    occ, stats = engine(query_fn)
+    if mesh is not None:
+        query_fn = shard_query(query_fn, mesh)
+    occ, stats = engine(query_fn, query_args=(features, calib, smpl))
     verts, faces = extract_mesh(occ, marcher=marcher)
     return verts, faces, stats
 
@@ -70,21 +78,33 @@ def world_to_ndc(verts: np.ndarray, calib: np.ndarray) -> np.ndarray:
 def run_evaluation(cfg, dataset, model: torch.nn.Module,
                    mcube_res: Optional[int] = None, num_samples: int = 1000,
                    nc_size: int = 512, max_items: int = 0, device="cuda",
-                   records: Optional[list] = None
+                   records: Optional[list] = None, num_devices: int = 1
                    ) -> Dict[str, Dict[str, float]]:
     """Evaluate every test view (or the first ``max_items``); returns
     {dataset: {metric: mean}} and prints the benchmark table (reference
     test_epoch_end, ICON.py:647-673). ``records``, when given, receives one
     dict per item: its metrics, the level counts, its seconds and the two
-    meshes that normal consistency renders (the render's world frame)."""
+    meshes that normal consistency renders (the render's world frame).
+    ``num_devices`` > 1 point-shards the recon's queries over that many
+    devices of ``device``'s kind (CPU shards on the CPU)."""
     from icon_tpu_torch.data.datasets import projection_np
     from icon_tpu_torch.recon.engine import (ReconEngine,
                                              reconstruction_resolutions)
     from icon_tpu_torch.recon.export import make_marcher
+    from icon_tpu_torch.parallel.mesh import make_mesh
     from icon_tpu_torch.utils.io import clean_mesh
 
+    mesh = None
+    if num_devices > 1:
+        mesh = make_mesh(num_devices, device)
+        print(f"[eval] point-sharding recon over {len(mesh)} devices")
+        if cfg.net.norm_mlp == "group":
+            from icon_tpu_torch.parallel.mesh import GROUP_NORM_WARNING
+            print(f"[eval] {GROUP_NORM_WARNING}")
     res = mcube_res or cfg.mcube_res
-    engine = ReconEngine(reconstruction_resolutions(res), device=device)
+    engine = ReconEngine(reconstruction_resolutions(res),
+                         pad_multiple=len(mesh) if mesh else 1,
+                         device=device)
     marcher = make_marcher()
     accum: Dict[str, Dict[str, List[float]]] = {}
     n = min(len(dataset), max_items) if max_items else len(dataset)
@@ -92,7 +112,7 @@ def run_evaluation(cfg, dataset, model: torch.nn.Module,
         t0 = time.perf_counter()
         item = dataset[i]
         verts_pr, faces_pr, stats = recon_one(model, item, engine, marcher,
-                                              device)
+                                              device, mesh)
         if cfg.clean_mesh and len(verts_pr):
             verts_pr, faces_pr = clean_mesh(verts_pr, faces_pr)
         if not len(verts_pr):

@@ -153,7 +153,7 @@ def raster_plain(tri_xy: torch.Tensor, tri_z: torch.Tensor,
     counts = counts.tolist()          # one host read: the chunk widths
 
     # pixel centres within a tile
-    off = torch.arange(tile, dtype=torch.float32, device=dev) + 0.5
+    off = torch.arange(tile, dtype=tri_xy.dtype, device=dev) + 0.5
     py = off[:, None].expand(tile, tile)
     px = off[None, :].expand(tile, tile)
     n_pix = tile * tile
@@ -166,8 +166,8 @@ def raster_plain(tri_xy: torch.Tensor, tri_z: torch.Tensor,
         zz = tri_z[tf]                                    # [nt, k, 3]
         aa = tri_attr[tf]                                 # [nt, k, 3, C]
 
-        ty = (tile_ids // tiles_x).to(torch.float32) * tile
-        tx = (tile_ids % tiles_x).to(torch.float32) * tile
+        ty = (tile_ids // tiles_x).to(tri_xy.dtype) * tile
+        tx = (tile_ids % tiles_x).to(tri_xy.dtype) * tile
         pxx = px[None] + tx[:, None, None]                # [nt, tile, tile]
         pyy = py[None] + ty[:, None, None]
         p = torch.stack([pxx, pyy], -1).reshape(-1, n_pix, 1, 2)
@@ -202,7 +202,7 @@ def raster_plain(tri_xy: torch.Tensor, tri_z: torch.Tensor,
         zsel = torch.where(inside, zpix, torch.full_like(zpix, BIG))
         best = torch.argmin(zsel, dim=2, keepdim=True)    # [nt, P, 1]
         bdepth = torch.gather(zsel, 2, best)[..., 0]
-        bmask = (bdepth < BIG).to(torch.float32)
+        bmask = (bdepth < BIG).to(bdepth.dtype)
 
         def take(arr):
             return torch.gather(arr, 2, best)[..., 0]

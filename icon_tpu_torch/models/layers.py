@@ -11,27 +11,45 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from icon_tpu_torch.parallel import dist
+
 
 class _FlaxRunningStats:
-    """Training-mode BatchNorm whose running statistics follow flax's
-    ``BatchNorm``: the batch's *biased* variance enters ``running_var``
-    (torch's own update takes the unbiased one). The normalization itself,
-    by the batch's mean and biased variance, and eval mode are torch's.
-    A torch ``momentum`` m is flax's ``1 - m``."""
+    """Training-mode BatchNorm as flax's ``BatchNorm`` computes it: mean =
+    E[x], the *biased* variance E[x^2] - E[x]^2 (flax's fast variance),
+    both for the normalization and for the running statistics (torch's own
+    update takes the unbiased variance). Eval mode is torch's. A torch
+    ``momentum`` m is flax's ``1 - m``.
+
+    The moments are the global batch's: each rank's per-channel sums of x
+    and x^2 and its count go through one differentiable all-reduce
+    (``parallel/dist.py``; the identity without a group of several), as
+    the JAX trainer's BatchNorm takes them on a sharded batch, so every
+    rank normalizes and updates by the same statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
+        c = x.shape[1]
         dims = [0] + list(range(2, x.dim()))
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(x.mean(dims), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(
-                x.var(dims, unbiased=False), alpha=m)
-            self.num_batches_tracked += 1
+        count = x.new_full((1,), x.numel() // c)
+        sums = dist.all_reduce_sum(torch.cat([x.sum(dims),
+                                              (x * x).sum(dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        self._update(mean.detach(), var.detach())
         return y
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked += 1
 
 
 class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):

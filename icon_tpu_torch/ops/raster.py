@@ -73,7 +73,7 @@ def rasterize_plain(verts_ndc: torch.Tensor, faces: torch.Tensor,
                     tile: int = 32, K: int = 256, sigma: float = 1e-4,
                     tiles_per_step: int = 16) -> RasterOut:
     """:func:`rasterize` in plain PyTorch on any device (the kernels'
-    reference on the card)."""
+    reference on the card), in the inputs' float type."""
     return RasterOut(*raster_kernel.rasterize_plain(
         verts_ndc, faces, attrs, H, W, tile, K, sigma, tiles_per_step))
 

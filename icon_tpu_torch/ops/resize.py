@@ -3,7 +3,9 @@
 
 The JAX package writes these as separable interpolation matrices because
 ``jax.image.resize`` has no align_corners mode; here they are
-``F.interpolate`` itself, in PyTorch's channel-first layout.
+``F.interpolate`` itself, in PyTorch's channel-first layout, but for the
+recon engine's 2x trilinear upsample, which follows the JAX package's
+rounding.
 """
 
 from __future__ import annotations
@@ -34,8 +36,26 @@ def resize3d_trilinear_align_corners(x: torch.Tensor,
                                      out_dhw: Sequence[int]) -> torch.Tensor:
     """Trilinear align_corners resize of ``[B, C, D, H, W]`` to ``out_dhw``.
 
-    On the engine's (r -> 2r - 1) ladder every weight is 0, 1/2 or 1, so a
-    0/1 indicator upsamples exactly (multiples of 1/8) whatever the order
-    of the sums."""
+    On the engine's (r -> 2r - 1) ladder every weight is 0, 1/2 or 1: there
+    the resize is separable midpoints in the JAX package's order (D, then H,
+    then W; each new sample ``0.5 a + 0.5 b`` rounded once), so its values
+    equal the JAX package's bit for bit (an interpolation of exactly 0.5
+    stays 0.5, which the recon engine's exact mode compares with its
+    balance). Other sizes take ``F.interpolate``."""
+    if all(o == 2 * n - 1 for o, n in zip(out_dhw, x.shape[2:])):
+        for dim in (2, 3, 4):
+            x = _midpoints(x, dim)
+        return x
     return F.interpolate(x, size=tuple(out_dhw), mode="trilinear",
                          align_corners=True)
+
+
+def _midpoints(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with ``0.5 x[i] + 0.5 x[i + 1]`` between neighbours along
+    ``dim`` (n -> 2n - 1)."""
+    n = x.shape[dim]
+    if n == 1:
+        return x
+    a, b = x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1)
+    pairs = torch.stack([a, 0.5 * a + 0.5 * b], dim + 1).flatten(dim, dim + 1)
+    return torch.cat([pairs, x.narrow(dim, n - 1, 1)], dim)

@@ -1,18 +1,29 @@
-"""Coarse-to-fine occupancy reconstruction engine, faster mode
+"""Coarse-to-fine occupancy reconstruction engine
 (``icon_tpu.recon.engine``; reference ``Seg3dLossless``,
-lib/common/seg3d_lossless.py:152-265).
+lib/common/seg3d_lossless.py:152-471).
 
 Resolutions 33 -> 65 -> 129 -> ... -> (mcube_res + 1): dense evaluation at
 the coarsest level, then per level a trilinear align_corners upsample of the
 occupancy and of the >0.5 indicator; boundary voxels are where the indicator
 lies strictly between 0 and 1, dilated by a box filter (9/7/3 by level),
 minus the voxels already evaluated. They are compacted into a fixed
-per-level point budget (first ``budget`` in linear order) and evaluated; the
-last level is interpolation only. The budget overflow is reported per level.
+per-level point budget (first ``budget`` in linear order) and evaluated. In
+faster mode the last level is interpolation only; ``faster=False``
+evaluates it too. The budget overflow is reported per level.
+
+Exact mode adds the reference's conflict resolution (seg3d_lossless.py:
+388-471) in ``conflict_rounds`` static rounds a level: where a fresh value
+and the interpolation it replaces lie on opposite sides of the balance, the
+clamped 3^3 neighbourhood not yet evaluated is evaluated too; the flips
+left in the last round's points are reported as the residual.
+
+``pad_multiple`` rounds every point buffer (budgets, the auto-budget
+ladder, level 0) up to a multiple of a mesh's size, so that
+``parallel.mesh.shard_query`` splits each level evenly. The counts stay
+0-d device tensors: nothing inside a level reads the device.
 
 The world box is b_min=(-1, 1, -1), b_max=(1, -1, 1) (y flipped), as in the
-reference's apps/ICON.py:78-90. Exact mode (conflict resolution) is ROADMAP
-Queue A item 4.
+reference's apps/ICON.py:78-90.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ from icon_tpu_torch.ops.voxelize import smooth_conv3d
 B_MIN = (-1.0, 1.0, -1.0)
 B_MAX = (1.0, -1.0, 1.0)
 BALANCE = 0.5           # the occupancy iso level
+# the 27 offsets (dz, dy, dx) of a voxel's 3^3 neighbourhood
+_NEIGHBOURS = torch.tensor([(dz, dy, dx) for dz in (-1, 0, 1)
+                            for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
 
 
 def reconstruction_resolutions(mcube_res: int) -> Tuple[int, ...]:
@@ -90,22 +104,33 @@ class ReconEngine:
 
     def __init__(self, resolutions: Sequence[int],
                  budgets: Optional[Sequence[int]] = None,
+                 faster: bool = True, exact: bool = False,
+                 conflict_rounds: int = 2, pad_multiple: int = 1,
                  auto_budget: bool = False,
                  auto_headroom: float = 1.5, device="cuda"):
-        """``auto_budget``: each frame sizes its per-level point buffers
-        from the previous frame's boundary count x ``auto_headroom``,
-        snapped to a geometric bucket ladder; the first frame and any frame
-        after an overflow use the caps (``budgets``). Grids and query
-        points live on ``device``: the card unless the caller asks for
-        the CPU."""
+        """``faster``: the last level is interpolation only. ``exact``:
+        conflict resolution in ``conflict_rounds`` rounds a level, every
+        level evaluated (it implies ``faster=False``). ``pad_multiple``:
+        every point buffer a multiple of it (a mesh's size for sharded
+        queries). ``auto_budget``: each frame sizes its per-level point
+        buffers from the previous frame's boundary count x
+        ``auto_headroom``, snapped to a geometric bucket ladder; the first
+        frame and any frame after an overflow use the caps (``budgets``).
+        Grids and query points live on ``device``: the card unless the
+        caller asks for the CPU."""
         self.device = torch.device(device)
         self.resolutions = tuple(resolutions)
         for r in self.resolutions:
             if r % 2 != 1:
                 raise ValueError(f"resolutions must be odd (align_corners), "
                                  f"got {self.resolutions}")
-        self.budgets = tuple(budgets) if budgets is not None \
+        budgets = tuple(budgets) if budgets is not None \
             else default_budgets(self.resolutions)
+        self.pad_multiple = m = max(pad_multiple, 1)
+        self.budgets = tuple(-(-b // m) * m for b in budgets)
+        self.faster = faster and not exact
+        self.exact = exact
+        self.conflict_rounds = conflict_rounds
         self.auto_budget = auto_budget
         self.auto_headroom = auto_headroom
         self._last_counts: Dict[int, torch.Tensor] = {}
@@ -134,7 +159,8 @@ class ReconEngine:
         b = 4096
         while b < want:
             b = -(-int(b * 1.25) // 4096) * 4096
-        b = min(b, cap)
+        m = self.pad_multiple        # a mesh of 3 or 6 does not divide 4096
+        b = min(-(-b // m) * m, cap)
         self._bucket_used[lv] = b
         return b
 
@@ -143,8 +169,12 @@ class ReconEngine:
         g = torch.linspace(0.0, 1.0, r0, device=device)
         zz, yy, xx = torch.meshgrid(g, g, g, indexing="ij")
         pts01 = torch.stack([xx, yy, zz], dim=-1).reshape(1, -1, 3)
+        n = pts01.shape[1]
+        pad = (-n) % self.pad_multiple
+        if pad:
+            pts01 = torch.cat([pts01, pts01.new_zeros((1, pad, 3))], dim=1)
         occ = query_fn(_grid_to_world(pts01), *query_args)
-        occ = occ.reshape(r0, r0, r0)
+        occ = occ[:, :n].reshape(r0, r0, r0)
         evaluated = torch.ones((r0, r0, r0), dtype=torch.bool, device=device)
         return occ, evaluated
 
@@ -169,19 +199,68 @@ class ReconEngine:
         boundary = boundary & ~ev
 
         idx, n_sel, n_total = _compact(boundary.reshape(-1), budget)
-        cz = idx // (r * r)
-        cy = (idx // r) % r
-        cx = idx % r
-        pts01 = torch.stack([cx, cy, cz], -1).to(torch.float32) / (r - 1)
-        vals = query_fn(_grid_to_world(pts01[None]), *query_args)[0, :, 0]
 
-        alive = torch.arange(budget, device=occ.device) < n_sel
-        safe_idx = torch.where(alive, idx, torch.full_like(idx, r ** 3))
-        occ = _set_dropped(occ_up.reshape(-1), safe_idx,
-                           vals.to(occ_up.dtype)).reshape(r, r, r)
-        evaluated = _set_dropped(ev.reshape(-1), safe_idx,
-                                 True).reshape(r, r, r)
-        return occ, evaluated, n_total
+        def eval_at(idx):
+            cz = idx // (r * r)
+            cy = (idx // r) % r
+            cx = idx % r
+            pts01 = torch.stack([cx, cy, cz], -1).to(torch.float32) / (r - 1)
+            vals = query_fn(_grid_to_world(pts01[None]), *query_args)
+            return vals[0, :, 0].to(occ_up.dtype)
+
+        def write(occ, evaluated, idx, n, vals):
+            alive = torch.arange(len(idx), device=idx.device) < n
+            safe = torch.where(alive, idx, torch.full_like(idx, r ** 3))
+            occ = _set_dropped(occ.reshape(-1), safe, vals).reshape(r, r, r)
+            evaluated = _set_dropped(evaluated.reshape(-1), safe,
+                                     True).reshape(r, r, r)
+            return occ, evaluated, alive
+
+        vals = eval_at(idx)
+        occ, evaluated, alive = write(occ_up, ev, idx, n_sel, vals)
+        conflicts = residual = None
+        if self.exact:
+            occ, evaluated, conflicts, residual = self._resolve_conflicts(
+                r, occ_up.reshape(-1), occ, evaluated, idx, vals, alive,
+                budget, eval_at, write)
+        return occ, evaluated, n_total, conflicts, residual
+
+    def _resolve_conflicts(self, r, interp_flat, occ, evaluated, idx, vals,
+                           alive, budget, eval_at, write):
+        """The reference's conflict resolution (seg3d_lossless.py:388-471)
+        in ``conflict_rounds`` rounds: a conflict is an evaluated point
+        whose value and the interpolation it replaced lie on opposite sides
+        of the balance; its clamped 3^3 neighbourhood, minus what is
+        evaluated, is compacted into ``cbudget`` points and evaluated. The
+        residual counts the conflicts among the last round's points, whose
+        neighbourhoods no round examined (0: converged)."""
+        m = self.pad_multiple
+        cbudget = -(-max(budget // 2, 1024) // m) * m
+        offsets = _NEIGHBOURS.to(idx.device)
+
+        def conflicting(idx, vals, alive):
+            interp = interp_flat[torch.where(alive, idx,
+                                             torch.zeros_like(idx))]
+            return alive & ((vals - BALANCE) * (interp - BALANCE) < 0)
+
+        n_conflicts = torch.zeros((), dtype=torch.int64, device=idx.device)
+        for _ in range(self.conflict_rounds):
+            conflict = conflicting(idx, vals, alive)
+            n_conflicts = n_conflicts + conflict.sum()
+            czyx = torch.stack([idx // (r * r), (idx // r) % r, idx % r], -1)
+            nb = torch.clamp(czyx[None] + offsets[:, None], 0, r - 1)
+            nidx = (nb[..., 0] * r + nb[..., 1]) * r + nb[..., 2]
+            nidx = torch.where(conflict[None], nidx,
+                               torch.full_like(nidx, r ** 3))
+            flags = torch.zeros(r ** 3 + 1, dtype=torch.bool,
+                                device=idx.device)
+            flags[nidx.reshape(-1)] = True
+            flags = flags[:-1] & ~evaluated.reshape(-1)
+            idx, n_sel, _ = _compact(flags, cbudget)
+            vals = eval_at(idx)
+            occ, evaluated, alive = write(occ, evaluated, idx, n_sel, vals)
+        residual = conflicting(idx, vals, alive).sum()
+        return occ, evaluated, n_conflicts, residual
 
     @torch.no_grad()
     def __call__(self, query_fn: Callable[..., torch.Tensor],
@@ -189,22 +268,26 @@ class ReconEngine:
         """Returns (occ [R, R, R] float32 in [z, y, x] layout, stats).
 
         ``stats``: ``levelN_points`` (boundary count, 0-d device tensor),
-        ``levelN_overflow`` and ``coarse_occ`` (the grid before the final
-        interpolation-only upsample)."""
+        ``levelN_overflow``, in exact mode ``levelN_conflicts`` and
+        ``levelN_residual``, and in faster mode ``coarse_occ`` (the grid
+        before the final interpolation-only upsample)."""
         res = self.resolutions
         stats: Dict[str, torch.Tensor] = {}
         occ, evaluated = self._level0(query_fn, query_args, self.device)
         for lv in range(1, len(res)):
-            if lv == len(res) - 1:
+            if lv == len(res) - 1 and self.faster:
                 stats["coarse_occ"] = occ
                 occ = self._upsample(occ, res[lv])
                 break
             budget = self._bucket(lv)
-            occ, evaluated, n_total = self._level_step(
+            occ, evaluated, n_total, conflicts, residual = self._level_step(
                 lv, occ, evaluated, query_fn, budget, query_args)
             if self.auto_budget:
                 self._last_counts[lv] = n_total   # read at the next frame
             stats[f"level{lv}_points"] = n_total
             stats[f"level{lv}_overflow"] = torch.clamp(n_total - budget,
                                                        min=0)
+            if self.exact:
+                stats[f"level{lv}_conflicts"] = conflicts
+                stats[f"level{lv}_residual"] = residual
         return occ, stats

@@ -28,7 +28,12 @@ reuses the NormalNet frame's pieces (:func:`body_bins`, :func:`icon_feats`,
 :func:`crossing_columns`). The demo CLI (``apps/infer.py``) runs it with the
 CLI's own engine and marcher.
 
-The frames run on the card unless the caller asks for the CPU.
+The frames run on the card unless the caller asks for the CPU. Each
+``build_*`` function takes an optional device ``mesh``
+(``parallel.mesh``): its engine
+then pads every point buffer to the mesh's size and its queries split
+along the point axis over the mesh (``shard_query``), each slice with the
+network, features and body on its own device.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ from icon_tpu_torch.models.smplx.body import BodyModel
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.raster import vertex_visibility
 from icon_tpu_torch.ops.remesh import remesh
+from icon_tpu_torch.parallel.mesh import (Mesh, Replicas, shard_query,
+                                          to_device)
 from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_crossing_columns_blocked,
                                          build_vertex_face_table)
@@ -256,21 +263,29 @@ class Frame:
     marcher: AutoMarcher
 
 
+def _sharded(query_fn: Callable, mesh: Optional[Mesh]) -> Callable:
+    """The engine's query: ``query_fn`` itself, or split over ``mesh``."""
+    return query_fn if mesh is None else shard_query(query_fn, mesh)
+
+
 def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                 batch: Dict[str, np.ndarray], res: int,
-                device="cuda") -> Frame:
+                device="cuda", mesh: Optional[Mesh] = None) -> Frame:
     """The serving frame for ``cfg`` with HGPIFuNet weights ``state``
     (without the NormalNet: the normals are given) on ``batch`` (numpy, NHWC images: ``normal_F``, ``normal_B``, ``calib``,
     ``smpl_verts`` [1,V,3], ``smpl_faces``, ``smpl_cmap``, ``smpl_vis``),
-    marching at ``res`` (256 -> levels 33, 65, 129, 257)."""
+    marching at ``res`` (256 -> levels 33, 65, 129, 257); the queries
+    point-sharded over ``mesh`` when given."""
     device = torch.device(device)
-    net = _load_net(cfg, state, device, normal_net=False)
+    net_on = Replicas(_load_net(cfg, state, device, normal_net=False))
 
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
-                         auto_headroom=1.3, device=device)
+                         auto_headroom=1.3,
+                         pad_multiple=len(mesh) if mesh else 1,
+                         device=device)
 
     verts_np = np.asarray(batch["smpl_verts"], np.float32)
     faces_np = np.asarray(batch["smpl_faces"])
@@ -293,22 +308,25 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     calib = dev(batch["calib"], torch.float32)
 
     def features():
-        return net.filter(in_t)
+        return net_on(device).filter(in_t)
 
     def net_occ(pts, cross_z, feats):
-        smpl = dict(smpl_feat, smpl_cross_z=cross_z)
-        return net.query(feats, pts, calib, smpl)[-1]
+        d = pts.device
+        smpl = dict(to_device(smpl_feat, d), smpl_cross_z=cross_z)
+        return net_on(d).query(feats, pts, calib.to(d), smpl)[-1]
 
     def query_fn(pts, cross_z, feats):
         return net_occ(pts, cross_z, feats) * 1e-6 + \
             clothed_human_occ(pts)[..., None]
+
+    engine_query = _sharded(query_fn, mesh)
 
     marcher = _marcher(res)
 
     @torch.no_grad()
     def compute():
         cross_z, _ = columns()
-        occ, stats = engine(query_fn, query_args=(cross_z, features()))
+        occ, stats = engine(engine_query, query_args=(cross_z, features()))
         mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
         return marcher.pack(mesh), mesh, stats
 
@@ -358,7 +376,8 @@ class NormalNetFrame:
 
 def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                           batch: Dict[str, np.ndarray], res: int,
-                          device="cuda") -> NormalNetFrame:
+                          device="cuda", mesh: Optional[Mesh] = None
+                          ) -> NormalNetFrame:
     """The NormalNet serving frame for ``cfg`` with HGPIFuNet weights
     ``state`` (NormalNet included) on ``batch`` (numpy: ``image`` [1,H,W,3]
     NHWC, ``calib``, ``smpl_verts`` [1,V,3] world, ``smpl_faces``),
@@ -366,15 +385,18 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     predicts the cloth normals, filters, runs the per-body prep (its host
     bins are built here, once per body), and reconstructs bench.py's
     variant field ``clip(preds * 1e-6 + clothed_human_occ + spurious, 0,
-    1)``."""
+    1)``; the queries point-sharded over ``mesh`` when given."""
     device = torch.device(device)
     net = _load_net(cfg, state, device, normal_net=True)
+    net_on = Replicas(net)
 
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     engine = ReconEngine(reconstruction_resolutions(res), auto_budget=True,
-                         auto_headroom=1.3, device=device)
+                         auto_headroom=1.3,
+                         pad_multiple=len(mesh) if mesh else 1,
+                         device=device)
     image = dev(batch["image"], torch.float32)
     size = image.shape[1]
     calib = dev(batch["calib"], torch.float32)
@@ -404,10 +426,13 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return crossing_columns(smpl, bins)
 
     def net_occ(pts, smpl, feats):
-        return net.query(feats, pts, calib, smpl)[-1]
+        return net_on(pts.device).query(feats, pts, calib.to(pts.device),
+                                        smpl)[-1]
 
     def query_fn(pts, smpl, feats):
         return variant_occ(net_occ(pts, smpl, feats), pts)
+
+    engine_query = _sharded(query_fn, mesh)
 
     marcher = _marcher(res)
 
@@ -419,7 +444,7 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         smpl = body()
         smpl["smpl_cross_z"], _ = columns(smpl)
         feats = features(*normals(t_f, t_b))
-        occ, stats = engine(query_fn, query_args=(smpl, feats))
+        occ, stats = engine(engine_query, query_args=(smpl, feats))
         mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
         return marcher.pack(mesh), mesh, stats
 
@@ -469,7 +494,8 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                     loop_smpl: int = 100, loop_cloth: int = 200,
                     patience: int = 5, field: Optional[Callable] = None,
                     engine: Optional[ReconEngine] = None,
-                    marcher: Optional[AutoMarcher] = None) -> FitFrame:
+                    marcher: Optional[AutoMarcher] = None,
+                    mesh: Optional[Mesh] = None) -> FitFrame:
     """The demo's fit frame for ``cfg`` with HGPIFuNet weights ``state``
     (NormalNet included) and the body model ``body`` (moved to
     ``device``), marching at ``res``, with the demo's loop lengths
@@ -486,7 +512,9 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     ``init`` gives it, with the NormalNet's normals from its renders
     (``hps_body_normals``). The engine defaults to ``auto_budget`` with
     headroom 1.3 and the marcher to one sized for ``res``; the demo CLI
-    passes its own (fixed budgets, ``export.make_marcher``). The prep
+    passes its own (fixed budgets, ``export.make_marcher``; with
+    ``-num_devices`` a ``mesh`` and an engine padded to its size, over
+    which the recon's queries point-shard). The prep
     builds each prior's body features: for icon the fitted body's
     (:func:`icon_feats`, with the SMPL-X cmap asset when it is installed for
     a body of this vertex count, as the demo does: :func:`asset_cmap`, read
@@ -502,7 +530,9 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     if engine is None:
         engine = ReconEngine(reconstruction_resolutions(res),
                              auto_budget=True, auto_headroom=1.3,
+                             pad_multiple=len(mesh) if mesh else 1,
                              device=device)
+    net_on = Replicas(net)
     if marcher is None:
         marcher = _marcher(res)
 
@@ -531,11 +561,13 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
             capture_every=capture_every)
 
     def net_occ(pts, smpl, feats, calib):
-        return net.query(feats, pts, calib[None], smpl)[-1]
+        return net_on(pts.device).query(feats, pts, calib[None], smpl)[-1]
 
     def query_fn(pts, smpl, feats, calib):
         preds = net_occ(pts, smpl, feats, calib)
         return preds if field is None else field(preds, pts)
+
+    engine_query = _sharded(query_fn, mesh)
 
     @torch.no_grad()
     def prep(image, smpl_fit: SmplFit, calib, scale: float = 1.0):
@@ -559,7 +591,7 @@ def build_fit_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     @torch.no_grad()
     def recon(image, smpl_fit: SmplFit, calib, scale: float = 1.0):
         smpl, feats = prep(image, smpl_fit, calib, scale)
-        occ, stats = engine(query_fn, query_args=(smpl, feats, calib))
+        occ, stats = engine(engine_query, query_args=(smpl, feats, calib))
         verts, faces = extract_mesh(occ, marcher=marcher,
                                     coarse_occ=stats["coarse_occ"])
         verts = verts * np.array([1.0, -1.0, 1.0], np.float32)  # world y up

@@ -13,6 +13,10 @@ NormalNet.py:101-122). The reference's VGG perceptual term is computed
 under ``no_grad``: it adds no gradient, only to the loss *value* that
 drives its validation checkpoint selection, so :func:`normal_eval_step`
 adds it when VGG19 weights are given.
+
+In a process group of several ranks the gradients are averaged over the
+ranks before the update and the metrics are the global batch's (the
+NormalNet's instance norm needs no global moments).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from icon_tpu_torch.config import Config
 from icon_tpu_torch.models.hgpifu import smooth_l1
 from icon_tpu_torch.models.normalnet import NormalNet
+from icon_tpu_torch.parallel import dist
 from icon_tpu_torch.training.train_step import Optimizer
 
 
@@ -52,9 +57,20 @@ def normal_train_step(net: NormalNet, opt: Optimizer,
     _, _, loss_f, loss_b = _losses(net, batch)
     loss = loss_f + loss_b
     loss.backward()
+    dist.all_reduce_mean_grads(net)
     opt.step()
-    return {"loss": loss.detach(), "loss_F": loss_f.detach(),
-            "loss_B": loss_b.detach()}
+    return _global({"loss": loss.detach(), "loss_F": loss_f.detach(),
+                    "loss_B": loss_b.detach()})
+
+
+def _global(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-rank means of equal slices -> the global batch's, in one
+    all-reduce (the metrics themselves without a group)."""
+    if dist.world() <= 1:
+        return metrics
+    mean = dist.all_reduce_sum(torch.stack(list(metrics.values()))) \
+        / dist.world()
+    return dict(zip(metrics, mean))
 
 
 @torch.no_grad()
@@ -72,4 +88,4 @@ def normal_eval_step(net: NormalNet, batch: Dict[str, torch.Tensor],
         loss_f = loss_f + vgg_perceptual_loss(vgg, nml_f, batch["normal_F"])
         loss_b = loss_b + vgg_perceptual_loss(vgg, nml_b, batch["normal_B"])
     metrics["loss"] = loss_f + loss_b
-    return metrics
+    return _global(metrics)

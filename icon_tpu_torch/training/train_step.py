@@ -19,6 +19,14 @@ update, so that both packages take the same step from the same state:
 
 Parameters without a gradient in a step are left alone, as torch's
 optimizers leave them.
+
+In a process group of several ranks (``parallel/dist.py``) each rank steps
+on its slice of the global batch: the gradients are averaged over the
+ranks in one all-reduce before the update (BatchNorm already took the
+global moments), so every rank takes the global batch's step, and the
+metrics are reduced over the ranks, so each rank reports the global
+batch's loss, accuracy and IoU, as the JAX step's ``jit`` over the global
+array does.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from icon_tpu_torch.config import Config
+from icon_tpu_torch.parallel import dist
 
 EPS = 1e-8
 RMS_DECAY = 0.9
@@ -137,38 +146,42 @@ def batch_to(batch: Dict, device) -> Dict:
 
 def train_step(model: torch.nn.Module, opt: Optimizer,
                batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a batch already on the model's device; the
-    metrics as 0-d device tensors (no host read)."""
+    """One optimizer step on a batch already on the model's device (a
+    rank's slice in a process group); the global batch's metrics as 0-d
+    device tensors (no host read)."""
     model.train()
     opt.zero_grad()
     pred, loss = model(batch)
     loss.backward()
+    dist.all_reduce_mean_grads(model)
     opt.step()
-    metrics = {"loss": loss.detach()}
-    metrics.update(_occ_metrics(pred.detach(), batch))
-    return metrics
+    return _metrics(loss.detach(), pred.detach(), batch)
 
 
-def _occ_metrics(pred: torch.Tensor, batch) -> Dict[str, torch.Tensor]:
-    """Occupancy accuracy and IoU at 0.5 (reference Evaluator.calc_acc,
-    lib/dataset/Evaluator.py:232-263)."""
+def _metrics(loss: torch.Tensor, pred: torch.Tensor,
+             batch) -> Dict[str, torch.Tensor]:
+    """The loss, and the occupancy accuracy and IoU at 0.5 (reference
+    Evaluator.calc_acc, lib/dataset/Evaluator.py:232-263), of the global
+    batch: the ranks' losses averaged and their counts summed in one
+    all-reduce."""
     if "label" not in batch:
-        return {}
+        return {"loss": dist.all_reduce_sum(loss) / dist.world()}
     hard = (pred > 0.5).to(torch.float32)
     lab = (batch["label"] > 0.5).to(torch.float32)
-    inter = torch.sum(hard * lab)
-    union = torch.sum(torch.maximum(hard, lab))
-    return {"acc": torch.mean((hard == lab).to(torch.float32)),
-            "iou": inter / torch.clamp(union, min=1.0)}
+    sums = torch.stack([loss.to(torch.float32), torch.sum(hard * lab),
+                        torch.sum(torch.maximum(hard, lab)),
+                        torch.sum((hard == lab).to(torch.float32)),
+                        hard.new_tensor(float(hard.numel()))])
+    sums = dist.all_reduce_sum(sums)
+    return {"loss": sums[0] / dist.world(), "acc": sums[3] / sums[4],
+            "iou": sums[1] / torch.clamp(sums[2], min=1.0)}
 
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module,
               batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Validation loss and accuracy without an update (reference
-    validation_step, apps/ICON.py:238-283)."""
+    """Validation loss and accuracy of the global batch without an update
+    (reference validation_step, apps/ICON.py:238-283)."""
     model.eval()
     pred, err = model(batch)
-    metrics = {"loss": err}
-    metrics.update(_occ_metrics(pred, batch))
-    return metrics
+    return _metrics(err, pred, batch)

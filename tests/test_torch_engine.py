@@ -113,3 +113,75 @@ def test_query_args_reach_the_query():
     occ2, _ = eng(query_fn, query_args=(torch.tensor(0.75),))
     assert float((occ2 > 0.5).float().mean()) > \
         2.0 * float((occ1 > 0.5).float().mean())
+
+
+def jsphere(pts):
+    return jax.nn.sigmoid((0.6 - jnp.linalg.norm(pts, axis=-1,
+                                                 keepdims=True)) * 30.0)
+
+
+def psphere(pts):
+    return torch.sigmoid((0.6 - torch.linalg.norm(pts, dim=-1,
+                                                  keepdim=True)) * 30.0)
+
+
+def _human(pkg):
+    if pkg == "jax":
+        from icon_tpu.utils.synthetic import clothed_human_occ
+        return lambda pts: clothed_human_occ(pts)[..., None]
+    from icon_tpu_torch.utils.synthetic import clothed_human_occ
+    return lambda pts: clothed_human_occ(pts)[..., None]
+
+
+@pytest.mark.parametrize("res", [(9, 17, 33), (17, 33, 65)])
+@pytest.mark.parametrize("field", ["sphere", "human"])
+def test_exact_mode_matches(res, field):
+    """Exact mode, 2 conflict rounds, against the JAX engine's on a sphere
+    and on ``clothed_human_occ`` (each package's own copy, which differ by
+    up to 6e-7): every level's points, overflow, conflicts and residual
+    equal, the grid to 1e-6. The last level is evaluated too. A conflict
+    compares the interpolation with the balance, so the upsample must round
+    as the JAX package's does (an interpolation of exactly 0.5)."""
+    jf, pf = (jsphere, psphere) if field == "sphere" else \
+        (_human("jax"), _human("torch"))
+    jocc, jstats = J.ReconEngine(res, exact=True, conflict_rounds=2)(jf)
+    eng = P.ReconEngine(res, exact=True, conflict_rounds=2, device="cpu")
+    assert not eng.faster
+    occ, stats = eng(pf)
+    assert set(stats) == set(jstats) - {"coarse_occ"}
+    for k in stats:
+        assert int(stats[k]) == int(jstats[k]), k
+    assert sum(int(stats[f"level{lv}_conflicts"]) for lv in (1, 2)) > 0
+    np.testing.assert_allclose(occ.numpy(), np.asarray(jocc), rtol=0,
+                               atol=1e-6)
+
+
+def test_faster_false_and_pad_multiple():
+    """``faster=False`` evaluates the last level (its points equal the JAX
+    engine's); ``pad_multiple`` 3 rounds the budgets, the auto-budget
+    ladder and level 0 to multiples of 3, as the JAX engine does, and moves
+    no voxel of the grid."""
+    res = (17, 33, 65)
+    jocc, jstats = J.ReconEngine(res, faster=False)(jfield)
+    occ, stats = P.ReconEngine(res, faster=False, device="cpu")(pfield)
+    assert "coarse_occ" not in stats
+    assert int(stats["level2_points"]) == int(jstats["level2_points"]) > 0
+    np.testing.assert_allclose(occ.numpy(), np.asarray(jocc), rtol=0,
+                               atol=1e-5)
+
+    full = (33, 65, 129, 257)
+    assert P.ReconEngine(full, pad_multiple=3, device="cpu").budgets == \
+        J.ReconEngine(full, pad_multiple=3).budgets
+    sizes = []
+
+    def counted(pts):
+        sizes.append(pts.shape[1])
+        return pfield(pts)
+    eng = P.ReconEngine(res, pad_multiple=3, auto_budget=True, device="cpu")
+    jeng = J.ReconEngine(res, pad_multiple=3, auto_budget=True)
+    occ3, _ = eng(counted)
+    jeng(jfield)
+    assert eng._bucket(1) == jeng._bucket(1) and eng._bucket(1) % 3 == 0
+    assert all(n % 3 == 0 for n in sizes) and sizes[0] == 17 ** 3 + 1
+    occ1, _ = P.ReconEngine(res, device="cpu")(pfield)
+    assert torch.equal(occ1, occ3)

@@ -192,9 +192,13 @@ def test_checkpoint_rules_match_the_jax_port(demo, tmp_path):
     (["-hps_type", "pixie"], "A8 \\(rest\\)"),
 ])
 def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
-    """Each option the port lacks raises, naming its ROADMAP item. The A7
-    (rest) and A8 (rest) options are ported: they run on one photo and
-    write their artifacts."""
+    """The options of ROADMAP items A7 (rest), A8 (rest) and A10, which
+    the CLI refused before those items were ported, run: the A7 and A8
+    ones on one photo, writing their artifacts; ``-num_devices 2``
+    point-shards the recon over 2 CPU shards and equals the one-device
+    run (level counts and mesh sizes equal, the recon's vertices to 1e-5).
+    A checkpoint directory (the JAX package's orbax format) still raises,
+    naming ROADMAP "Leave these out"."""
     from icon_tpu_torch.apps.infer import main
     in_dir, cfg_path = demo[0], demo[1]
     if item.startswith("A7"):
@@ -203,11 +207,24 @@ def test_unported_options_raise(demo, tmp_path, monkeypatch, extra, item):
     if item.startswith("A8"):
         _pixie_run(demo, tmp_path, monkeypatch)
         return
-    extra = [str(tmp_path) if a == "DIR" else a for a in extra]
-    with pytest.raises(NotImplementedError, match=item):
-        main(["-cfg", cfg_path, "-in_dir", in_dir, "-out_dir",
-              str(tmp_path / "out"), "-allow_random_hps", *extra],
-             device="cpu")
+    if extra[0] == "-ckpt":
+        with pytest.raises(NotImplementedError, match="Leave these out"):
+            main(["-cfg", cfg_path, "-in_dir", in_dir, "-out_dir",
+                  str(tmp_path / "out"), "-allow_random_hps", "-ckpt",
+                  str(tmp_path)], device="cpu")
+        return
+    from icon_tpu_torch.utils.io import load_obj
+    recs, objs = [], []
+    for run, more in (("one", []), ("two", extra)):
+        out = tmp_path / run
+        recs.append(main(_argv(demo, out, "-loop_smpl", "0", "-loop_cloth",
+                               "0", "-no_remesh", *more), device="cpu"))
+        objs.append([load_obj(str(out / f"{r['name']}_recon.obj"))
+                     for r in recs[-1]])
+    for a, b, (va, fa), (vb, fb) in zip(*recs, *objs):
+        assert a["stats"] == b["stats"] and a["recon"] == b["recon"]
+        np.testing.assert_array_equal(fb, fa)
+        np.testing.assert_allclose(vb, va, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("prior", ["pifu", "pamir"])

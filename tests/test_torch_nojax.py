@@ -11,7 +11,7 @@ with loader workers, the evaluation), the dataset renderer (one subject
 with PRT), the NormalNet trainer (one step) and the Poisson
 reconstruction leaves ``jax``, ``flax`` and ``icon_tpu`` out of
 ``sys.modules``, and no file of the package (the photo path's, the other
-estimators', the trainers' and the renderer's modules among them) nor
+estimators', the trainers', the renderer's and ``parallel/`` among them) nor
 ``chip_smoke.py`` imports them."""
 
 import os
@@ -124,8 +124,20 @@ with tempfile.TemporaryDirectory() as d:
                      device="cpu")
     assert rec["steps"] == 1 and np.isfinite(rec["losses"]).all()
     rec = train.main(["-cfg", os.path.join(d, "t.yaml"), "-test",
-                      "--max_eval_items", "1"], device="cpu")
+                      "--max_eval_items", "1", "num_devices", "2"],
+                     device="cpu")
     assert len(rec["items"]) == 1
+    rec = train.main(["-cfg", os.path.join(d, "t.yaml"), "--max_steps", "2",
+                      "num_devices", "2", "ckpt_dir", os.path.join(d, "r2")],
+                     device="cpu", timeout=120)
+    assert rec["ranks"] == 2 and np.isfinite(rec["losses"]).all()
+from icon_tpu_torch.parallel.mesh import make_mesh, shard_query
+from icon_tpu_torch.recon.engine import ReconEngine
+from icon_tpu_torch.utils.synthetic import clothed_human_occ
+occ, st = ReconEngine((17, 33, 65), exact=True, pad_multiple=2,
+                      device="cpu")(shard_query(
+    lambda p: clothed_human_occ(p)[..., None], make_mesh(2, "cpu")))
+assert int(st["level2_residual"]) == 0 and occ.shape == (65, 65, 65)
 from icon_tpu_torch.apps import render as render_app
 from icon_tpu_torch.apps import train_normal
 from icon_tpu_torch.ops.poisson import poisson_reconstruct
@@ -185,7 +197,10 @@ PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               # surface tools'
               "apps/render.py", "apps/train_normal.py",
               "apps/tetrahedronize.py", "models/vgg.py",
-              "training/normal_step.py", "ops/poisson.py", "ops/raster.py")
+              "training/normal_step.py", "ops/poisson.py", "ops/raster.py",
+              # data and point parallelism, and the engine's exact mode
+              "parallel/__init__.py", "parallel/dist.py", "parallel/mesh.py",
+              "recon/engine.py", "models/layers.py")
 
 
 def test_no_jax_import_in_package_sources():

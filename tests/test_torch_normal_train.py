@@ -313,7 +313,51 @@ def test_train_normal_cli(fixture_root, vgg_path, tmp_path, capsys):
 
 
 def test_train_normal_cli_refuses_several_devices(fixture_root, tmp_path):
+    """``num_devices 2``, which the CLI refused before ROADMAP item A10 was
+    ported, trains 2 gloo CPU ranks, each on its half of every batch, and
+    equals the 1-device run: 2 Adam steps, the losses to 1e-5 relative,
+    the validation losses to 1e-5, the last checkpoint's parameters to
+    atol 1e-5, rtol 1e-4 (tests/test_dist.py:218), but for the biases
+    that feed an instance norm, whose gradient is rounding that Adam turns
+    into whole steps: those within Adam's largest move, 3.16 lr a step in
+    either direction; no child is left."""
     from icon_tpu_torch.apps.train_normal import main
-    path = _write_cfg(fixture_root, tmp_path)
-    with pytest.raises(NotImplementedError, match="A10"):
-        main(["-cfg", path, "num_devices", "2"], device="cpu")
+    from icon_tpu_torch.training.checkpoints import load_checkpoint
+    recs = []
+    for run, nd in (("one", 1), ("two", 2)):
+        (tmp_path / run).mkdir()
+        path = _write_cfg(fixture_root, tmp_path / run, num_devices=nd)
+        recs.append(main(["-cfg", path, "--max_steps", "2"], device="cpu",
+                         timeout=120))
+        assert multiprocessing.active_children() == [] and _children() == []
+    one, two = recs
+    assert (one["ranks"], two["ranks"], two["steps"]) == (1, 2, 2)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    np.testing.assert_allclose(two["val_loss"], one["val_loss"], rtol=1e-5)
+    want = load_checkpoint(one["ckpts"][-1])["state_dict"]
+    got = load_checkpoint(two["ckpts"][-1])["state_dict"]
+    move = 1.01 * 2 * 2 * 3.17 * LR
+    gauge = _norm_fed_biases()
+    assert gauge
+    for k, v in want.items():
+        d = np.abs(got[k].numpy() - v.numpy())
+        if k in gauge:
+            assert d.max() <= move, k
+        else:
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+def _norm_fed_biases() -> set:
+    """The NormalNet's conv biases that an InstanceNorm follows."""
+    from icon_tpu_torch.apps.train_normal import build_normal_net
+    net = build_normal_net(port_cfg(_cfg("")), "cpu")
+    out = set()
+    for name, mod in net.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.named_children())
+            for (n1, a), (_, b) in zip(kids, kids[1:]):
+                if isinstance(a, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) \
+                        and isinstance(b, torch.nn.InstanceNorm2d):
+                    out.add(f"{name}.{n1}.bias")
+    return out

@@ -13,7 +13,9 @@ functions, barycentrics and depths round op by op as the plain version's
 do), ``attr`` to 1e-6, the silhouette to 1e-5 (its log-sum runs in another
 order, with sign / length multiplied in). Backward: each gradient within 1e-4 of
 the plain version's autograd, relative to its largest magnitude (atomicAdd
-order and the sums' order differ)."""
+order and the sums' order differ; the silhouette's edge distances round as
+the plain version's, so the same edge is the minimum and the same ties
+split the gradient)."""
 
 import numpy as np
 import pytest
@@ -108,6 +110,45 @@ def test_silhouette_only_grad(cuda_device):
         scale = float(grads[1].abs().max())
         assert scale > 0 and torch.isfinite(grads[0]).all()
         assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * scale
+
+
+def test_silhouette_tie_splits_as_plain(cuda_device):
+    """One face whose two edges at v0 lie 0.75 px from the pixel (20, 20):
+    their distances tie in the plain version's float32, (e / l) sgn, and
+    not when rounded as e (sgn / l). The pixel's silhouette gradient is
+    split between the two edges as torch.minimum splits it, so the kernel
+    must decide the minimum on the plain version's floats (a kernel that
+    does not sends the whole pair down one edge: 16.6 at v0's x against
+    0)."""
+    ndc = torch.tensor([[-0.359375, -0.3984379172325134, 0.5],
+                        [-0.5468757748603821, -0.6484376788139343, 0.5],
+                        [-0.171874538064003, -0.6484372615814209, 0.5]],
+                       device=cuda_device)
+    f = torch.tensor([[0, 1, 2]], device=cuda_device)
+    attrs = torch.zeros((3, 1), device=cuda_device)
+    xy = rk.pixel_xy(ndc, 64, 64).cpu()
+    p = torch.tensor([20.5, 20.5])
+
+    def dist(a, b, kernel_rounding):
+        e = (xy[b, 0] - xy[a, 0]) * (p[1] - xy[a, 1]) - \
+            (xy[b, 1] - xy[a, 1]) * (p[0] - xy[a, 0])
+        length = torch.sqrt(torch.sum((xy[b] - xy[a]) ** 2) + 1e-12)
+        return e * (1.0 / length) if kernel_rounding else e / length
+
+    assert dist(2, 0, False) == dist(0, 1, False) < dist(1, 2, False)
+    assert dist(2, 0, True) != dist(0, 1, True)
+    weight = torch.zeros((64, 64), device=cuda_device)
+    weight[20, 20] = 1.0
+    grads = []
+    for fn in (rasterize, rasterize_plain):
+        v = ndc.clone().requires_grad_(True)
+        out = fn(v, f, attrs, H=64, W=64, K=8)
+        grads.append(torch.autograd.grad((out.silhouette * weight).sum(),
+                                         (v,))[0])
+    assert float(grads[1][0, 0].abs()) <= 1e-5          # the split cancels
+    scale = float(grads[1].abs().max())
+    assert scale > 1.0
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * scale
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
