@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[16], then the /proc check [17], a kernel
+Phases (lines tagged [1]..[17], then the /proc check [18], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -180,11 +180,30 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    train and demo CLIs with 2 devices, which raise the JAX package's
    too-few-devices error on one card (on two or more cards they run, and
    the ranks run again over NCCL, one a card). Every rank is spawned and
-   joined in a ``finally``.
+   joined in a ``finally``;
+17. signs and meshing: (a) the fast-winding kernel against its plain
+   version on the level-0 lattice and the 232,974-point cap around the
+   subdiv-5 body and on 4,096 near-surface samples of a posed body
+   (winding numbers to 1e-5, signs identical where |w - 0.5| > 1e-4, the
+   posed samples' signs equal to the dense exact winding's), alone beside
+   its bound; (b) the pseudo-normal sign card vs CPU at small size, then
+   phase 4's full-width frame with the winding-cluster sign through
+   ``HGPIFuNet.query`` (level counts and triangles against the JAX
+   package's, latency and the engine stage beside the crossing-column
+   frame's); (c) that frame's 257^3 grid through ``extract_mesh`` without
+   a marcher (``mt_emit``, ``mt_index``): 295,244 triangles, the lattice
+   marcher's vertex count and face set, vertices within the u8 step of
+   its, the kernels' faces identical to the plain version's and vertices
+   within 1e-6 grid units, both pack wires, each kernel alone beside its
+   bound; (d) ``ReconEngine(virtual_final=True)`` with
+   ``AutoMarcher(virtual=True)`` against the materialized final level at
+   257^3 (face set, u8 step), and at 513^3 both ways' peak memory, the
+   virtual one allocating no fine grid.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
-render run, and in 16 each rank's steps and the sharded recon) runs with the kernels' launch counts set to
+render run, in 16 each rank's steps and the sharded recon, and in 17 the
+winding-sign frame and the one-shot export) runs with the kernels' launch counts set to
 0 just before it and read just after; a kernel of the path that did not
 launch fails the run. Any failed check raises, so the script exits
 non-zero and prints no result.
@@ -197,7 +216,9 @@ inputs; for the kNN also its tensor-core products over the TF32 peak and
 one compare per pair over the float32 instruction rate) and the time of
 one PyTorch call computing the same function where one exists (the kNN's
 ``cdist`` + ``topk``, the splat's ``index_add_``, the smooth's
-``avg_pool3d``; none for the rasterizer).
+``avg_pool3d``, ``mt_index``'s ``torch.unique`` with the inverse; none for
+the rasterizer, ``fast_winding`` and ``mt_emit``), and its share of the
+bound.
 """
 
 import json
@@ -3440,6 +3461,439 @@ def cli_devices(dev, card, d, root, jobs):
               f"{res['reduce_ms']:.2f} ms", flush=True)
 
 
+# phase 17: the winding-cluster sign, the one-shot indexed export and the
+# virtual final level
+WIND_ATOL = 1e-5        # kernel vs plain (tests/test_torch_winding_cuda.py)
+WIND_SIGN_MARGIN = 1e-4
+WIND_SAMPLES = 4096     # near-surface samples of the posed body
+# float32 operations of the winding kernel a (point, cluster) pair (the
+# dipole: a difference, a squared distance, a square root, a dot product,
+# a quotient, the gap and the sum: 20) and a (point, face) pair of the
+# exact set (three differences of corners, three lengths, the triple
+# product, the denominator, an atan2 counted as one, the sum: 67)
+WIND_OPS_PER_CLUSTER = 20
+WIND_OPS_PER_FACE = 67
+MARCH_ATOL = 1e-6       # grid units, the marching kernels against plain
+# the lattice wire's u8 fraction along an edge, in normalized units at 257^3
+U8_STEP = 3 ** 0.5 / 255 / 128
+MARCH_REPLACES = {"mt_emit": "icon_tpu/recon/marching.py:282",
+                  "mt_index": "icon_tpu/recon/marching.py:356"}
+VIRTUAL_RES = 512       # the memory check's final level: 513^3
+
+
+def posed_samples(subdiv: int = 4, pose_scale: float = 0.1, seed: int = 5):
+    """JAX's tests/test_sdf_fast.py:_posed_body on the port's synthetic
+    SMPL-X and WIND_SAMPLES near-surface samples of it: (verts, faces,
+    points)."""
+    from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
+    model = synthetic_smplx_model(subdiv=subdiv)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        v, _ = model(betas=torch.from_numpy(
+            rng.randn(1, 10).astype(np.float32) * 0.3),
+            body_pose=torch.from_numpy(
+                rng.randn(1, 63).astype(np.float32) * pose_scale))
+    v = v[0].numpy()
+    pts = v[rng.randint(0, len(v), WIND_SAMPLES)] + \
+        rng.normal(scale=0.05, size=(WIND_SAMPLES, 3)).astype(np.float32)
+    return v, np.asarray(model.faces, np.int64), pts.astype(np.float32)
+
+
+def winding_case(dev, name, pts, verts, faces):
+    """The kernel against plain at one input: (max |dw|, kernel w, plain w,
+    the cluster tables, m)."""
+    from icon_tpu_torch.kernels import winding as kw
+    from icon_tpu_torch.ops.sdf_fast import build_winding_clusters
+    cf, cm = build_winding_clusters(verts, faces)
+    table, ctri, mask = kw.cluster_table(
+        torch.as_tensor(verts, device=dev),
+        torch.as_tensor(faces, dtype=torch.int64, device=dev),
+        torch.as_tensor(cf, device=dev), torch.as_tensor(cm, device=dev))
+    ctri = ctri.contiguous()
+    m = min(16, mask.shape[0])
+    p = torch.as_tensor(pts, device=dev).contiguous()
+    got = kw.fast_winding_kernel(p, table, ctri, mask, m)
+    want = kw.fast_winding_plain(p, table, ctri, mask, m)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    clear = (want - 0.5).abs() > WIND_SIGN_MARGIN
+    same = bool(((got > 0.5) == (want > 0.5))[clear].all())
+    print(f"[17a] fast_winding {name} N={len(pts)} K={mask.shape[0]} "
+          f"M={mask.shape[1]} m={m}: max|dw| {err:.3g}, signs identical "
+          f"where |w-0.5|>{WIND_SIGN_MARGIN:g}: {same} ({float(clear.float().mean()):.2%} "
+          f"of points), inside {float((want > 0.5).float().mean()):.2%}",
+          flush=True)
+    if err > WIND_ATOL or not same:
+        raise AssertionError(f"fast_winding disagrees with plain: {name}")
+    return err, got, want, (p, table, ctri, mask, m)
+
+
+def winding_bound(n: int, K: int, m: int, faces_each: float, M: int):
+    """(least time in ms, by) of the winding kernel on n points: its
+    operations over the float32 peak and its bytes (points in, winding out,
+    the cluster table and triangles once) over the memory rate."""
+    ops = n * (K * WIND_OPS_PER_CLUSTER + m * faces_each * WIND_OPS_PER_FACE)
+    return bound(16.0 * n + 32.0 * K + 37.0 * K * M, ops)
+
+
+def phase_winding_kernel(dev, verts_np, faces_np):
+    """[17a] fast_winding against plain at the main path's shapes (the
+    level-0 lattice, the engine's 232,974 cap around the subdiv-5 body)
+    and on near-surface samples of a posed body, whose kernel signs must
+    equal the dense exact winding's; each timed alone beside its bound.
+    Returns the summary entry."""
+    from icon_tpu_torch.kernels import winding as kw
+    from icon_tpu_torch.ops.sdf import point_mesh_dist_winding
+    rng = np.random.RandomState(7)
+    v = len(verts_np)
+    d = rng.normal(size=(KNN_CAP, 3))
+    d *= (0.02 * rng.uniform(0, 1, (KNN_CAP, 1)) ** (1 / 3)
+          / np.linalg.norm(d, axis=1, keepdims=True))
+    cap = (verts_np[rng.randint(0, v, KNN_CAP)] + d).astype(np.float32)
+    lattice = level0_points(33, dev)[0].cpu().numpy()
+    worst, timing = 0.0, {}
+    for name, pts in (("level 0 lattice", lattice), ("cap near", cap)):
+        err, got, want, args = winding_case(dev, name, pts, verts_np,
+                                            faces_np)
+        worst = max(worst, err)
+        p, table, ctri, mask, m = args
+        out = torch.empty_like(got)
+        ms = kernel_ms(lambda: kw._launch(p, table, ctri, mask, m, out))
+        plain_ms = cuda_ms(lambda: kw.fast_winding_plain(p, table, ctri,
+                                                         mask, m), reps=3)
+        K, M = mask.shape
+        b_ms, b_by = winding_bound(len(pts), K, m, float(mask.sum()) / K, M)
+        print(f"[17a] fast_winding {name}: kernel alone {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of it", flush=True)
+        timing[name] = (ms, plain_ms, b_ms, b_by)
+    pv, pf, pts = posed_samples()
+    err, got, _, _ = winding_case(dev, "posed body samples", pts, pv, pf)
+    worst = max(worst, err)
+    _, _, w = point_mesh_dist_winding(torch.as_tensor(pts, device=dev),
+                                      torch.as_tensor(pv[pf], device=dev))
+    n_diff = int(((got > 0.5) != (w > 0.5)).sum())
+    print(f"[17a] posed body: kernel signs vs the dense exact winding: "
+          f"{n_diff} of {len(pts)} differ", flush=True)
+    if n_diff:
+        raise AssertionError("fast_winding signs differ from the exact "
+                             "winding on the posed body")
+    ms, plain_ms, b_ms, b_by = timing["cap near"]
+    return {"name": "fast_winding", "route": "cuda",
+            "source": "icon_tpu_torch/csrc/winding.cu",
+            "replaces": "icon_tpu/ops/sdf_fast.py:183",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def pseudo_normal_small(dev):
+    """[17b] the pseudo-normal sign (no sign input) on the card against
+    the CPU at small size: signs identical wherever |sdf| > 1e-3."""
+    from icon_tpu_torch.ops.sdf_fast import (build_vertex_face_table,
+                                             point_body_features)
+    from icon_tpu_torch.utils.synthetic import synthetic_body
+    v, f = synthetic_body(subdiv=3)
+    rng = np.random.RandomState(3)
+    pts = rng.uniform(-0.7, 0.7, (4096, 3)).astype(np.float32)
+    table = build_vertex_face_table(f, len(v))
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        args = [torch.as_tensor(x, device=d) for x in
+                (pts, v, f.astype(np.int64), table.astype(np.int64))]
+        sdf, _, _, _ = point_body_features(
+            *args, torch.zeros(len(v), 3, device=d),
+            torch.zeros(len(v), 1, device=d))
+        out[name] = sdf[:, 0].cpu()
+    clear = out["cpu"].abs() > 1e-3
+    same = bool(((out["gpu"] > 0) == (out["cpu"] > 0))[clear].all())
+    print(f"[17b] pseudo-normal sign, card vs CPU on 4096 points: signs "
+          f"identical where |sdf|>1e-3: {same}, max|dsdf| "
+          f"{float((out['gpu'] - out['cpu']).abs().max()):.3g}", flush=True)
+    if not same:
+        raise AssertionError("pseudo-normal sign: card disagrees with CPU")
+
+
+def stage_times(fr, iters: int):
+    """(frame latencies, engine-stage seconds) of ``iters`` frames after 2
+    warm-up frames."""
+    for _ in range(2):
+        fr.frame()
+    lat, eng = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr.frame()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            cz, _ = fr.columns()
+            feats = fr.features()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fr.engine(fr.query_fn, query_args=(cz, feats))
+            torch.cuda.synchronize()
+        eng.append(time.perf_counter() - t0)
+    return lat, eng
+
+
+def phase_winding_frame(dev, card, iters: int = 3):
+    """[17b] phase 4's full-width frame with the winding-cluster sign
+    through ``HGPIFuNet.query``: level counts and triangles against the
+    JAX package's, latency and the engine stage beside the crossing-column
+    frame's; fast_winding launched. Returns (its launches, the frame's
+    final grid and coarse grid for [17c])."""
+    from icon_tpu_torch.recon.frame import (bench_config, build_frame,
+                                            seeded_state)
+    from icon_tpu_torch.utils.synthetic import synthetic_icon_batch
+    cfg = bench_config()
+    batch = synthetic_icon_batch(np.random.RandomState(0), B=1,
+                                 image_size=512, n_samples=64, subdiv=5)
+    state = seeded_state(cfg, 0)
+    frames = {s: build_frame(cfg, state, batch, 256, dev, sign=s)
+              for s in ("columns", "winding")}
+    lat_c, eng_c = stage_times(frames["columns"], iters)
+    reset_launches()                  # count only the main path's launches
+    stats, _, verts, faces = frames["winding"].frame()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    lat_w, eng_w = stage_times(frames["winding"], iters)
+    l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
+    ov = [int(stats[k]) for k in sorted(stats) if k.endswith("_overflow")]
+    print(f"[17b] winding-sign frame: level1 {l1} (JAX {JAX_LEVEL1_POINTS})"
+          f", level2 {l2} (JAX {JAX_LEVEL2_POINTS}), n_tris {len(faces)} "
+          f"(JAX {JAX_N_TRIS}), overflow {ov}, launches {launched}",
+          flush=True)
+    print(f"[17b] latency per frame (s): winding median "
+          f"{statistics.median(lat_w):.4f} all {[round(x, 4) for x in lat_w]}"
+          f", columns median {statistics.median(lat_c):.4f} all "
+          f"{[round(x, 4) for x in lat_c]}; engine stage (s): winding "
+          f"{statistics.median(eng_w):.4f}, columns "
+          f"{statistics.median(eng_c):.4f} on {card}, TF32 off", flush=True)
+    if len(faces) == 0 or not np.isfinite(verts).all() or any(ov):
+        raise AssertionError("winding-sign frame: empty mesh or overflow")
+    check_launched(launched, ("fast_winding", "knn_f32"),
+                   "the winding-sign frame")
+    for name, got, ref in (("level1_points", l1, JAX_LEVEL1_POINTS),
+                           ("level2_points", l2, JAX_LEVEL2_POINTS),
+                           ("n_tris", len(faces), JAX_N_TRIS)):
+        if abs(got - ref) > COUNT_RTOL * ref:
+            raise AssertionError(f"winding frame {name} {got} vs JAX {ref}")
+    fc = frames["columns"]
+    with torch.no_grad():
+        cz, _ = fc.columns()
+        occ, st = fc.engine(fc.query_fn, query_args=(cz, fc.features()))
+    return launched, occ, st["coarse_occ"]
+
+
+def sorted_faces(f: np.ndarray) -> np.ndarray:
+    return f[np.lexsort(f.T[::-1])]
+
+
+def phase_indexed_export(dev, occ):
+    """[17c] the frame's 257^3 grid through ``extract_mesh`` without a
+    marcher (mt_emit, then mt_index): the triangle count, the lattice
+    marcher's vertex count and face set, vertices within the u8 step of
+    its; faces identical to the plain version's and vertices within
+    MARCH_ATOL grid units; both pack wires round-trip; each kernel alone
+    beside its bound. Returns (launches, summary entries)."""
+    from icon_tpu_torch.kernels import marching as km
+    from icon_tpu_torch.recon import marching as PM
+    from icon_tpu_torch.recon.export import extract_mesh, make_marcher
+    reset_launches()                  # count only the main path's launches
+    v, f = extract_mesh(occ)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    check_launched(launched, ("mt_emit", "mt_index"), "the one-shot export")
+    lv, lf = extract_mesh(occ, marcher=make_marcher())
+    vd = float(np.abs(v - lv).max()) if len(v) == len(lv) else float("inf")
+    same_set = len(f) == len(lf) and np.array_equal(sorted_faces(f),
+                                                    sorted_faces(lf))
+    print(f"[17c] one-shot indexed export at 257^3: n_tris {len(f)} (JAX "
+          f"{JAX_N_TRIS}), n_verts {len(v)}; lattice marcher {len(lf)} / "
+          f"{len(lv)}: face set equal {same_set}, faces identical "
+          f"{np.array_equal(f, lf)}, max|dv| {vd:.3g} (u8 step "
+          f"{U8_STEP:.3g}), launches {launched}", flush=True)
+    if len(f) != len(lf) or len(v) != len(lv) or not same_set or \
+            vd > U8_STEP or abs(len(f) - JAX_N_TRIS) > COUNT_RTOL * JAX_N_TRIS:
+        raise AssertionError("the one-shot export disagrees with the "
+                             "lattice marcher")
+    fine = occ[1:, 1:, 1:].contiguous()
+    kw = dict(max_cells=1 << 18, max_tris=1 << 20, max_verts=1 << 21)
+    out = PM.marching_tetrahedra_indexed(fine, **kw)
+    cx, cy, cz, _, _, n_cells, _ = PM._active_cells(fine, 0.5, 1 << 18,
+                                                    None)
+    plain_e = km.mt_emit_plain(fine, cx, cy, cz, n_cells, 0.5, 1 << 20)
+    plain_i = km.mt_index_plain(*plain_e[:5], 1 << 21, tuple(fine.shape))
+    nv, nt = int(out.n_verts), int(out.n_tris)
+    f_same = torch.equal(out.faces, plain_i[3]) and \
+        int(plain_i[4]) == nv and int(plain_e[4]) == nt
+    verr = max(float((a[:nv] - b[:nv]).abs().max()) for a, b in
+               zip((out.verts_x, out.verts_y, out.verts_z), plain_i[:3]))
+    slots = 3 * nt
+    e_err = max(float((a.reshape(-1)[:slots] - b.reshape(-1)[:slots])
+                      .abs().max()) for a, b in
+                (zip(plain_e[:3], km.mt_emit(fine, cx, cy, cz, n_cells, 0.5,
+                                             1 << 20)[:3])))
+    print(f"[17c] kernels vs plain on the card: faces identical {f_same}, "
+          f"max|dv| {verr:.3g} grid units, mt_emit's vertex slots max|d| "
+          f"{e_err:.3g}", flush=True)
+    if not f_same or verr > MARCH_ATOL or e_err > MARCH_ATOL:
+        raise AssertionError("marching kernels disagree with plain")
+    for quantize in (False, True):
+        pv, pf = PM.unpack_mesh(PM.pack_mesh(out, quantize=quantize),
+                                quantize=quantize)
+        d = float(np.abs(pv - torch.stack([out.verts_x, out.verts_y,
+                                           out.verts_z], -1)[:nv]
+                         .cpu().numpy()).max())
+        ok = len(pv) == nv and len(pf) == nt and d <= (0.5 / 64 + 1e-6
+                                                       if quantize else 0.0)
+        print(f"[17c] pack/unpack quantize={quantize}: {len(pv)} verts, "
+              f"{len(pf)} faces, max|dv| {d:.3g}", flush=True)
+        if not ok:
+            raise AssertionError(f"pack_mesh round trip (quantize="
+                                 f"{quantize})")
+    # each kernel alone on preallocated buffers
+    nc = cx.shape[0]
+    eb = km.emit_buffers(nc, 1 << 20, dev)
+    e_ms = kernel_ms(lambda: km._emit_launch(fine, cx, cy, cz, n_cells, 0.5,
+                                             1 << 20, *eb))
+    tv, teid, n_tris = eb[2], eb[3], torch.clamp(eb[4], max=1 << 20)
+    ib = km.index_buffers(1 << 20, 1 << 21, tuple(fine.shape), dev)
+    i_ms = kernel_ms(lambda: km._index_launch(tv[0], tv[1], tv[2], teid,
+                                              n_tris, 1 << 21, *ib))
+    e_plain = cuda_ms(lambda: km.mt_emit_plain(fine, cx, cy, cz, n_cells,
+                                               0.5, 1 << 20), reps=3)
+    i_plain = cuda_ms(lambda: km.mt_index_plain(*plain_e[:5], 1 << 21,
+                                                tuple(fine.shape)), reps=3)
+    lib_ms = cuda_ms(lambda: torch.unique(teid[:nt], sorted=True,
+                                          return_inverse=True), reps=3)
+    n_act = int(n_cells)
+    e_b = bound(n_act * (24.0 + 32.0) + nt * 3 * 20.0, 0.0)
+    i_b = bound(nt * 3 * 20.0 + nt * 3 * 4.0 + nv * 12.0, 0.0)
+    print(f"[17c] mt_emit alone {e_ms:.4f} ms (plain {e_plain:.4f}, bound "
+          f"{e_b[0]:.4f} {e_b[1]}, {e_b[0] / e_ms:.1%}); mt_index alone "
+          f"{i_ms:.4f} ms (plain {i_plain:.4f}, bound {i_b[0]:.4f} "
+          f"{i_b[1]}, {i_b[0] / i_ms:.1%}; torch.unique with inverse "
+          f"{lib_ms:.4f} ms); {n_act} cells, {nt} triangles, {nv} vertices",
+          flush=True)
+    entries = []
+    for name, ms, plain_ms, b, lib in (("mt_emit", e_ms, e_plain, e_b, None),
+                                       ("mt_index", i_ms, i_plain, i_b,
+                                        lib_ms)):
+        entries.append({"name": name, "route": "cuda",
+                        "source": "icon_tpu_torch/csrc/marching.cu",
+                        "replaces": MARCH_REPLACES[name],
+                        "max_abs_err": max(verr, e_err), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b[0],
+                        "bound_by": b[1], "library_ms": lib})
+    return launched, entries
+
+
+def largest_allocation(fn):
+    """(fn's result, the largest single device allocation it made, its
+    peak allocated bytes above the start) from the caching allocator's
+    trace."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dev = torch.cuda.current_device()
+    torch.cuda.memory._record_memory_history(enabled="all", context=None,
+                                             max_entries=200000)
+    try:
+        n0 = len(torch.cuda.memory._snapshot()["device_traces"][dev])
+        out = fn()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][dev][n0:]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    sizes = [e["size"] for e in trace if e["action"] == "alloc"]
+    return out, max(sizes), torch.cuda.max_memory_allocated() - base
+
+
+def phase_virtual(dev):
+    """[17d] ReconEngine(virtual_final=True) with AutoMarcher(virtual=True)
+    at res 256 on ``clothed_human_occ`` against the materialized final
+    level: the same face set, vertices within the u8 step; at 513^3 both
+    ways' peak memory, and the virtual way allocates no fine grid."""
+    from icon_tpu_torch.recon.engine import (ReconEngine,
+                                             reconstruction_resolutions)
+    from icon_tpu_torch.recon.marching import AutoMarcher
+    from icon_tpu_torch.utils.synthetic import clothed_human_occ
+
+    def field(p):
+        return clothed_human_occ(p)[..., None]
+
+    def caps(res):
+        # the frame's marcher sizes (recon/frame.py:_marcher), twice the
+        # cells: the mixed coarse cells of 257^3 fill its candidate buffer
+        s = max((res // 256) ** 2, 1)
+        return dict(max_cells=(1 << 19) * s, max_tris=(1 << 19) * s,
+                    max_verts=(1 << 19) * s, codec="lattice")
+
+    class Way:
+        """One way of the final level at ``res``: an engine and a marcher
+        held across frames, so that later frames march with autotuned
+        buffers."""
+
+        def __init__(self, res, virtual):
+            self.virtual = virtual
+            self.engine = ReconEngine(reconstruction_resolutions(res),
+                                      virtual_final=virtual, device=dev)
+            self.marcher = AutoMarcher(virtual=virtual,
+                                       slice_one=not virtual, **caps(res))
+
+        def frame(self):
+            occ, st = self.engine(field)
+            out = self.marcher(occ) if self.virtual else \
+                self.marcher(occ, coarse_occ=st["coarse_occ"])
+            return self.marcher.unpack(self.marcher.pack(out)), out, st
+
+    (vv, fv), _, st = Way(256, True).frame()
+    (vm, fm), _, _ = Way(256, False).frame()
+    d = float(np.abs(vv - vm).max()) / 128 if len(vv) == len(vm) else \
+        float("inf")
+    same = len(fv) == len(fm) and np.array_equal(sorted_faces(fv),
+                                                 sorted_faces(fm))
+    print(f"[17d] virtual final level at 257^3: {len(fv)} faces, {len(vv)} "
+          f"verts (materialized {len(fm)} / {len(vm)}), face set equal "
+          f"{same}, max|dv| {d:.3g} normalized (u8 step {U8_STEP:.3g}), "
+          f"final_res {st['final_res']}", flush=True)
+    if not same or d > U8_STEP or st["final_res"] != 257 or len(fv) < 1000:
+        raise AssertionError("virtual final level disagrees with the "
+                             "materialized one")
+    fine_bytes = 4 * VIRTUAL_RES ** 3
+    res = {}
+    for name, virtual in (("virtual", True), ("materialized", False)):
+        way = Way(VIRTUAL_RES, virtual)
+        way.frame()                   # the first frame sizes the buffers
+        ((_, faces), out, _), big, peak = largest_allocation(way.frame)
+        over = int(out.n_cells_total) > int(out.n_cells)
+        res[name] = (big, peak, len(faces), over)
+        print(f"[17d] {name} at {VIRTUAL_RES + 1}^3, second frame: "
+              f"{len(faces)} faces, peak {peak / 2 ** 30:.3f} GiB above "
+              f"the start, largest allocation {big / 2 ** 20:.1f} MiB (a "
+              f"fine grid {fine_bytes / 2 ** 20:.1f} MiB), cell overflow "
+              f"{over}", flush=True)
+        del way
+    if res["virtual"][0] >= fine_bytes or res["materialized"][0] < \
+            fine_bytes or res["virtual"][2] != res["materialized"][2] or \
+            res["virtual"][3] or res["materialized"][3]:
+        raise AssertionError("virtual final level at 513^3: a fine grid "
+                             "was allocated, or the meshes differ")
+
+
+def phase_signs_meshing(dev, card, verts_np, faces_np):
+    """Phase 17: returns (summary entries, main-path launch counts)."""
+    entries = [phase_winding_kernel(dev, verts_np, faces_np)]
+    pseudo_normal_small(dev)
+    launched_w, occ, _ = phase_winding_frame(dev, card)
+    launched_e, march_entries = phase_indexed_export(dev, occ)
+    entries += march_entries
+    del occ
+    phase_virtual(dev)
+    return entries, [launched_w, launched_e]
+
+
 def descendants(pid: int) -> list:
     """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
     parent id, followed down from ``pid``), zombies left out."""
@@ -3481,7 +3935,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[17] descendant processes left: {len(left)}", flush=True)
+    print(f"[18] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -3497,21 +3951,28 @@ def normal_inputs(verts, faces, azimuth):
 
 
 def reset_launches() -> None:
-    from icon_tpu_torch.kernels import knn, raster, voxelize
+    from icon_tpu_torch.kernels import knn, marching, raster, voxelize, \
+        winding
     knn.launches = 0
     raster.launches_setup = raster.launches_bin = 0
     raster.launches_fwd = raster.launches_bwd = 0
     voxelize.launches_splat = voxelize.launches_smooth = 0
+    winding.launches = 0
+    marching.launches_emit = marching.launches_index = 0
 
 
 def read_launches() -> dict:
-    from icon_tpu_torch.kernels import knn, raster, voxelize
+    from icon_tpu_torch.kernels import knn, marching, raster, voxelize, \
+        winding
     return {"knn_f32": knn.launches, "raster_setup": raster.launches_setup,
             "raster_bin": raster.launches_bin,
             "raster_fwd": raster.launches_fwd,
             "raster_bwd": raster.launches_bwd,
             "voxel_splat": voxelize.launches_splat,
-            "box_smooth3d": voxelize.launches_smooth}
+            "box_smooth3d": voxelize.launches_smooth,
+            "fast_winding": winding.launches,
+            "mt_emit": marching.launches_emit,
+            "mt_index": marching.launches_index}
 
 
 def timed(label: str, fn, *args):
@@ -3581,13 +4042,18 @@ def main() -> int:
         runs += launched
         launched, dist_errs = timed("16", phase_dist, dev, card, d)
         runs += launched
+    entries, launched = timed("17", phase_signs_meshing, dev, card,
+                              verts_np, faces_np)
+    summary += entries
+    runs += launched
     for entry in summary:           # the launches of the main paths' runs
-        entry["launches"] = sum(run[entry["name"]] for run in runs)
+        entry["launches"] = sum(run.get(entry["name"], 0) for run in runs)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], *(errs.get(entry["name"], 0.0) for errs in
                                     (fit_errs, cli_errs, photo_errs,
                                      hps_errs, prior_errs, train_errs,
                                      render_errs, dist_errs)))
+        entry["share"] = entry["bound_ms"] / entry["ms"]
     if not no_process_left():
         return 3
 

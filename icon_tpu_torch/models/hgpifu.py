@@ -188,10 +188,12 @@ class HGPIFuNet(nn.Module):
 
         ``smpl_feat`` by prior: icon, smpl_verts [B,V,3], smpl_faces [F,3],
         smpl_cmap [B,V,3], smpl_vis [B,V,1], and for the fast features
-        smpl_vf_table [V,deg] with a sign: smpl_query_inside [B,N] bool,
-        smpl_cross_z and smpl_cross_meta
-        (``build_crossing_columns_blocked``), or smpl_ray_bins and
-        smpl_ray_grid (``build_ray_bins``); pamir, ``voxel_feats`` (the
+        smpl_vf_table [V,deg] and the sign's inputs, in this order of
+        preference: smpl_query_inside [B,N] bool, smpl_cross_z and
+        smpl_cross_meta (``build_crossing_columns_blocked``), smpl_ray_bins
+        and smpl_ray_grid (``build_ray_bins``), smpl_clusters and
+        smpl_cluster_mask (``build_winding_clusters``), or none (the
+        pseudo-normal sign); pamir, ``voxel_feats`` (the
         output of :meth:`volume_features`) or ``voxel_verts`` [B,V,3]
         (projected) and ``voxel_codes`` [V,3]; pifu, none."""
         net = self.cfg.net
@@ -238,6 +240,8 @@ class HGPIFuNet(nn.Module):
                 smpl_feat["smpl_verts"], smpl_feat["smpl_faces"],
                 smpl_feat["smpl_cmap"], smpl_feat["smpl_vis"], xyz,
                 smpl_feat["smpl_vf_table"],
+                cluster_faces=smpl_feat.get("smpl_clusters"),
+                cluster_mask=smpl_feat.get("smpl_cluster_mask"),
                 cross_z=smpl_feat.get("smpl_cross_z"),
                 cross_meta=smpl_feat.get("smpl_cross_meta"),
                 ray_bins=smpl_feat.get("smpl_ray_bins"),

@@ -6,14 +6,21 @@ exact point-triangle distance to each candidate, and the winning face's
 normal, cmap and visibility interpolated at the unclamped barycentric
 weights of the point's projection (reference ``cal_sdf_batch``,
 lib/dataset/mesh_util.py:357-396, with its (-1, 1, -1) normal flip and 0.1
-visibility threshold). The sign is the parity of the body's +z crossings
-above the point in its lattice column (the reference's ``check_sign``
-semantics), from per-frame crossing columns.
+visibility threshold).
+
+The sign, in the JAX package's order of preference: known signs; the
+parity of the body's +z crossings above the point in its lattice column
+(per-frame crossing columns, the reference's ``check_sign`` semantics);
+the same parity over host-binned xy tiles (ray bins); the clustered fast
+winding number (:func:`build_winding_clusters`, :func:`fast_winding`: the
+hand-written kernel of ``icon_tpu_torch/kernels/winding.py``) above 0.5;
+and without any of them the pseudo-normal test at the clamped closest-point
+barycentrics.
 
 The host precomputations (:func:`build_vertex_face_table`,
-:func:`build_column_bins`) are numpy copies of the JAX module's, which
-cannot be imported without jax. Only the crossing-column sign is ported;
-the ray-bin, winding and pseudo-normal signs are ROADMAP Queue A item 3.
+:func:`build_column_bins`, :func:`build_ray_bins`,
+:func:`build_winding_clusters`) are numpy copies of the JAX module's, which
+cannot be imported without jax.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from icon_tpu_torch.kernels.knn import nearest_vertices_kernel
+from icon_tpu_torch.kernels.winding import cluster_table, fast_winding_kernel
 from icon_tpu_torch.ops.mesh import (barycentric_projection_weights,
                                      vertex_normals)
 
@@ -46,6 +54,58 @@ def build_vertex_face_table(faces: np.ndarray, n_verts: int,
         c = max(counts[v], 1)
         table[v, c:] = table[v, 0]
     return table
+
+
+def build_winding_clusters(verts: np.ndarray, faces: np.ndarray,
+                           n_clusters: int = 256
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host balanced k-d face clustering of the posed body for
+    :func:`fast_winding`: (cluster_faces [K, M] int32, cluster_mask [K, M]
+    bool), K a power of two up to ``n_clusters``, M = ceil(F / K), padding
+    slots masked out. Recursive median splits (``argpartition``) along each
+    group's widest centroid axis keep every cluster spatially compact.
+    Recompute per posed body."""
+    verts = np.asarray(verts)
+    faces = np.asarray(faces)
+    cent = verts[faces].mean(1)
+    F = len(faces)
+    K = 1 << max(int(np.ceil(np.log2(min(n_clusters, F)))), 0)
+    M = -(-F // K)
+
+    groups = [np.arange(F, dtype=np.int32)]
+    while len(groups) < K:
+        nxt = []
+        for g in groups:
+            c = cent[g]
+            axis = int(np.argmax(c.max(0) - c.min(0)))
+            half = len(g) // 2
+            part = np.argpartition(c[:, axis], half)
+            nxt.append(g[part[:half]])
+            nxt.append(g[part[half:]])
+        groups = nxt
+
+    cluster_faces = np.zeros((K, M), np.int32)
+    mask = np.zeros((K, M), bool)
+    for i, g in enumerate(groups):
+        cluster_faces[i, :len(g)] = g
+        mask[i, :len(g)] = True
+    return cluster_faces, mask
+
+
+def fast_winding(points: torch.Tensor, verts: torch.Tensor,
+                 faces: torch.Tensor, cluster_faces: torch.Tensor,
+                 cluster_mask: torch.Tensor, m_near: int = 16,
+                 chunk: int = 2048) -> torch.Tensor:
+    """Generalized winding number [N] of ``points [N, 3]`` with respect to
+    the mesh (inside ~ 1): exact solid angles for each point's ``m_near``
+    nearest clusters (:func:`build_winding_clusters`), the dipole far field
+    for the rest. A CUDA tensor launches the kernel; a CPU tensor runs the
+    plain version in chunks of ``chunk`` points."""
+    table, ctri, mask = cluster_table(verts, faces, cluster_faces,
+                                      cluster_mask)
+    return fast_winding_kernel(points.contiguous(), table, ctri.contiguous(),
+                               mask.contiguous(), min(m_near, mask.shape[0]),
+                               chunk)
 
 
 def build_column_bins(verts: np.ndarray, faces: np.ndarray,
@@ -391,6 +451,65 @@ def build_crossing_columns_blocked(verts: torch.Tensor, faces: torch.Tensor,
             cnt[:H, :W].reshape(H * W))
 
 
+def build_crossing_columns(verts: torch.Tensor, faces: torch.Tensor,
+                           bins: torch.Tensor, grid: torch.Tensor,
+                           col_x: torch.Tensor, col_y: torch.Tensor,
+                           max_cross: int = 32, chunk: int = 4096
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column +z crossing depths of the body, one column at a time
+    over its xy tile's faces (``bins``, ``grid`` from
+    :func:`build_ray_bins`); :func:`build_crossing_columns_blocked` shares
+    one face list among a tile of columns instead.
+
+    Returns (cross_z [H*W, max_cross] ascending, +inf padded, row-major
+    j*W+i; counts [H*W] int32 — a count above ``max_cross`` flags
+    overflow)."""
+    packed = _packed_edges(verts, faces.long())           # [F, 18]
+    side = int(round(math.sqrt(bins.shape[0])))
+    bins = bins.long()
+    W = col_x.shape[0]
+    H = col_y.shape[0]
+    jj, ii = torch.meshgrid(torch.arange(H, device=verts.device),
+                            torch.arange(W, device=verts.device),
+                            indexing="ij")
+    cols = torch.stack([col_x[ii.reshape(-1)], col_y[jj.reshape(-1)]], -1)
+    C = min(max_cross, bins.shape[-1])
+    zs, cs = [], []
+    for q in torch.split(cols, chunk):
+        qx = q[:, 0] + grid[4]
+        qy = q[:, 1] + grid[4]
+        tx = torch.clamp(torch.floor((qx - grid[0]) * grid[2]).long(),
+                         0, side - 1)
+        ty = torch.clamp(torch.floor((qy - grid[1]) * grid[3]).long(),
+                         0, side - 1)
+        slot = bins[ty * side + tx]                       # [c, T] face+1
+        t = packed[torch.clamp(slot - 1, min=0)]          # [c, T, 18]
+        qxb = qx[:, None]
+        qyb = qy[:, None]
+
+        def edge(e):
+            lx, ly = t[..., e], t[..., 3 + e]
+            hx, hy = t[..., 6 + e], t[..., 9 + e]
+            return t[..., 12 + e] * ((hx - lx) * (qyb - ly)
+                                     - (hy - ly) * (qxb - lx))
+
+        d1, d2, d3 = edge(0), edge(1), edge(2)
+        den = d1 + d2 + d3
+        in2d = ((torch.minimum(torch.minimum(d1, d2), d3) > 0) |
+                (torch.maximum(torch.maximum(d1, d2), d3) < 0))
+        hit = in2d & (slot > 0)
+        zc = (d2 * t[..., 15] + d3 * t[..., 16] + d1 * t[..., 17]) / \
+            torch.where(den == 0, torch.ones_like(den), den)
+        zpad = torch.where(hit, zc, torch.full_like(zc, math.inf))
+        zs.append(torch.topk(zpad, C, dim=-1, largest=False,
+                             sorted=True).values)
+        cs.append(hit.sum(-1).to(torch.int32))
+    if not zs:
+        return (verts.new_full((0, C), math.inf),
+                torch.zeros((0,), dtype=torch.int32, device=verts.device))
+    return torch.cat(zs), torch.cat(cs)
+
+
 def column_parity_inside(points: torch.Tensor, cross_z: torch.Tensor,
                          meta: torch.Tensor) -> torch.Tensor:
     """Inside test [N] bool: parity of the crossings above each point in
@@ -451,40 +570,14 @@ def ray_parity_inside(points: torch.Tensor, verts: torch.Tensor,
     return torch.cat(out) if out else points.new_zeros((0,), dtype=bool)
 
 
-def point_body_features(points: torch.Tensor, verts: torch.Tensor,
-                        faces: torch.Tensor, vert_face_table: torch.Tensor,
-                        cmaps: torch.Tensor, vis: torch.Tensor, k: int = 2,
-                        cross_z: Optional[torch.Tensor] = None,
-                        cross_meta: Optional[torch.Tensor] = None,
-                        ray_bins: Optional[torch.Tensor] = None,
-                        ray_grid: Optional[torch.Tensor] = None,
-                        known_inside: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, ...]:
-    """Single-example SMPL-local features at ``points [N, 3]``.
-
-    ``verts [V, 3]``, ``faces [F, 3]``, ``vert_face_table [V, deg]``,
-    ``cmaps [V, 3]``, ``vis [V, 1]``; the sign, in this order of
-    preference: ``known_inside [N]`` bool, ``cross_z``/``cross_meta`` from
-    :func:`build_crossing_columns_blocked`, ``ray_bins``/``ray_grid`` from
-    :func:`build_ray_bins`. Returns (sdf [N,1] positive inside, normal
-    [N,3], cmap [N,3], vis [N,1])."""
-    if known_inside is None and cross_z is None and ray_bins is None:
-        raise NotImplementedError(
-            "the sign needs known_inside, crossing columns or ray bins; the "
-            "winding-cluster and pseudo-normal signs are ROADMAP Queue A "
-            "item 3")
-    N = points.shape[0]
-    faces = faces.long()
-    normals = vertex_normals(verts[None], faces)[0]       # [V, 3]
-
-    nn_idx = nearest_vertices(points, verts, k=k)         # [N, k]
-    cand = vert_face_table.long()[nn_idx].reshape(N, -1)  # [N, C]
-
-    packed_tri = torch.cat([verts[faces[:, 0]], verts[faces[:, 1]],
-                            verts[faces[:, 2]]], dim=-1)  # [F, 9]
-    tri_block = packed_tri[cand]                          # [N, C, 9]
+def _candidate_distances(points: torch.Tensor, tri_block: torch.Tensor,
+                         closest: bool = False):
+    """Squared distance [N, C] from ``points [N, 3]`` to each candidate
+    triangle of ``tri_block [N, C, 9]`` (the plane projection where it
+    falls inside the triangle, else the nearest edge point); with
+    ``closest`` also the closest points' coordinates (x, y, z), each
+    [N, C]."""
     (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = tri_block.unbind(-1)
-
     px = points[:, 0:1]
     py = points[:, 1:2]
     pz = points[:, 2:3]
@@ -515,13 +608,55 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
                          torch.clamp(_dot(ex, ey, ez, ex, ey, ez), min=1e-12),
                          0.0, 1.0)
         qx, qy, qz = ax_ + tt * ex, ay_ + tt * ey, az_ + tt * ez
-        return (px - qx) ** 2 + (py - qy) ** 2 + (pz - qz) ** 2
+        return (px - qx) ** 2 + (py - qy) ** 2 + (pz - qz) ** 2, (qx, qy, qz)
 
-    d01 = seg(v0x, v0y, v0z, v1x, v1y, v1z)
-    d12 = seg(v1x, v1y, v1z, v2x, v2y, v2z)
-    d20 = seg(v2x, v2y, v2z, v0x, v0y, v0z)
+    d01, q01 = seg(v0x, v0y, v0z, v1x, v1y, v1z)
+    d12, q12 = seg(v1x, v1y, v1z, v2x, v2y, v2z)
+    d20, q20 = seg(v2x, v2y, v2z, v0x, v0y, v0z)
     d_edge = torch.minimum(torch.minimum(d01, d12), d20)
     d2 = torch.where(inside, d_in, d_edge)                # [N, C]
+    if not closest:
+        return d2
+    e_first = (d01 <= d12) & (d01 <= d20)
+    e_second = (d12 <= d20) & ~e_first
+    q = tuple(torch.where(inside, pr, torch.where(
+        e_first, a, torch.where(e_second, b, c)))
+        for pr, a, b, c in zip((prx, pry, prz), q01, q12, q20))
+    return d2, q
+
+
+def point_body_features(points: torch.Tensor, verts: torch.Tensor,
+                        faces: torch.Tensor, vert_face_table: torch.Tensor,
+                        cmaps: torch.Tensor, vis: torch.Tensor, k: int = 2,
+                        cluster_faces: Optional[torch.Tensor] = None,
+                        cluster_mask: Optional[torch.Tensor] = None,
+                        cross_z: Optional[torch.Tensor] = None,
+                        cross_meta: Optional[torch.Tensor] = None,
+                        ray_bins: Optional[torch.Tensor] = None,
+                        ray_grid: Optional[torch.Tensor] = None,
+                        known_inside: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Single-example SMPL-local features at ``points [N, 3]``.
+
+    ``verts [V, 3]``, ``faces [F, 3]``, ``vert_face_table [V, deg]``,
+    ``cmaps [V, 3]``, ``vis [V, 1]``; the sign, in this order of
+    preference: ``known_inside [N]`` bool, ``cross_z``/``cross_meta`` from
+    :func:`build_crossing_columns_blocked`, ``ray_bins``/``ray_grid`` from
+    :func:`build_ray_bins`, ``cluster_faces``/``cluster_mask`` from
+    :func:`build_winding_clusters` (winding number > 0.5 is inside), else
+    the pseudo-normal test (fast, but undefined where the body touches
+    itself). Returns (sdf [N,1] positive inside, normal [N,3], cmap [N,3],
+    vis [N,1])."""
+    N = points.shape[0]
+    faces = faces.long()
+    normals = vertex_normals(verts[None], faces)[0]       # [V, 3]
+
+    nn_idx = nearest_vertices(points, verts, k=k)         # [N, k]
+    cand = vert_face_table.long()[nn_idx].reshape(N, -1)  # [N, C]
+
+    packed_tri = torch.cat([verts[faces[:, 0]], verts[faces[:, 1]],
+                            verts[faces[:, 2]]], dim=-1)  # [F, 9]
+    d2 = _candidate_distances(points, packed_tri[cand])   # [N, C]
 
     best = torch.argmin(d2, dim=1, keepdim=True)          # first minimum
     d2b = torch.gather(d2, 1, best)[:, 0]
@@ -553,9 +688,25 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
         inside_pt = known_inside.bool()
     elif cross_z is not None:
         inside_pt = column_parity_inside(points, cross_z, cross_meta)
-    else:
+    elif ray_bins is not None:
         inside_pt = ray_parity_inside(points, verts, faces, ray_bins,
                                       ray_grid)
+    elif cluster_faces is not None:
+        inside_pt = fast_winding(points, verts, faces, cluster_faces,
+                                 cluster_mask) > 0.5
+    else:
+        # pseudo-normal sign: the normal interpolated at the CLAMPED,
+        # renormalized closest-point barycentrics (the unclamped feature
+        # weights extrapolate and flip signs for edge-closest queries)
+        _, q = _candidate_distances(points, packed_tri[best_face][:, None],
+                                    closest=True)
+        cp = torch.cat(q, dim=-1)                         # [N, 3]
+        bary_cp = torch.clamp(barycentric_projection_weights(cp, tri),
+                              0.0, 1.0)
+        bary_cp = bary_cp / torch.clamp(bary_cp.sum(-1, keepdim=True),
+                                        min=1e-9)
+        n_sign = torch.sum(n_f * bary_cp[..., None], dim=1)
+        inside_pt = torch.sum((points - cp) * n_sign, dim=-1) < 0.0
     sdf = torch.where(inside_pt, dist, -dist)[..., None]
     return sdf, normal_q, cmap_q, vis_q
 
@@ -563,7 +714,10 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
 def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,
                        cmaps: torch.Tensor, vis: torch.Tensor,
                        points: torch.Tensor, vert_face_table: torch.Tensor,
-                       k: int = 2, cross_z: Optional[torch.Tensor] = None,
+                       k: int = 2,
+                       cluster_faces: Optional[torch.Tensor] = None,
+                       cluster_mask: Optional[torch.Tensor] = None,
+                       cross_z: Optional[torch.Tensor] = None,
                        cross_meta: Optional[torch.Tensor] = None,
                        ray_bins: Optional[torch.Tensor] = None,
                        ray_grid: Optional[torch.Tensor] = None,
@@ -571,7 +725,8 @@ def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,
     """Batched :func:`point_body_features`: ``verts [B,V,3]``, ``cmaps
     [B,V,3]``, ``vis [B,V,1]``, ``points [B,N,3]``; ``cross_z`` is
     ``[H*W, C]`` shared or ``[B, H*W, C]`` per item, likewise
-    ``cross_meta``, ``ray_bins`` (``[T^2, S]``), ``ray_grid`` (``[6]``);
+    ``cross_meta``, ``ray_bins`` (``[T^2, S]``), ``ray_grid`` (``[6]``),
+    ``cluster_faces`` and ``cluster_mask`` (``[K, M]``);
     ``known_inside`` is ``[B, N]``. Returns (sdf, normal, cmap, vis), each
     ``[B, N, .]``."""
     B = points.shape[0]
@@ -583,6 +738,8 @@ def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,
 
     outs = [point_body_features(points[b], verts[b], faces, vert_face_table,
                                 cmaps[b], vis[b], k=k,
+                                cluster_faces=item(cluster_faces, b, 2),
+                                cluster_mask=item(cluster_mask, b, 2),
                                 cross_z=item(cross_z, b, 2),
                                 cross_meta=item(cross_meta, b, 1),
                                 ray_bins=item(ray_bins, b, 2),

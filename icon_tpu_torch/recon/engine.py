@@ -9,7 +9,9 @@ lies strictly between 0 and 1, dilated by a box filter (9/7/3 by level),
 minus the voxels already evaluated. They are compacted into a fixed
 per-level point budget (first ``budget`` in linear order) and evaluated. In
 faster mode the last level is interpolation only; ``faster=False``
-evaluates it too. The budget overflow is reported per level.
+evaluates it too. The budget overflow is reported per level. With
+``virtual_final`` faster mode stops before the last upsample and returns
+the grid below it, for a marcher of its virtual upsample.
 
 Exact mode adds the reference's conflict resolution (seg3d_lossless.py:
 388-471) in ``conflict_rounds`` static rounds a level: where a fresh value
@@ -107,7 +109,8 @@ class ReconEngine:
                  faster: bool = True, exact: bool = False,
                  conflict_rounds: int = 2, pad_multiple: int = 1,
                  auto_budget: bool = False,
-                 auto_headroom: float = 1.5, device="cuda"):
+                 auto_headroom: float = 1.5, virtual_final: bool = False,
+                 device="cuda"):
         """``faster``: the last level is interpolation only. ``exact``:
         conflict resolution in ``conflict_rounds`` rounds a level, every
         level evaluated (it implies ``faster=False``). ``pad_multiple``:
@@ -116,8 +119,12 @@ class ReconEngine:
         buffers from the previous frame's boundary count x
         ``auto_headroom``, snapped to a geometric bucket ladder; the first
         frame and any frame after an overflow use the caps (``budgets``).
-        Grids and query points live on ``device``: the card unless the
-        caller asks for the CPU."""
+        ``virtual_final`` (faster mode only): stop before the final
+        upsample and return the grid below it, for a marcher of its virtual
+        2x upsample (``recon/marching.py:marching_lattice_virtual``,
+        ``AutoMarcher(virtual=True)``), so the final grid is never written:
+        a memory option for high final resolutions. Grids and query points
+        live on ``device``: the card unless the caller asks for the CPU."""
         self.device = torch.device(device)
         self.resolutions = tuple(resolutions)
         for r in self.resolutions:
@@ -133,6 +140,7 @@ class ReconEngine:
         self.conflict_rounds = conflict_rounds
         self.auto_budget = auto_budget
         self.auto_headroom = auto_headroom
+        self.virtual_final = virtual_final and self.faster
         self._last_counts: Dict[int, torch.Tensor] = {}
         self._last_hosts: Dict[int, int] = {}
         self._bucket_used: Dict[int, int] = {}
@@ -270,13 +278,18 @@ class ReconEngine:
         ``stats``: ``levelN_points`` (boundary count, 0-d device tensor),
         ``levelN_overflow``, in exact mode ``levelN_conflicts`` and
         ``levelN_residual``, and in faster mode ``coarse_occ`` (the grid
-        before the final interpolation-only upsample)."""
+        before the final interpolation-only upsample). With
+        ``virtual_final`` the returned grid is ``coarse_occ`` itself and
+        ``stats["final_res"]`` the resolution of the level not written."""
         res = self.resolutions
         stats: Dict[str, torch.Tensor] = {}
         occ, evaluated = self._level0(query_fn, query_args, self.device)
         for lv in range(1, len(res)):
             if lv == len(res) - 1 and self.faster:
                 stats["coarse_occ"] = occ
+                if self.virtual_final:
+                    stats["final_res"] = res[lv]
+                    break
                 occ = self._upsample(occ, res[lv])
                 break
             budget = self._bucket(lv)

@@ -6,7 +6,9 @@ front/back normal maps; the body rasterized into per-column crossing
 depths; the coarse-to-fine engine in faster mode with ``auto_budget``,
 querying ``preds * 1e-6 + clothed_human_occ`` (the random-init net runs at
 full compute, while the level set, and so every buffer size, is that of a
-posed clothed human); lattice marching; pack; host decode.
+posed clothed human); lattice marching; pack; host decode. With
+``sign="winding"`` the body features sign by the body's winding-cluster
+fast winding numbers instead of the crossing columns.
 
 :func:`build_normalnet_frame` (``bench.py:274-328`` with the demo's body
 inputs, ``apps/infer.py:180-194,369-442``): the body's normal renders at
@@ -59,6 +61,7 @@ from icon_tpu_torch.parallel.mesh import (Mesh, Replicas, shard_query,
                                           to_device)
 from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_crossing_columns_blocked,
+                                         build_winding_clusters,
                                          build_vertex_face_table)
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
 from icon_tpu_torch.recon.export import extract_mesh
@@ -248,7 +251,8 @@ def _marcher(res: int) -> AutoMarcher:
     area_scale = max((res // 256) ** 2, 1)
     return AutoMarcher(max_cells=(1 << 18) * area_scale,
                        max_tris=(1 << 19) * area_scale,
-                       max_verts=(1 << 19) * area_scale, slice_one=True)
+                       max_verts=(1 << 19) * area_scale, slice_one=True,
+                       codec="lattice")
 
 
 @dataclasses.dataclass
@@ -270,12 +274,21 @@ def _sharded(query_fn: Callable, mesh: Optional[Mesh]) -> Callable:
 
 def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
                 batch: Dict[str, np.ndarray], res: int,
-                device="cuda", mesh: Optional[Mesh] = None) -> Frame:
+                device="cuda", mesh: Optional[Mesh] = None,
+                sign: str = "columns") -> Frame:
     """The serving frame for ``cfg`` with HGPIFuNet weights ``state``
-    (without the NormalNet: the normals are given) on ``batch`` (numpy, NHWC images: ``normal_F``, ``normal_B``, ``calib``,
-    ``smpl_verts`` [1,V,3], ``smpl_faces``, ``smpl_cmap``, ``smpl_vis``),
-    marching at ``res`` (256 -> levels 33, 65, 129, 257); the queries
-    point-sharded over ``mesh`` when given."""
+    (without the NormalNet: the normals are given) on ``batch`` (numpy,
+    NHWC images: ``normal_F``, ``normal_B``, ``calib``, ``smpl_verts``
+    [1,V,3], ``smpl_faces``, ``smpl_cmap``, ``smpl_vis``), marching at
+    ``res`` (256 -> levels 33, 65, 129, 257); the queries point-sharded
+    over ``mesh`` when given. ``sign``: the body features' sign,
+    ``"columns"`` (the body's crossing columns on the lattice, built once
+    a frame) or ``"winding"`` (its winding clusters, built once a body on
+    the host: the query's ``smpl_clusters``); the winding frame's
+    ``columns()`` gives (None, None)."""
+    if sign not in ("columns", "winding"):
+        raise ValueError(f"sign must be 'columns' or 'winding', got "
+                         f"{sign!r}")
     device = torch.device(device)
     net_on = Replicas(_load_net(cfg, state, device, normal_net=False))
 
@@ -298,10 +311,17 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         "smpl_cmap": dev(batch["smpl_cmap"], torch.float32),
         "smpl_vis": dev(batch["smpl_vis"], torch.float32),
         "smpl_vf_table": bins.vf_table,
-        "smpl_cross_meta": bins.cross_meta,
     }
+    if sign == "winding":
+        cf, cm = build_winding_clusters(verts_np[0], faces_np)
+        smpl_feat["smpl_clusters"] = dev(cf, torch.int64)
+        smpl_feat["smpl_cluster_mask"] = dev(cm)
+    else:
+        smpl_feat["smpl_cross_meta"] = bins.cross_meta
 
     def columns():
+        if sign == "winding":
+            return None, None
         return crossing_columns(smpl_feat, bins)
 
     in_t = {k: dev(batch[k], torch.float32) for k in ("normal_F", "normal_B")}
@@ -312,7 +332,9 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
 
     def net_occ(pts, cross_z, feats):
         d = pts.device
-        smpl = dict(to_device(smpl_feat, d), smpl_cross_z=cross_z)
+        smpl = to_device(smpl_feat, d)
+        if cross_z is not None:
+            smpl["smpl_cross_z"] = cross_z
         return net_on(d).query(feats, pts, calib.to(d), smpl)[-1]
 
     def query_fn(pts, cross_z, feats):

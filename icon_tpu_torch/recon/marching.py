@@ -1,16 +1,28 @@
-"""On-device iso-surface extraction, lattice path (``icon_tpu.recon.marching``).
+"""On-device iso-surface extraction (``icon_tpu.recon.marching``).
 
-Marching tetrahedra (Kuhn 6-tet subdivision) emitting the lattice wire:
-unique vertices as (lattice edge id, fraction along the edge) and active
-cells as (cell id, 8 corner-inside bits). Faces never exist on the device;
-the host derives them from the corner bits through the same (tet, case)
-tables (:mod:`icon_tpu_torch.recon.lattice_host`). Every lattice edge has
-exactly one owner cell, so vertices are unique by construction.
+Marching tetrahedra (Kuhn 6-tet subdivision) over an occupancy grid, in two
+codecs:
+
+- **indexed** (:func:`marching_tetrahedra_indexed`, the one-shot export's):
+  an explicit mesh, triangles in (cell, slot) order and vertices deduped
+  by their lattice edge ids, in ascending id order, by the hand-written
+  ``mt_emit`` and ``mt_index`` kernels (``kernels/marching.py``); packed
+  into one buffer (:func:`pack_mesh`, exact float32 or 10.6 fixed point)
+  and decoded on the host (:func:`unpack_mesh`).
+- **lattice** (:func:`marching_lattice`, the serving wire): unique vertices
+  as (lattice edge id, fraction along the edge) and active cells as (cell
+  id, 8 corner-inside bits). Faces never exist on the device; the host
+  derives them from the corner bits through the same (tet, case) tables
+  (:mod:`icon_tpu_torch.recon.lattice_host`). Every lattice edge has
+  exactly one owner cell, so vertices are unique by construction.
+  :func:`marching_lattice_virtual` marches the engine's final level as the
+  virtual 2x upsample of its coarse grid, which never materializes.
 
 Edge ids ``plin * 8 + dir`` are int64 on the device (the JAX package's int32
-ids wrap past ~645^3). The wire is word-for-word the JAX package's: wire v2
-(implicit edge ids, the serving default) carries no edge ids at all; wire
-v1 carries them as int32 and raises for a grid whose ids do not fit.
+ids wrap past ~645^3). The lattice wire is word-for-word the JAX package's:
+wire v2 (implicit edge ids, the serving default) carries no edge ids at
+all; wire v1 carries them as int32 and raises for a grid whose ids do not
+fit.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.kernels.marching import mt_emit, mt_index
 from icon_tpu_torch.recon.engine import _compact
 from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
                                                decode_lattice)
@@ -41,6 +54,49 @@ class LatticeOut(NamedTuple):
     grid_shape: Tuple[int, int, int]   # (D, H, W) of the marched grid
 
 
+def _mixed_cells(arr: torch.Tensor, iso: float) -> torch.Tensor:
+    """[D-1, H-1, W-1] bool: the cells of ``arr`` whose 8 corners lie on
+    both sides of ``iso``."""
+    inside = arr > iso
+    D, H, W = arr.shape
+
+    def corner(c):
+        dx, dy, dz = (int(o) for o in _CORNER_OFF[c])
+        return inside[dz:dz + D - 1, dy:dy + H - 1, dx:dx + W - 1]
+
+    cnt = sum(corner(c).to(torch.int8) for c in range(8))
+    return (cnt > 0) & (cnt < 8)
+
+
+def _coarse_candidates(coarse_occ: torch.Tensor, iso: float,
+                       fine_shape: Tuple[int, int, int], nc_budget: int):
+    """The fine cells that the first ``nc_budget`` mixed cells of
+    ``coarse_occ`` cover in its 2x upsample sliced by one (``fine_shape``):
+    coarse cell c covers fine cells {2c-1, 2c} per axis. Returns (kx, ky,
+    kz, cand_idx, valid [nc_budget * 8], n_mixed_total)."""
+    D, H, W = fine_shape
+    cw, ch = W - 1, H - 1
+    Dc, Hc, Wc = coarse_occ.shape
+    dev = coarse_occ.device
+    idxc, n_c, n_mixed_total = _compact(
+        _mixed_cells(coarse_occ, iso).reshape(-1), nc_budget)
+    ccz = idxc // ((Hc - 1) * (Wc - 1))
+    ccy = (idxc // (Wc - 1)) % (Hc - 1)
+    ccx = idxc % (Wc - 1)
+    offs = torch.as_tensor(_CORNER_OFF, dtype=torch.int64, device=dev)
+    fx = 2 * ccx[:, None] - 1 + offs[None, :, 0]
+    fy = 2 * ccy[:, None] - 1 + offs[None, :, 1]
+    fz = 2 * ccz[:, None] - 1 + offs[None, :, 2]
+    valid = ((fx >= 0) & (fx < cw) & (fy >= 0) & (fy < ch) &
+             (fz >= 0) & (fz < D - 1) &
+             (torch.arange(nc_budget, device=dev)[:, None] < n_c))
+    kx = torch.clamp(fx, 0, cw - 1).reshape(-1)
+    ky = torch.clamp(fy, 0, ch - 1).reshape(-1)
+    kz = torch.clamp(fz, 0, D - 2).reshape(-1)
+    return kx, ky, kz, (kz * ch + ky) * cw + kx, valid.reshape(-1), \
+        n_mixed_total
+
+
 def _active_cells(occ: torch.Tensor, iso: float, max_cells: int,
                   coarse_occ: Optional[torch.Tensor],
                   max_candidates: Optional[int] = None):
@@ -52,56 +108,29 @@ def _active_cells(occ: torch.Tensor, iso: float, max_cells: int,
     ``max_candidates``); those that are exactly mixed at fine resolution
     are compacted into the [max_cells] output."""
     D, H, W = occ.shape
-    dev = occ.device
-    inside = occ > iso
     cw, ch = W - 1, H - 1
-
-    def corner(arr, c, d_, h_, w_):
-        dx, dy, dz = (int(o) for o in _CORNER_OFF[c])
-        return arr[dz:dz + d_ - 1, dy:dy + h_ - 1, dx:dx + w_ - 1]
-
-    alive_range = torch.arange(max_cells, device=dev)
+    alive_range = torch.arange(max_cells, device=occ.device)
     if coarse_occ is None:
-        cnt = sum(corner(inside, c, D, H, W).to(torch.int8)
-                  for c in range(8))
-        active = (cnt > 0) & (cnt < 8)
-        cell_idx, n_cells, n_cells_total = _compact(active.reshape(-1),
-                                                    max_cells)
+        cell_idx, n_cells, n_cells_total = _compact(
+            _mixed_cells(occ, iso).reshape(-1), max_cells)
         cz = cell_idx // (ch * cw)
         cy = (cell_idx // cw) % ch
         cx = cell_idx % cw
         return cx, cy, cz, cell_idx, alive_range < n_cells, n_cells, \
             n_cells_total
 
-    Dc, Hc, Wc = coarse_occ.shape
-    in_c = coarse_occ > iso
-    cntc = sum(corner(in_c, c, Dc, Hc, Wc).to(torch.int8) for c in range(8))
-    mixed = (cntc > 0) & (cntc < 8)
     nc_budget = (max_candidates or max_cells) // 8
-    idxc, n_c, n_mixed_total = _compact(mixed.reshape(-1), nc_budget)
-    ccz = idxc // ((Hc - 1) * (Wc - 1))
-    ccy = (idxc // (Wc - 1)) % (Hc - 1)
-    ccx = idxc % (Wc - 1)
-    # coarse cell c covers fine (sliced-by-one) cells {2c-1, 2c} per axis
-    offs = torch.as_tensor(_CORNER_OFF, dtype=torch.int64, device=dev)
-    fx = 2 * ccx[:, None] - 1 + offs[None, :, 0]
-    fy = 2 * ccy[:, None] - 1 + offs[None, :, 1]
-    fz = 2 * ccz[:, None] - 1 + offs[None, :, 2]
-    valid = ((fx >= 0) & (fx < cw) & (fy >= 0) & (fy < ch) &
-             (fz >= 0) & (fz < D - 1) &
-             (torch.arange(nc_budget, device=dev)[:, None] < n_c))
-    kx = torch.clamp(fx, 0, cw - 1).reshape(-1)
-    ky = torch.clamp(fy, 0, ch - 1).reshape(-1)
-    kz = torch.clamp(fz, 0, D - 2).reshape(-1)
-    cand_idx = (kz * ch + ky) * cw + kx                   # [mcand]
+    kx, ky, kz, cand_idx, valid, n_mixed_total = _coarse_candidates(
+        coarse_occ, iso, (D, H, W), nc_budget)
 
     # exact mixed test: separable all-inside / any-inside reductions
+    inside = occ > iso
     ai = inside[:, :, :-1] & inside[:, :, 1:]
     ao = inside[:, :, :-1] | inside[:, :, 1:]
     ai = ai[:, :-1] & ai[:, 1:]
     ao = ao[:, :-1] | ao[:, 1:]
     mixedv = ((ao[:-1] | ao[1:]) & ~(ai[:-1] & ai[1:])).reshape(-1)
-    alive_cand = valid.reshape(-1) & mixedv[cand_idx]
+    alive_cand = valid & mixedv[cand_idx]
 
     cpos, n_cells, n_alive_total = _compact(alive_cand, max_cells)
     # each dropped mixed coarse cell hides up to 8 fine candidates
@@ -109,6 +138,60 @@ def _active_cells(occ: torch.Tensor, iso: float, max_cells: int,
         n_mixed_total - nc_budget, min=0)
     return kx[cpos], ky[cpos], kz[cpos], cand_idx[cpos], \
         alive_range < n_cells, n_cells, n_cells_total
+
+
+class MarchOut(NamedTuple):
+    verts_x: torch.Tensor      # [max_verts] f32, ascending edge-id order
+    verts_y: torch.Tensor
+    verts_z: torch.Tensor
+    faces: torch.Tensor        # [max_tris, 3] int32 into the vertex rows
+    n_verts: torch.Tensor      # 0-d, clamped to max_verts
+    n_tris: torch.Tensor       # 0-d, clamped to max_tris
+    n_cells: torch.Tensor      # 0-d, cells in the buffer (<= max_cells)
+    n_tris_total: torch.Tensor  # true count; > n_tris = overflow
+    n_cells_total: torch.Tensor  # candidate cells; > n_cells = overflow
+
+
+def marching_tetrahedra_indexed(occ: torch.Tensor, iso: float = 0.5,
+                                max_cells: int = 1 << 18,
+                                max_tris: int = 1 << 20,
+                                max_verts: int = 1 << 19,
+                                coarse_occ: Optional[torch.Tensor] = None,
+                                max_candidates: Optional[int] = None
+                                ) -> MarchOut:
+    """An indexed mesh of ``occ [D, H, W]`` ([z, y, x]) in grid
+    coordinates (x, y, z), faces wound counter-clockwise seen from the
+    outside (occ < iso). The active cells (with ``coarse_occ``, ``occ``'s
+    2x align_corners source before the slice by one, only those of its
+    mixed cells) go through ``mt_emit`` (triangles in linear (cell, slot)
+    order, the first ``max_tris``) and ``mt_index`` (vertices deduped by
+    edge id, ascending; the first ``max_verts``)."""
+    occ = occ.contiguous()
+    cx, cy, cz, _, _, n_cells, n_cells_total = \
+        _active_cells(occ, iso, max_cells, coarse_occ, max_candidates)
+    tvx, tvy, tvz, teid, n_tris, n_tris_total = mt_emit(
+        occ, cx, cy, cz, n_cells, iso, max_tris)
+    vx, vy, vz, faces, n_unique = mt_index(tvx, tvy, tvz, teid, n_tris,
+                                           max_verts, tuple(occ.shape))
+    return MarchOut(vx, vy, vz, faces, torch.clamp(n_unique, max=max_verts),
+                    n_tris, n_cells, n_tris_total, n_cells_total)
+
+
+def marching_tetrahedra(occ: torch.Tensor, iso: float = 0.5,
+                        max_cells: int = 1 << 18, max_tris: int = 1 << 20):
+    """Triangle soup of :func:`marching_tetrahedra_indexed`: (tri_verts
+    [max_tris, 3, 3], tri_mask [max_tris], n_cells, n_tris); dead rows
+    are zero."""
+    out = marching_tetrahedra_indexed(occ, iso, max_cells=max_cells,
+                                      max_tris=max_tris,
+                                      max_verts=min(2 * max_tris, 1 << 21))
+    f = out.faces.long()
+    n = out.verts_x.shape[0]
+    f = torch.clamp(f, max=n - 1)      # ranks past max_verts: dead rows
+    tri = torch.stack([out.verts_x[f], out.verts_y[f], out.verts_z[f]], -1)
+    mask = torch.arange(f.shape[0], device=f.device) < out.n_tris
+    tri = torch.where(mask[:, None, None], tri, torch.zeros_like(tri))
+    return tri, mask, out.n_cells, out.n_tris
 
 
 def marching_lattice(occ: torch.Tensor, iso: float = 0.5,
@@ -178,6 +261,69 @@ def _lattice_emit(cvals, cx, cy, cz, cell_idx, alive_cells, n_cells,
                       n_verts_total, n_cells_total, (D, H, W))
 
 
+def marching_lattice_virtual(coarse_occ: torch.Tensor, iso: float = 0.5,
+                             max_cells: int = 1 << 18,
+                             max_verts: int = 1 << 19,
+                             max_candidates: Optional[int] = None
+                             ) -> LatticeOut:
+    """:func:`marching_lattice` over the VIRTUAL 2x align_corners upsample
+    of ``coarse_occ``, sliced by one (the engine's faster-mode final level
+    and the export convention): the fine corner values are interpolated
+    at the candidate cells only, so the dense fine grid never exists (at
+    1025^3 it alone is 4.3 GB; this path marches it from the 0.5 GB coarse
+    grid). Equal to ``marching_lattice(upsample2x(coarse)[1:, 1:, 1:],
+    coarse_occ=coarse)`` up to the interpolation's rounding.
+
+    With align_corners 2x upsampling the unsliced fine value at index v is
+    ``coarse[v / 2]`` for even v and the midpoint of its two neighbours for
+    odd v, so a fine cell's 8 corners are separable 2-tap combinations of
+    one coarse 2^3 block at ``floor((fine_sliced + 1) / 2)``."""
+    Dc, Hc, Wc = coarse_occ.shape
+    D, H, W = 2 * Dc - 2, 2 * Hc - 2, 2 * Wc - 2       # sliced fine dims
+    dev = coarse_occ.device
+    dt = coarse_occ.dtype
+    nc_budget = (max_candidates or max_cells) // 8
+    kx, ky, kz, cand_idx, valid, n_mixed_total = _coarse_candidates(
+        coarse_occ, iso, (D, H, W), nc_budget)
+
+    # one coarse 2^3 block a candidate cell, at the unsliced base // 2
+    ux, uy, uz = kx + 1, ky + 1, kz + 1
+    bx, by, bz = ux // 2, uy // 2, uz // 2
+    o2 = torch.arange(2, device=dev)
+    blin = (((bz[:, None, None, None] + o2[None, :, None, None]) * Hc +
+             (by[:, None, None, None] + o2[None, None, :, None])) * Wc +
+            (bx[:, None, None, None] + o2[None, None, None, :]))
+    blk = coarse_occ.reshape(-1)[blin]                    # [mcand, z, y, x]
+
+    # per-axis corner -> tap weights: an even base takes corner 0 exact
+    # and corner 1 at the midpoint; an odd base the reverse
+    w_even = torch.tensor([[1.0, 0.0], [0.5, 0.5]], dtype=dt, device=dev)
+    w_odd = torch.tensor([[0.5, 0.5], [0.0, 1.0]], dtype=dt, device=dev)
+
+    def wsel(u):                                          # [mcand, 2, 2]
+        return torch.where(((u & 1) == 0)[:, None, None], w_even[None],
+                           w_odd[None])
+
+    def taps(w, a0, a1):              # w [n, c, 2] over the tap axis
+        return w[..., 0] * a0 + w[..., 1] * a1
+
+    wz, wy, wx = wsel(uz), wsel(uy), wsel(ux)
+    t = taps(wz[:, :, None, None, :], blk[:, None, 0], blk[:, None, 1])
+    t = taps(wy[:, None, :, None, :], t[:, :, None, 0], t[:, :, None, 1])
+    t = taps(wx[:, None, None, :, :], t[..., None, 0], t[..., None, 1])
+    cvals8 = t.reshape(-1, 8)                 # corner order c = x + 2y + 4z
+
+    ins = cvals8 > iso
+    mixed_f = valid & ins.any(-1) & (~ins).any(-1)
+    cpos, n_cells, n_alive_total = _compact(mixed_f, max_cells)
+    alive_cells = torch.arange(max_cells, device=dev) < n_cells
+    n_cells_total = n_alive_total + 8 * torch.clamp(
+        n_mixed_total - nc_budget, min=0)
+    return _lattice_emit(cvals8[cpos], kx[cpos], ky[cpos], kz[cpos],
+                         cand_idx[cpos], alive_cells, n_cells,
+                         n_cells_total, (D, H, W), iso, max_verts)
+
+
 def _pack4(b: torch.Tensor) -> torch.Tensor:
     """Little-endian u8 x4 per int32 word (zero padded)."""
     pad = (-b.shape[0]) % 4
@@ -221,22 +367,165 @@ def pack_lattice(out: LatticeOut, bucket: int = 16384,
     return torch.cat(parts), nvb, ncb
 
 
+def pack_mesh(out: MarchOut, quantize: bool = True, bucket: int = 16384,
+              sizes: Optional[Tuple[int, int]] = None):
+    """One device buffer of the indexed mesh for a single host copy:
+    ``(buf, nvb, ntb)``. Its first two words are the true (n_verts,
+    n_tris), written on the device, so packing never waits for them.
+    ``sizes`` = (n_verts, n_tris) upper bounds (default: the full buffers),
+    rounded up to ``bucket``; :func:`unpack_mesh` reports an overflow when
+    the true counts exceed them.
+
+    ``quantize``: int32 words [header 2 | x | y << 16 a vertex | z pairs |
+    f0 | f1 << 21 | f1 >> 11 | f2 << 10 a face]: vertices as 10.6 fixed
+    point (error <= 1/128 of a cell, grids up to 1023), faces as two
+    21-bit-index words (the JAX package's ``_pack_fn``, word for word).
+    Otherwise float32 words [header (bits) | x | y | z | faces (bits)]."""
+    cap_v = out.verts_x.shape[0]
+    cap_t = out.faces.shape[0]
+    if quantize and cap_v > (1 << 21):
+        raise ValueError(f"{cap_v} vertex rows exceed the 21-bit face "
+                         f"indices of the quantized wire")
+    want_v, want_t = sizes if sizes is not None else (cap_v, cap_t)
+    if want_v <= 0 or want_t <= 0:          # unknown -> full buffers
+        want_v, want_t = cap_v, cap_t
+    nvb = min(-(-want_v // bucket) * bucket, cap_v)
+    ntb = min(-(-want_t // bucket) * bucket, cap_t)
+    counts = torch.stack([out.n_verts, out.n_tris]).to(torch.int32)
+    vx, vy, vz = out.verts_x[:nvb], out.verts_y[:nvb], out.verts_z[:nvb]
+    f = out.faces[:ntb].to(torch.int32)
+    if not quantize:
+        buf = torch.cat([counts.view(torch.float32), vx, vy, vz,
+                         f.reshape(-1).view(torch.float32)])
+        return buf, nvb, ntb
+
+    def q(v):
+        return torch.clamp(torch.round(v * 64.0), 0, 65535).to(torch.int32)
+
+    xq, yq, zq = q(vx), q(vy), q(vz)
+    w_xy = xq | (yq << 16)
+    zpad = torch.cat([zq, zq.new_zeros(nvb % 2)])
+    w_zz = zpad[0::2] | (zpad[1::2] << 16)
+    f0, f1, f2 = f[:, 0], f[:, 1], f[:, 2]
+    w0 = f0 | ((f1 & 0x7FF) << 21)
+    w1 = (f1 >> 11) | (f2 << 10)
+    return torch.cat([counts, w_xy, w_zz, w0, w1]), nvb, ntb
+
+
+def unpack_mesh(packed, quantize: bool = True,
+                return_overflow: bool = False):
+    """Blocking host copy and decode of a :func:`pack_mesh` buffer:
+    (verts [V, 3] f32, faces [F, 3] int64) (+ the overflow flag: the true
+    counts exceeded the packed sizes, the mesh is truncated; faces past the
+    copied vertices are dropped). Degenerate faces (dedup merges a
+    triangle's vertices when the iso value sits on a lattice vertex) are
+    dropped."""
+    empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
+    if packed is None:
+        return empty + (False,) if return_overflow else empty
+    buf, nvb, ntb = packed
+    host = buf.cpu().numpy() if torch.is_tensor(buf) else np.asarray(buf)
+    hdr = host[:2].view(np.int32)
+    nv_true, nt_true = int(hdr[0]), int(hdr[1])
+    overflow = nv_true > nvb or nt_true > ntb
+    nv = min(nv_true, nvb)
+    nt = min(nt_true, ntb)
+    host = host[2:]
+    if nv == 0 or nt == 0:
+        return empty + (overflow,) if return_overflow else empty
+    if not quantize:
+        vx = host[:nvb][:nv]
+        vy = host[nvb:2 * nvb][:nv]
+        vz = host[2 * nvb:3 * nvb][:nv]
+        faces = host[3 * nvb:].view(np.int32).reshape(-1, 3)[:nt]
+        verts = np.stack([vx, vy, vz], axis=-1).astype(np.float32)
+    else:
+        u = host.view(np.uint32)
+        w_xy = u[:nvb][:nv]
+        nz = (nvb + 1) // 2
+        w_zz = u[nvb:nvb + nz]
+        x = (w_xy & 0xFFFF).astype(np.float32) / 64.0
+        y = (w_xy >> 16).astype(np.float32) / 64.0
+        zfull = np.empty(nz * 2, np.float32)
+        zfull[0::2] = (w_zz & 0xFFFF).astype(np.float32) / 64.0
+        zfull[1::2] = (w_zz >> 16).astype(np.float32) / 64.0
+        verts = np.stack([x, y, zfull[:nv]], axis=-1)
+        w0 = u[nvb + nz:nvb + nz + ntb][:nt]
+        w1 = u[nvb + nz + ntb:][:nt]
+        f0 = w0 & 0x1FFFFF
+        f1 = (w0 >> 21) | ((w1 & 0x3FF) << 11)
+        f2 = w1 >> 10
+        faces = np.stack([f0, f1, f2], axis=-1).astype(np.int64)
+    if overflow:
+        faces = faces[(faces < nv).all(axis=1)]
+    good = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
+            (faces[:, 0] != faces[:, 2]))
+    out = (verts, faces[good].astype(np.int64))
+    return out + (overflow,) if return_overflow else out
+
+
+def fetch_mesh(out: MarchOut, quantize: bool = False
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`pack_mesh`, the host copy and :func:`unpack_mesh` in one
+    call."""
+    return unpack_mesh(pack_mesh(out, quantize=quantize), quantize=quantize)
+
+
+def dedup_triangle_soup(tri_verts: np.ndarray, tri_mask: np.ndarray):
+    """Host exact dedup of a triangle soup into (verts [V, 3], faces
+    [F, 3] int64), degenerate faces dropped."""
+    tris = np.asarray(tri_verts)[np.asarray(tri_mask)]
+    flat = np.ascontiguousarray(tris.reshape(-1, 3), dtype=np.float32)
+    uniq, inv = np.unique(flat.view([("x", np.float32), ("y", np.float32),
+                                     ("z", np.float32)]),
+                          return_inverse=True)
+    verts = np.stack([uniq["x"], uniq["y"], uniq["z"]], axis=-1)
+    faces = inv.reshape(-1, 3).astype(np.int64)
+    good = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
+            (faces[:, 0] != faces[:, 2]))
+    return verts, faces[good]
+
+
 class AutoMarcher:
-    """Lattice marcher (wire v2) with buffer autotuning across frames: each
-    frame sizes its cell and vertex buffers from the previous frame's
-    measured totals x 1.3, snapped to a geometric bucket ladder; the first
-    frame and any frame after an overflow use the caps. The pack sizes come
-    from the latest measured counts the same way."""
+    """A marcher with buffer autotuning across frames: each frame sizes its
+    buffers from the previous frame's measured totals x ``headroom``,
+    snapped to a geometric bucket ladder; the first frame and any frame
+    after an overflow use the caps. The pack sizes come from the latest
+    measured counts the same way. The counts are read back with one
+    blocking copy at the next frame's start."""
 
     def __init__(self, max_cells: int = 1 << 18, max_tris: int = 1 << 20,
                  max_verts: Optional[int] = None, iso: float = 0.5,
-                 slice_one: bool = False):
+                 headroom: float = _HEADROOM, use_coarse: bool = True,
+                 slice_one: bool = False, codec: str = "indexed",
+                 virtual: bool = False, implicit_eid: bool = True):
         """``slice_one``: drop the first slice of each axis (the engine and
-        export grid convention, seg3d_lossless.py:585). ``max_tris`` only
-        sets the default vertex cap (2 x max_tris, at most 2^21)."""
-        self.caps = (max_cells, max_verts or min(2 * max_tris, 1 << 21))
+        export grid convention, seg3d_lossless.py:585). ``codec``: the
+        wire :meth:`pack` and :meth:`unpack` use, ``"indexed"`` (explicit
+        vertices and faces, :func:`pack_mesh`) or ``"lattice"`` (edge ids,
+        fractions and cells, faces rebuilt on the host,
+        :func:`pack_lattice`); ``implicit_eid`` drops the lattice wire's
+        edge-id block (wire v2). ``use_coarse``: take the candidate cells
+        from the coarse grid when one is given. ``virtual``: ``__call__``
+        receives the engine's coarse final grid
+        (``ReconEngine(virtual_final=True)``) and marches its virtual 2x
+        upsample (:func:`marching_lattice_virtual`); it implies the lattice
+        codec, and the slice by one is built into its mapping."""
+        if codec not in ("indexed", "lattice"):
+            raise ValueError(f"codec must be 'indexed' or 'lattice', got "
+                             f"{codec!r}")
+        if virtual and codec != "lattice":
+            raise ValueError("virtual upsample marching emits the lattice "
+                             "codec")
+        self.virtual = virtual
+        self.caps = (max_cells, max_tris,
+                     max_verts or min(2 * max_tris, 1 << 21))
         self.iso = iso
+        self.headroom = headroom
+        self.use_coarse = use_coarse
         self.slice_one = slice_one
+        self.codec = codec
+        self.implicit_eid = implicit_eid
         self._last: Optional[torch.Tensor] = None   # device [4] counts
         self._counts_host: Optional[Tuple[int, ...]] = None
         self._dims: Optional[Tuple[int, int]] = None
@@ -249,56 +538,102 @@ class AutoMarcher:
         return min(b, cap)
 
     def _counts(self) -> Optional[Tuple[int, ...]]:
-        """(n_cells_total, n_verts_total, n_verts, n_cells) of the latest
-        march, read back to the host once (a blocking copy)."""
+        """The latest march's counts, read back to the host once (a
+        blocking copy): lattice (n_cells_total, n_verts_total, n_verts,
+        n_cells), indexed (n_cells_total, n_tris_total, n_verts,
+        n_tris)."""
         if self._last is not None:
             self._counts_host = tuple(int(v) for v in self._last.tolist())
             self._last = None
         return self._counts_host
 
-    def _sizes(self) -> Tuple[int, int]:
-        """(cell, vertex) buffer sizes for the next march."""
+    def _sizes(self) -> Tuple[int, int, int]:
+        """(cell, triangle, vertex) buffer sizes for the next march."""
         c = self._counts()
         if c is None:
             return self.caps
-        ncells, nverts = c[0], c[1]
-        if ncells <= 0 or nverts <= 0 or ncells > self.caps[0] \
-                or nverts > self.caps[1]:
+        if self.codec == "lattice":
+            ncells, nverts = c[0], c[1]
+            if ncells <= 0 or nverts <= 0 or ncells > self.caps[0] \
+                    or nverts > self.caps[2]:
+                return self.caps                   # overflow -> reset
+            return (self._bucket(int(ncells * self.headroom), self.caps[0]),
+                    self.caps[1],
+                    self._bucket(int(nverts * self.headroom), self.caps[2]))
+        ncells, ntris = c[0], c[1]
+        if ncells <= 0 or ntris <= 0 or ncells > self.caps[0] \
+                or ntris > self.caps[1]:
             return self.caps                       # overflow -> reset
-        return (self._bucket(int(ncells * _HEADROOM), self.caps[0]),
-                self._bucket(int(nverts * _HEADROOM), self.caps[1]))
+        # ~1 shared vertex per 2 triangles
+        return (self._bucket(int(ncells * self.headroom), self.caps[0]),
+                self._bucket(int(ntris * self.headroom), self.caps[1]),
+                self._bucket(int(ntris * 0.75 * self.headroom),
+                             self.caps[2]))
 
     @torch.no_grad()
     def __call__(self, occ: torch.Tensor,
-                 coarse_occ: Optional[torch.Tensor] = None) -> LatticeOut:
-        mc, mv = self._sizes()
+                 coarse_occ: Optional[torch.Tensor] = None):
+        mc, mt, mv = self._sizes()
+        if self.virtual:
+            # occ IS the coarse grid; the fine dims derive from it
+            Dc, Hc, Wc = occ.shape
+            self._dims = (2 * Hc - 2, 2 * Wc - 2)
+            out = marching_lattice_virtual(occ, iso=self.iso, max_cells=mc,
+                                           max_verts=mv,
+                                           max_candidates=self.caps[0])
+            self._last = torch.stack([out.n_cells_total, out.n_verts_total,
+                                      out.n_verts, out.n_cells])
+            return out
         if self.slice_one:
             occ = occ[1:, 1:, 1:]
         self._dims = (occ.shape[1], occ.shape[2])
+        coarse_occ = coarse_occ if self.use_coarse else None
         # the candidate (pre-filter) buffer stays at the cap: the autotuned
         # mc tracks the smaller exact mixed set
-        out = marching_lattice(occ, iso=self.iso, max_cells=mc, max_verts=mv,
-                               coarse_occ=coarse_occ,
-                               max_candidates=self.caps[0])
-        self._last = torch.stack([out.n_cells_total, out.n_verts_total,
-                                  out.n_verts, out.n_cells])
+        if self.codec == "lattice":
+            out = marching_lattice(occ, iso=self.iso, max_cells=mc,
+                                   max_verts=mv, coarse_occ=coarse_occ,
+                                   max_candidates=self.caps[0])
+            self._last = torch.stack([out.n_cells_total, out.n_verts_total,
+                                      out.n_verts, out.n_cells])
+        else:
+            out = marching_tetrahedra_indexed(
+                occ, iso=self.iso, max_cells=mc, max_tris=mt,
+                max_verts=mv, coarse_occ=coarse_occ,
+                max_candidates=self.caps[0])
+            self._last = torch.stack([out.n_cells_total, out.n_tris_total,
+                                      out.n_verts, out.n_tris])
         return out
 
-    def pack(self, out: LatticeOut):
+    def pack(self, out, quantize: bool = True):
         """Device-side pack sized from the measured counts x headroom (first
-        frame: the full buffers). Returns a token for :meth:`unpack`."""
+        frame: the full buffers) in this marcher's codec (``quantize``: the
+        indexed wire's fixed point). Returns a token for :meth:`unpack`."""
         c = self._counts()
-        sizes = (int(c[1] * _HEADROOM),
-                 int(c[0] * _HEADROOM)) if c is not None else None
-        packed = pack_lattice(out, sizes=sizes, implicit_eid=True)
-        return packed, out, self._dims
+        if self.codec == "lattice":
+            sizes = (int(c[1] * self.headroom),
+                     int(c[0] * self.headroom)) if c is not None else None
+            packed = pack_lattice(out, sizes=sizes,
+                                  implicit_eid=self.implicit_eid)
+            return packed, out, self._dims
+        sizes = (int(c[2] * self.headroom), int(c[3] * self.headroom)) \
+            if c is not None else None
+        return pack_mesh(out, quantize=quantize, sizes=sizes), out, quantize
 
     def unpack(self, token) -> Tuple[np.ndarray, np.ndarray]:
         """Blocking transfer + host decode of a :meth:`pack` token; a frame
         that outgrew the packed sizes re-packs at full size."""
-        packed, out, (H, W) = token
-        verts, faces, overflow = decode_lattice(packed, H, W,
-                                                return_overflow=True)
+        if self.codec == "lattice":
+            packed, out, (H, W) = token
+            verts, faces, overflow = decode_lattice(packed, H, W,
+                                                    return_overflow=True)
+            if overflow:
+                verts, faces = decode_lattice(pack_lattice(out), H, W)
+            return verts, faces
+        packed, out, quantize = token
+        verts, faces, overflow = unpack_mesh(packed, quantize=quantize,
+                                             return_overflow=True)
         if overflow:
-            verts, faces = decode_lattice(pack_lattice(out), H, W)
+            verts, faces = unpack_mesh(pack_mesh(out, quantize=quantize),
+                                       quantize=quantize)
         return verts, faces

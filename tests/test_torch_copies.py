@@ -11,8 +11,9 @@ of ``winding_np``), the fit loaders, the fixture writer's lighting and
 config, ``point_error_image`` (``ray_parity_inside_np`` and ``winding_np``
 are pinned in ``tests/test_torch_signs.py``, the fixture's files in
 ``tests/test_torch_train.py``); the renderer's ``fibonacci_sphere``, the
-NormalNet trainer's ``normal_pred_panels`` and the tetra builder's host
-functions."""
+NormalNet trainer's ``normal_pred_panels``, the tetra builder's host
+functions, the winding sign's ``build_winding_clusters`` and the indexed
+marcher's ``dedup_triangle_soup``."""
 
 import dataclasses
 import pickle
@@ -824,3 +825,24 @@ def test_tetrahedronize_host_functions_match():
     assert list(got) == list(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_winding_clusters_and_soup_dedup_match(seed):
+    """The host copies of ``build_winding_clusters`` (the balanced k-d
+    face clusters of the winding sign, on a scan-like mesh with a ragged
+    last cluster) and ``dedup_triangle_soup``: identical arrays."""
+    from icon_tpu.ops import sdf_fast as JF
+    from icon_tpu_torch.ops import sdf_fast as PF
+    rng = np.random.RandomState(seed)
+    v, f = _scan(rng)
+    f = f[:len(f) - 5]
+    for n_clusters in (256, 60):
+        for a, b in zip(PF.build_winding_clusters(v, f, n_clusters),
+                        JF.build_winding_clusters(v, f, n_clusters)):
+            np.testing.assert_array_equal(a, b)
+    tri = v[f][:200].astype(np.float32)
+    mask = rng.rand(200) > 0.2
+    for a, b in zip(PM.dedup_triangle_soup(tri, mask),
+                    JM.dedup_triangle_soup(tri, mask)):
+        np.testing.assert_array_equal(a, b)

@@ -132,7 +132,8 @@ def test_pack_overflow_repacks_at_full_size():
     tiny = PM.pack_lattice(out, sizes=(64, 64), bucket=64, implicit_eid=True)
     v, f, overflow = PH.decode_lattice(tiny, 64, 64, return_overflow=True)
     assert overflow and len(f) == 0
-    m = PM.AutoMarcher(max_cells=1 << 15, max_verts=1 << 16)
+    m = PM.AutoMarcher(max_cells=1 << 15, max_verts=1 << 16,
+                       codec="lattice")
     res = m(t(occ))
     token = (tiny, res, (64, 64))
     v2, f2 = m.unpack(token)

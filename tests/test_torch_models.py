@@ -146,7 +146,8 @@ def test_mlp_group_norm():
 
 def test_query_parity(icon_pair):
     """filter() + query() with the fast SMPL features signed by crossing
-    columns, the serving path's composition."""
+    columns, the serving path's composition, and without them (the
+    pseudo-normal sign)."""
     from icon_tpu.ops.sdf_fast import build_crossing_columns_blocked as jcols
     from icon_tpu_torch.ops.sdf_fast import build_crossing_columns_blocked
     _, jnet, variables, net = icon_pair
@@ -190,9 +191,23 @@ def test_query_parity(icon_pair):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
     assert float(np.abs(out.numpy()[0, :20]).max()) == 0.0   # off the box
-    with pytest.raises(NotImplementedError):
-        net.query(feats, t(pts), t(calib),
-                  {k: x for k, x in smpl.items() if k != "smpl_cross_z"})
+    # without the crossing depths both packages sign by the pseudo-normal
+    # test: the same occupancy where both pick the same closest face
+    from icon_tpu.ops import sdf as JS
+    from icon_tpu_torch.ops import sdf as PS
+    ref = jnet.apply(variables, jfeat, jnp.asarray(pts), jnp.asarray(calib),
+                     {k: x for k, x in jsmpl.items() if k != "smpl_cross_z"},
+                     False, method=jnet.query)[-1]
+    with torch.no_grad():
+        out = net.query(feats, t(pts), t(calib),
+                        {k: x for k, x in smpl.items()
+                         if k != "smpl_cross_z"})[-1]
+    same = PS.point_mesh_dist_winding(t(pts[0]), t(v[f]))[1].numpy() == \
+        np.asarray(JS.point_mesh_dist_winding(jnp.asarray(pts[0]),
+                                              jnp.asarray(v[f]))[1])
+    assert same.mean() > 0.75        # lattice points tie on the mirror body
+    np.testing.assert_allclose(out.numpy()[0, same], np.asarray(ref)[0, same],
+                               rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("prior", ["pifu", "pamir"])

@@ -8,8 +8,9 @@ colours; then the RGB photo with the YOLO detector, U^2-Net matting and
 PARE installed, the turntable video and the garments) and PIXIE and HybrIK
 at narrow widths, the geometry trainer (the fixture, a train step
 with loader workers, the evaluation), the dataset renderer (one subject
-with PRT), the NormalNet trainer (one step) and the Poisson
-reconstruction leaves ``jax``, ``flax`` and ``icon_tpu`` out of
+with PRT), the NormalNet trainer (one step), the Poisson
+reconstruction, the winding-cluster and pseudo-normal signs and the
+virtual final level beside the indexed export leaves ``jax``, ``flax`` and ``icon_tpu`` out of
 ``sys.modules``, and no file of the package (the photo path's, the other
 estimators', the trainers', the renderer's and ``parallel/`` among them) nor
 ``chip_smoke.py`` imports them."""
@@ -158,6 +159,33 @@ with tempfile.TemporaryDirectory() as d:
 v, f = icosphere(2)
 pv, pf = poisson_reconstruct(v * 0.6, f, res=16, device="cpu")
 assert len(pf) > 100
+from icon_tpu_torch.ops.sdf_fast import (build_vertex_face_table,
+                                         build_winding_clusters,
+                                         point_body_features)
+from icon_tpu_torch.recon.export import extract_mesh
+from icon_tpu_torch.recon.marching import AutoMarcher
+v = (v * 0.6).astype(np.float32)
+cf, cm = build_winding_clusters(v, f, 16)
+pts = torch.rand(64, 3) - 0.5
+args = (pts, torch.from_numpy(v), torch.from_numpy(f.astype(np.int64)),
+        torch.from_numpy(build_vertex_face_table(f, len(v))).long(),
+        torch.zeros(len(v), 3), torch.zeros(len(v), 1))
+sw = point_body_features(*args, cluster_faces=torch.from_numpy(cf),
+                         cluster_mask=torch.from_numpy(cm))[0]
+sn = point_body_features(*args)[0]
+r = pts.norm(dim=1, keepdim=True)
+clear = (r - 0.58).abs() > 0.05
+assert bool(((sw > 0) == (r < 0.58))[clear].all())
+assert bool(((sn > 0) == (r < 0.58))[clear].all())
+occ, st = ReconEngine((17, 33), virtual_final=True, device="cpu")(
+    lambda p: clothed_human_occ(p)[..., None])
+marcher = AutoMarcher(codec="lattice", virtual=True, max_cells=1 << 14,
+                      max_tris=1 << 15)
+vv, vf = marcher.unpack(marcher.pack(marcher(occ)))
+ev, ef = extract_mesh(ReconEngine((17, 33), device="cpu")(
+    lambda p: clothed_human_occ(p)[..., None])[0], max_cells=1 << 14,
+    max_tris=1 << 15)
+assert len(vf) == len(ef) > 100
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m == "icon_tpu" or m.startswith("icon_tpu."))
@@ -200,7 +228,12 @@ PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               "training/normal_step.py", "ops/poisson.py", "ops/raster.py",
               # data and point parallelism, and the engine's exact mode
               "parallel/__init__.py", "parallel/dist.py", "parallel/mesh.py",
-              "recon/engine.py", "models/layers.py")
+              "recon/engine.py", "models/layers.py",
+              # the winding-cluster sign, the indexed marcher and the
+              # virtual final level
+              "ops/sdf_fast.py", "kernels/winding.py", "csrc/winding.cu",
+              "kernels/marching.py", "csrc/marching.cu",
+              "recon/marching.py", "recon/export.py")
 
 
 def test_no_jax_import_in_package_sources():

@@ -108,6 +108,39 @@ def test_poisson_reconstruct_matches():
     assert abs(float(r.mean()) - 0.6) < 0.06 and float(r.std()) < 0.05
 
 
+def test_poisson_export_matches_on_the_same_grid(monkeypatch):
+    """poisson_reconstruct's vertices equal the JAX package's in order
+    when both march the same grid: the JAX solve's occupancy grid handed
+    to the port's export (the port's own solve differs by CG's rounding
+    drift, which the nearest-vertex check above bounds) gives the JAX
+    mesh, faces identical and vertices to 1e-5."""
+    from icon_tpu.ops.poisson import poisson_reconstruct as jrecon
+    from icon_tpu.recon import export as JE
+    from icon_tpu.utils.synthetic import icosphere
+    from icon_tpu_torch.ops.poisson import poisson_reconstruct
+    from icon_tpu_torch.recon import export as PE
+    v, f = icosphere(3)
+    v = (v * 0.6).astype(np.float32)
+    grids = []
+    j_extract, p_extract = JE.extract_mesh, PE.extract_mesh
+
+    def record(occ, **kw):
+        grids.append(np.asarray(occ))
+        return j_extract(occ, **kw)
+
+    def replay(occ, **kw):
+        assert tuple(occ.shape) == grids[0].shape
+        return p_extract(torch.from_numpy(grids[0]), **kw)
+
+    monkeypatch.setattr(JE, "extract_mesh", record)
+    wv, wf = jrecon(v, f, res=32)
+    monkeypatch.setattr(PE, "extract_mesh", replay)
+    gv, gf = poisson_reconstruct(v, f, res=32, device="cpu")
+    assert len(wf) > 1000
+    np.testing.assert_array_equal(gf, wf)
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def body():
     from icon_tpu_torch.models.smplx.body import synthetic_smplx_model

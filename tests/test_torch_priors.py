@@ -250,20 +250,39 @@ def test_pamir_ckpt_loads_in_both_packages(tmp_path):
 
 
 def test_icon_prior_keeps_its_body_features():
-    """The icon prior still needs its body features: the fast ones without
-    a sign (no known signs, crossing columns or ray bins) raise; the other
-    priors take none (pifu) or the voxel inputs (pamir) and build without
-    a NotImplementedError."""
-    cfg = port_cfg(icon_cfg())
-    net = HGPIFuNet(cfg, normal_net=False).eval()
-    feats = [torch.zeros(1, 16, 16, 12)]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        net.query(feats, torch.zeros(1, 4, 3), torch.eye(4)[None],
-                  {"smpl_verts": torch.zeros(1, 4, 3),
-                   "smpl_faces": torch.zeros(2, 3, dtype=torch.int64),
-                   "smpl_cmap": torch.zeros(1, 4, 3),
-                   "smpl_vis": torch.zeros(1, 4, 1),
-                   "smpl_vf_table": torch.zeros(4, 8, dtype=torch.int64)})
+    """The icon prior still takes its body features: the fast ones without
+    a sign input (no known signs, crossing columns, ray bins or clusters)
+    sign by the pseudo-normal test, as the JAX package's do, and give its
+    occupancy to ATOL on the points whose closest face both packages pick;
+    the other priors take none (pifu) or the voxel inputs (pamir)."""
+    from icon_tpu.ops import sdf as JS
+    from icon_tpu.ops.sdf_fast import build_vertex_face_table
+    from icon_tpu.utils.synthetic import synthetic_body
+    from icon_tpu_torch.ops import sdf as PS
+    jnet, variables, net = _pair(icon_cfg())
+    v, f = synthetic_body(subdiv=2)
+    cmaps = ((v - v.min(0)) / (v.max(0) - v.min(0))).astype(np.float32)
+    vis = (v[:, 2:3] > 0).astype(np.float32)
+    smpl = {"smpl_verts": v[None], "smpl_faces": f,
+            "smpl_cmap": cmaps[None], "smpl_vis": vis[None],
+            "smpl_vf_table": build_vertex_face_table(f, len(v))}
+    maps = {k: x for k, x in _maps().items() if k != "image"}
+    pts = RNG.uniform(-0.7, 0.7, (1, 300, 3)).astype(np.float32)
+    jfeat = jnet.apply(variables, {k: jnp.asarray(x) for k, x in
+                                   maps.items()}, False, method=jnet.filter)
+    ref = jnet.apply(variables, jfeat, jnp.asarray(pts), jnp.eye(4)[None],
+                     {k: jnp.asarray(x) for k, x in smpl.items()}, False,
+                     method=jnet.query)[-1]
+    with torch.no_grad():
+        feats = net.filter({k: t(x) for k, x in maps.items()})
+        out = net.query(feats, t(pts), torch.eye(4)[None],
+                        {k: t(x) for k, x in smpl.items()})[-1]
+    same = PS.point_mesh_dist_winding(t(pts[0]), t(v[f]))[1].numpy() == \
+        np.asarray(JS.point_mesh_dist_winding(jnp.asarray(pts[0]),
+                                              jnp.asarray(v[f]))[1])
+    assert same.mean() > 0.9
+    np.testing.assert_allclose(out.numpy()[0, same], np.asarray(ref)[0, same],
+                               rtol=0, atol=ATOL)
     for prior in ("pifu", "pamir", "sdf"):
         net = HGPIFuNet(port_cfg(prior_cfg(prior)), normal_net=False)
         assert hasattr(net, "ve") == (prior == "pamir")

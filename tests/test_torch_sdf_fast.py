@@ -107,7 +107,31 @@ def test_column_parity_inside_identical():
 
 
 def test_unported_sign_paths_raise():
+    """The sign paths once refused (no sign input, and winding clusters)
+    now run and sign as the JAX package's: the pseudo-normal test and the
+    clustered winding number, identical signs on the points whose closest
+    face both packages pick (tests/test_torch_winding.py holds them to the
+    JAX package in full)."""
     v, f, cmaps, vis, table = body(subdiv=1)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        P.point_body_features(t(v[:4]), t(v), t(f, torch.int64),
-                              t(table, torch.int64), t(cmaps), t(vis))
+    pts = RNG.uniform(-0.6, 0.6, (300, 3)).astype(np.float32)
+    cf, cm = J.build_winding_clusters(v, f, 16)
+    from icon_tpu.ops import sdf as JS
+    from icon_tpu_torch.ops import sdf as PS
+    same = PS.point_mesh_dist_winding(t(pts), t(v[f]))[1].numpy() == \
+        np.asarray(JS.point_mesh_dist_winding(jnp.asarray(pts),
+                                              jnp.asarray(v[f]))[1])
+    for jkw, pkw in (({}, {}),
+                     ({"cluster_faces": jnp.asarray(cf),
+                       "cluster_mask": jnp.asarray(cm)},
+                      {"cluster_faces": t(cf), "cluster_mask": t(cm)})):
+        ref = J.point_body_features(
+            jnp.asarray(pts), jnp.asarray(v), jnp.asarray(f),
+            jnp.asarray(table), jnp.asarray(cmaps), jnp.asarray(vis), **jkw)
+        out = P.point_body_features(
+            t(pts), t(v), t(f, torch.int64), t(table, torch.int64),
+            t(cmaps), t(vis), **pkw)
+        np.testing.assert_array_equal(out[0].numpy()[same] > 0,
+                                      np.asarray(ref[0])[same] > 0)
+        np.testing.assert_allclose(np.abs(out[0].numpy()),
+                                   np.abs(np.asarray(ref[0])), rtol=0,
+                                   atol=1e-5)
