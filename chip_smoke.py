@@ -153,7 +153,9 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    vertex sets against the run's ``vis/*.npy``, the PRT's 512^2 K=512
    depth rasters), each kernel alone at 4096^2 K=512 and at 512^2 K=512
    beside its bound, ``compute_prt`` card vs CPU, the CLI again with
-   ``-procs 2`` (a spawn pool) into a second root, one subject's render
+   ``-procs 2`` (a spawn pool) into a second root, every file byte-equal
+   to the ``-procs 1`` run's (else the kinds that differ and their largest
+   decoded difference, and a failure), one subject's render
    split under the profiler; then three narrow NormalNet steps card vs CPU
    on rendered items, a full-width step under TF32 off / off with
    ``cudnn.benchmark`` / on, the train_normal CLI at the published width
@@ -181,24 +183,24 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    too-few-devices error on one card (on two or more cards they run, and
    the ranks run again over NCCL, one a card). Every rank is spawned and
    joined in a ``finally``;
-17. signs and meshing: (a) the fast-winding kernel against its plain
-   version on the level-0 lattice and the 232,974-point cap around the
-   subdiv-5 body and on 4,096 near-surface samples of a posed body
-   (winding numbers to 1e-5, signs identical where |w - 0.5| > 1e-4, the
-   posed samples' signs equal to the dense exact winding's), alone beside
-   its bound; (b) the pseudo-normal sign card vs CPU at small size, then
-   phase 4's full-width frame with the winding-cluster sign through
+17. signs and meshing: (a) the fast-winding kernel against its plain version
+   on the level-0 lattice and the 232,974-point cap around the subdiv-5 body
+   and on 4,096 near-surface samples of a posed body (winding numbers to
+   1e-5, signs identical where |w - 0.5| > 1e-4, the posed samples' signs
+   equal to the dense exact winding's), alone and through its wrapper beside
+   its bound, with the registers and occupancy of the instance it launches;
+   (b) the pseudo-normal sign card vs CPU at small size, then phase 4's
+   full-width frame with the winding-cluster sign through
    ``HGPIFuNet.query`` (level counts and triangles against the JAX
    package's, latency and the engine stage beside the crossing-column
-   frame's); (c) that frame's 257^3 grid through ``extract_mesh`` without
-   a marcher (``mt_emit``, ``mt_index``): 295,244 triangles, the lattice
-   marcher's vertex count and face set, vertices within the u8 step of
-   its, the kernels' faces identical to the plain version's and vertices
-   within 1e-6 grid units, both pack wires, each kernel alone beside its
-   bound; (d) ``ReconEngine(virtual_final=True)`` with
-   ``AutoMarcher(virtual=True)`` against the materialized final level at
-   257^3 (face set, u8 step), and at 513^3 both ways' peak memory, the
-   virtual one allocating no fine grid.
+   frame's); (c) that frame's 257^3 grid through ``extract_mesh`` without a
+   marcher (``mt_emit``, ``mt_index``): 295,244 triangles, the lattice
+   marcher's vertex count and face set, vertices within the u8 step of its,
+   the kernels' faces identical to the plain version's and vertices within
+   1e-6 grid units, both pack wires, each kernel alone beside its bound; (d)
+   ``ReconEngine(virtual_final=True)`` with ``AutoMarcher(virtual=True)``
+   against the materialized final level at 257^3 (face set, u8 step), and at
+   513^3 both ways' peak memory, the virtual one allocating no fine grid.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -2511,8 +2513,8 @@ RENDER_DIRS = ("calib", "render", "normal_F", "normal_B", "T_normal_F",
 # compute_prt on the card against the CPU, 16 directions at the PRT's
 # 512^2: T to PRT_CARD_ATOL on all but PRT_FLIP_SHARE of the vertices,
 # whose visibility may flip a PCF texel where a depth sits at the eps edge
-# (vertex normals summed in another order); those within one direction's
-# whole term, 4 / 16 (|Y_lm| < 1)
+# (vertex normals that round otherwise on the card); those within one
+# direction's whole term, 4 / 16 (|Y_lm| < 1)
 PRT_CHECK_DIRS = 16
 PRT_CARD_ATOL = 1e-5
 PRT_FLIP_SHARE = 5e-3
@@ -2571,6 +2573,32 @@ def rendered_files(recs) -> dict:
         if out[r["subject"]] != want:
             raise AssertionError(f"phase 15: {r['subject']}'s files")
     return out
+
+
+def render_diff(recs_a, recs_b, files) -> dict:
+    """{kind: files of two render runs (same subjects, ``files`` from
+    :func:`rendered_files`) that are not byte-equal}; prints each kind's
+    largest difference of the decoded values where any differ."""
+    from PIL import Image
+    load = {"png": lambda f: np.asarray(Image.open(f), np.int64),
+            "npy": np.load, "txt": np.loadtxt}
+    diff, worst = dict.fromkeys(RENDER_DIRS, 0), dict.fromkeys(RENDER_DIRS,
+                                                               0.0)
+    for a, b in zip(recs_a, recs_b):
+        for rel in files[a["subject"]]:
+            fa, fb = (os.path.join(r["out_dir"], rel) for r in (a, b))
+            with open(fa, "rb") as x, open(fb, "rb") as y:
+                if x.read() == y.read():
+                    continue
+            kind = rel.split("/")[0]
+            diff[kind] += 1
+            read = load[rel.rsplit(".", 1)[1]]
+            worst[kind] = max(worst[kind], float(np.abs(
+                read(fa).astype(np.float64) - read(fb)).max()))
+    if any(diff.values()):
+        print(f"[15] largest difference of the decoded values by kind: "
+              f"{ {k: v for k, v in worst.items() if diff[k]} }", flush=True)
+    return diff
 
 
 def visible_vertices(pix_to_face, faces, n_verts) -> torch.Tensor:
@@ -2973,16 +3001,13 @@ def phase_render_normal(dev, card, d):
     recs2 = render.main(render_argv(root2, 2))
     seconds2 = time.perf_counter() - t0
     files2 = rendered_files(recs2)
-    same = sum(
-        open(os.path.join(a["out_dir"], rel), "rb").read()
-        == open(os.path.join(b["out_dir"], rel), "rb").read()
-        for a, b in zip(recs, recs2) for rel in files[a["subject"]])
+    diff = render_diff(recs, recs2, files)
     print(f"[15] render CLI -procs 2: {len(recs2)} subjects in "
           f"{seconds2:.2f} s; file sets equal: {files2 == files}; files "
-          f"byte-equal to the -procs 1 run's: {same} of "
-          f"{sum(map(len, files.values()))}", flush=True)
-    if files2 != files:
-        raise AssertionError("phase 15: -procs 2 file set")
+          f"not byte-equal to the -procs 1 run's: {sum(diff.values())} of "
+          f"{sum(map(len, files.values()))} {diff}", flush=True)
+    if files2 != files or any(diff.values()):
+        raise AssertionError("phase 15: -procs 2 files differ from -procs 1")
     render_split(dev, root2, recs[0]["subject"])
 
     phase_normal_train(dev, card, root, d)
@@ -3557,15 +3582,21 @@ def phase_winding_kernel(dev, verts_np, faces_np):
                                             faces_np)
         worst = max(worst, err)
         p, table, ctri, mask, m = args
+        tiles = kw.face_tiles(ctri, mask)
         out = torch.empty_like(got)
-        ms = kernel_ms(lambda: kw._launch(p, table, ctri, mask, m, out))
+        K, M = mask.shape
+        ms = kernel_ms(lambda: kw._launch(p, table, tiles, M, m, out))
         plain_ms = cuda_ms(lambda: kw.fast_winding_plain(p, table, ctri,
                                                          mask, m), reps=3)
-        K, M = mask.shape
+        # the wrapper adds face_tiles' copy of the triangles to the launch
+        wrapper_ms = cuda_ms(lambda: kw.fast_winding_kernel(p, table, ctri,
+                                                            mask, m))
         b_ms, b_by = winding_bound(len(pts), K, m, float(mask.sum()) / K, M)
-        print(f"[17a] fast_winding {name}: kernel alone {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.1%} of it", flush=True)
+        info = kw.kernel_info(K)
+        print(f"[17a] fast_winding {name}: kernel alone {ms:.4f} ms, "
+              f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it; instance for "
+              f"K={K}: {info}", flush=True)
         timing[name] = (ms, plain_ms, b_ms, b_by)
     pv, pf, pts = posed_samples()
     err, got, _, _ = winding_case(dev, "posed body samples", pts, pv, pf)

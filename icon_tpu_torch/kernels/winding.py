@@ -1,13 +1,15 @@
 """Clustered fast winding numbers: the CUDA kernel and its plain twin.
 
 :func:`fast_winding_kernel` is the wrapper ``ops/sdf_fast.py:fast_winding``
-calls. A CUDA tensor launches ``csrc/winding.cu`` (a thread per point, the
-cluster table in shared memory, each point's m nearest clusters kept in
-registers) or raises; a CPU tensor takes :func:`fast_winding_plain`, the
-JAX function's math in plain PyTorch. Both read the same per-cluster table
-(:func:`cluster_table`: centroid, bounding radius and dipole of each
-cluster, plain PyTorch over ``[K, M]``). ``launches`` counts kernel
-launches, so a run can show that the main path went through the kernel.
+calls. A CUDA tensor launches ``csrc/winding.cu`` (a warp per point: the
+lanes share the clusters, pick the m nearest by warp-wide minimums of
+:func:`_order_keys`' key, and share the picked clusters' faces, read from
+:func:`face_tiles`' copy) or raises; a CPU tensor takes
+:func:`fast_winding_plain`, the JAX function's math in plain PyTorch. Both
+read the same per-cluster table (:func:`cluster_table`: centroid, bounding
+radius and dipole of each cluster, plain PyTorch over ``[K, M]``).
+``launches`` counts kernel launches, so a run can show that the main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -36,9 +38,12 @@ def _load() -> ctypes.CDLL:
             from icon_tpu_torch.kernels.build import build
             lib = ctypes.CDLL(build()["winding.cu"])
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.icon_fast_winding.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci,
-                                              vp, vp]
+            lib.icon_fast_winding.argtypes = [vp, ci, vp, ci, vp, ci, ci, vp,
+                                              vp]
             lib.icon_fast_winding.restype = ci
+            pi = ctypes.POINTER(ci)
+            lib.icon_winding_kernel_info.argtypes = [ci, pi, pi, pi, pi, pi]
+            lib.icon_winding_kernel_info.restype = ci
             lib.icon_winding_error_string.argtypes = [ci]
             lib.icon_winding_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -69,6 +74,20 @@ def cluster_table(verts: torch.Tensor, faces: torch.Tensor,
     table = torch.cat([cent, radius[:, None], dip,
                        torch.zeros_like(radius)[:, None]], dim=1)
     return table.contiguous(), ctri.reshape(*ctri.shape[:2], 9), mask
+
+
+def face_tiles(ctri: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``ctri [K, M, 9]`` and ``mask [K, M]`` as the kernel reads them:
+    ``[K, T, 10, 32]``, T = ceil(M / 32) tiles of 32 slots, a row for each
+    of a slot's nine corner coordinates and a last row of its mask as 1 or
+    0 (``[k, f // 32, c, f % 32] = ctri[k, f, c]``), zero past M. A warp's
+    32 neighbouring slots of one row are one 128-byte line, and a slot's
+    ten values lie a fixed stride apart."""
+    K, M = mask.shape
+    T = -(-M // 32)
+    rows = torch.cat([ctri, mask[..., None].to(ctri.dtype)], dim=-1)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, 32 * T - M))
+    return rows.reshape(K, T, 32, 10).transpose(2, 3).contiguous()
 
 
 def _order_keys(gap: torch.Tensor) -> torch.Tensor:
@@ -165,7 +184,7 @@ def fast_winding_kernel(points: torch.Tensor, table: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if mask.dtype != torch.bool or not mask.is_contiguous():
         raise TypeError("mask must be a contiguous bool tensor")
-    K = mask.shape[0]
+    K, M = mask.shape
     if K > MAX_CLUSTERS or m > MAX_NEAR:
         raise ValueError(f"the kernel takes K <= {MAX_CLUSTERS} clusters and "
                          f"m <= {MAX_NEAR}, got K={K}, m={m}")
@@ -173,24 +192,43 @@ def fast_winding_kernel(points: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"{points.shape[0]} points exceed int32 indexing")
     out = torch.empty((points.shape[0],), dtype=torch.float32,
                       device=points.device)
-    _launch(points, table, ctri, mask, m, out)
+    _launch(points, table, face_tiles(ctri, mask), M, m, out)
     if points.shape[0]:
         launches += 1
     return out
 
 
-def _launch(points, table, ctri, mask, m, out) -> None:
+def _launch(points, table, tiles, M, m, out) -> None:
     """One kernel launch into the caller-owned ``out`` [N] f32 (inputs
-    checked by the caller) on the current stream; counts nothing.
+    checked by the caller, ``tiles`` = :func:`face_tiles` of M slots a
+    cluster) on the current stream; counts nothing.
     :func:`fast_winding_kernel` and the kernel's timing use it."""
     lib = _load()
-    K, M = mask.shape
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.icon_fast_winding(points.data_ptr(), points.shape[0],
-                                    table.data_ptr(), K, ctri.data_ptr(),
-                                    mask.data_ptr(), M, m, out.data_ptr(),
+                                    table.data_ptr(), table.shape[0],
+                                    tiles.data_ptr(), M, m, out.data_ptr(),
                                     stream)
+    _raise_on(lib, err, "icon_fast_winding launch")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.icon_winding_error_string(err).decode()
-        raise RuntimeError(f"icon_fast_winding launch failed: {msg} ({err})")
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def kernel_info(K: int) -> dict:
+    """The kernel instance that K clusters launch on the current card:
+    registers and local memory bytes a thread, threads a block, resident
+    blocks an SM (the occupancy calculator's), SMs, and the resident warps'
+    share of the SM's 64 (``occupancy``)."""
+    lib = _load()
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    _raise_on(lib, lib.icon_winding_kernel_info(K, *map(ctypes.byref, vals)),
+              "icon_winding_kernel_info")
+    regs, local_bytes, threads, per_sm, sms = (v.value for v in vals)
+    return {"registers": regs, "local_bytes": local_bytes,
+            "threads": threads, "blocks_per_sm": per_sm, "sms": sms,
+            "occupancy": per_sm * threads / 2048}

@@ -25,13 +25,32 @@ def vertex_normals(verts: torch.Tensor, faces: torch.Tensor,
                    eps: float = 1e-8) -> torch.Tensor:
     """Area-weighted unit vertex normals ``[B, V, 3]``: the un-normalized
     face cross products summed at each incident vertex, then normalized
-    (zero stays zero)."""
+    (zero stays zero). Each vertex's terms are added in one fixed order,
+    :func:`ordered_vertex_sum`'s, on every device: CUDA's ``index_add_``
+    adds with atomics in no fixed order, so a mesh would give normals a last
+    bit apart from run to run on the card."""
     fn = face_normals(verts, faces, normalize=False)      # [B, F, 3]
-    vn = torch.zeros_like(verts)
-    for j in range(3):
-        vn.index_add_(1, faces[:, j], fn)
+    vn = ordered_vertex_sum(fn, faces, verts.shape[1])
     n2 = torch.sum(vn * vn, dim=-1, keepdim=True)
     return vn / torch.sqrt(torch.clamp(n2, min=eps * eps))
+
+
+def ordered_vertex_sum(values: torch.Tensor, faces: torch.Tensor,
+                       n_verts: int) -> torch.Tensor:
+    """``values [B, F, C]`` summed at each face's three vertices, ``[B,
+    n_verts, C]``: each vertex's terms added one at a time from 0, by
+    corner slot and then by face index (the CPU ``index_add_`` order over
+    ``faces[:, 0]``, ``faces[:, 1]``, ``faces[:, 2]``), through a stable
+    sort of the corners by vertex and a segmented sum. The same on every
+    run, on any device; differentiable."""
+    F = faces.shape[0]
+    vid = faces.t().reshape(-1).int()                     # [3F], slot-major
+    key, order = torch.sort(vid, stable=True)
+    offsets = torch.searchsorted(key, torch.arange(
+        n_verts + 1, dtype=key.dtype, device=key.device))     # [V + 1]
+    return torch.segment_reduce(
+        values[:, order % F], "sum", axis=1, unsafe=True,
+        offsets=offsets.expand(values.shape[0], -1).contiguous())
 
 
 def barycentric_projection_weights(points: torch.Tensor,
