@@ -196,8 +196,13 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    frame's); (c) that frame's 257^3 grid through ``extract_mesh`` without a
    marcher (``mt_emit``, ``mt_index``): 295,244 triangles, the lattice
    marcher's vertex count and face set, vertices within the u8 step of its,
-   the kernels' faces identical to the plain version's and vertices within
-   1e-6 grid units, both pack wires, each kernel alone beside its bound; (d)
+   the kernels' counts, faces, emitted slots and vertex table identical to
+   the plain version's (vertices also within 1e-6 grid units), both pack
+   wires, each kernel alone beside its bound, mt_index's launches' device
+   times (torch.profiler), the wrappers', their fills' and the whole
+   indexed marcher's times; then the same on the grid's 513^3
+   align_corners upsample with budgets that hold it (1,188,432
+   triangles), and the bytes the wrappers keep there; (d)
    ``ReconEngine(virtual_final=True)`` with ``AutoMarcher(virtual=True)``
    against the materialized final level at 257^3 (face set, u8 step), and at
    513^3 both ways' peak memory, the virtual one allocating no fine grid.
@@ -3725,8 +3730,10 @@ def phase_indexed_export(dev, occ):
     marcher (mt_emit, then mt_index): the triangle count, the lattice
     marcher's vertex count and face set, vertices within the u8 step of
     its; faces identical to the plain version's and vertices within
-    MARCH_ATOL grid units; both pack wires round-trip; each kernel alone
-    beside its bound. Returns (launches, summary entries)."""
+    MARCH_ATOL grid units, then counts, slots, faces and vertices
+    identical; both pack wires round-trip; each kernel alone beside its
+    bound, its launches' device times, the calls' times; the same at the
+    grid's 513^3 upsample. Returns (launches, summary entries)."""
     from icon_tpu_torch.kernels import marching as km
     from icon_tpu_torch.recon import marching as PM
     from icon_tpu_torch.recon.export import extract_mesh, make_marcher
@@ -3770,6 +3777,8 @@ def phase_indexed_export(dev, occ):
           f"{e_err:.3g}", flush=True)
     if not f_same or verr > MARCH_ATOL or e_err > MARCH_ATOL:
         raise AssertionError("marching kernels disagree with plain")
+    march_identical(km, fine, (cx, cy, cz, n_cells), 1 << 20, 1 << 21,
+                    "257^3")
     for quantize in (False, True):
         pv, pf = PM.unpack_mesh(PM.pack_mesh(out, quantize=quantize),
                                 quantize=quantize)
@@ -3787,11 +3796,11 @@ def phase_indexed_export(dev, occ):
     nc = cx.shape[0]
     eb = km.emit_buffers(nc, 1 << 20, dev)
     e_ms = kernel_ms(lambda: km._emit_launch(fine, cx, cy, cz, n_cells, 0.5,
-                                             1 << 20, *eb))
-    tv, teid, n_tris = eb[2], eb[3], torch.clamp(eb[4], max=1 << 20)
+                                             1 << 20, eb))
+    tv, teid, n_tris = eb.tv, eb.teid, torch.clamp(eb.n_total, max=1 << 20)
     ib = km.index_buffers(1 << 20, 1 << 21, tuple(fine.shape), dev)
     i_ms = kernel_ms(lambda: km._index_launch(tv[0], tv[1], tv[2], teid,
-                                              n_tris, 1 << 21, *ib))
+                                              n_tris, 1 << 21, ib))
     e_plain = cuda_ms(lambda: km.mt_emit_plain(fine, cx, cy, cz, n_cells,
                                                0.5, 1 << 20), reps=3)
     i_plain = cuda_ms(lambda: km.mt_index_plain(*plain_e[:5], 1 << 21,
@@ -3807,6 +3816,10 @@ def phase_indexed_export(dev, occ):
           f"{i_b[1]}, {i_b[0] / i_ms:.1%}; torch.unique with inverse "
           f"{lib_ms:.4f} ms); {n_act} cells, {nt} triangles, {nv} vertices",
           flush=True)
+    march_split(km, eb, ib, n_tris, 1 << 21)
+    march_calls(km, PM, fine, (cx, cy, cz, n_cells), kw)
+    del eb, ib, out, plain_e, plain_i
+    march_upsampled(km, PM, occ, dev)
     entries = []
     for name, ms, plain_ms, b, lib in (("mt_emit", e_ms, e_plain, e_b, None),
                                        ("mt_index", i_ms, i_plain, i_b,
@@ -3818,6 +3831,115 @@ def phase_indexed_export(dev, occ):
                         "plain_ms": plain_ms, "bound_ms": b[0],
                         "bound_by": b[1], "library_ms": lib})
     return launched, entries
+
+
+def march_identical(km, fine, cells, max_tris, max_verts, what):
+    """The wrappers on ``fine``'s ``cells`` against the plain versions:
+    counts, emitted slots, faces and the vertex table's live rows
+    identical, else raise. Returns (cells, triangles, vertices)."""
+    cx, cy, cz, n_cells = cells
+    ge = km.mt_emit(fine, cx, cy, cz, n_cells, 0.5, max_tris)
+    gi = km.mt_index(*ge[:5], max_verts, tuple(fine.shape))
+    pe = km.mt_emit_plain(fine, cx, cy, cz, n_cells, 0.5, max_tris)
+    pi = km.mt_index_plain(*pe[:5], max_verts, tuple(fine.shape))
+    torch.cuda.synchronize()
+    nt, nu = int(pe[4]), int(pi[4])
+    nv = min(nu, max_verts)
+    same = ([int(ge[4]), int(ge[5]), int(gi[4])] == [nt, int(pe[5]), nu]
+            and torch.equal(ge[3], pe[3]) and torch.equal(gi[3], pi[3])
+            and all(torch.equal(ge[k][:nt], pe[k][:nt]) and
+                    torch.equal(gi[k][:nv], pi[k][:nv]) for k in range(3)))
+    print(f"[17c] {what}: {int(n_cells)} cells, {nt} triangles ({int(pe[5])}"
+          f" before the cut), {nu} vertices; counts, slots, faces and "
+          f"vertices identical to plain: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"marching kernels differ from plain: {what}")
+    return int(n_cells), nt, nu
+
+
+def march_split(km, eb, ib, n_tris, max_verts):
+    """mt_index's device time by launch and the launches recorded
+    (torch.profiler over 20 calls on the preallocated buffers). mt_emit is
+    one launch: its split is its time alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def index():
+        km._index_launch(eb.tv[0], eb.tv[1], eb.tv[2], eb.teid, n_tris,
+                         max_verts, ib)
+
+    index()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            index()
+        torch.cuda.synchronize()
+    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+             (round(e.device_time_total / e.count / 1e3, 5), e.count)
+             for e in prof.key_averages() if e.device_time_total > 0}
+    print(f"[17c] mt_index device ms a launch (launches recorded of 20): "
+          f"{split}", flush=True)
+    if not split:
+        raise AssertionError("mt_index: the profiler saw no launch")
+
+
+def march_calls(km, PM, fine, cells, kw):
+    """The wrappers' times (a call with its host dispatch and fills), their
+    fills alone, and the whole marching_tetrahedra_indexed."""
+    cx, cy, cz, n_cells = cells
+    mt, mv = kw["max_tris"], kw["max_verts"]
+    e = km.mt_emit(fine, cx, cy, cz, n_cells, 0.5, mt)
+    times = {
+        "mt_emit": cuda_ms(lambda: km.mt_emit(fine, cx, cy, cz, n_cells, 0.5,
+                                              mt)),
+        "mt_index": cuda_ms(lambda: km.mt_index(*e[:5], mv,
+                                                tuple(fine.shape))),
+        "marching_tetrahedra_indexed": cuda_ms(
+            lambda: PM.marching_tetrahedra_indexed(fine, **kw)),
+        "teid INT64_MAX fill (kept)": cuda_ms(
+            lambda: torch.full((mt, 3), km.INT64_MAX, dtype=torch.int64,
+                               device=fine.device)),
+        "tv zero fill (dropped)": cuda_ms(
+            lambda: torch.zeros((3, mt, 3), device=fine.device)),
+        "verts zero fill (dropped)": cuda_ms(
+            lambda: torch.zeros((3, mv), device=fine.device))}
+    print(f"[17c] a call in ms, host dispatch included: "
+          f"{ {k: round(v, 4) for k, v in times.items()} }", flush=True)
+
+
+def march_upsampled(km, PM, occ, dev):
+    """[17c] the grid's 513^3 align_corners upsample, sliced by one: the
+    kernels identical to plain and each alone beside its bound, with
+    budgets that hold its surface."""
+    from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
+    mt, mv, mc = 1 << 21, 1 << 21, 1 << 20
+    up = resize3d_trilinear_align_corners(occ[None, None], (513,) * 3)[0, 0]
+    fine = up[1:, 1:, 1:].contiguous()
+    del up
+    cx, cy, cz, _, _, n_cells, _ = PM._active_cells(fine, 0.5, mc, None)
+    cells = (cx, cy, cz, n_cells)
+    n_act, nt, nu = march_identical(km, fine, cells, mt, mv,
+                                    "513^3 upsample")
+    kept = sum(t.numel() * t.element_size() for t in km._kept.values())
+    bitmap = km.index_sizes(mt, tuple(fine.shape))["bitmap"] * 4
+    print(f"[17c] 513^3: the wrappers keep {kept} bytes zeroed (summary and "
+          f"scan scratch); the bitmap's {bitmap} bytes go back after each "
+          f"call", flush=True)
+    km.release_buffers()
+    eb = km.emit_buffers(cx.shape[0], mt, dev)
+    ib = km.index_buffers(mt, mv, tuple(fine.shape), dev)
+    e_ms = kernel_ms(lambda: km._emit_launch(fine, cx, cy, cz, n_cells, 0.5,
+                                             mt, eb))
+    n_tris = torch.clamp(eb.n_total, max=mt)
+    i_ms = kernel_ms(lambda: km._index_launch(eb.tv[0], eb.tv[1], eb.tv[2],
+                                              eb.teid, n_tris, mv, ib))
+    e_b = bound(n_act * (24.0 + 32.0) + nt * 3 * 20.0, 0.0)
+    i_b = bound(nt * 3 * 20.0 + nt * 3 * 4.0 + nu * 12.0, 0.0)
+    print(f"[17c] 513^3: mt_emit alone {e_ms:.4f} ms (bound {e_b[0]:.4f} "
+          f"{e_b[1]}, {e_b[0] / e_ms:.1%}); mt_index alone {i_ms:.4f} ms "
+          f"(bound {i_b[0]:.4f} {i_b[1]}, {i_b[0] / i_ms:.1%})", flush=True)
+    march_split(km, eb, ib, n_tris, mv)
+    if nt < 4 * 250000:
+        raise AssertionError(f"513^3 upsample: {nt} triangles")
 
 
 def largest_allocation(fn):

@@ -10,51 +10,99 @@
 // feed and a sort of millions of keys is the largest cost, so both stages
 // are rewritten around what the lattice guarantees.
 //
-// mt_emit (three launches): a thread per active cell (256 a block) gathers
-// its 8 corner values, forms the 6 Kuhn tets' 4-bit cases and reads the
-// (tet, case) tables from constant memory (set once a device from
-// recon/lattice_host.py:_tet_tables). The count launch writes each cell's
-// 12-bit triangle-slot mask and each block's triangle count; one block
-// scans the block counts (exclusive, carrying a running offset over tiles
-// of 1024) and writes the total; the write launch scans its block's cell
-// counts (warp shuffles, then the warp totals) and gives triangle slot s of
-// cell i the index block offset + cells before it + its valid slots before
-// s: the linear (cell, slot) order of the JAX package's _compact_indices.
-// Triangles past max_tris are dropped (the total still counts them). Each
-// of a triangle's 3 vertex slots gets the point c + a + t (b - a) on its
-// edge (a the inside corner, t = (iso - v_a) / (v_b - v_a), 0.5 where
-// |v_b - v_a| < 1e-12, clipped to [0, 1]; each operation rounded on its
-// own, as the plain version does) and the int64 edge id min(lin_a, lin_b) *
-// 8 + direction code.
+// mt_emit (one launch): a single-pass scan with decoupled look-back
+// (Merrill and Garland). A block takes tiles of 128 cells in the order of
+// an atomic ticket, so it looks back only at tiles whose blocks already
+// run. Four threads a cell gather its 8 corner values (an x-adjacent pair
+// each) into shared memory, every corner read once; two shuffles give the
+// cell's inside bits, and one of its threads forms the 6 Kuhn tets' 4-bit
+// cases and reads the (tet, case) tables (set once a device from
+// recon/lattice_host.py:_tet_tables, copied to shared memory a block). One
+// warp scans the tile's triangle counts, lists its triangles in (cell,
+// slot) order in shared memory, publishes the tile's count, and looks back
+// 32 statuses a step for the tiles before it: the linear (cell, slot) order
+// of the JAX package's _compact_indices. The tile's triangles are one
+// contiguous range, written a vertex slot a thread, so neighbouring
+// threads store neighbouring elements of tvx, tvy, tvz and teid, and no
+// warp waits for its busiest cell. Each vertex slot gets the point
+// c + a + t (b - a) on its edge (a the inside corner, t = (iso - v_a) /
+// (v_b - v_a), 0.5 where |v_b - v_a| < 1e-12, clipped to [0, 1]; each
+// operation rounded on its own, as the plain version does) and the int64
+// edge id min(lin_a, lin_b) * 8 + direction code. Triangles past max_tris
+// are dropped (the total still counts them). Only tiles holding live cells
+// (below *n_cells) run. The block that takes the launch's last ticket
+// zeroes the ticket and the statuses used, so the scratch is zero again for
+// the next launch.
 //
-// mt_index (four launches and a scan): every vertex of the mesh lies on
-// one lattice edge, and edge ids are below D H W 8, so the set of used ids
-// is a bitmap of D H W 8 bits (16.8 MB at 256^3), zeroed, then marked by
-// one atomicOr a live vertex slot. The rank of an id among the used ids is
-// the popcount of the bits below it: per-block popcounts of the words, the
-// same one-block scan, a per-word exclusive prefix; a slot's rank is its
-// word's prefix plus the popcount of its word below its bit. The rank is
-// the slot's face index, and the slot writes its point to that row of the
-// vertex table (rows below max_verts), which is therefore in ascending
-// edge-id order, as the sort leaves it. Every slot of one edge writes the
-// same bits (each computes the point from the edge's inside corner), so the
-// race is benign. Memory is bound by the grid, not the surface; the
-// virtual final level (recon/marching.py:marching_lattice_virtual) is the
-// path for grids whose bitmap would not fit.
+// mt_index (four launches, each over the live slots or the summary):
+// every vertex lies on one lattice edge and edge ids are below D H W 8.
+// A bitmap of that id space (one bit an id) holds anything on entry: only
+// the words of live ids are ever read, and the first pass zeroes those.
+// Its summary (one bit a bitmap word, 1/32 of the bitmap's bytes) is zero
+// on entry and left zero.
+// 1. clear: a grid-stride loop over the 3 * n_tris live slots zeroes each
+//    id's bitmap word.
+// 2. mark: the same loop ORs each id into the bitmap (the slots of one
+//    word in a warp merged first); the slot that finds its word empty sets
+//    the word's summary bit.
+// 3. summary scan, the only pass at the grid's scale: a thread a summary
+//    word counts its touched words and their ids (popcounts of the bitmap
+//    words under its set bits); a single-pass scan as mt_emit's, over
+//    tiles of 256 summary words, gives each word its touched words and
+//    distinct ids before it. The thread writes
+//    (touched words before it, its bits) for its summary word, and (ids
+//    before it, its bits) for each touched bitmap word in a compact array
+//    indexed by the touched words' rank; it zeroes its summary word.
+// 4. write: a live slot's rank is its touched word's ids before it plus the
+//    popcount of its word below its bit; it is the slot's face index, and
+//    the slot writes its point to that row of the vertex table (rows below
+//    max_verts), which is therefore in ascending edge-id order, as the sort
+//    leaves it. Every slot of one edge writes the same bits (each computes
+//    the point from the edge's inside corner), so the race is benign. The
+//    dead slots' faces get 0.
+// No pass touches the bitmap at full resolution: its bytes scale with the
+// live slots. The virtual final level (recon/marching.py:
+// marching_lattice_virtual) remains the path for grids whose bitmap would
+// not fit.
 //
-// Bound: bytes. mt_emit reads 8 corners a cell (32 B, mostly in L1) and
-// writes 3 x (12 + 8) B a triangle; mt_index reads and writes those 20 B a
-// slot, zeroes and reads the bitmap and writes its prefix (2 x 4 bits an
-// edge id) and writes 12 B a vertex.
+// Bound: bytes. mt_emit reads 3 coordinates and 8 corners a cell and
+// writes 3 x (12 + 8) B a triangle; mt_index reads those 20 B a slot,
+// writes 4 B of faces a slot and 12 B a vertex.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
-constexpr int kWordsPerThread = 8;
+// The design was chosen on one H100 at 257^3 and 513^3 against builds
+// with other choices: 32-cell tiles took 1.5x as long as 128-cell tiles at
+// 257^3, 64- or 256-cell tiles 1.02-1.1x; 4 statuses a lane a look-back
+// step (one here) made the summary scan 1.6-1.9x slower; 2 summary words a
+// thread (one here) helped at 513^3 and hurt at 257^3; without a bound on
+// its registers mt_emit took 57 (2 blocks an SM) and was 10% slower at
+// 513^3, and at 4 blocks an SM it spilled; the mark without the warp's
+// merge took 2.2x as long.
+constexpr int kTileCells = 128;                   // mt_emit: cells a tile
+constexpr int kEmitThreads = kTileCells * 4;      // a thread a corner pair
+constexpr int kTileTris = kTileCells * 12;
+constexpr int kCellsPerLane = kTileCells / 32;    // in the tile's scan
+constexpr int kEmitMinBlocks = 3;                 // resident an SM, at least
+static_assert(kTileCells % 32 == 0 && kEmitThreads <= 1024,
+              "a tile is whole warps' cells and one block");
+constexpr int kThreads = 256;     // mt_index's passes; summary words a tile
+constexpr int kMaxDevices = 16;
+
+// a look-back status: the flag in bits 62-63, a sum in bits 0-61
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kInclusive = 2ull << 62;
+constexpr unsigned long long kSumBits = (1ull << 62) - 1;
+constexpr unsigned kMaxSpins = 1u << 24;          // seconds of polling
+// mt_index's scan sums two counts below 2^31 in one word: touched bitmap
+// words in bits 0-30, distinct ids in bits 31-61
+constexpr int kIdShift = 31;
+constexpr unsigned long long kWordMask = (1ull << kIdShift) - 1;
 
 // (tet, case, tri, vert) -> inside / outside local corner; (tet, case,
 // tri) -> valid
@@ -77,240 +125,411 @@ __device__ __forceinline__ long long corner_lin(const Grid& g, long long x,
          (x + (c & 1));
 }
 
-// The 12-bit valid-slot mask of one cell (slot = tet * 2 + tri) and its
-// 6 cases packed 4 bits each.
-__device__ __forceinline__ unsigned cell_cases(const float* occ,
-                                               const Grid& g, long long x,
-                                               long long y, long long z,
-                                               float iso, float* v,
-                                               unsigned* cases) {
-  unsigned bits = 0;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    v[c] = occ[corner_lin(g, x, y, z, c)];
-    bits |= (v[c] > iso ? 1u : 0u) << c;
-  }
-  unsigned mask = 0, packed = 0;
-#pragma unroll
-  for (int t = 0; t < 6; ++t) {
-    unsigned cs = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) cs |= ((bits >> c_tets[t][i]) & 1u) << i;
-    packed |= cs << (4 * t);
-    mask |= static_cast<unsigned>(c_valid[(t * 16 + cs) * 2]) << (2 * t);
-    mask |= static_cast<unsigned>(c_valid[(t * 16 + cs) * 2 + 1])
-            << (2 * t + 1);
-  }
-  *cases = packed;
-  return mask;
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// Exclusive scan of one int per thread over the block; *total gets the
-// block's sum. blockDim.x a multiple of 32, at most 1024.
-__device__ __forceinline__ int block_scan(int x, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = x;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  const int nwarps = blockDim.x >> 5;
-  if (warp == 0) {
-    int w = lane < nwarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
+// The sum of the tiles before tile t > 0, from their statuses (a scan's
+// decoupled look-back, 32 tiles a step: lane l reads tile top - l). A
+// whole warp calls it; every lane gets the sum.
+__device__ unsigned long long look_back(const unsigned long long* status,
+                                        long long t) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long before = 0;
+  for (long long top = t - 1;; top -= 32) {
+    const long long j = top - lane;
+    unsigned long long s = j >= 0 ? load_status(status + j) : kInclusive;
+    for (unsigned spins = 0; __any_sync(0xffffffffu, (s >> 62) == 0);
+         ++spins) {
+      // a tile that never publishes is a fault (scratch not zero on
+      // entry): fail the launch rather than spin on
+      if (spins == kMaxSpins) __trap();
+      if ((s >> 62) == 0) s = load_status(status + j);
     }
-    if (lane < nwarps) warp_sums[lane] = w;        // inclusive
-  }
-  __syncthreads();
-  const int before = warp ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();                                  // warp_sums reusable
-  return before + incl - x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-emit_count_kernel(const float* __restrict__ occ, Grid g,
-                  const long long* __restrict__ cx,
-                  const long long* __restrict__ cy,
-                  const long long* __restrict__ cz,
-                  const long long* __restrict__ n_cells, int nc, float iso,
-                  unsigned short* __restrict__ slot_mask,
-                  int* __restrict__ block_counts) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  unsigned mask = 0;
-  if (i < nc && i < *n_cells) {
-    float v[8];
-    unsigned cases;
-    mask = cell_cases(occ, g, cx[i], cy[i], cz[i], iso, v, &cases);
-  }
-  if (i < nc) slot_mask[i] = static_cast<unsigned short>(mask);
-  int total;
-  block_scan(__popc(mask), warp_sums, &total);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
-}
-
-// One block: in-place exclusive scan of counts[0, n); *total = the sum.
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(int* __restrict__ counts, int n, long long* __restrict__ total) {
-  __shared__ int warp_sums[32];
-  long long carry = 0;
-  for (int base = 0; base < n; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int x = i < n ? counts[i] : 0;
-    int tile;
-    const int ex = block_scan(x, warp_sums, &tile);
-    if (i < n) counts[i] = static_cast<int>(carry + ex);
-    carry += tile;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-__global__ void __launch_bounds__(kThreads)
-emit_write_kernel(const float* __restrict__ occ, Grid g,
-                  const long long* __restrict__ cx,
-                  const long long* __restrict__ cy,
-                  const long long* __restrict__ cz, int nc, float iso,
-                  const unsigned short* __restrict__ slot_mask,
-                  const int* __restrict__ block_offsets, long long max_tris,
-                  float* __restrict__ tvx, float* __restrict__ tvy,
-                  float* __restrict__ tvz, long long* __restrict__ teid) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const unsigned mask = i < nc ? slot_mask[i] : 0u;
-  int total;
-  const int before = block_scan(__popc(mask), warp_sums, &total);
-  if (!mask) return;
-  const long long base =
-      static_cast<long long>(block_offsets[blockIdx.x]) + before;
-  if (base >= max_tris) return;
-  const long long x = cx[i], y = cy[i], z = cz[i];
-  float v[8];
-  unsigned cases;
-  cell_cases(occ, g, x, y, z, iso, v, &cases);
-  int rank = 0;
-  for (int s = 0; s < 12; ++s) {
-    if (!((mask >> s) & 1u)) continue;
-    const long long tri = base + rank++;
-    if (tri >= max_tris) return;
-    const int t = s >> 1, k = s & 1;
-    const int e = (t * 16 + ((cases >> (4 * t)) & 15u)) * 2 + k;
+    const unsigned incl = __ballot_sync(0xffffffffu, (s >> 62) == 2);
+    // the nearest inclusive tile ends the window
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    unsigned long long v = lane <= stop ? s & kSumBits : 0;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int a = c_A[e * 3 + j], b = c_B[e * 3 + j];
-      const float va = v[a], vb = v[b];
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    before += v;
+    if (incl) return before;
+  }
+}
+
+// Scratch of a single-pass scan: [0] the tile ticket, [1 + t] tile t's
+// status; zero between launches.
+struct Scan {
+  unsigned long long* ticket;
+  unsigned long long* status;
+};
+
+__device__ __forceinline__ Scan scan_of(unsigned long long* scratch) {
+  return Scan{scratch, scratch + 1};
+}
+
+// The block's next tile, or -1 when none is left. Each block takes one
+// ticket past the tiles, after its last tile, so the block that takes the
+// launch's last ticket knows that every block's look-backs are over: it
+// zeroes the ticket and the first `tiles` statuses for the next launch.
+__device__ long long next_tile(const Scan& sc, long long tiles,
+                               long long* shared_tile) {
+  if (threadIdx.x == 0)
+    *shared_tile = static_cast<long long>(atomicAdd(sc.ticket, 1ull));
+  __syncthreads();                   // also: the block's last tile is done
+  const long long t = *shared_tile;
+  if (t < tiles) return t;
+  if (t == tiles + gridDim.x - 1) {
+    for (long long k = threadIdx.x; k < tiles; k += blockDim.x)
+      sc.status[k] = 0;
+    if (threadIdx.x == 0) *sc.ticket = 0;
+  }
+  return -1;
+}
+
+__global__ void __launch_bounds__(kEmitThreads, kEmitMinBlocks)
+emit_kernel(const float* __restrict__ occ, Grid g,
+            const long long* __restrict__ cx,
+            const long long* __restrict__ cy,
+            const long long* __restrict__ cz,
+            const long long* __restrict__ n_cells, int nc, float iso,
+            long long max_tris, float* __restrict__ tvx,
+            float* __restrict__ tvy, float* __restrict__ tvz,
+            long long* __restrict__ teid, long long* __restrict__ n_total,
+            unsigned long long* __restrict__ scratch) {
+  __shared__ unsigned char sA[6 * 16 * 2 * 3], sB[6 * 16 * 2 * 3];
+  __shared__ unsigned char sValid[6 * 16 * 2];
+  __shared__ __align__(16) float sv[kTileCells * 8];  // [cell][corner]
+  __shared__ int sxyz[3][kTileCells];
+  __shared__ unsigned sCases[kTileCells];
+  __shared__ unsigned short sMask[kTileCells];
+  __shared__ int sBefore[kTileCells];                // tile's tris before
+  __shared__ unsigned short sTri[kTileTris];         // cell << 4 | slot
+  __shared__ long long sTile;
+  __shared__ unsigned long long sFirst;              // the tile's first tri
+  __shared__ int sCount;
+
+  for (int k = threadIdx.x; k < 6 * 16 * 2 * 3; k += kEmitThreads) {
+    sA[k] = c_A[k];
+    sB[k] = c_B[k];
+    if (k < 6 * 16 * 2) sValid[k] = c_valid[k];
+  }
+  const Scan sc = scan_of(scratch);
+  long long live = *n_cells;
+  live = live < 0 ? 0 : (live > nc ? nc : live);
+  // tile 0 always runs: it writes *n_total when no cell is live
+  const long long tiles =
+      live > 0 ? (live + kTileCells - 1) / kTileCells : 1;
+  const int lane = threadIdx.x & 31;
+  // a cell's 4 threads: thread p gathers corners 2p and 2p + 1 (x = 0, 1 at
+  // y = p & 1, z = p >> 1), adjacent in memory
+  const int c = threadIdx.x >> 2, pair = threadIdx.x & 3;
+  for (long long tile; (tile = next_tile(sc, tiles, &sTile)) >= 0;) {
+    const long long i = tile * kTileCells + c;
+    const bool alive = i < live;
+    float2 v = make_float2(0.0f, 0.0f);
+    int x = 0, y = 0, z = 0;
+    if (alive) {
+      x = static_cast<int>(cx[i]);
+      y = static_cast<int>(cy[i]);
+      z = static_cast<int>(cz[i]);
+      const long long at = corner_lin(g, x, y, z, 2 * pair);
+      v = make_float2(occ[at], occ[at + 1]);
+    }
+    reinterpret_cast<float2*>(sv)[threadIdx.x] = v;
+    // the cell's 8 inside bits, from its 4 threads' 2 each
+    unsigned bits = ((v.x > iso ? 1u : 0u) | (v.y > iso ? 2u : 0u))
+                    << (2 * pair);
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+    if (pair == 0) {
+      unsigned mask = 0, packed = 0;
+#pragma unroll
+      for (int t = 0; t < 6; ++t) {
+        unsigned cs = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cs |= ((bits >> c_tets[t][k]) & 1u) << k;
+        packed |= cs << (4 * t);
+        mask |= static_cast<unsigned>(sValid[(t * 16 + cs) * 2]) << (2 * t);
+        mask |= static_cast<unsigned>(sValid[(t * 16 + cs) * 2 + 1])
+                << (2 * t + 1);
+      }
+      sMask[c] = static_cast<unsigned short>(alive ? mask : 0u);
+      sCases[c] = packed;
+      sxyz[0][c] = x;
+      sxyz[1][c] = y;
+      sxyz[2][c] = z;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {          // warp 0: kCellsPerLane cells a lane
+      int n[kCellsPerLane], mine = 0;
+#pragma unroll
+      for (int k = 0; k < kCellsPerLane; ++k) {
+        n[k] = __popc(sMask[lane * kCellsPerLane + k]);
+        mine += n[k];
+      }
+      int incl = mine;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y2 = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y2;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      // the aggregate first, so that later tiles need not wait for ours
+      if (lane == 0) {
+        atomicExch(sc.status + tile,
+                   (tile == 0 ? kInclusive : kAggregate) |
+                       static_cast<unsigned long long>(total));
+        sCount = total;
+      }
+      int before = incl - mine;
+#pragma unroll
+      for (int k = 0; k < kCellsPerLane; ++k) {
+        sBefore[lane * kCellsPerLane + k] = before;
+        before += n[k];
+      }
+    }
+    __syncthreads();
+    {                                // the cell's slots 3 pair .. 3 pair + 2
+      const unsigned m = sMask[c];
+      int at = sBefore[c] + __popc(m & ((1u << (3 * pair)) - 1u));
+      for (int s = 3 * pair; s < 3 * pair + 3; ++s)
+        if ((m >> s) & 1u)
+          sTri[at++] = static_cast<unsigned short>((c << 4) | s);
+    }
+    if (threadIdx.x < 32) {          // warp 0 looks back meanwhile
+      unsigned long long first = 0;
+      if (tile > 0) {
+        first = look_back(sc.status, tile);
+        if (lane == 0)
+          atomicExch(sc.status + tile,
+                     kInclusive | (first + static_cast<unsigned>(sCount)));
+      }
+      if (lane == 0) {
+        sFirst = first;
+        if (tile == tiles - 1)
+          *n_total = static_cast<long long>(first) + sCount;
+      }
+    }
+    __syncthreads();
+    const long long first = static_cast<long long>(sFirst);
+    // the tile's vertex slots below max_tris * 3
+    const long long room = (max_tris - first) * 3;
+    const int n_slots = static_cast<int>(
+        room < 3 * sCount ? (room > 0 ? room : 0) : 3 * sCount);
+    for (int q = threadIdx.x; q < n_slots; q += kEmitThreads) {
+      const int tri = q / 3, j = q - 3 * tri;
+      const unsigned entry = sTri[tri];
+      const int cl = entry >> 4, s = entry & 15;
+      const int t = s >> 1;
+      const int e = (t * 16 + ((sCases[cl] >> (4 * t)) & 15u)) * 2 + (s & 1);
+      const int a = sA[e * 3 + j], b = sB[e * 3 + j];
+      const float va = sv[cl * 8 + a], vb = sv[cl * 8 + b];
       const float den = __fsub_rn(vb, va);
       float tt = fabsf(den) < 1e-12f ? 0.5f
                                      : __fdiv_rn(__fsub_rn(iso, va), den);
       tt = fminf(fmaxf(tt, 0.0f), 1.0f);
+      const long long x0 = sxyz[0][cl], y0 = sxyz[1][cl], z0 = sxyz[2][cl];
       const int ax = a & 1, ay = (a >> 1) & 1, az = (a >> 2) & 1;
       const int bx = b & 1, by = (b >> 1) & 1, bz = (b >> 2) & 1;
-      const long long o = tri * 3 + j;
-      tvx[o] = __fadd_rn(static_cast<float>(x + ax),
+      const long long o = first * 3 + q;
+      tvx[o] = __fadd_rn(static_cast<float>(x0 + ax),
                          __fmul_rn(tt, static_cast<float>(bx - ax)));
-      tvy[o] = __fadd_rn(static_cast<float>(y + ay),
+      tvy[o] = __fadd_rn(static_cast<float>(y0 + ay),
                          __fmul_rn(tt, static_cast<float>(by - ay)));
-      tvz[o] = __fadd_rn(static_cast<float>(z + az),
+      tvz[o] = __fadd_rn(static_cast<float>(z0 + az),
                          __fmul_rn(tt, static_cast<float>(bz - az)));
-      const long long la = corner_lin(g, x, y, z, a);
-      const long long lb = corner_lin(g, x, y, z, b);
+      const long long la = corner_lin(g, x0, y0, z0, a);
+      const long long lb = corner_lin(g, x0, y0, z0, b);
       const int dir = abs(bx - ax) + 2 * abs(by - ay) + 4 * abs(bz - az);
       teid[o] = (la < lb ? la : lb) * 8 + dir;
     }
   }
 }
 
-__global__ void index_mark_kernel(const long long* __restrict__ teid,
-                                  const long long* __restrict__ n_tris,
-                                  long long n_slots,
-                                  unsigned* __restrict__ bitmap) {
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  if (i >= n_slots || i >= 3 * *n_tris) return;
-  const long long e = teid[i];
-  atomicOr(bitmap + (e >> 5), 1u << (e & 31));
-}
+// The first live slot of this warp's first stride, the stride, and the
+// live slot count 3 * *n_tris (at most n_slots). Lanes walk warp-aligned
+// windows so that a whole warp enters each window.
+struct Slots {
+  long long begin, stride, live;
+};
 
-// Per-thread popcount of kWordsPerThread consecutive words; returns it.
-__device__ __forceinline__ int words_popc(const unsigned* bitmap,
-                                          long long w0, long long nwords) {
-  int c = 0;
-#pragma unroll
-  for (int k = 0; k < kWordsPerThread; ++k)
-    if (w0 + k < nwords) c += __popc(bitmap[w0 + k]);
-  return c;
+__device__ __forceinline__ Slots slots_of(const long long* n_tris,
+                                          long long n_slots) {
+  long long live = 3 * *n_tris;
+  live = live < 0 ? 0 : (live > n_slots ? n_slots : live);
+  return Slots{static_cast<long long>(blockIdx.x) * blockDim.x +
+                   (threadIdx.x & ~31),
+               static_cast<long long>(gridDim.x) * blockDim.x, live};
 }
 
 __global__ void __launch_bounds__(kThreads)
-index_count_kernel(const unsigned* __restrict__ bitmap, long long nwords,
-                   int* __restrict__ block_counts) {
-  __shared__ int warp_sums[32];
-  const long long w0 = (blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x) * kWordsPerThread;
-  int total;
-  block_scan(words_popc(bitmap, w0, nwords), warp_sums, &total);
-  if (threadIdx.x == 0) block_counts[blockIdx.x] = total;
+index_clear_kernel(const long long* __restrict__ teid,
+                   const long long* __restrict__ n_tris, long long n_slots,
+                   unsigned* __restrict__ bitmap) {
+  const Slots sl = slots_of(n_tris, n_slots);
+  for (long long i = sl.begin + (threadIdx.x & 31); i < sl.live;
+       i += sl.stride)
+    bitmap[teid[i] >> 5] = 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
-index_prefix_kernel(const unsigned* __restrict__ bitmap, long long nwords,
-                    const int* __restrict__ block_offsets,
-                    int* __restrict__ word_prefix) {
-  __shared__ int warp_sums[32];
-  const long long w0 = (blockIdx.x * static_cast<long long>(kThreads) +
-                        threadIdx.x) * kWordsPerThread;
-  int total;
-  int run = block_offsets[blockIdx.x] +
-            block_scan(words_popc(bitmap, w0, nwords), warp_sums, &total);
-#pragma unroll
-  for (int k = 0; k < kWordsPerThread; ++k) {
-    if (w0 + k < nwords) {
-      word_prefix[w0 + k] = run;
-      run += __popc(bitmap[w0 + k]);
+index_mark_kernel(const long long* __restrict__ teid,
+                  const long long* __restrict__ n_tris, long long n_slots,
+                  unsigned* __restrict__ bitmap,
+                  unsigned* __restrict__ summary) {
+  const Slots sl = slots_of(n_tris, n_slots);
+  const int lane = threadIdx.x & 31;
+  for (long long base = sl.begin; base < sl.live; base += sl.stride) {
+    const long long i = base + lane;
+    const long long e = i < sl.live ? teid[i] : -1;
+    const long long w = e >> 5;                      // -1 for idle lanes
+    const unsigned peers = __match_any_sync(0xffffffffu, w);
+    const unsigned word_bits =
+        __reduce_or_sync(peers, e >= 0 ? 1u << (e & 31) : 0u);
+    if (e >= 0 && lane == __ffs(peers) - 1) {
+      const unsigned old = atomicOr(bitmap + w, word_bits);
+      if (old == 0) atomicOr(summary + (w >> 5), 1u << (w & 31));
     }
   }
 }
 
-__global__ void index_write_kernel(const long long* __restrict__ teid,
-                                   const float* __restrict__ tvx,
-                                   const float* __restrict__ tvy,
-                                   const float* __restrict__ tvz,
-                                   const long long* __restrict__ n_tris,
-                                   long long n_slots,
-                                   const unsigned* __restrict__ bitmap,
-                                   const int* __restrict__ word_prefix,
-                                   long long max_verts,
-                                   int* __restrict__ faces,
-                                   float* __restrict__ vx,
-                                   float* __restrict__ vy,
-                                   float* __restrict__ vz) {
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  if (i >= n_slots) return;
-  if (i >= 3 * *n_tris) {
-    faces[i] = 0;
-    return;
-  }
-  const long long e = teid[i];
-  const long long w = e >> 5;
-  const unsigned below = bitmap[w] & ((1u << (e & 31)) - 1u);
-  const int r = word_prefix[w] + __popc(below);
-  faces[i] = r;
-  if (r < max_verts) {
-    vx[r] = tvx[i];
-    vy[r] = tvy[i];
-    vz[r] = tvz[i];
+__global__ void __launch_bounds__(kThreads)
+index_scan_kernel(long long n_sum, const unsigned* __restrict__ bitmap,
+                  unsigned* __restrict__ summary,
+                  int2* __restrict__ sum_rank, int2* __restrict__ word_rank,
+                  long long* __restrict__ n_unique,
+                  unsigned long long* __restrict__ scratch) {
+  __shared__ unsigned long long warp_sums[kThreads / 32];
+  __shared__ long long sTile;
+  __shared__ unsigned long long sBefore;
+  const Scan sc = scan_of(scratch);
+  const long long tiles = (n_sum + kThreads - 1) / kThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (long long tile; (tile = next_tile(sc, tiles, &sTile)) >= 0;) {
+    // this thread's summary word and the bitmap words under its bits
+    const long long s0 = tile * kThreads + threadIdx.x;
+    const unsigned sb = s0 < n_sum ? summary[s0] : 0u;
+    const unsigned* words_of = bitmap + s0 * 32;
+    const unsigned words = __popc(sb);
+    unsigned ids = 0;
+    for (unsigned r = sb; r; r &= r - 1)
+      ids += __popc(words_of[__ffs(r) - 1]);
+    const unsigned long long mine =
+        words | (static_cast<unsigned long long>(ids) << kIdShift);
+    // block-wide exclusive scan of the packed counts
+    unsigned long long incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      unsigned long long ws = lane < kThreads / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < kThreads / 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xffffffffu, ws, o);
+        if (lane >= o) ws += y;
+      }
+      const unsigned long long total =
+          __shfl_sync(0xffffffffu, ws, kThreads / 32 - 1);
+      if (lane == 0)
+        atomicExch(sc.status + tile,
+                   (tile == 0 ? kInclusive : kAggregate) | total);
+      unsigned long long before = 0;
+      if (tile > 0) {
+        before = look_back(sc.status, tile);
+        if (lane == 0)
+          atomicExch(sc.status + tile, kInclusive | (before + total));
+      }
+      if (lane < kThreads / 32) warp_sums[lane] = ws;   // inclusive
+      if (lane == 0) {
+        sBefore = before;
+        if (tile == tiles - 1)
+          *n_unique = static_cast<long long>((before + total) >> kIdShift);
+      }
+    }
+    __syncthreads();
+    if (words) {
+      const unsigned long long at = sBefore +
+          (warp ? warp_sums[warp - 1] : 0ull) + incl - mine;
+      int k = static_cast<int>(at & kWordMask);
+      int id = static_cast<int>(at >> kIdShift);
+      sum_rank[s0] = make_int2(k, static_cast<int>(sb));
+      for (unsigned r = sb; r; r &= r - 1) {
+        const unsigned wb = words_of[__ffs(r) - 1];
+        word_rank[k++] = make_int2(id, static_cast<int>(wb));
+        id += __popc(wb);
+      }
+      summary[s0] = 0;
+    }
+    __syncthreads();                 // warp_sums and sBefore reused
   }
 }
 
-inline unsigned blocks_for(long long n, int per_block) {
-  return static_cast<unsigned>((n + per_block - 1) / per_block);
+__global__ void __launch_bounds__(kThreads)
+index_write_kernel(const long long* __restrict__ teid,
+                   const float* __restrict__ tvx,
+                   const float* __restrict__ tvy,
+                   const float* __restrict__ tvz,
+                   const long long* __restrict__ n_tris, long long n_slots,
+                   const int2* __restrict__ sum_rank,
+                   const int2* __restrict__ word_rank, long long max_verts,
+                   int* __restrict__ faces, float* __restrict__ vx,
+                   float* __restrict__ vy, float* __restrict__ vz) {
+  const Slots sl = slots_of(n_tris, n_slots);
+  const long long first = sl.begin + (threadIdx.x & 31);
+  for (long long i = first; i < sl.live; i += sl.stride) {
+    const long long e = teid[i];
+    const long long w = e >> 5;
+    const int2 sr = sum_rank[w >> 5];
+    const int k = sr.x + __popc(static_cast<unsigned>(sr.y) &
+                                ((1u << (w & 31)) - 1u));
+    const int2 wr = word_rank[k];
+    const int r = wr.x + __popc(static_cast<unsigned>(wr.y) &
+                                ((1u << (e & 31)) - 1u));
+    faces[i] = r;
+    if (r < max_verts) {
+      vx[r] = tvx[i];
+      vy[r] = tvy[i];
+      vz[r] = tvz[i];
+    }
+  }
+  for (long long i = sl.live + first; i < n_slots; i += sl.stride)
+    faces[i] = 0;                    // the dead slots
+}
+
+// The resident blocks of a kernel on the current card (its SMs times the
+// occupancy calculator's blocks an SM), asked of the runtime once a card
+// and kernel (`which`).
+std::atomic<int> g_resident[kMaxDevices][5];
+
+// min(the kernel's resident blocks, ceil(work / per_block)), at least 1
+template <typename Kernel>
+cudaError_t grid_for(int which, Kernel kernel, int threads, long long work,
+                     long long per_block, unsigned* grid) {
+  int dev = 0, fit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<int>* kept =
+      dev < kMaxDevices ? &g_resident[dev][which] : nullptr;
+  if (!kept || (fit = kept->load(std::memory_order_relaxed)) <= 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    if (err != cudaSuccess) return err;
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+    if (kept) kept->store(fit, std::memory_order_relaxed);
+  }
+  long long need = (work + per_block - 1) / per_block;
+  need = need < 1 ? 1 : need;
+  *grid = static_cast<unsigned>(need < fit ? need : fit);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -329,75 +548,86 @@ int icon_mt_set_tables(const unsigned char* A, const unsigned char* B,
   return static_cast<int>(err);
 }
 
+// Cells a tile of mt_emit's scan (its scratch holds 1 + ceil(nc / this)
+// words).
+int icon_mt_emit_tile_cells() { return kTileCells; }
+
+// Summary words a tile of mt_index's scan (its scratch holds 1 +
+// ceil(n_sum / this) words).
+int icon_mt_index_tile_words() { return kThreads; }
+
 // occ [D, H, W] f32; cx, cy, cz [nc] int64 cell coordinates (cells past
-// *n_cells are dead); writes slot_mask [nc] u16 (scratch), counts
-// [ceil(nc / 256)] i32 (scratch), the triangles' vertex slots tvx, tvy, tvz
+// *n_cells are dead); scratch [1 + ceil(nc / 128)] u64, zero on entry and
+// left zero; writes the triangles' vertex slots tvx, tvy, tvz
 // [max_tris * 3] f32 and teid [max_tris * 3] int64 (rows past the total
 // left as the caller filled them) and *n_total (int64), the triangle count
 // before the max_tris cut. Returns a cudaError_t.
 int icon_mt_emit(const float* occ, int D, int H, int W, const long long* cx,
                  const long long* cy, const long long* cz,
                  const long long* n_cells, int nc, float iso,
-                 long long max_tris, unsigned short* slot_mask, int* counts,
-                 float* tvx, float* tvy, float* tvz, long long* teid,
-                 long long* n_total, void* stream) {
+                 long long max_tris, unsigned long long* scratch, float* tvx,
+                 float* tvy, float* tvz, long long* teid, long long* n_total,
+                 void* stream) {
   if (D < 2 || H < 2 || W < 2 || nc < 1 || max_tris < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Grid g{D, H, W};
-  const unsigned nb = blocks_for(nc, kThreads);
-  emit_count_kernel<<<nb, kThreads, 0, s>>>(occ, g, cx, cy, cz, n_cells, nc,
-                                            iso, slot_mask, counts);
-  cudaError_t err = cudaGetLastError();
+  unsigned grid = 0;
+  cudaError_t err = grid_for(0, emit_kernel, kEmitThreads, nc,
+                             kTileCells, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(counts, static_cast<int>(nb),
-                                         n_total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  emit_write_kernel<<<nb, kThreads, 0, s>>>(occ, g, cx, cy, cz, nc, iso,
-                                            slot_mask, counts, max_tris, tvx,
-                                            tvy, tvz, teid);
+  emit_kernel<<<grid, kEmitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      occ, Grid{D, H, W}, cx, cy, cz, n_cells, nc, iso, max_tris, tvx, tvy,
+      tvz, teid, n_total, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
 // teid, tvx, tvy, tvz [n_slots] (3 slots a triangle, the first 3 * *n_tris
-// live, ids below nwords * 32); bitmap and word_prefix [nwords] (scratch),
-// counts [ceil(nwords / 2048)] (scratch). Writes faces [n_slots] i32 (each
-// live slot's vertex rank, 0 elsewhere), the vertex table vx, vy, vz
-// [max_verts] in ascending edge-id order and *n_unique (int64), the count
-// of distinct ids. Returns a cudaError_t.
+// live, ids below n_sum * 1024); bitmap [n_sum * 32] u32 (any contents);
+// summary [n_sum] u32 and scratch [1 + ceil(n_sum / 256)] u64, each zero
+// on entry and left zero; sum_rank [n_sum] and word_rank [min(n_slots,
+// n_sum * 32)] int2 (scratch, never cleared). Writes faces [n_slots] i32
+// (each live slot's vertex rank, 0 elsewhere), the vertex table vx, vy, vz
+// [max_verts] in ascending edge-id order (rows past the count untouched)
+// and *n_unique (int64), the count of distinct ids. Returns a
+// cudaError_t.
 int icon_mt_index(const long long* teid, const float* tvx, const float* tvy,
                   const float* tvz, const long long* n_tris,
-                  long long n_slots, long long nwords, unsigned* bitmap,
-                  int* word_prefix, int* counts, long long max_verts,
+                  long long n_slots, long long n_sum, unsigned* bitmap,
+                  unsigned* summary, unsigned long long* scratch,
+                  int* sum_rank, int* word_rank, long long max_verts,
                   int* faces, float* vx, float* vy, float* vz,
                   long long* n_unique, void* stream) {
-  const long long nb = (nwords + kThreads * kWordsPerThread - 1) /
-                       (kThreads * kWordsPerThread);
-  if (n_slots < 1 || nwords < 1 || nb > 0x7fffffffLL || max_verts < 0)
+  if (n_slots < 1 || n_slots >= (1LL << 31) || n_sum < 1 || max_verts < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(bitmap, 0, sizeof(unsigned) * nwords, s);
+  unsigned grid = 0;
+  cudaError_t err = grid_for(1, index_clear_kernel, kThreads, n_slots,
+                             kThreads, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  index_mark_kernel<<<blocks_for(n_slots, kThreads), kThreads, 0, s>>>(
-      teid, n_tris, n_slots, bitmap);
+  index_clear_kernel<<<grid, kThreads, 0, s>>>(teid, n_tris, n_slots,
+                                               bitmap);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = grid_for(2, index_mark_kernel, kThreads, n_slots, kThreads, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  index_count_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-      bitmap, nwords, counts);
+  index_mark_kernel<<<grid, kThreads, 0, s>>>(teid, n_tris, n_slots, bitmap,
+                                              summary);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = grid_for(3, index_scan_kernel, kThreads, n_sum, kThreads, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(counts, static_cast<int>(nb),
-                                         n_unique);
+  index_scan_kernel<<<grid, kThreads, 0, s>>>(
+      n_sum, bitmap, summary, reinterpret_cast<int2*>(sum_rank),
+      reinterpret_cast<int2*>(word_rank), n_unique, scratch);
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = grid_for(4, index_write_kernel, kThreads, n_slots, kThreads,
+                   &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  index_prefix_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
-      bitmap, nwords, counts, word_prefix);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  index_write_kernel<<<blocks_for(n_slots, kThreads), kThreads, 0, s>>>(
-      teid, tvx, tvy, tvz, n_tris, n_slots, bitmap, word_prefix, max_verts,
-      faces, vx, vy, vz);
+  index_write_kernel<<<grid, kThreads, 0, s>>>(
+      teid, tvx, tvy, tvz, n_tris, n_slots,
+      reinterpret_cast<const int2*>(sum_rank),
+      reinterpret_cast<const int2*>(word_rank), max_verts, faces, vx, vy,
+      vz);
   return static_cast<int>(cudaGetLastError());
 }
 

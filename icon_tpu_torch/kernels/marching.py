@@ -12,10 +12,22 @@ stable ``torch.sort`` in place of ``lax.sort``).
   triangle slots; the triangles in linear (cell, slot) order, the first
   ``max_tris`` kept; for each triangle's 3 vertex slots the point on its
   lattice edge and the edge's int64 id ``min(lin_a, lin_b) * 8 + dir``.
+  The kernel is one launch: a single-pass scan over tiles of
+  ``EMIT_TILE_CELLS`` cells.
 - ``mt_index``: each vertex slot's rank among the distinct edge ids (its
   face index) and the vertex table in ascending edge-id order. The kernel
-  ranks by a bitmap of the grid's edge ids and prefix popcounts, with no
-  sort.
+  ranks by a bitmap of the grid's edge ids, its summary (a bit a bitmap
+  word) and prefix popcounts, with no sort; only the summary is read
+  whole, and only the bitmap words of live ids are cleared and read.
+
+The kernels' scan scratch and the summary are zero on entry and left zero;
+the bitmap may hold anything. :func:`emit_buffers` and
+:func:`index_buffers` zero the former once for a caller that launches on
+its own buffers. The wrappers keep them for each device and stream
+(:func:`_kept_zeros`; the summary is D H W / 32 bytes, 0.52 MB at 256^3
+cells and 4.2 MB at 512^3), so that no call clears a buffer at the grid's
+scale, until :func:`release_buffers` frees them. The bitmap is allocated
+for each call and goes back to the caching allocator after it.
 
 ``launches_emit`` and ``launches_index`` count the wrappers' launches (a
 call is one count for its launches).
@@ -25,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +46,8 @@ from icon_tpu_torch.recon.engine import _compact
 from icon_tpu_torch.recon.lattice_host import _CORNER_OFF, _TETS, _tet_tables
 
 INT64_MAX = 2 ** 63 - 1
-THREADS = 256                     # csrc/marching.cu's kThreads
-WORDS_PER_BLOCK = THREADS * 8     # kThreads * kWordsPerThread
+EMIT_TILE_CELLS = 128   # csrc/marching.cu's kTileCells
+SCAN_TILE_WORDS = 256   # summary words a tile of mt_index's scan (kThreads)
 
 launches_emit = 0       # mt_emit calls on the card since the last reset
 launches_index = 0      # mt_index calls on the card since the last reset
@@ -43,6 +55,8 @@ launches_index = 0      # mt_index calls on the card since the last reset
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tables_on = set()      # device indices whose constant tables are set
+# (device index, stream, name) -> a buffer kept zero between launches
+_kept: Dict[Tuple[int, int, str], torch.Tensor] = {}
 
 
 def _load() -> ctypes.CDLL:
@@ -54,16 +68,26 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()["marching.cu"])
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.icon_mt_set_tables.argtypes = [vp, vp, vp]
-            lib.icon_mt_set_tables.restype = ci
             lib.icon_mt_emit.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci,
                                          ctypes.c_float, cl, vp, vp, vp, vp,
-                                         vp, vp, vp, vp]
-            lib.icon_mt_emit.restype = ci
+                                         vp, vp, vp]
             lib.icon_mt_index.argtypes = [vp, vp, vp, vp, vp, cl, cl, vp, vp,
-                                          vp, cl, vp, vp, vp, vp, vp, vp]
-            lib.icon_mt_index.restype = ci
+                                          vp, vp, vp, cl, vp, vp, vp, vp, vp,
+                                          vp]
             lib.icon_mt_error_string.argtypes = [ci]
             lib.icon_mt_error_string.restype = ctypes.c_char_p
+            for fn in (lib.icon_mt_emit_tile_cells,
+                       lib.icon_mt_index_tile_words):
+                fn.argtypes = []
+            for fn in (lib.icon_mt_set_tables, lib.icon_mt_emit,
+                       lib.icon_mt_index, lib.icon_mt_emit_tile_cells,
+                       lib.icon_mt_index_tile_words):
+                fn.restype = ci
+            if (lib.icon_mt_emit_tile_cells(),
+                    lib.icon_mt_index_tile_words()) != (EMIT_TILE_CELLS,
+                                                        SCAN_TILE_WORDS):
+                raise RuntimeError("csrc/marching.cu's tile sizes differ "
+                                   "from kernels/marching.py's")
             _lib = lib
     return _lib
 
@@ -177,43 +201,70 @@ def mt_emit(occ: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     dev = occ.device
     cx, cy, cz = cx.contiguous(), cy.contiguous(), cz.contiguous()
     n_cells = n_cells.reshape(()).contiguous()
-    bufs = emit_buffers(nc, max_tris, dev)
-    _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris, *bufs)
+    bufs = EmitBuffers(
+        _kept_zeros(dev, "emit_scan", emit_scratch_words(nc), torch.int64),
+        *_emit_outputs(max_tris, dev))
+    try:
+        _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris, bufs)
+    except RuntimeError:
+        _forget_kept(dev)
+        raise
     launches_emit += 1
-    tv, teid, n_total = bufs[2], bufs[3], bufs[4]
-    return tv[0], tv[1], tv[2], teid, torch.clamp(n_total, max=max_tris), \
-        n_total
+    tv = bufs.tv
+    return tv[0], tv[1], tv[2], bufs.teid, \
+        torch.clamp(bufs.n_total, max=max_tris), bufs.n_total
 
 
-def emit_buffers(nc: int, max_tris: int, device):
-    """mt_emit's buffers for ``nc`` cells on ``device``: (slot masks,
-    block counts, tv [3, max_tris, 3] zeroed, teid [max_tris, 3] filled
-    with INT64_MAX, n_total)."""
-    return (torch.empty((nc,), dtype=torch.int16, device=device),
-            torch.empty((-(-nc // THREADS),), dtype=torch.int32,
-                        device=device),
-            torch.zeros((3, max_tris, 3), dtype=torch.float32,
+class EmitBuffers(NamedTuple):
+    """mt_emit's buffers: ``scan`` [emit_scratch_words(nc)] int64, the
+    scan's ticket and tile statuses (zero on entry, left zero); ``tv``
+    [3, max_tris, 3] f32 (rows past the total unspecified); ``teid``
+    [max_tris, 3] int64 filled with INT64_MAX; ``n_total``."""
+    scan: torch.Tensor
+    tv: torch.Tensor
+    teid: torch.Tensor
+    n_total: torch.Tensor
+
+
+def emit_scratch_words(nc: int) -> int:
+    """The int64 words of mt_emit's scan scratch for ``nc`` cells: the
+    ticket and a status a tile of EMIT_TILE_CELLS."""
+    return 1 + -(-nc // EMIT_TILE_CELLS)
+
+
+def _emit_outputs(max_tris: int, device):
+    return (torch.empty((3, max_tris, 3), dtype=torch.float32,
                         device=device),
             torch.full((max_tris, 3), INT64_MAX, dtype=torch.int64,
                        device=device),
             torch.empty((), dtype=torch.int64, device=device))
 
 
-def _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris, mask, counts, tv,
-                 teid, n_total) -> None:
-    """mt_emit's launches on caller-owned buffers (:func:`emit_buffers`,
+def emit_buffers(nc: int, max_tris: int, device) -> EmitBuffers:
+    """mt_emit's buffers for ``nc`` cells on ``device``, its scan scratch
+    zeroed (:class:`EmitBuffers`); the kernel leaves the scratch zero, so
+    they serve any number of launches in stream order."""
+    return EmitBuffers(torch.zeros((emit_scratch_words(nc),),
+                                   dtype=torch.int64, device=device),
+                       *_emit_outputs(max_tris, device))
+
+
+def _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris,
+                 bufs: EmitBuffers) -> None:
+    """mt_emit's launch on caller-owned buffers (:func:`emit_buffers`,
     inputs checked by the caller) on the current stream; counts nothing.
     :func:`mt_emit` and the kernel's timing use it."""
     lib = _lib_on(occ.device)
     D, H, W = occ.shape
+    tv = bufs.tv
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(lib, lib.icon_mt_emit(
             occ.data_ptr(), D, H, W, cx.data_ptr(), cy.data_ptr(),
             cz.data_ptr(), n_cells.data_ptr(), cx.shape[0], float(iso),
-            max_tris, mask.data_ptr(), counts.data_ptr(), tv[0].data_ptr(),
-            tv[1].data_ptr(), tv[2].data_ptr(), teid.data_ptr(),
-            n_total.data_ptr(), stream), "icon_mt_emit")
+            max_tris, bufs.scan.data_ptr(), tv[0].data_ptr(),
+            tv[1].data_ptr(), tv[2].data_ptr(), bufs.teid.data_ptr(),
+            bufs.n_total.data_ptr(), stream), "icon_mt_emit")
 
 
 def mt_index_plain(tvx: torch.Tensor, tvy: torch.Tensor, tvz: torch.Tensor,
@@ -266,42 +317,124 @@ def mt_index(tvx: torch.Tensor, tvy: torch.Tensor, tvz: torch.Tensor,
     if 3 * max_tris >= 2 ** 31 or max_verts < 1:
         raise ValueError(f"{max_tris} triangles, {max_verts} vertices")
     tvx, tvy, tvz = (t.contiguous() for t in (tvx, tvy, tvz))
-    bufs = index_buffers(max_tris, max_verts, grid_shape, dev)
-    _index_launch(tvx, tvy, tvz, teid.contiguous(),
-                  n_tris.reshape(()).contiguous(), max_verts, *bufs)
+    sz = index_sizes(max_tris, grid_shape)
+    bufs = IndexBuffers(
+        torch.empty((sz["bitmap"],), dtype=torch.int32, device=dev),
+        _kept_zeros(dev, "summary", sz["summary"], torch.int32),
+        _kept_zeros(dev, "index_scan", sz["scan"], torch.int64),
+        *_index_outputs(sz, max_tris, max_verts, dev))
+    try:
+        _index_launch(tvx, tvy, tvz, teid.contiguous(),
+                      n_tris.reshape(()).contiguous(), max_verts, bufs)
+    except RuntimeError:
+        _forget_kept(dev)
+        raise
     launches_index += 1
-    verts, faces, n_unique = bufs[3], bufs[4], bufs[5]
-    return verts[0], verts[1], verts[2], faces, n_unique
+    verts = bufs.verts
+    return verts[0], verts[1], verts[2], bufs.faces, bufs.n_unique
 
 
-def index_buffers(max_tris: int, max_verts: int,
-                  grid_shape: Tuple[int, int, int], device):
-    """mt_index's buffers on ``device``: (bitmap and word prefix, one
-    int32 a 32 edge ids of the grid; block counts; verts [3, max_verts]
-    zeroed; faces [max_tris, 3] int32; n_unique)."""
+class IndexBuffers(NamedTuple):
+    """mt_index's buffers (sizes from :func:`index_sizes`): ``bitmap``
+    int32, a bit an edge id (any contents); ``summary`` int32, a bit a
+    bitmap word, and the scan's ``scan`` int64, each zero on entry and left
+    zero;
+    ``sum_rank`` [summary, 2] and ``word_rank`` [touched, 2] int32
+    scratch; ``verts`` [3, max_verts] f32 (rows past the count
+    unspecified); ``faces`` [max_tris, 3] int32; ``n_unique``."""
+    bitmap: torch.Tensor
+    summary: torch.Tensor
+    scan: torch.Tensor
+    sum_rank: torch.Tensor
+    word_rank: torch.Tensor
+    verts: torch.Tensor
+    faces: torch.Tensor
+    n_unique: torch.Tensor
+
+
+def index_sizes(max_tris: int, grid_shape: Tuple[int, int, int]) -> dict:
+    """mt_index's buffer sizes in elements on a (D, H, W) grid: the
+    summary's int32 words (a bit for each 32 edge ids' bitmap word, D H W
+    8 / 1024 words), the bitmap's (32 a summary word), the scan's int64
+    words (the ticket, a status a tile of SCAN_TILE_WORDS) and the
+    touched bitmap words' ranks (at most a live slot each)."""
     D, H, W = grid_shape
-    nwords = -(-(D * H * W * 8) // 32)
-    return (torch.empty((nwords,), dtype=torch.int32, device=device),
-            torch.empty((nwords,), dtype=torch.int32, device=device),
-            torch.empty((-(-nwords // WORDS_PER_BLOCK),), dtype=torch.int32,
+    summary = max(1, -(-(D * H * W * 8) // 1024))
+    return {"summary": summary, "bitmap": 32 * summary,
+            "scan": 1 + -(-summary // SCAN_TILE_WORDS),
+            "touched": min(3 * max_tris, 32 * summary)}
+
+
+def _index_outputs(sz: dict, max_tris: int, max_verts: int, device):
+    return (torch.empty((sz["summary"], 2), dtype=torch.int32,
                         device=device),
-            torch.zeros((3, max_verts), dtype=torch.float32, device=device),
+            torch.empty((sz["touched"], 2), dtype=torch.int32,
+                        device=device),
+            torch.empty((3, max_verts), dtype=torch.float32, device=device),
             torch.empty((max_tris, 3), dtype=torch.int32, device=device),
             torch.empty((), dtype=torch.int64, device=device))
 
 
-def _index_launch(tvx, tvy, tvz, teid, n_tris, max_verts, bitmap, prefix,
-                  counts, verts, faces, n_unique) -> None:
+def index_buffers(max_tris: int, max_verts: int,
+                  grid_shape: Tuple[int, int, int], device) -> IndexBuffers:
+    """mt_index's buffers on ``device`` (:class:`IndexBuffers`), the
+    summary and scan scratch zeroed; the kernels leave them zero, so they
+    serve any number of launches in stream order."""
+    sz = index_sizes(max_tris, grid_shape)
+    return IndexBuffers(
+        torch.empty((sz["bitmap"],), dtype=torch.int32, device=device),
+        torch.zeros((sz["summary"],), dtype=torch.int32, device=device),
+        torch.zeros((sz["scan"],), dtype=torch.int64, device=device),
+        *_index_outputs(sz, max_tris, max_verts, device))
+
+
+def _index_launch(tvx, tvy, tvz, teid, n_tris, max_verts,
+                  bufs: IndexBuffers) -> None:
     """mt_index's launches on caller-owned buffers (:func:`index_buffers`,
     inputs checked by the caller) on the current stream; counts nothing.
     :func:`mt_index` and the kernel's timing use it."""
     lib = _lib_on(teid.device)
+    v = bufs.verts
     with torch.cuda.device(teid.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(lib, lib.icon_mt_index(
             teid.data_ptr(), tvx.data_ptr(), tvy.data_ptr(), tvz.data_ptr(),
-            n_tris.data_ptr(), teid.numel(), bitmap.numel(),
-            bitmap.data_ptr(), prefix.data_ptr(), counts.data_ptr(),
-            max_verts, faces.data_ptr(), verts[0].data_ptr(),
-            verts[1].data_ptr(), verts[2].data_ptr(), n_unique.data_ptr(),
-            stream), "icon_mt_index")
+            n_tris.data_ptr(), teid.numel(), bufs.summary.numel(),
+            bufs.bitmap.data_ptr(), bufs.summary.data_ptr(),
+            bufs.scan.data_ptr(), bufs.sum_rank.data_ptr(),
+            bufs.word_rank.data_ptr(), max_verts, bufs.faces.data_ptr(),
+            v[0].data_ptr(), v[1].data_ptr(), v[2].data_ptr(),
+            bufs.n_unique.data_ptr(), stream), "icon_mt_index")
+
+
+def _stream_key(device) -> Tuple[int, int]:
+    return device.index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _kept_zeros(device, name: str, numel: int, dtype) -> torch.Tensor:
+    """The first ``numel`` elements of a buffer that the kernels keep zero,
+    one a (device, current stream, name), grown (zeroed anew) when a call
+    needs more. Launches on one stream run in order, so they share it."""
+    key = (*_stream_key(device), name)
+    with _lock:
+        buf = _kept.get(key)
+        if buf is None or buf.numel() < numel:
+            buf = torch.zeros((numel,), dtype=dtype, device=device)
+            _kept[key] = buf
+    return buf[:numel]
+
+
+def release_buffers() -> None:
+    """Frees the buffers the wrappers keep zero (every device and stream);
+    the next call on each zeroes them anew."""
+    with _lock:
+        _kept.clear()
+
+
+def _forget_kept(device) -> None:
+    """Drops the current stream's kept buffers: a launch that failed part
+    way may have left them dirty."""
+    key = _stream_key(device)
+    with _lock:
+        for k in [k for k in _kept if k[:2] == key]:
+            del _kept[k]
