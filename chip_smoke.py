@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[17], then the /proc check [18], a kernel
+Phases (lines tagged [1]..[18], then the /proc check [19], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -142,7 +142,7 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
 14. the geometry trainer: the fixture (2 subjects x 3 views at 512^2) on
    the card, its items' signs against the card's ray parity, 3 small
    steps card vs CPU, the train CLI at the published width (4 steps,
-   ``-resume`` to 6, ``-test`` on 2 items, a pamir run of 2 steps), the
+   ``-resume`` to 6, ``-test`` on 2 items, a pamir run of 1 step), the
    kernels against their plain versions on those runs' inputs;
 15. the dataset renderer and the NormalNet trainer on phase 14's scans and
    fits, TF32 off: the render CLI at the reference's settings (``-views
@@ -169,7 +169,7 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    each on its half of the same 4-item global batches of phase 14's
    fixture at the reference's recipe, from the same seeded weights,
    against one process on the whole batch (and on a rank's half): icon
-   for 3 steps (the first loss, the BatchNorm statistics after it, the
+   for 2 steps (the first loss, the BatchNorm statistics after it, the
    parameters after the last), pamir for 1 with its voxelize kernels;
    the kNN kernel against its plain version on each rank's first and last
    call; the gradient all-reduce's ms and bytes, each rank's peak memory;
@@ -205,15 +205,33 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    triangles), and the bytes the wrappers keep there; (d)
    ``ReconEngine(virtual_final=True)`` with ``AutoMarcher(virtual=True)``
    against the materialized final level at 257^3 (face set, u8 step), and at
-   513^3 both ways' peak memory, the virtual one allocating no fine grid.
+   513^3 both ways' peak memory, the virtual one allocating no fine grid;
+18. PaMIR's occupancy differentiated in the body and the alignment
+   harness: (a) at bench.py's pamir widths (128^3, 32 features, k = 11)
+   the gradient of the summed occupancy at the 33^3 lattice with respect
+   to phase 13's 8,000 voxel vertices and codes through
+   ``HGPIFuNet.query`` on the card (``voxel_splat``, ``box_smooth3d``
+   keeping its weight, ``box_smooth3d_bwd``, ``voxel_splat_bwd``: one
+   launch each) against the CPU to 1e-4 of the largest gradient, the same
+   query without a gradient launching no backward kernel, each backward
+   kernel bit-identical to its plain twin on the inputs it got and alone
+   beside its bound, its twin and the library call (``avg_pool3d``'s
+   backward for the box); (b) the alignment CLI (``python -m
+   icon_tpu_torch.data.test_dataset``) on the card over phase 10's two
+   seeded photos with the seeded PyMAF, and each photo's panel drawn on
+   the card and on the CPU from the card's item: within one u8 step on all
+   but 1e-4 of the pixels.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
-render run, in 16 each rank's steps and the sharded recon, and in 17 the
-winding-sign frame and the one-shot export) runs with the kernels' launch counts set to
+render run, in 16 each rank's steps and the sharded recon, in 17 the
+winding-sign frame and the one-shot export, and in 18 the gradient in the
+body and the alignment CLI) runs with the kernels' launch counts set to
 0 just before it and read just after; a kernel of the path that did not
-launch fails the run. Any failed check raises, so the script exits
-non-zero and prints no result.
+launch fails the run, and so does a backward kernel of the voxelization
+launched by any run before phase 18 (none differentiates in the body).
+Any failed check raises, so the script exits non-zero and prints no
+result.
 
 The kernel summary gives, for every kernel, its launches in the main
 paths, its error against the plain version, its time and the plain
@@ -223,9 +241,10 @@ inputs; for the kNN also its tensor-core products over the TF32 peak and
 one compare per pair over the float32 instruction rate) and the time of
 one PyTorch call computing the same function where one exists (the kNN's
 ``cdist`` + ``topk``, the splat's ``index_add_``, the smooth's
-``avg_pool3d``, ``mt_index``'s ``torch.unique`` with the inverse; none for
-the rasterizer, ``fast_winding`` and ``mt_emit``), and its share of the
-bound.
+``avg_pool3d`` and its backward's ``avg_pool3d_backward``, ``mt_index``'s
+``torch.unique`` with the inverse; none for the rasterizer,
+``fast_winding``, ``mt_emit`` and the splat's backward), and its share of
+the bound.
 """
 
 import json
@@ -309,6 +328,10 @@ VOXEL_BEFORE_MS = {"voxel_splat": (0.1054, 0.1012),
                 "box_smooth3d": (0.1919, 0.1925)}
 # the splat's stress input: vertices of the 8,000 at the padding point
 VOXEL_STRESS_PADS = 7358
+# the voxelization's backward kernels: JAX's autodiff of the splat and of
+# the smooth with its division
+VOXEL_BWD_REPLACES = {"voxel_splat_bwd": "icon_tpu/ops/voxelize.py:80",
+                      "box_smooth3d_bwd": "icon_tpu/ops/voxelize.py:107"}
 # the JAX package's level counts for the pamir frame (its own network at the
 # same widths, the variant field, the subdiv-5 body, res 256; see
 # CHANGES.md): the variant field's, the net's preds * 1e-6 term moves no
@@ -1818,9 +1841,9 @@ def voxel_spy(calls: list):
                                       codes.detach().clone(), res)))
         return splat(verts, codes, res)
 
-    def spy_smooth(acc, k):
+    def spy_smooth(acc, k, **kw):
         calls.append(("box_smooth3d", (acc.detach().clone(), k)))
-        return smooth(acc, k)
+        return smooth(acc, k, **kw)
 
     kv.voxel_splat, kv.box_smooth3d = spy_splat, spy_smooth
 
@@ -1861,7 +1884,8 @@ def phase_small_prior_frames(dev):
     marched triangle counts equal; from the CPU's body, the raw net
     occupancy at the level-0 points to 1e-4 (PaMIR's voxel volume through
     the kernels on the card, the plain version on the CPU). Returns the
-    card's pamir voxel inputs (``pamir_feats`` of its fit)."""
+    card's pamir voxel inputs (``pamir_feats`` of its fit) and its
+    ``calib``."""
     from icon_tpu_torch.models.smplx.body import synthetic_smplx_model
     from icon_tpu_torch.recon.engine import reconstruction_resolutions
     from icon_tpu_torch.recon.frame import (bench_config, build_fit_frame,
@@ -1906,8 +1930,10 @@ def phase_small_prior_frames(dev):
             raise AssertionError(f"small {prior} frame on the card "
                                  "disagrees with the CPU")
         if prior == "pamir":
+            calib = torch.from_numpy(item["calib"]).to(dev)
             vox = pamir_feats(g.fit.verts, frames["gpu"].body, g.fit.params,
-                              scale, torch.from_numpy(item["calib"]).to(dev))
+                              scale, calib)
+            vox["calib"] = calib
     return vox
 
 
@@ -2093,6 +2119,9 @@ def phase_pamir_frame(dev, card, iters: int = 5):
         f"overflow {ov}; launches {launched}; peak {peak_gb:.2f} GiB; setup "
         f"{setup_s:.2f} s on {card}, TF32 off", flush=True)
     check_launched(launched, tuple(VOXEL_REPLACES), "the pamir frame")
+    if any(launched[name] for name in VOXEL_BWD_REPLACES):
+        raise AssertionError(f"the pamir frame launched a backward kernel: "
+                             f"{launched}")
     if len(faces) < 10000 or not np.isfinite(verts).all() or any(ov):
         raise AssertionError("the pamir frame's mesh is empty, non-finite "
                              "or overflowed")
@@ -2202,12 +2231,12 @@ def phase_prior_cli(dev, card):
 def phase_priors(dev, card):
     """Phase 13: the pifu and pamir priors. Returns (the voxelize kernels'
     summary entries, the launches of its main-path runs, {kernel: worst
-    error})."""
+    error}, the small pamir frame's voxel inputs)."""
     vox = phase_small_prior_frames(dev)
     entries = voxel_kernel_entries(dev, vox)
     runs = [phase_pamir_frame(dev, card)]
     cli_runs, errs = phase_prior_cli(dev, card)
-    return entries, runs + cli_runs, errs
+    return entries, runs + cli_runs, errs, vox
 
 
 # phase 14: the geometry trainer and the evaluator at the published width
@@ -2438,7 +2467,7 @@ def phase_train(dev, card, d):
     try:
         pcfg = write_train_config(
             train_config(root, d, "pamir", num_epoch=RESUME_STEPS), d)
-        rec4, launched = run_cli(["-cfg", pcfg, "--max_steps", "2"],
+        rec4, launched = run_cli(["-cfg", pcfg, "--max_steps", "1"],
                                  "pamir train")
     finally:
         remove()
@@ -3030,7 +3059,7 @@ def phase_render_normal(dev, card, d):
 # variance's scale, not of itself), the parameters after the last step as
 # phase 14's small steps are held (RMSprop: every one within the
 # optimizer's largest move, each tensor's median to TRAIN_PARAM_MEDIAN)
-DIST_STEPS, DIST_PAMIR_STEPS = 3, 1
+DIST_STEPS, DIST_PAMIR_STEPS = 2, 1
 DIST_LOSS_RTOL = 1e-4
 DIST_BN_RTOL = 1e-5
 # the sharded frame's occupancy against the unsharded frame's
@@ -4047,6 +4076,290 @@ def phase_signs_meshing(dev, card, verts_np, faces_np):
     return entries, [launched_w, launched_e]
 
 
+# phase 18: PaMIR's occupancy differentiated in the body at full width, and
+# the alignment harness. The gradient on the card against the CPU's: the
+# card's splat adds by atomics and its convolutions sum in cuDNN's order,
+# so each gradient to VOXEL_GRAD_RTOL of its largest value (the bound
+# tests/test_torch_voxelize_grad.py holds the query's gradient to against
+# JAX). The backward kernels against their plain twins: bit-identical (the
+# same operations in the same order, no atomics)
+VOXEL_GRAD_RTOL = 1e-4
+# float32 operations of the backward per voxel: the gradient of the
+# smoothed accumulator (3 products, 2 sums, 4 divisions, the tie's half)
+# and the adjoint box's sums and divisions by k over 4 channels and 3 axes
+# (k + 1 a channel and axis); of the splat's backward per vertex: its
+# voxel coordinates (15) and per corner three differences, two weight
+# products, the weight's gradient (6), the code's (6) and the product
+# rule's (8)
+SMOOTH_BWD_OPS = 10
+SPLAT_BWD_OPS_PER_VERTEX = 15 + 8 * 25
+# the alignment panels on the card against the CPU's: a normal
+# interpolated in another order may cross a u8 step; at most ALIGN_U8_STEPS
+# on all but ALIGN_FLIP_SHARE of the pixels (one whose face differs at an
+# edge, RASTER_FACE_SHARE's kind)
+ALIGN_U8_STEPS = 1
+ALIGN_FLIP_SHARE = 1e-4
+
+
+def bwd_spy(calls: dict):
+    """A pass-through spy on the voxelize wrapper's two backward kernels
+    that records each call's inputs (cloned) in ``calls`` by kernel and
+    counts nothing; returns a function that removes it."""
+    from icon_tpu_torch.kernels import voxelize as kv
+    splat, smooth = kv.voxel_splat_bwd, kv.box_smooth3d_bwd
+
+    def spy_splat(verts, codes, g_acc, res, codes_grad=True):
+        calls["voxel_splat_bwd"] = tuple(x.detach().clone() for x in (
+            verts, codes, g_acc)) + (res,)
+        return splat(verts, codes, g_acc, res, codes_grad)
+
+    def spy_smooth(g_out, out, weight, k):
+        calls["box_smooth3d_bwd"] = tuple(x.detach().clone() for x in (
+            g_out, out, weight)) + (k,)
+        return smooth(g_out, out, weight, k)
+
+    kv.voxel_splat_bwd, kv.box_smooth3d_bwd = spy_splat, spy_smooth
+
+    def remove():
+        kv.voxel_splat_bwd, kv.box_smooth3d_bwd = splat, smooth
+    return remove
+
+
+def occupancy_grad(net, feats, pts, calib, verts, codes):
+    """(occupancy, d sum / d verts, d sum / d codes) of PaMIR's query from
+    the raw voxel inputs."""
+    v = verts.detach().clone().requires_grad_(True)
+    c = codes.detach().clone().requires_grad_(True)
+    occ = net.query(feats, pts, calib[None], {"voxel_verts": v,
+                                              "voxel_codes": c})[-1]
+    occ.sum().backward()
+    return occ.detach(), v.grad, c.grad
+
+
+def phase_voxel_grad(dev, card, vox):
+    """[18a] The gradient of PaMIR's summed occupancy at the level-0
+    lattice (33^3 points) with respect to the voxel vertices and codes
+    (``vox``: phase 13's ``pamir_feats``, [1, 8,000, 3]) at bench.py's
+    widths (the 128^3 volume with 32 features, k = 11), through
+    ``HGPIFuNet.query`` with seeded weights: on the card (the four
+    voxelize kernels, counted) against the CPU (plain versions); the same
+    query without a gradient launches no backward kernel; each backward
+    kernel against its twin on the inputs it got (recorded by
+    :func:`bwd_spy`), alone beside its bound, its twin and the library call
+    (``avg_pool3d``'s backward for the box; none for the splat). Returns
+    (summary entries, the gradient run's launches)."""
+    import copy
+    from icon_tpu_torch.kernels import voxelize as kv
+    from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.ops import voxelize as pv
+    from icon_tpu_torch.recon.frame import bench_config, seeded_state
+    cfg = bench_config("pamir")
+    net = HGPIFuNet(cfg, normal_net=False)
+    net.load_state_dict(seeded_state(cfg, 0))
+    net = net.to(dev).eval()
+    rng = np.random.RandomState(18)
+    maps = {k: torch.from_numpy(rng.uniform(
+        -1, 1, (1, FIT_SIZE, FIT_SIZE, 3)).astype(np.float32)).to(dev)
+        for k in ("image", "normal_F", "normal_B")}
+    pts = level0_points(33, dev)
+    with torch.no_grad():
+        feats = net.filter(maps)
+    verts, codes, calib = vox["voxel_verts"], vox["voxel_codes"], \
+        vox["calib"]
+    calls = {}
+    remove = bwd_spy(calls)
+    torch.cuda.synchronize()
+    reset_launches()                  # count only the main path's launches
+    t0 = time.perf_counter()
+    try:
+        occ, g_v, g_c = occupancy_grad(net, feats, pts, calib, verts, codes)
+        torch.cuda.synchronize()
+    finally:
+        remove()
+    grad_s = time.perf_counter() - t0
+    launched = read_launches()
+    check_launched(launched, (*VOXEL_REPLACES, *VOXEL_BWD_REPLACES),
+                   "the gradient in the body")
+    if any(launched[n] != 1 for n in (*VOXEL_REPLACES, *VOXEL_BWD_REPLACES)):
+        raise AssertionError(f"the gradient launched {launched}, one each "
+                             "expected")
+    reset_launches()
+    with torch.no_grad():
+        net.query(feats, pts, calib[None], {"voxel_verts": verts,
+                                            "voxel_codes": codes})
+    torch.cuda.synchronize()
+    plain_run = read_launches()
+    if any(plain_run[n] for n in VOXEL_BWD_REPLACES) or \
+            any(plain_run[n] != 1 for n in VOXEL_REPLACES):
+        raise AssertionError(f"the query without a gradient launched "
+                             f"{plain_run}")
+    t0 = time.perf_counter()
+    cpu_net = copy.deepcopy(net).cpu()
+    _, c_v, c_c = occupancy_grad(cpu_net, [f.cpu() for f in feats],
+                                 pts.cpu(), calib.cpu(), verts.cpu(),
+                                 codes.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, got, want in (("verts", g_v, c_v), ("codes", g_c, c_c)):
+        got = got.cpu()
+        errs[name] = float((got - want).abs().max()) / \
+            float(want.abs().max())
+        if not (bool(torch.isfinite(got).all()) and
+                float(want.abs().max()) > 0 and
+                errs[name] <= VOXEL_GRAD_RTOL):
+            raise AssertionError(f"the gradient for the {name} on the card "
+                                 f"disagrees with the CPU: {errs[name]:.3g}"
+                                 f" of its largest value")
+    print(f"[18] pamir occupancy at the 33^3 lattice (mean "
+          f"{float(occ.mean()):.4f}) differentiated in the "
+          f"{verts.shape[1]} voxel vertices and codes at "
+          f"{cfg.net.voxel_res}^3: card {grad_s:.3f} s, "
+          f"launches {launched}; max|grad| verts "
+          f"{float(c_v.abs().max()):.4g}, codes {float(c_c.abs().max()):.4g};"
+          f" card vs CPU ({cpu_s:.1f} s) {errs['verts']:.3g} and "
+          f"{errs['codes']:.3g} of the largest (bound {VOXEL_GRAD_RTOL}); "
+          f"without a gradient: {plain_run}", flush=True)
+
+    g_out, out, weight, k = calls["box_smooth3d_bwd"]
+    s_verts, s_codes, g_acc, res = calls["voxel_splat_bwd"]
+    got = kv.box_smooth3d_bwd(g_out, out, weight, k)
+    want = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+    sv, sc = kv.voxel_splat_bwd(s_verts, s_codes, g_acc, res)
+    wv, wc = pv.voxel_splat_bwd_plain(s_verts, s_codes, g_acc, res)
+    torch.cuda.synchronize()
+    same = {"box_smooth3d_bwd": torch.equal(got, want),
+            "voxel_splat_bwd": torch.equal(sv, wv) and torch.equal(sc, wc)}
+    err = {"box_smooth3d_bwd": float((got - want).abs().max()),
+           "voxel_splat_bwd": max(float((sv - wv).abs().max()),
+                                  float((sc - wc).abs().max()))}
+    ties = int((weight == pv.WEIGHT_FLOOR).sum())
+    print(f"[18] the backward kernels vs their twins on the recorded "
+          f"inputs (k={k}): box_smooth3d_bwd max|d| "
+          f"{err['box_smooth3d_bwd']:.3g} "
+          f"(identical: {same['box_smooth3d_bwd']}; {ties} weights at the "
+          f"1e-3 tie, {int((weight < pv.WEIGHT_FLOOR).sum())} below it), "
+          f"voxel_splat_bwd max|d| {err['voxel_splat_bwd']:.3g} "
+          f"(identical: {same['voxel_splat_bwd']})", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"a backward kernel differs from its twin: "
+                             f"{err}")
+
+    n = res ** 3
+    t1, acc_g = torch.empty_like(got), torch.empty_like(got)
+    gv_buf, gc_buf = torch.empty_like(s_verts), torch.empty_like(s_codes)
+    pool_in = g_acc.view(1, res, res, res, 4).permute(0, 4, 1, 2, 3) \
+        .contiguous()
+    pool_g = torch.randn_like(pool_in)
+    gathered = torch.unique(torch.cat([
+        lin[valid] for lin, _, valid in pv._corner_terms(s_verts, res)]))
+    times = {
+        "box_smooth3d_bwd": (
+            kernel_ms(lambda: kv._smooth_bwd(g_out, out, weight, k, t1,
+                                             acc_g)),
+            cuda_ms(lambda: pv.box_smooth3d_bwd_plain(g_out, out, weight,
+                                                      k)),
+            cuda_ms(lambda: torch.ops.aten.avg_pool3d_backward(
+                pool_g, pool_in, [k] * 3, [1] * 3, [k // 2] * 3, False,
+                True, None)),
+            bound(4.0 * (3 + 3 + 1 + 4) * n,
+                  (SMOOTH_BWD_OPS + 3 * 4 * (k + 1)) * n)),
+        "voxel_splat_bwd": (
+            kernel_ms(lambda: kv._splat_bwd(s_verts, s_codes, g_acc, res,
+                                            gv_buf, gc_buf)),
+            cuda_ms(lambda: pv.voxel_splat_bwd_plain(s_verts, s_codes,
+                                                     g_acc, res)),
+            None,
+            bound(4.0 * (2 * s_verts.numel() + 2 * s_codes.numel()) +
+                  16.0 * gathered.numel(),
+                  SPLAT_BWD_OPS_PER_VERTEX * s_verts.shape[1]))}
+    entries = []
+    for name, (ms, plain_ms, lib_ms, (bound_ms, by)) in times.items():
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[18] {name} alone {ms:.4f} ms (bound {bound_ms:.4f} ms by "
+              f"{by}, {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+              f"library {lib} on {card}", flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "icon_tpu_torch/csrc/voxelize.cu",
+            "replaces": VOXEL_BWD_REPLACES[name], "launches": 0,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
+    print(f"[18] the splat's backward gathered {gathered.numel()} voxels "
+          f"of {n}", flush=True)
+    return entries, launched
+
+
+def phase_alignment(dev, card):
+    """[18b] The alignment harness (``python -m
+    icon_tpu_torch.data.test_dataset``) on the card over the demo's two
+    seeded photos with the seeded PyMAF, launches counted; then each
+    photo's item (estimated on the card) drawn by ``visualize_alignment``
+    on the card and on the CPU (the same body model): the panels within
+    ALIGN_U8_STEPS on all but ALIGN_FLIP_SHARE of the pixels. Returns the
+    CLI's launches."""
+    import copy
+    import os
+    import tempfile
+    import types
+    from PIL import Image
+    from icon_tpu_torch.data import test_dataset as td
+    from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.utils.synthetic import write_demo_inputs
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_demo_inputs(d, bench_config(), hps_ckpt=True)
+        out = os.path.join(d, "alignment")
+        torch.cuda.synchronize()
+        reset_launches()              # count only the main path's launches
+        t0 = time.perf_counter()
+        written = td.main(["-i", paths["in_dir"], "-o", out, "--hps_ckpt",
+                           paths["hps_ckpt"]], device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launched = read_launches()
+        check_launched(launched, ("raster_setup", "raster_bin",
+                                  "raster_fwd"), "the alignment CLI")
+        if sorted(os.path.basename(p) for p in written) != \
+                ["matte_alignment.png", "scene_alignment.png"]:
+            raise AssertionError(f"the alignment CLI wrote {written}")
+        ds = td.TestDataset(paths["in_dir"], hps_ckpt=paths["hps_ckpt"],
+                            device=dev)
+        cpu = td.TestDataset(paths["in_dir"], device="cpu")
+        cpu._hps = types.SimpleNamespace(
+            body=copy.deepcopy(ds.hps.body).cpu(), faces=ds.hps.faces)
+        notes = []
+        for i in range(len(ds)):
+            item = ds[i]
+            panels = []
+            for tag, data in (("gpu", ds), ("cpu", cpu)):
+                p = os.path.join(d, f"{tag}{i}.png")
+                data.visualize_alignment(item, p)
+                panels.append(np.asarray(Image.open(p)).astype(np.int16))
+            diff = np.abs(panels[0] - panels[1]).max(-1)
+            front = panels[0][:, FIT_SIZE:2 * FIT_SIZE]
+            body_px = float((np.abs(front - 127).max(-1) > 50).mean())
+            far = float((diff > ALIGN_U8_STEPS).mean())
+            notes.append(f"{item['name']}: max {int(diff.max())} u8 steps, "
+                         f"{int((diff > 0).sum())} pixels differ, "
+                         f"{far:.2g} past {ALIGN_U8_STEPS}; body on "
+                         f"{body_px:.1%} of the front panel")
+            if panels[0].shape != (FIT_SIZE, 3 * FIT_SIZE, 3) or \
+                    far > ALIGN_FLIP_SHARE or body_px < 0.01:
+                raise AssertionError(f"alignment panel {i} on the card "
+                                     f"disagrees with the CPU: {notes[-1]}")
+    print(f"[18] alignment CLI on the card: {len(written)} panels in "
+          f"{cli_s:.2f} s, launches {launched}; card vs CPU panels: "
+          + "; ".join(notes) + f" on {card}", flush=True)
+    return launched
+
+
+def phase_grad_alignment(dev, card, vox):
+    """Phase 18: the voxelization's backward and the alignment harness.
+    Returns (summary entries, the launches of its main-path runs)."""
+    entries, launched = phase_voxel_grad(dev, card, vox)
+    return entries, [launched, phase_alignment(dev, card)]
+
+
 def descendants(pid: int) -> list:
     """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
     parent id, followed down from ``pid``), zombies left out."""
@@ -4088,7 +4401,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[18] descendant processes left: {len(left)}", flush=True)
+    print(f"[19] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -4110,6 +4423,7 @@ def reset_launches() -> None:
     raster.launches_setup = raster.launches_bin = 0
     raster.launches_fwd = raster.launches_bwd = 0
     voxelize.launches_splat = voxelize.launches_smooth = 0
+    voxelize.launches_splat_bwd = voxelize.launches_smooth_bwd = 0
     winding.launches = 0
     marching.launches_emit = marching.launches_index = 0
 
@@ -4123,6 +4437,8 @@ def read_launches() -> dict:
             "raster_bwd": raster.launches_bwd,
             "voxel_splat": voxelize.launches_splat,
             "box_smooth3d": voxelize.launches_smooth,
+            "voxel_splat_bwd": voxelize.launches_splat_bwd,
+            "box_smooth3d_bwd": voxelize.launches_smooth_bwd,
             "fast_winding": winding.launches,
             "mt_emit": marching.launches_emit,
             "mt_index": marching.launches_index}
@@ -4184,7 +4500,8 @@ def main() -> int:
     runs.append(launched)
     launched, hps_errs = timed("12", phase_other_hps, dev, card)
     runs += launched
-    entries, launched, prior_errs = timed("13", phase_priors, dev, card)
+    entries, launched, prior_errs, vox = timed("13", phase_priors, dev,
+                                               card)
     summary += entries
     runs += launched
     with tempfile.TemporaryDirectory() as d:
@@ -4197,6 +4514,14 @@ def main() -> int:
         runs += launched
     entries, launched = timed("17", phase_signs_meshing, dev, card,
                               verts_np, faces_np)
+    summary += entries
+    runs += launched
+    # the frames, CLIs and trainers differentiate no voxel input
+    for run in runs:
+        if any(run.get(name, 0) for name in VOXEL_BWD_REPLACES):
+            raise AssertionError(f"a run without a gradient in the body "
+                                 f"launched a backward kernel: {run}")
+    entries, launched = timed("18", phase_grad_alignment, dev, card, vox)
     summary += entries
     runs += launched
     for entry in summary:           # the launches of the main paths' runs

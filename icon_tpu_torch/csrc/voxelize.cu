@@ -51,6 +51,31 @@
 // bytes, at most 227 KB: k <= 109 (an 8 x 8 tile). Bound: the accumulator
 // read once and the volume written once (58.7 MB at res 128: ~17.5 us);
 // t1 adds a write and a read of 33.5 MB each, the halos mostly L2 hits.
+//
+// The backward (JAX's autodiff of the same function, with its rules at
+// ties: d|u|/du = +1 at u = 0, and maximum(w, 1e-3) sends half of the
+// gradient to w at w == 1e-3). Under a gradient the forward's H and W pass
+// also writes the smoothed weight w (icon_box_smooth3d_keep: an optional
+// pointer, null in icon_box_smooth3d, whose launch is unchanged).
+// box_smooth3d_bwd: the forward's two passes on the 4-channel gradient,
+// with the mirrored window (offsets -(k - 1 - k/2) .. k/2: the adjoint of
+// the zero-padded box, the same box for odd k) and without the division by
+// the weight. The D pass computes each voxel's gradient of the smoothed
+// accumulator as it reads it, from the output's gradient g, the output o
+// and w: g_c / max(w, 1e-3), and -(sum_c g_c o_c) / max(w, 1e-3) for the
+// weight where w > 1e-3, half of that at w == 1e-3, 0 below. The H and W
+// pass writes the accumulator's gradient as float4. Every sum and division
+// is the plain version's (ops/voxelize.py:box_smooth3d_bwd_plain): bit for
+// bit. Bound: g and o read (3 floats each), w read, the gradient written
+// (4 floats): 92.3 MB at res 128, ~27.6 us. voxel_splat_bwd: a thread per
+// vertex of a batch entry (per vertex over all entries when the codes are
+// shared, whose gradient sums the entries in order): the eight corners in
+// the plain version's order, each inside the volume gathering its voxel's
+// float4 of the gradient, the weight's gradient sum_c G_c code_c + G_3, the
+// code's w G, and the product rule's terms; no atomics, so the same bits
+// every run, equal to voxel_splat_bwd_plain's. Bound: the vertices and
+// codes read, the gathered voxels' 16 bytes once each, the gradients
+// written (~0.5 MB for the demo's 8,000 vertices, a few microseconds).
 
 #include <cuda_runtime.h>
 
@@ -60,6 +85,8 @@ constexpr int kSplatThreads = 256;      // 8 warps: one per trilinear corner
 constexpr int kHwThreads = 256;        // the H and W passes' block
 constexpr int kMaxSmem = 232448;        // 227 KB of dynamic shared memory
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kWeightFloor = 1e-3f;   // the codes' divisor max(w, 1e-3)
+constexpr int kSplatBwdThreads = 128;
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
@@ -215,26 +242,54 @@ __device__ __forceinline__ void slide(int k, In in, float4 (&s)[R]) {
 
 constexpr int kDThreads = 256;
 
-// The D pass: t1[b, z, y, x] = (sum over off < k of acc[b, z + off - half,
-// y, x]) / k, zero outside the volume. A thread takes RZ consecutive z of
-// one (b, y, x) column, neighbouring threads neighbouring x.
-template <int RZ>
+// The backward's inputs per voxel: the output's gradient g and the output o
+// ([.., 3] floats), the smoothed weight w.
+struct GradIn {
+  const float* g;
+  const float* o;
+  const float* w;
+};
+
+// The gradient of voxel v's smoothed accumulator (ops/voxelize.py:
+// box_smooth3d_bwd_plain's first step, the same roundings).
+__device__ __forceinline__ float4 grad_at(const GradIn& in, long long v) {
+  const float w = in.w[v];
+  const float m = fmaxf(w, kWeightFloor);
+  const float* g = in.g + v * 3;
+  const float* o = in.o + v * 3;
+  float s = __fmul_rn(g[0], o[0]);
+  s = __fadd_rn(s, __fmul_rn(g[1], o[1]));
+  s = __fadd_rn(s, __fmul_rn(g[2], o[2]));
+  const float gw = -__fdiv_rn(s, m);
+  return make_float4(__fdiv_rn(g[0], m), __fdiv_rn(g[1], m),
+                     __fdiv_rn(g[2], m),
+                     w > kWeightFloor ? gw
+                     : w == kWeightFloor ? __fmul_rn(gw, 0.5f) : 0.0f);
+}
+
+// The D pass: t1[b, z, y, x] = (sum over off < k of in[b, z + off - lo, y,
+// x]) / k, zero outside the volume, where in is acc (the forward, lo =
+// k / 2) or, with GRAD, the gradient grad_at of each voxel (the backward, lo
+// = k - 1 - k / 2). A thread takes RZ consecutive z of one (b, y, x)
+// column, neighbouring threads neighbouring x.
+template <int RZ, bool GRAD>
 __global__ void __launch_bounds__(kDThreads)
-smooth_d_kernel(const float4* __restrict__ acc, float4* __restrict__ t1,
-                int D, long long plane, int groups, long long total, int k) {
+smooth_d_kernel(const float4* __restrict__ acc, GradIn gin,
+                float4* __restrict__ t1, int D, long long plane, int groups,
+                long long total, int k, int lo) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= total) return;
   const long long col = i % plane, rest = i / plane;
   const int z0 = static_cast<int>(rest % groups) * RZ;
   const long long first = rest / groups * D * plane + col;
-  const int zs = z0 - k / 2;
+  const int zs = z0 - lo;
   float4 s[RZ];
   slide<RZ>(k, [&](int m) {
     const int z = zs + m;
-    return static_cast<unsigned>(z) < static_cast<unsigned>(D)
-               ? acc[first + z * plane]
-               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (static_cast<unsigned>(z) >= static_cast<unsigned>(D))
+      return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    return GRAD ? grad_at(gin, first + z * plane) : acc[first + z * plane];
   }, s);
   div_k_all(s, static_cast<float>(k), __frcp_rn(static_cast<float>(k)));
 #pragma unroll
@@ -244,6 +299,7 @@ smooth_d_kernel(const float4* __restrict__ acc, float4* __restrict__ t1,
 
 struct HwShape {
   int H, W, k;
+  int lo;                          // the window's first offset is -lo
   int tx, ty;                      // output tile
   int tiles_x, tiles_y;
 };
@@ -265,16 +321,18 @@ struct Walk {
 // The H and W passes and the normalization of one (b, z) plane's tx x ty
 // tile: its (tx + k - 1) x (ty + k - 1) halo of t1 in shared memory (zero
 // outside the volume), the H sums of its columns into T2 [ty][tx + k - 1],
-// the W sums of T2's rows, then the codes over max(w, 1e-3) as 3 floats.
-// K, TX, TY fix k and the tile at compile time (0: from sh), so that the
-// sums' shared offsets are immediates.
-template <int K, int TX, int TY>
+// the W sums of T2's rows, then the codes over max(w, 1e-3) as 3 floats
+// into out (and w into weight, unless null). With GRAD (the backward) the
+// sums are written as they are, a float4 a voxel, into out. K, TX, TY fix
+// k and the tile at compile time (0: from sh), so that the sums' shared
+// offsets are immediates.
+template <int K, int TX, int TY, bool GRAD>
 __global__ void __launch_bounds__(kHwThreads)
 smooth_hw_kernel(const float4* __restrict__ t1, float* __restrict__ out,
-                 HwShape sh) {
+                 float* __restrict__ weight, HwShape sh) {
   extern __shared__ float4 smem[];
   const int k = K ? K : sh.k, tx = TX ? TX : sh.tx, ty = TY ? TY : sh.ty;
-  const int half = k / 2, hx = tx + k - 1, hy = ty + k - 1;
+  const int hx = tx + k - 1, hy = ty + k - 1;
   float4* tile = smem;                           // [hy][hx]
   float4* t2 = tile + hx * hy;                   // [ty][hx]
 
@@ -284,7 +342,7 @@ smooth_hw_kernel(const float4* __restrict__ t1, float* __restrict__ out,
   const long long bz = blk / sh.tiles_y;         // b * D + z
   const float4* in = t1 + bz * sh.H * sh.W;
   for (Walk w(hx); w.row < hy; w.next()) {
-    const int y = y0 - half + w.row, x = x0 - half + w.col;
+    const int y = y0 - sh.lo + w.row, x = x0 - sh.lo + w.col;
     const bool ok = y >= 0 && y < sh.H && x >= 0 && x < sh.W;
     cp_async16(tile + w.row * hx + w.col,
                ok ? in + static_cast<long long>(y) * sh.W + x : in, ok);
@@ -308,11 +366,99 @@ smooth_hw_kernel(const float4* __restrict__ t1, float* __restrict__ out,
     float4 s[1];
     slide<1>(k, [&](int m) { return line[m]; }, s);
     div_k_all(s, kf, rk);
-    const float wsum = fmaxf(s[0].w, 1e-3f);
-    float* o = out + ((bz * sh.H + y) * sh.W + x) * 3;
+    const long long v = (bz * sh.H + y) * sh.W + x;
+    if (GRAD) {
+      reinterpret_cast<float4*>(out)[v] = s[0];
+      continue;
+    }
+    if (weight) weight[v] = s[0].w;
+    const float wsum = fmaxf(s[0].w, kWeightFloor);
+    float* o = out + v * 3;
     o[0] = div_rn(s[0].x, wsum);
     o[1] = div_rn(s[0].y, wsum);
     o[2] = div_rn(s[0].z, wsum);
+  }
+}
+
+// voxel_splat's backward: thread t takes vertex t % V of batch entry t / V
+// (codes_batched) or of every entry in order (shared codes). Per entry, the
+// eight corners in the plain version's order; a corner inside the volume
+// gathers its voxel's gradient G and adds, by the product rule with
+// d|u|/du = +1 at 0, -sign(u_a) g_w times the other two factors to frac_a's
+// gradient (g_w = sum_c G_c code_c + G_3), and w G to the code's. Writes
+// g_verts [B, V, 3] and, unless null, g_codes (the codes' shape).
+__global__ void __launch_bounds__(kSplatBwdThreads)
+splat_bwd_kernel(const float* __restrict__ verts,
+                 const float* __restrict__ codes,
+                 const float4* __restrict__ g_acc, int B, int V,
+                 int codes_batched, int res, float* __restrict__ g_verts,
+                 float* __restrict__ g_codes) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= (codes_batched ? static_cast<long long>(B) * V : V)) return;
+  const int v = static_cast<int>(t % V);
+  const int b0 = codes_batched ? static_cast<int>(t / V) : 0;
+  const int b1 = codes_batched ? b0 + 1 : B;
+  const float scale = static_cast<float>(res - 1);
+  const long long n = static_cast<long long>(res) * res * res;
+  float gc[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = b0; b < b1; ++b) {
+    const long long i = static_cast<long long>(b) * V + v;
+    const float* p = verts + i * 3;
+    const float* c = codes + (codes_batched ? i : v) * 3LL;
+    const float code[3] = {c[0], c[1], c[2]};
+    float base[3], frac[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float g = __fmul_rn(__fmul_rn(__fadd_rn(p[a], 1.0f), 0.5f),
+                                scale);
+      base[a] = floorf(g);
+      frac[a] = __fsub_rn(g, base[a]);
+    }
+    float gf[3] = {0.0f, 0.0f, 0.0f}, lc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      const int d[3] = {corner & 1, (corner >> 1) & 1, corner >> 2};
+      float u[3], au[3];
+      long long idx[3];
+      bool inside = true;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float x = base[a] + static_cast<float>(d[a]);
+        inside = inside && x >= 0.0f && x <= scale;   // false for NaN
+        idx[a] = inside ? static_cast<long long>(x) : 0;
+        u[a] = __fsub_rn(static_cast<float>(1 - d[a]), frac[a]);
+        au[a] = fabsf(u[a]);
+      }
+      if (!inside) continue;
+      const float4 G = __ldg(g_acc + b * n + (idx[2] * res + idx[1]) * res +
+                             idx[0]);
+      float gw = __fmul_rn(G.x, code[0]);
+      gw = __fadd_rn(gw, __fmul_rn(G.y, code[1]));
+      gw = __fadd_rn(gw, __fmul_rn(G.z, code[2]));
+      gw = __fadd_rn(gw, G.w);
+      if (g_codes) {
+        const float w = __fmul_rn(__fmul_rn(au[0], au[1]), au[2]);
+        lc[0] = __fadd_rn(lc[0], __fmul_rn(w, G.x));
+        lc[1] = __fadd_rn(lc[1], __fmul_rn(w, G.y));
+        lc[2] = __fadd_rn(lc[2], __fmul_rn(w, G.z));
+      }
+      const float q = __fmul_rn(gw, au[2]);
+      const float term[3] = {__fmul_rn(q, au[1]), __fmul_rn(q, au[0]),
+                             __fmul_rn(gw, __fmul_rn(au[0], au[1]))};
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        gf[a] = __fsub_rn(gf[a], u[a] >= 0.0f ? term[a] : -term[a]);
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      g_verts[i * 3 + a] = __fmul_rn(gf[a], 0.5f * scale);
+      gc[a] = __fadd_rn(gc[a], lc[a]);
+    }
+  }
+  if (g_codes) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) g_codes[t * 3 + a] = gc[a];
   }
 }
 
@@ -332,30 +478,86 @@ __global__ void div_check_kernel(int kmax, unsigned long long* bad) {
   if (n) atomicAdd(bad, static_cast<unsigned long long>(n));
 }
 
-template <int RZ>
-cudaError_t launch_d(const float4* acc, float4* t1, int B, int D,
-                     long long plane, int k, cudaStream_t stream) {
+template <int RZ, bool GRAD>
+cudaError_t launch_d(const float4* acc, const GradIn& gin, float4* t1, int B,
+                     int D, long long plane, int k, int lo,
+                     cudaStream_t stream) {
   const int groups = (D + RZ - 1) / RZ;
   const long long total = static_cast<long long>(B) * groups * plane;
   const long long blocks = (total + kDThreads - 1) / kDThreads;
   if (blocks == 0) return cudaSuccess;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  smooth_d_kernel<RZ><<<static_cast<unsigned>(blocks), kDThreads, 0,
-                        stream>>>(acc, t1, D, plane, groups, total, k);
+  smooth_d_kernel<RZ, GRAD><<<static_cast<unsigned>(blocks), kDThreads, 0,
+                              stream>>>(acc, gin, t1, D, plane, groups,
+                                        total, k, lo);
   return cudaGetLastError();
 }
 
-template <int K, int TX, int TY>
-cudaError_t launch_hw(const float4* t1, float* out, const HwShape& sh,
-                      long long blocks, int smem, cudaStream_t stream) {
+template <bool GRAD>
+cudaError_t launch_d_rz(int rz, const float4* acc, const GradIn& gin,
+                        float4* t1, int B, int D, long long plane, int k,
+                        int lo, cudaStream_t s) {
+  return rz == 16 ? launch_d<16, GRAD>(acc, gin, t1, B, D, plane, k, lo, s)
+         : rz == 8 ? launch_d<8, GRAD>(acc, gin, t1, B, D, plane, k, lo, s)
+         : rz == 4 ? launch_d<4, GRAD>(acc, gin, t1, B, D, plane, k, lo, s)
+                   : launch_d<2, GRAD>(acc, gin, t1, B, D, plane, k, lo, s);
+}
+
+template <int K, int TX, int TY, bool GRAD>
+cudaError_t launch_hw(const float4* t1, float* out, float* weight,
+                      const HwShape& sh, long long blocks, int smem,
+                      cudaStream_t stream) {
   // per call: the attribute holds for the current device only
   const cudaError_t err = cudaFuncSetAttribute(
-      smooth_hw_kernel<K, TX, TY>,
+      smooth_hw_kernel<K, TX, TY, GRAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return err;
-  smooth_hw_kernel<K, TX, TY><<<static_cast<unsigned>(blocks), kHwThreads,
-                                smem, stream>>>(t1, out, sh);
+  smooth_hw_kernel<K, TX, TY, GRAD><<<static_cast<unsigned>(blocks),
+                                      kHwThreads, smem, stream>>>(
+      t1, out, weight, sh);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// Both passes of the box smooth from acc (GRAD: of its backward, from gin,
+// writing the float4 gradient into out; acc unused); see
+// icon_box_smooth3d.
+template <bool GRAD>
+int smooth(const float* acc, const GradIn& gin, float* t1, float* out,
+           float* weight, int B, int D, int H, int W, int k, int rz, int tx,
+           int ty, void* stream) {
+  if (B < 0 || D < 1 || H < 1 || W < 1 || k < 1 || tx < 1 || ty < 1 ||
+      (rz != 2 && rz != 4 && rz != 8 && rz != 16) || k < rz - 1 ||
+      !aligned16(GRAD ? out : acc) || !aligned16(t1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  HwShape sh;
+  sh.H = H; sh.W = W; sh.k = k; sh.tx = tx; sh.ty = ty;
+  sh.lo = GRAD ? k - 1 - k / 2 : k / 2;
+  sh.tiles_x = (W + tx - 1) / tx;
+  sh.tiles_y = (H + ty - 1) / ty;
+  const long long smem = 16LL * (tx + k - 1) * (2LL * ty + k - 1);
+  const long long blocks = 1LL * B * D * sh.tiles_y * sh.tiles_x;
+  if (smem > kMaxSmem || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
+  const float4* a = reinterpret_cast<const float4*>(acc);
+  float4* t = reinterpret_cast<float4*>(t1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long plane = static_cast<long long>(H) * W;
+  const cudaError_t err =
+      launch_d_rz<GRAD>(rz, a, gin, t, B, D, plane, k, sh.lo, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m = static_cast<int>(smem);
+  // PaMIR's box (res 128, sigma 0.05) and its tile at compile time: its H
+  // and W pass takes 0.040 ms at 128^3, the generic build 0.044 (PERF.md
+  // §6)
+  return static_cast<int>(
+      k == 11 && tx == 64 && ty == 16
+          ? launch_hw<11, 64, 16, GRAD>(t, out, weight, sh, blocks, m, s)
+          : launch_hw<0, 0, 0, GRAD>(t, out, weight, sh, blocks, m, s));
 }
 
 }  // namespace
@@ -390,38 +592,53 @@ int icon_voxel_splat(const float* verts, const float* codes, int B, int V,
 int icon_box_smooth3d(const float* acc, float* t1, float* out, int B, int D,
                       int H, int W, int k, int rz, int tx, int ty,
                       void* stream) {
-  if (B < 0 || D < 1 || H < 1 || W < 1 || k < 1 || tx < 1 || ty < 1 ||
-      (rz != 2 && rz != 4 && rz != 8 && rz != 16) || k < rz - 1 ||
-      reinterpret_cast<unsigned long long>(acc) % 16 != 0 ||
-      reinterpret_cast<unsigned long long>(t1) % 16 != 0)
+  return smooth<false>(acc, GradIn{}, t1, out, nullptr, B, D, H, W, k, rz,
+                       tx, ty, stream);
+}
+
+// icon_box_smooth3d that also writes the smoothed weight (channel 3 before
+// the floor) into weight [B, D, H, W] f32: the forward under a gradient.
+int icon_box_smooth3d_keep(const float* acc, float* t1, float* out,
+                           float* weight, int B, int D, int H, int W, int k,
+                           int rz, int tx, int ty, void* stream) {
+  if (weight == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return smooth<false>(acc, GradIn{}, t1, out, weight, B, D, H, W, k, rz,
+                       tx, ty, stream);
+}
+
+// box_smooth3d's backward: from g_out and out [B, D, H, W, 3] f32 and the
+// kept weight [B, D, H, W] f32, writes the accumulator's gradient g_acc
+// [B, D, H, W, 4] f32 (16-byte aligned) through the scratch t1 of its size
+// (16-byte aligned). Returns a cudaError_t.
+int icon_box_smooth3d_bwd(const float* g_out, const float* out,
+                          const float* weight, float* t1, float* g_acc,
+                          int B, int D, int H, int W, int k, int rz, int tx,
+                          int ty, void* stream) {
+  return smooth<true>(nullptr, GradIn{g_out, out, weight}, t1, g_acc,
+                      nullptr, B, D, H, W, k, rz, tx, ty, stream);
+}
+
+// voxel_splat's backward: verts [B, V, 3], codes [V, 3] (codes_batched 0)
+// or [B, V, 3], g_acc [B, res^3, 4] (16-byte aligned), all f32; writes
+// g_verts [B, V, 3] and, unless g_codes is null, g_codes of the codes'
+// shape. Returns a cudaError_t.
+int icon_voxel_splat_bwd(const float* verts, const float* codes,
+                         const float* g_acc, int B, int V, int codes_batched,
+                         int res, float* g_verts, float* g_codes,
+                         void* stream) {
+  if (B < 0 || V < 0 || res < 1 || !aligned16(g_acc))
     return static_cast<int>(cudaErrorInvalidValue);
-  HwShape sh;
-  sh.H = H; sh.W = W; sh.k = k; sh.tx = tx; sh.ty = ty;
-  sh.tiles_x = (W + tx - 1) / tx;
-  sh.tiles_y = (H + ty - 1) / ty;
-  const long long smem = 16LL * (tx + k - 1) * (2LL * ty + k - 1);
-  const long long blocks = 1LL * B * D * sh.tiles_y * sh.tiles_x;
-  if (smem > kMaxSmem || blocks > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = codes_batched ? static_cast<long long>(B) * V
+                                          : (B > 0 ? V : 0);
+  const long long blocks = (threads + kSplatBwdThreads - 1) /
+                           kSplatBwdThreads;
   if (blocks == 0) return static_cast<int>(cudaSuccess);
-  const float4* a = reinterpret_cast<const float4*>(acc);
-  float4* t = reinterpret_cast<float4*>(t1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long plane = static_cast<long long>(H) * W;
-  const cudaError_t err =
-      rz == 16 ? launch_d<16>(a, t, B, D, plane, k, s)
-      : rz == 8 ? launch_d<8>(a, t, B, D, plane, k, s)
-      : rz == 4 ? launch_d<4>(a, t, B, D, plane, k, s)
-                : launch_d<2>(a, t, B, D, plane, k, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = static_cast<int>(smem);
-  // PaMIR's box (res 128, sigma 0.05) and its tile at compile time: its H
-  // and W pass takes 0.040 ms at 128^3, the generic build 0.044 (PERF.md
-  // §6)
-  return static_cast<int>(
-      k == 11 && tx == 64 && ty == 16
-          ? launch_hw<11, 64, 16>(t, out, sh, blocks, m, s)
-          : launch_hw<0, 0, 0>(t, out, sh, blocks, m, s));
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  splat_bwd_kernel<<<static_cast<unsigned>(blocks), kSplatBwdThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      verts, codes, reinterpret_cast<const float4*>(g_acc), B, V,
+      codes_batched, res, g_verts, g_codes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Adds to *bad (zeroed by the caller) the count of (k, x), k in [1, kmax],

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import glob
 import os.path as osp
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -427,3 +427,81 @@ class TestDataset:
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         return self.estimate(*self.preprocess(index))
+
+    @torch.no_grad()
+    def visualize_alignment(self, item: Dict[str, Any],
+                            out_path: str) -> str:
+        """Headless HPS <-> image alignment check (reference
+        TestDataset.py:301-354 and its __main__ harness :357-380) on the
+        dataset's device: the item's body posed by the HPS's body model
+        (rotation matrices, ``(v + trans) * scale``), its front and back
+        normal renders (:func:`render_normal`, K=256, azimuth 0 and 180),
+        and one PNG strip at ``out_path``: [photo + front overlay | front
+        normals | back normals]. A misaligned fit shows as the body
+        drifting off the person in the left panel. Returns ``out_path``."""
+        from PIL import Image
+        from icon_tpu_torch.render.render import render_normal
+
+        def arr(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=self.device)
+
+        body = self.hps.body
+        nb = item["body_pose"].shape[1]
+        v0, _ = body(betas=arr(item["betas"]),
+                     global_orient=arr(item["global_orient"]).reshape(1, 9),
+                     body_pose=arr(item["body_pose"]).reshape(1, nb * 9),
+                     pose2rot=False)
+        verts = (v0[0] + arr(item["trans"])[None]) * item["scale"]
+        faces = torch.as_tensor(np.asarray(item["smpl_faces"]),
+                                dtype=torch.int64, device=self.device)
+        size = int(item["image"].shape[0])
+        front, _ = render_normal(verts, faces, size=size)
+        back, _ = render_normal(verts, faces, size=size, azimuth=180.0)
+
+        def to_u8(a):
+            a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+            return np.clip((a * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+
+        img, front, back = to_u8(item["image"]), to_u8(front), to_u8(back)
+        overlay = (img.astype(np.float32) * 0.5 +
+                   front.astype(np.float32) * 0.5).astype(np.uint8)
+        Image.fromarray(np.concatenate([overlay, front, back], axis=1)) \
+            .save(out_path)
+        return out_path
+
+
+def main(argv=None, device="cuda") -> List[str]:
+    """The alignment harness's CLI (the reference's TestDataset __main__,
+    TestDataset.py:357-380): an alignment panel per photo of ``-i`` into
+    ``-o``, the HPS on ``device`` (the card unless the caller asks for the
+    CPU). Returns the panels' paths.
+
+    ``python -m icon_tpu_torch.data.test_dataset -i <photos> -o <dir>
+    [--hps_type pymaf] [--hps_ckpt f] [--allow_random_hps]``"""
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description="HPS alignment visualization")
+    ap.add_argument("-i", "--in_dir", required=True)
+    ap.add_argument("-o", "--out_dir", default="./results/alignment")
+    ap.add_argument("--hps_type", default="pymaf")
+    ap.add_argument("--hps_ckpt", default="")
+    ap.add_argument("--allow_random_hps", action="store_true")
+    args = ap.parse_args(argv)
+
+    ds = TestDataset(args.in_dir, hps_type=args.hps_type,
+                     hps_ckpt=args.hps_ckpt,
+                     allow_random_hps=args.allow_random_hps, device=device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    paths = []
+    for i in range(len(ds)):
+        item = ds[i]
+        out = osp.join(args.out_dir, f"{item['name']}_alignment.png")
+        print(ds.visualize_alignment(item, out))
+        paths.append(out)
+    return paths
+
+
+if __name__ == "__main__":
+    main()

@@ -23,11 +23,25 @@ tensor launches ``csrc/voxelize.cu``, a CPU tensor takes the plain version
   memory: k up to :data:`MAX_K`. :func:`division_mismatches` holds the
   kernels' division by k to IEEE division.
 
-Both kernels need 16-byte aligned float32 tensors. They are forward only:
-the backward (training, ROADMAP A10) is not ported, so the wrapper raises
-on the card when an input needs a gradient. ``launches_splat`` and
-``launches_smooth`` count the wrapper's launches (a ``box_smooth3d`` call
-is one count for its two passes).
+The backward, JAX's autodiff of the same function with its rules at ties
+(``ops/voxelize.py``: :func:`box_smooth3d_bwd_plain`,
+:func:`voxel_splat_bwd_plain`):
+
+- ``box_smooth3d_bwd``: the smooth's two passes on the 4-channel gradient,
+  with the mirrored window; the D pass forms each voxel's gradient from the
+  output's, the output and the smoothed weight the forward kept (under a
+  gradient its H and W pass also writes the weight). Bit-identical to the
+  plain version.
+- ``voxel_splat_bwd``: a thread per vertex gathers its eight corners'
+  gradients: no atomics, the plain version's sums in its order.
+
+:func:`voxelize_semantic` differentiates through an
+``autograd.Function`` when an input needs a gradient (on the CPU the same
+Function over the plain versions); otherwise it launches the two forward
+kernels as before and keeps nothing. All the kernels need 16-byte aligned
+float32 accumulators. ``launches_splat``, ``launches_smooth``,
+``launches_splat_bwd`` and ``launches_smooth_bwd`` count the wrapper's
+launches (a smooth call is one count for its two passes).
 """
 
 from __future__ import annotations
@@ -38,12 +52,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from icon_tpu_torch.ops.voxelize import (box_smooth3d_plain,
-                                         smooth_kernel_size,
-                                         voxel_splat_plain)
+from torch.autograd.function import once_differentiable
+
+from icon_tpu_torch.ops import voxelize as pv
 
 launches_splat = 0      # voxel_splat launches since the last reset
 launches_smooth = 0     # box_smooth3d launches since the last reset
+launches_splat_bwd = 0  # voxel_splat_bwd launches since the last reset
+launches_smooth_bwd = 0  # box_smooth3d_bwd launches since the last reset
 
 MAX_SMEM = 232448       # csrc/voxelize.cu's kMaxSmem: 227 KB a block
 TILES = ((64, 16), (32, 16), (16, 16), (16, 8), (8, 8))
@@ -97,6 +113,13 @@ def _load() -> ctypes.CDLL:
             lib.icon_voxel_splat.restype = ci
             lib.icon_box_smooth3d.argtypes = [vp] * 3 + [ci] * 8 + [vp]
             lib.icon_box_smooth3d.restype = ci
+            lib.icon_box_smooth3d_keep.argtypes = [vp] * 4 + [ci] * 8 + [vp]
+            lib.icon_box_smooth3d_keep.restype = ci
+            lib.icon_box_smooth3d_bwd.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+            lib.icon_box_smooth3d_bwd.restype = ci
+            lib.icon_voxel_splat_bwd.argtypes = [vp] * 3 + [ci] * 4 + \
+                [vp] * 3
+            lib.icon_voxel_splat_bwd.restype = ci
             lib.icon_voxel_div_check.argtypes = [ci, vp, vp]
             lib.icon_voxel_div_check.restype = ci
             lib.icon_voxel_error_string.argtypes = [ci]
@@ -131,10 +154,6 @@ def _check_card(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(
-            f"{name} needs a gradient: the voxelize kernels are forward "
-            "only (the backward is ROADMAP Queue A item A10)")
 
 
 def voxel_splat(verts: torch.Tensor, codes: torch.Tensor,
@@ -150,7 +169,7 @@ def voxel_splat(verts: torch.Tensor, codes: torch.Tensor,
                          f"expected, got {tuple(verts.shape)} and "
                          f"{tuple(codes.shape)}")
     if verts.device.type == "cpu":
-        return voxel_splat_plain(verts, codes, res)
+        return pv.voxel_splat_plain(verts, codes, res)
     _check_card("verts", verts)
     _check_card("codes", codes)
     if codes.shape[-1] != 3 or (codes.ndim == 3 and
@@ -189,10 +208,11 @@ def _splat(verts, codes, res: int, acc) -> None:
     _raise_on(lib, err, "voxel_splat")
 
 
-def box_smooth3d(acc: torch.Tensor, k: int) -> torch.Tensor:
+def box_smooth3d(acc: torch.Tensor, k: int, keep_weight: bool = False):
     """``acc [B, D, H, W, C + 1]`` box-smoothed (size ``k``, zero padded)
     over D, H and W, the first C channels over ``max(channel C, 1e-3)``:
-    ``[B, D, H, W, C]``. CPU tensors take :func:`box_smooth3d_plain`;
+    ``[B, D, H, W, C]``; with ``keep_weight``, (that, the smoothed channel
+    C ``[B, D, H, W]``). CPU tensors take :func:`box_smooth3d_plain`;
     CUDA tensors (C = 3) launch the kernel on the current stream or
     raise. ``acc`` is left as it is."""
     global launches_smooth
@@ -202,35 +222,158 @@ def box_smooth3d(acc: torch.Tensor, k: int) -> torch.Tensor:
     if k < 1:
         raise ValueError(f"k must be at least 1, got {k}")
     if acc.device.type == "cpu":
-        return box_smooth3d_plain(acc, k)
+        return pv.box_smooth3d_plain(acc, k, keep_weight)
     _check_card("acc", acc)
     if acc.shape[-1] != 4:
         raise ValueError(f"the kernel takes 4 channels, got "
                          f"{tuple(acc.shape)}")
     out = torch.empty(acc.shape[:4] + (3,), dtype=torch.float32,
                       device=acc.device)
-    _smooth(acc, k, torch.empty_like(acc), out)
+    weight = torch.empty(acc.shape[:4], dtype=torch.float32,
+                         device=acc.device) if keep_weight else None
+    _smooth(acc, k, torch.empty_like(acc), out, weight)
     launches_smooth += 1
-    return out
+    return (out, weight) if keep_weight else out
 
 
-def _smooth(acc, k: int, t1, out) -> None:
+def _smooth(acc, k: int, t1, out, weight=None) -> None:
     """One ``box_smooth3d`` (the D pass into the scratch ``t1`` of
-    ``acc``'s size, then the H and W passes into ``out``) on
-    caller-checked tensors, on the current stream, launched as
-    :func:`smooth_geometry` says; counts nothing. Raises ``ValueError``
-    past :data:`MAX_K` or if ``acc`` or ``t1`` is not 16-byte aligned."""
+    ``acc``'s size, then the H and W passes into ``out``, and the smoothed
+    weight into ``weight`` unless None) on caller-checked tensors, on the
+    current stream, launched as :func:`smooth_geometry` says; counts
+    nothing. Raises ``ValueError`` past :data:`MAX_K` or if ``acc`` or
+    ``t1`` is not 16-byte aligned."""
     g = smooth_geometry(k)
     _check_aligned("acc", acc)
     _check_aligned("t1", t1)
     B, D, H, W = acc.shape[:4]
     lib = _load()
     with torch.cuda.device(acc.device):
-        err = lib.icon_box_smooth3d(
-            acc.data_ptr(), t1.data_ptr(), out.data_ptr(), B, D, H, W, k,
-            g.rz, g.tx, g.ty,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if weight is None:
+            err = lib.icon_box_smooth3d(
+                acc.data_ptr(), t1.data_ptr(), out.data_ptr(), B, D, H, W,
+                k, g.rz, g.tx, g.ty, stream)
+        else:
+            err = lib.icon_box_smooth3d_keep(
+                acc.data_ptr(), t1.data_ptr(), out.data_ptr(),
+                weight.data_ptr(), B, D, H, W, k, g.rz, g.tx, g.ty, stream)
     _raise_on(lib, err, "box_smooth3d")
+
+
+def box_smooth3d_bwd(g_out: torch.Tensor, out: torch.Tensor,
+                     weight: torch.Tensor, k: int) -> torch.Tensor:
+    """The gradient ``[B, D, H, W, C + 1]`` of :func:`box_smooth3d`'s
+    accumulator from the gradient ``g_out`` of its output ``out`` (both
+    ``[B, D, H, W, C]``) and the smoothed ``weight [B, D, H, W]`` it kept.
+    CPU tensors take :func:`box_smooth3d_bwd_plain`; CUDA tensors (C = 3)
+    launch the kernel on the current stream or raise."""
+    global launches_smooth_bwd
+    if out.ndim != 5 or g_out.shape != out.shape or \
+            weight.shape != out.shape[:4]:
+        raise ValueError(f"g_out and out [B, D, H, W, C] and weight [B, D, "
+                         f"H, W] expected, got {tuple(g_out.shape)}, "
+                         f"{tuple(out.shape)} and {tuple(weight.shape)}")
+    if g_out.device.type == "cpu":
+        return pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+    for name, t in (("g_out", g_out), ("out", out), ("weight", weight)):
+        _check_card(name, t)
+    if out.shape[-1] != 3:
+        raise ValueError(f"the kernel takes 3 code channels, got "
+                         f"{tuple(out.shape)}")
+    g_acc = torch.empty(out.shape[:4] + (4,), dtype=torch.float32,
+                        device=out.device)
+    _smooth_bwd(g_out, out, weight, k, torch.empty_like(g_acc), g_acc)
+    launches_smooth_bwd += 1
+    return g_acc
+
+
+def _smooth_bwd(g_out, out, weight, k: int, t1, g_acc) -> None:
+    """One ``box_smooth3d_bwd`` (the D pass into the scratch ``t1`` of
+    ``g_acc``'s size, then the H and W passes into ``g_acc``) on
+    caller-checked tensors, on the current stream; counts nothing. Raises
+    ``ValueError`` past :data:`MAX_K` or if ``t1`` or ``g_acc`` is not
+    16-byte aligned."""
+    g = smooth_geometry(k)
+    _check_aligned("t1", t1)
+    _check_aligned("g_acc", g_acc)
+    B, D, H, W = out.shape[:4]
+    lib = _load()
+    with torch.cuda.device(out.device):
+        err = lib.icon_box_smooth3d_bwd(
+            g_out.data_ptr(), out.data_ptr(), weight.data_ptr(),
+            t1.data_ptr(), g_acc.data_ptr(), B, D, H, W, k, g.rz, g.tx,
+            g.ty, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "box_smooth3d_bwd")
+
+
+def voxel_splat_bwd(verts: torch.Tensor, codes: torch.Tensor,
+                    g_acc: torch.Tensor, res: int, codes_grad: bool = True):
+    """The gradients (``verts``', and ``codes``' or None without
+    ``codes_grad``) of :func:`voxel_splat` from its accumulators' gradient
+    ``g_acc [B, res^3, C + 1]``. CPU tensors take
+    :func:`voxel_splat_bwd_plain`; CUDA tensors launch the kernel on the
+    current stream or raise."""
+    global launches_splat_bwd
+    B, V = verts.shape[:2]
+    if g_acc.shape != (B, res ** 3, codes.shape[-1] + 1):
+        raise ValueError(f"g_acc [B, res^3, C + 1] expected, got "
+                         f"{tuple(g_acc.shape)}")
+    if verts.device.type == "cpu":
+        return pv.voxel_splat_bwd_plain(verts, codes, g_acc, res, codes_grad)
+    for name, t in (("verts", verts), ("codes", codes), ("g_acc", g_acc)):
+        _check_card(name, t)
+    if codes.shape[-1] != 3:
+        raise ValueError(f"the kernel takes 3 code channels per vertex, got "
+                         f"codes {tuple(codes.shape)}")
+    g_verts = torch.empty_like(verts)
+    g_codes = torch.empty_like(codes) if codes_grad else None
+    _splat_bwd(verts, codes, g_acc, res, g_verts, g_codes)
+    launches_splat_bwd += 1
+    return g_verts, g_codes
+
+
+def _splat_bwd(verts, codes, g_acc, res: int, g_verts, g_codes) -> None:
+    """One ``voxel_splat_bwd`` into ``g_verts`` and ``g_codes`` (None: not
+    computed) on caller-checked tensors, on the current stream; counts
+    nothing. Raises ``ValueError`` if ``g_acc`` is not 16-byte aligned."""
+    _check_aligned("g_acc", g_acc)
+    lib = _load()
+    B, V = verts.shape[:2]
+    with torch.cuda.device(verts.device):
+        err = lib.icon_voxel_splat_bwd(
+            verts.data_ptr(), codes.data_ptr(), g_acc.data_ptr(), B, V,
+            int(codes.ndim == 3), res, g_verts.data_ptr(),
+            None if g_codes is None else g_codes.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "voxel_splat_bwd")
+
+
+class _Voxelize(torch.autograd.Function):
+    """:func:`voxelize_semantic` under a gradient: the forward's two
+    launches (the smooth keeping its weight) and the backward's two, or
+    their plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, verts, codes, res: int, k: int):
+        acc = voxel_splat(verts, codes, res)
+        out, weight = box_smooth3d(acc.view(verts.shape[0], res, res, res,
+                                            acc.shape[-1]), k,
+                                   keep_weight=True)
+        ctx.save_for_backward(verts, codes, out, weight)
+        ctx.res, ctx.k = res, k
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        verts, codes, out, weight = ctx.saved_tensors
+        g_acc = box_smooth3d_bwd(g_out.contiguous(), out, weight, ctx.k)
+        g_verts, g_codes = voxel_splat_bwd(
+            verts, codes, g_acc.view(verts.shape[0], -1, g_acc.shape[-1]),
+            ctx.res, codes_grad=ctx.needs_input_grad[1])
+        return (g_verts if ctx.needs_input_grad[0] else None), g_codes, \
+            None, None
 
 
 def voxelize_semantic(verts: torch.Tensor, codes: torch.Tensor,
@@ -238,10 +381,15 @@ def voxelize_semantic(verts: torch.Tensor, codes: torch.Tensor,
                       smooth_kernel: Optional[int] = None) -> torch.Tensor:
     """``ops.voxelize.voxelize_semantic`` through the kernels:
     ``[B, res, res, res, 3]`` indexed [z, y, x]. CPU tensors take the plain
-    version (differentiable); CUDA tensors launch ``voxel_splat`` and
-    ``box_smooth3d`` or raise."""
-    k = smooth_kernel_size(res, sigma) if smooth_kernel is None \
+    versions; CUDA tensors launch ``voxel_splat`` and ``box_smooth3d`` or
+    raise. Where an input needs a gradient (and grad mode is on), through
+    :class:`_Voxelize`: the backward launches ``box_smooth3d_bwd`` and
+    ``voxel_splat_bwd`` (the plain twins on the CPU), JAX's gradient."""
+    k = pv.smooth_kernel_size(res, sigma) if smooth_kernel is None \
         else smooth_kernel
+    if torch.is_grad_enabled() and (verts.requires_grad or
+                                    codes.requires_grad):
+        return _Voxelize.apply(verts, codes, res, k)
     acc = voxel_splat(verts, codes, res)
     return box_smooth3d(acc.view(verts.shape[0], res, res, res,
                                  acc.shape[-1]), k)

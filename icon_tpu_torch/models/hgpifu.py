@@ -170,10 +170,13 @@ class HGPIFuNet(nn.Module):
         at ``voxel_res`` (the kernels' wrapper: the card launches
         ``voxel_splat`` and ``box_smooth3d``), through the volume encoder:
         ``[features [B, D, H, W, voxel_dim]]`` of the last stack (of every
-        stack in training). The voxelization is not differentiated: its
-        vertices and codes are data."""
+        stack in training). Differentiable in the vertices and codes, as
+        the JAX package's: where they need a gradient, the backward runs
+        ``box_smooth3d_bwd`` and ``voxel_splat_bwd`` (a train step
+        differentiates the parameters only: the loader's inputs launch
+        neither)."""
         from icon_tpu_torch.kernels.voxelize import voxelize_semantic
-        vol = voxelize_semantic(voxel_verts.detach(), voxel_codes.detach(),
+        vol = voxelize_semantic(voxel_verts, voxel_codes,
                                 res=self.cfg.net.voxel_res)
         return [f.permute(0, 2, 3, 4, 1)
                 for f in self.ve(vol.permute(0, 4, 1, 2, 3),

@@ -244,30 +244,43 @@ def test_optimizer_matches_optax(name):
 
 
 def test_voxel_inputs_need_no_gradient(fixture_root, monkeypatch):
-    """A pamir train step differentiates the parameters only: the voxel
-    vertices and codes reach the voxelization without a gradient, so its
-    forward-only kernels serve training."""
+    """A pamir train step differentiates the parameters only: the loader's
+    voxel vertices and codes reach the voxelization without a gradient, so
+    the step runs the voxelization's forward alone and launches no backward
+    kernel of it (here: never reaches its plain backward twins)."""
     from icon_tpu_torch.data.datasets import PIFuDataset, collate
     from icon_tpu_torch.kernels import voxelize as kv
     from icon_tpu_torch.models.hgpifu import HGPIFuNet
+    from icon_tpu_torch.ops import voxelize as pv
     from icon_tpu_torch.training.train_step import make_optimizer, train_step
     cfg = port_cfg(jax_cfg(fixture_root, "pamir"))
-    seen = []
+    seen, backward = [], []
     inner = kv.voxelize_semantic
 
     def spy(verts, codes, res):
         seen.append((verts.requires_grad, codes.requires_grad))
         return inner(verts, codes, res)
     monkeypatch.setattr(kv, "voxelize_semantic", spy)
+    for name in ("box_smooth3d_bwd_plain", "voxel_splat_bwd_plain"):
+        def spy_bwd(*a, _name=name, _inner=getattr(pv, name), **kw):
+            backward.append(_name)
+            return _inner(*a, **kw)
+        monkeypatch.setattr(pv, name, spy_bwd)
     net = HGPIFuNet(cfg, normal_net=False)
     batch = collate([PIFuDataset(cfg)[i] for i in range(2)])
-    batch["voxel_verts"].requires_grad_(True)
+    before = (kv.launches_splat_bwd, kv.launches_smooth_bwd)
     m = train_step(net, make_optimizer(net, cfg), batch)
     assert np.isfinite(float(m["loss"]))
     assert seen == [(False, False)]
+    assert backward == []
+    assert (kv.launches_splat_bwd, kv.launches_smooth_bwd) == before
     assert net.ve.conv1.weight.grad is not None  # the encoder trains
     assert len(net.ve(torch.zeros(1, 3, 32, 32, 32),
                       intermediate_output=True)) == cfg.net.num_stack
+    # the spies see a backward where the vertices do need a gradient
+    verts = batch["voxel_verts"].clone().requires_grad_(True)
+    inner(verts, batch["voxel_codes"], 8).sum().backward()
+    assert backward == ["box_smooth3d_bwd_plain", "voxel_splat_bwd_plain"]
 
 
 def test_checkpoints_resume_and_warm_start(fixture_root, tmp_path):

@@ -110,8 +110,9 @@ def test_smooth_geometry_refuses_past_the_limit():
 
 
 def test_plain_voxelize_is_differentiable():
-    """On the CPU the plain version carries gradients to the vertices (the
-    kernels are forward only)."""
+    """On the CPU the wrapper carries gradients to the vertices (its
+    Function over the plain versions; tests/test_torch_voxelize_grad.py
+    holds them to JAX's)."""
     verts = t(_verts(1, 50)).requires_grad_(True)
     vol = kv.voxelize_semantic(verts, t(RNG.rand(50, 3).astype(np.float32)),
                                res=16)

@@ -4,7 +4,11 @@
 the same order, true divisions). ``voxel_splat``'s float atomics add in an
 order that changes from run to run: every term is non-negative, so each
 voxel of m terms may differ from the plain sum by at most 2 m 2^-24 of it
-(``ops/voxelize.py:splat_terms``).
+(``ops/voxelize.py:splat_terms``). The backward kernels,
+``box_smooth3d_bwd`` and ``voxel_splat_bwd``, must equal their plain twins
+bit for bit (the same operations in the same order, no atomics); the
+whole gradient through ``voxelize_semantic`` on the card equals the CPU's
+to ``GRAD_RTOL`` of its largest value (the forward splat's atomics).
 
 Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_voxelize_cuda.py --noconftest -m cuda -q``. Where no card
@@ -20,6 +24,10 @@ from icon_tpu_torch.ops import voxelize as pv
 pytestmark = pytest.mark.cuda
 
 ORDER_EPS = 2.0 ** -24
+# the card's gradient against the CPU's: the forward splat's summation
+# order moves each voxel by a few 2^-24 of its sum, which the division by
+# the weight and the box's sums pass on
+GRAD_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -130,8 +138,15 @@ def test_kernels_reject_a_misaligned_accumulator(cuda_device, kernel):
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
     verts, codes = _inputs(1, 100, False, 0, cuda_device)
-    with pytest.raises(NotImplementedError, match="A10"):
-        kv.voxel_splat(verts.clone().requires_grad_(True), codes, 16)
+    # an input that needs a gradient is taken: the backward kernels give it
+    v = verts.clone().requires_grad_(True)
+    before = (kv.launches_splat_bwd, kv.launches_smooth_bwd)
+    kv.voxelize_semantic(v, codes, res=16).sum().backward()
+    torch.cuda.synchronize()
+    assert (kv.launches_splat_bwd, kv.launches_smooth_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    assert v.grad is not None and bool(torch.isfinite(v.grad).all())
+    assert float(v.grad.abs().max()) > 0
     with pytest.raises(TypeError):
         kv.voxel_splat(verts.double(), codes, 16)
     with pytest.raises(ValueError):
@@ -145,3 +160,93 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
                         kv.MAX_K + 1)
     with torch.no_grad():             # no gradient asked: the kernels run
         kv.voxel_splat(verts.clone().requires_grad_(True), codes, 16)
+
+
+def _grad_inputs(shape, seed, dev):
+    """(g_out, out, weight) of the smooth's backward: ``out`` and ``weight``
+    from the plain forward of a sparse accumulator, a few weights set to the
+    floor 1e-3 exactly and below it, and a random ``g_out``."""
+    rng = np.random.RandomState(seed)
+    acc = rng.rand(*shape, 4).astype(np.float32)
+    acc[rng.rand(*shape) < 0.7] = 0.0
+    acc[..., 3] *= 0.02                       # weights around the floor
+    out, weight = pv.box_smooth3d_plain(torch.from_numpy(acc).to(dev), 1,
+                                        keep_weight=True)
+    weight = weight.contiguous()
+    flat = weight.view(-1)
+    idx = torch.from_numpy(rng.choice(flat.numel(), 64, replace=False))
+    flat[idx[:32].to(dev)] = 1e-3
+    flat[idx[32:].to(dev)] = 5e-4
+    g_out = torch.from_numpy(rng.randn(*shape, 3).astype(np.float32))
+    return g_out.to(dev), out.contiguous(), weight
+
+
+@pytest.mark.parametrize("shape,k", [((1, 128, 128, 128), 11),
+                                     ((2, 33, 17, 40), 3),
+                                     ((1, 64, 64, 64), 4),
+                                     ((1, 9, 9, 9), 1),
+                                     ((1, 128, 128, 128), 2)])
+def test_box_smooth3d_bwd_is_bit_identical(cuda_device, shape, k):
+    g_out, out, weight = _grad_inputs(shape, k, cuda_device)
+    assert int((weight == 1e-3).sum()) >= 32   # the ties are in the input
+    before = kv.launches_smooth_bwd
+    got = kv.box_smooth3d_bwd(g_out, out, weight, k)
+    torch.cuda.synchronize()
+    assert kv.launches_smooth_bwd == before + 1
+    want = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+    assert got.shape == want.shape == shape + (4,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [11, 4])
+def test_box_smooth3d_keeps_its_weight(cuda_device, k):
+    """Under a gradient the forward also writes the smoothed weight; its
+    output stays bit-identical to the plain version, and so does the
+    weight."""
+    rng = np.random.RandomState(k)
+    acc = rng.rand(1, 64, 64, 64, 4).astype(np.float32)
+    acc[rng.rand(1, 64, 64, 64) < 0.7] = 0.0
+    acc = torch.from_numpy(acc).to(cuda_device)
+    out, weight = kv.box_smooth3d(acc, k, keep_weight=True)
+    want, want_w = pv.box_smooth3d_plain(acc, k, keep_weight=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(weight, want_w)
+    assert torch.equal(kv.box_smooth3d(acc, k), want)
+
+
+@pytest.mark.parametrize("B,V,batched,res,pad", [
+    (1, 8000, False, 128, 3000), (2, 5000, True, 64, 0),
+    (2, 3000, False, 32, 0), (1, 100, False, 7, 0),
+    (2, 8000, True, 128, (7358, 5438))])
+def test_splat_bwd_is_bit_identical(cuda_device, B, V, batched, res, pad):
+    verts, codes = _inputs(B, V, batched, res + 1, cuda_device, pad)
+    verts[:, :25, 0] = -1.0                 # on the grid's end planes
+    verts[:, 25:50, 1:] = 1.0
+    g_acc = torch.randn(B, res ** 3, 4, device=cuda_device)
+    before = kv.launches_splat_bwd
+    gv, gc = kv.voxel_splat_bwd(verts, codes, g_acc, res)
+    torch.cuda.synchronize()
+    assert kv.launches_splat_bwd == before + 1
+    want_v, want_c = pv.voxel_splat_bwd_plain(verts, codes, g_acc, res)
+    assert gv.shape == verts.shape and gc.shape == codes.shape
+    assert torch.equal(gv, want_v) and torch.equal(gc, want_c)
+    only_v, none = kv.voxel_splat_bwd(verts, codes, g_acc, res,
+                                      codes_grad=False)
+    assert none is None and torch.equal(only_v, want_v)
+
+
+def test_voxelize_semantic_grad_matches_cpu(cuda_device):
+    """PaMIR's voxelization at 128^3 under a gradient on the card (four
+    kernels) against the same Function on the CPU (the plain twins)."""
+    verts, codes = _inputs(1, 8000, False, 7, cuda_device, pad=5000)
+    r = torch.randn(1, 128, 128, 128, 3, device=cuda_device)
+    grads = {}
+    for name, dev in (("gpu", cuda_device), ("cpu", torch.device("cpu"))):
+        v = verts.to(dev).clone().requires_grad_(True)
+        c = codes.to(dev).clone().requires_grad_(True)
+        (kv.voxelize_semantic(v, c, res=128) * r.to(dev)).sum().backward()
+        grads[name] = (v.grad.cpu(), c.grad.cpu())
+    for got, want in zip(grads["gpu"], grads["cpu"]):
+        assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0
+        assert float((got - want).abs().max()) <= \
+            GRAD_RTOL * float(want.abs().max())
