@@ -214,13 +214,16 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    keeping its weight, ``box_smooth3d_bwd``, ``voxel_splat_bwd``: one
    launch each) against the CPU to 1e-4 of the largest gradient, the same
    query without a gradient launching no backward kernel, each backward
-   kernel bit-identical to its plain twin on the inputs it got and alone
-   beside its bound, its twin and the library call (``avg_pool3d``'s
-   backward for the box); (b) the alignment CLI (``python -m
-   icon_tpu_torch.data.test_dataset``) on the card over phase 10's two
-   seeded photos with the seeded PyMAF, and each photo's panel drawn on
-   the card and on the CPU from the card's item: within one u8 step on all
-   but 1e-4 of the pixels.
+   kernel bit-identical to its plain twins on the inputs it got and on
+   the dense footprint of 8,000 distinct body vertices (the box at the
+   rows the splat's backward reads) and alone on both beside its bound,
+   its twin, the library call (``avg_pool3d``'s backward for the box)
+   and an empty kernel's; the main path's gradients equal to the held
+   kernels' on the same inputs; (b) the alignment
+   CLI (``python -m icon_tpu_torch.data.test_dataset``) on the card over
+   phase 10's two seeded photos with the seeded PyMAF, and each photo's
+   panel drawn on the card and on the CPU from the card's item: within
+   one u8 step on all but 1e-4 of the pixels.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -3886,9 +3889,16 @@ def march_identical(km, fine, cells, max_tris, max_verts, what):
     return int(n_cells), nt, nu
 
 
+# profiler windows march_split tries before it fails for want of a launch
+PROFILE_WINDOWS = 3
+
+
 def march_split(km, eb, ib, n_tris, max_verts):
     """mt_index's device time by launch and the launches recorded
-    (torch.profiler over 20 calls on the preallocated buffers). mt_emit is
+    (torch.profiler over 20 calls on the preallocated buffers, between two
+    device sleeps). Late in this script the profiler has dropped some of a
+    window's launches, and once all of them (PERF.md §7): a window that
+    records none is profiled again, up to PROFILE_WINDOWS times. mt_emit is
     one launch: its split is its time alone."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3898,17 +3908,24 @@ def march_split(km, eb, ib, n_tris, max_verts):
 
     index()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            index()
-        torch.cuda.synchronize()
-    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
-             (round(e.device_time_total / e.count / 1e3, 5), e.count)
-             for e in prof.key_averages() if e.device_time_total > 0}
-    print(f"[17c] mt_index device ms a launch (launches recorded of 20): "
-          f"{split}", flush=True)
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(20_000_000)
+            for _ in range(20):
+                index()
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+        split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+                 (round(e.device_time_total / e.count / 1e3, 5), e.count)
+                 for e in prof.key_averages()
+                 if e.device_time_total > 0 and "index_" in e.key}
+        if split:
+            break
+    print(f"[17c] mt_index device ms a launch (launches recorded of 20, "
+          f"window {window}): {split}", flush=True)
     if not split:
-        raise AssertionError("mt_index: the profiler saw no launch")
+        raise AssertionError(f"mt_index: the profiler saw no launch in "
+                             f"{PROFILE_WINDOWS} windows")
 
 
 def march_calls(km, PM, fine, cells, kw):
@@ -4102,27 +4119,80 @@ ALIGN_FLIP_SHARE = 1e-4
 
 
 def bwd_spy(calls: dict):
-    """A pass-through spy on the voxelize wrapper's two backward kernels
-    that records each call's inputs (cloned) in ``calls`` by kernel and
-    counts nothing; returns a function that removes it."""
+    """A pass-through spy on the voxelize wrapper's backward entry
+    (``_voxelize_bwd``, both backward kernels) that records its inputs and
+    its gradients (cloned) in ``calls`` and counts nothing; returns a
+    function that removes it."""
     from icon_tpu_torch.kernels import voxelize as kv
-    splat, smooth = kv.voxel_splat_bwd, kv.box_smooth3d_bwd
+    inner = kv._voxelize_bwd
 
-    def spy_splat(verts, codes, g_acc, res, codes_grad=True):
-        calls["voxel_splat_bwd"] = tuple(x.detach().clone() for x in (
-            verts, codes, g_acc)) + (res,)
-        return splat(verts, codes, g_acc, res, codes_grad)
+    def spy(verts, codes, g_out, out, weight, res, k, codes_grad=True):
+        got = inner(verts, codes, g_out, out, weight, res, k, codes_grad)
+        calls["inputs"] = tuple(x.detach().clone() for x in (
+            g_out, out, weight, verts, codes))
+        calls["res"], calls["k"] = res, k
+        calls["grads"] = tuple(None if x is None else x.detach().clone()
+                               for x in got)
+        return got
 
-    def spy_smooth(g_out, out, weight, k):
-        calls["box_smooth3d_bwd"] = tuple(x.detach().clone() for x in (
-            g_out, out, weight)) + (k,)
-        return smooth(g_out, out, weight, k)
-
-    kv.voxel_splat_bwd, kv.box_smooth3d_bwd = spy_splat, spy_smooth
+    kv._voxelize_bwd = spy
 
     def remove():
-        kv.voxel_splat_bwd, kv.box_smooth3d_bwd = splat, smooth
+        kv._voxelize_bwd = inner
     return remove
+
+
+def window_union(rows, shape, k):
+    """(|R|, |R_W|, |R_WH|, |R_WHD|): the voxels of ``rows`` (flat in ``[B,
+    D, H, W]``) and those their mirrored k-box reads, pass by pass: the W
+    sums at R read R_W, the H sums there R_WH, the D sums there R_WHD."""
+    import torch.nn.functional as F
+    lo = k - 1 - k // 2
+    m = torch.zeros(int(np.prod(shape)), device=rows.device)
+    m[rows] = 1.0
+    m = m.view(shape[0], 1, *shape[1:])
+    sizes = [int(rows.numel())]
+    for axis in (4, 3, 2):                       # W, H, D
+        pad = [0] * 6
+        pad[2 * (4 - axis)], pad[2 * (4 - axis) + 1] = k - 1 - lo, lo
+        ks = [1, 1, 1]
+        ks[axis - 2] = k
+        m = F.max_pool3d(F.pad(m, pad), ks, stride=1)
+        sizes.append(int(m.sum()))
+    return tuple(sizes)
+
+
+def backward_held(kv, pv, inputs, k, res):
+    """Both backward kernels against their twins on ``inputs`` (g_out, out,
+    weight, verts, codes): ``box_smooth3d_bwd`` at the touched rows against
+    ``box_smooth3d_bwd_rows_plain`` and the dense twin's rows, then
+    ``voxel_splat_bwd`` on its output against the plain twin on the rows
+    alone (the kernel leaves the other voxels undefined). Returns
+    ({kernel: identical}, {kernel: max |d|}, rows, the splat's gradients).
+    """
+    g_out, out, weight, verts, codes = inputs
+    B = verts.shape[0]
+    rows = pv.touched_rows(verts, res)
+    got = torch.empty(out.shape[:4] + (4,), device=out.device)
+    kv._smooth_bwd(g_out, out, weight, k, verts,
+                   kv._bwd_scratch(B, res, k, out.device), got)
+    got_rows = got.view(-1, 4)[rows]
+    twin = pv.box_smooth3d_bwd_rows_plain(g_out, out, weight, k, rows)
+    dense = pv.box_smooth3d_bwd_plain(g_out, out, weight, k).view(-1, 4)
+    clean = torch.zeros_like(dense)
+    clean[rows] = got_rows
+    sv, sc = torch.empty_like(verts), torch.empty_like(codes)
+    kv._splat_bwd(verts, codes, got.view(B, -1, 4), res, sv, sc)
+    wv, wc = pv.voxel_splat_bwd_plain(verts, codes, clean.view(B, -1, 4),
+                                      res)
+    torch.cuda.synchronize()
+    same = {"box_smooth3d_bwd": torch.equal(got_rows, twin) and
+            torch.equal(twin, dense[rows]),
+            "voxel_splat_bwd": torch.equal(sv, wv) and torch.equal(sc, wc)}
+    err = {"box_smooth3d_bwd": float((got_rows - twin).abs().max()),
+           "voxel_splat_bwd": max(float((sv - wv).abs().max()),
+                                  float((sc - wc).abs().max()))}
+    return same, err, rows, (sv, sc)
 
 
 def occupancy_grad(net, feats, pts, calib, verts, codes):
@@ -4136,7 +4206,7 @@ def occupancy_grad(net, feats, pts, calib, verts, codes):
     return occ.detach(), v.grad, c.grad
 
 
-def phase_voxel_grad(dev, card, vox):
+def phase_voxel_grad(dev, card, vox, body_verts):
     """[18a] The gradient of PaMIR's summed occupancy at the level-0
     lattice (33^3 points) with respect to the voxel vertices and codes
     (``vox``: phase 13's ``pamir_feats``, [1, 8,000, 3]) at bench.py's
@@ -4144,10 +4214,14 @@ def phase_voxel_grad(dev, card, vox):
     ``HGPIFuNet.query`` with seeded weights: on the card (the four
     voxelize kernels, counted) against the CPU (plain versions); the same
     query without a gradient launches no backward kernel; each backward
-    kernel against its twin on the inputs it got (recorded by
-    :func:`bwd_spy`), alone beside its bound, its twin and the library call
-    (``avg_pool3d``'s backward for the box; none for the splat). Returns
-    (summary entries, the gradient run's launches)."""
+    kernel against its twins (:func:`backward_held`) on the inputs it got
+    (recorded by :func:`bwd_spy`) and on the dense footprint
+    (``kernels/profile_voxelize.py:voxel_input``: the first 8,000 of
+    ``body_verts``, the subdiv-5 body's), alone on both beside its bound
+    (the rows' windows: see :func:`window_union`; the box's dense bound
+    printed beside it), its twin, the library call (``avg_pool3d``'s
+    backward for the box; none for the splat) and an empty kernel's.
+    Returns (summary entries, the gradient run's launches)."""
     import copy
     from icon_tpu_torch.kernels import voxelize as kv
     from icon_tpu_torch.models.hgpifu import HGPIFuNet
@@ -4220,72 +4294,93 @@ def phase_voxel_grad(dev, card, vox):
           f"{errs['codes']:.3g} of the largest (bound {VOXEL_GRAD_RTOL}); "
           f"without a gradient: {plain_run}", flush=True)
 
-    g_out, out, weight, k = calls["box_smooth3d_bwd"]
-    s_verts, s_codes, g_acc, res = calls["voxel_splat_bwd"]
-    got = kv.box_smooth3d_bwd(g_out, out, weight, k)
-    want = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
-    sv, sc = kv.voxel_splat_bwd(s_verts, s_codes, g_acc, res)
-    wv, wc = pv.voxel_splat_bwd_plain(s_verts, s_codes, g_acc, res)
-    torch.cuda.synchronize()
-    same = {"box_smooth3d_bwd": torch.equal(got, want),
-            "voxel_splat_bwd": torch.equal(sv, wv) and torch.equal(sc, wc)}
-    err = {"box_smooth3d_bwd": float((got - want).abs().max()),
-           "voxel_splat_bwd": max(float((sv - wv).abs().max()),
-                                  float((sc - wc).abs().max()))}
+    from icon_tpu_torch.kernels.profile_voxelize import voxel_input
+    g_out, out, weight, _, _ = calls["inputs"]
+    res, k = calls["res"], calls["k"]
+    # the dense footprint: 8,000 distinct body vertices, the forward on the
+    # card, a seeded output gradient
+    f_verts, f_codes = voxel_input(dev, body_verts)
+    f_out, f_weight = kv.box_smooth3d(kv.voxel_splat(f_verts, f_codes, res)
+                                      .view(1, res, res, res, 4), k,
+                                      keep_weight=True)
+    f_g = torch.randn(f_out.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(18))
+    inputs = {"recorded": calls["inputs"],
+              "dense": (f_g, f_out, f_weight, f_verts, f_codes)}
+    same, err, rows, grads = {}, {}, {}, {}
+    for name, args in inputs.items():
+        ok, e, rows[name], grads[name] = backward_held(kv, pv, args, k, res)
+        same[name] = ok
+        for kernel, d in e.items():
+            err[kernel] = max(err.get(kernel, 0.0), d)
+    # the main path's gradients, as the kernels give them again
+    same["recorded"]["voxel_splat_bwd"] &= all(
+        torch.equal(a, b) for a, b in zip(calls["grads"], grads["recorded"]))
     ties = int((weight == pv.WEIGHT_FLOOR).sum())
-    print(f"[18] the backward kernels vs their twins on the recorded "
-          f"inputs (k={k}): box_smooth3d_bwd max|d| "
-          f"{err['box_smooth3d_bwd']:.3g} "
-          f"(identical: {same['box_smooth3d_bwd']}; {ties} weights at the "
-          f"1e-3 tie, {int((weight < pv.WEIGHT_FLOOR).sum())} below it), "
-          f"voxel_splat_bwd max|d| {err['voxel_splat_bwd']:.3g} "
-          f"(identical: {same['voxel_splat_bwd']})", flush=True)
-    if not all(same.values()):
+    print(f"[18] the backward kernels vs their twins (k={k}) on the "
+          f"recorded inputs ({ties} weights at the 1e-3 tie, "
+          f"{int((weight < pv.WEIGHT_FLOOR).sum())} below it) and on the "
+          f"dense footprint: identical {same}; max|d| {err}", flush=True)
+    if not all(v for ok in same.values() for v in ok.values()):
         raise AssertionError(f"a backward kernel differs from its twin: "
-                             f"{err}")
+                             f"{same}, {err}")
 
     n = res ** 3
-    t1, acc_g = torch.empty_like(got), torch.empty_like(got)
-    gv_buf, gc_buf = torch.empty_like(s_verts), torch.empty_like(s_codes)
-    pool_in = g_acc.view(1, res, res, res, 4).permute(0, 4, 1, 2, 3) \
-        .contiguous()
+    pool_in = torch.randn((1, 4, res, res, res), device=dev)
     pool_g = torch.randn_like(pool_in)
-    gathered = torch.unique(torch.cat([
-        lin[valid] for lin, _, valid in pv._corner_terms(s_verts, res)]))
-    times = {
-        "box_smooth3d_bwd": (
-            kernel_ms(lambda: kv._smooth_bwd(g_out, out, weight, k, t1,
-                                             acc_g)),
-            cuda_ms(lambda: pv.box_smooth3d_bwd_plain(g_out, out, weight,
-                                                      k)),
-            cuda_ms(lambda: torch.ops.aten.avg_pool3d_backward(
-                pool_g, pool_in, [k] * 3, [1] * 3, [k // 2] * 3, False,
-                True, None)),
-            bound(4.0 * (3 + 3 + 1 + 4) * n,
-                  (SMOOTH_BWD_OPS + 3 * 4 * (k + 1)) * n)),
-        "voxel_splat_bwd": (
-            kernel_ms(lambda: kv._splat_bwd(s_verts, s_codes, g_acc, res,
-                                            gv_buf, gc_buf)),
-            cuda_ms(lambda: pv.voxel_splat_bwd_plain(s_verts, s_codes,
-                                                     g_acc, res)),
-            None,
-            bound(4.0 * (2 * s_verts.numel() + 2 * s_codes.numel()) +
-                  16.0 * gathered.numel(),
-                  SPLAT_BWD_OPS_PER_VERTEX * s_verts.shape[1]))}
+    dense_bound = bound(4.0 * (3 + 3 + 1 + 4) * n,
+                        (SMOOTH_BWD_OPS + 3 * 4 * (k + 1)) * n)
+    # the library's dense backward of the box, the same call for both
+    pool_ms = cuda_ms(lambda: torch.ops.aten.avg_pool3d_backward(
+        pool_g, pool_in, [k] * 3, [1] * 3, [k // 2] * 3, False, True, None))
+    times = {}
+    for name, (gi, oi, wi, vi, ci) in inputs.items():
+        scratch = kv._bwd_scratch(vi.shape[0], res, k, dev)
+        acc_g = torch.empty(oi.shape[:4] + (4,), device=dev)
+        gv_buf, gc_buf = torch.empty_like(vi), torch.empty_like(ci)
+        g_rows = acc_g.view(vi.shape[0], -1, 4)
+        r, rw, rwh, rwhd = window_union(rows[name], oi.shape[:4], k)
+        gathered = r                     # the splat gathers each row once
+        times[name] = {
+            "box_smooth3d_bwd": (
+                kernel_ms(lambda: kv._smooth_bwd(gi, oi, wi, k, vi, scratch,
+                                                 acc_g)),
+                cuda_ms(lambda: pv.box_smooth3d_bwd_rows_plain(
+                    gi, oi, wi, k, rows[name])),
+                pool_ms,
+                bound(28.0 * rwhd + 16.0 * r + 4.0 * vi.numel(),
+                      SMOOTH_BWD_OPS * rwhd +
+                      4 * (k + 1) * (rwh + rw + r))),
+            "voxel_splat_bwd": (
+                kernel_ms(lambda: kv._splat_bwd(vi, ci, g_rows, res, gv_buf,
+                                                gc_buf)),
+                cuda_ms(lambda: pv.voxel_splat_bwd_plain(vi, ci, g_rows,
+                                                         res)),
+                None,
+                bound(4.0 * (2 * vi.numel() + 2 * ci.numel()) +
+                      16.0 * gathered,
+                      SPLAT_BWD_OPS_PER_VERTEX * vi.shape[1]))}
+        print(f"[18] {name} input: {r} rows of {n} (windows: {rw}, {rwh}, "
+              f"{rwhd} voxels)", flush=True)
+    floor_ms = kernel_ms(lambda: torch.cuda._sleep(0))
     entries = []
-    for name, (ms, plain_ms, lib_ms, (bound_ms, by)) in times.items():
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[18] {name} alone {ms:.4f} ms (bound {bound_ms:.4f} ms by "
-              f"{by}, {bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
-              f"library {lib} on {card}", flush=True)
+    for kernel in ("box_smooth3d_bwd", "voxel_splat_bwd"):
+        for name in inputs:
+            ms, plain_ms, lib_ms, (bound_ms, by) = times[name][kernel]
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            extra = f", the dense bound {dense_bound[0]:.4f} ms" \
+                if kernel == "box_smooth3d_bwd" else ""
+            print(f"[18] {kernel} on the {name} input alone {ms:.4f} ms "
+                  f"(bound {bound_ms:.4f} ms by {by}, {bound_ms / ms:.1%}"
+                  f"{extra}; an empty kernel {floor_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library {lib} on {card}", flush=True)
+        ms, plain_ms, lib_ms, (bound_ms, by) = times["recorded"][kernel]
         entries.append({
-            "name": name, "route": "cuda",
+            "name": kernel, "route": "cuda",
             "source": "icon_tpu_torch/csrc/voxelize.cu",
-            "replaces": VOXEL_BWD_REPLACES[name], "launches": 0,
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "replaces": VOXEL_BWD_REPLACES[kernel], "launches": 0,
+            "max_abs_err": err[kernel], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms})
-    print(f"[18] the splat's backward gathered {gathered.numel()} voxels "
-          f"of {n}", flush=True)
     return entries, launched
 
 
@@ -4353,10 +4448,10 @@ def phase_alignment(dev, card):
     return launched
 
 
-def phase_grad_alignment(dev, card, vox):
+def phase_grad_alignment(dev, card, vox, body_verts):
     """Phase 18: the voxelization's backward and the alignment harness.
     Returns (summary entries, the launches of its main-path runs)."""
-    entries, launched = phase_voxel_grad(dev, card, vox)
+    entries, launched = phase_voxel_grad(dev, card, vox, body_verts)
     return entries, [launched, phase_alignment(dev, card)]
 
 
@@ -4521,7 +4616,8 @@ def main() -> int:
         if any(run.get(name, 0) for name in VOXEL_BWD_REPLACES):
             raise AssertionError(f"a run without a gradient in the body "
                                  f"launched a backward kernel: {run}")
-    entries, launched = timed("18", phase_grad_alignment, dev, card, vox)
+    entries, launched = timed("18", phase_grad_alignment, dev, card, vox,
+                              verts_np)
     summary += entries
     runs += launched
     for entry in summary:           # the launches of the main paths' runs

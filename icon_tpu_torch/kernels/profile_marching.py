@@ -52,28 +52,27 @@ def _package_modules() -> dict:
             if k == PKG or k.startswith(PKG + ".")}
 
 
-def load_checkout(root: str, dev):
-    """(kernels.marching, recon.marching) of the checkout at ``root``, a
-    package copy of its own: imported, its kernels built and bound to
-    ``dev`` while its modules stand in ``sys.modules``, then this tree's
-    modules put back."""
+def load_checkout(root: str, names, bind) -> tuple:
+    """The modules ``names`` (dotted, under the package) of the checkout at
+    ``root``, a package copy of its own: imported, and ``bind(*modules)``
+    called to build and bind their kernels, while its modules stand in
+    ``sys.modules``; then this tree's modules put back."""
     root = osp.abspath(root)
     mine = _package_modules()
     for k in mine:
         del sys.modules[k]
     sys.path.insert(0, root)
     try:
-        km = importlib.import_module(PKG + ".kernels.marching")
-        pm = importlib.import_module(PKG + ".recon.marching")
-        if not km.__file__.startswith(root):
+        mods = tuple(importlib.import_module(f"{PKG}.{n}") for n in names)
+        if not all(m.__file__.startswith(root) for m in mods):
             raise RuntimeError(f"{root} holds no {PKG}")
-        km._lib_on(dev)
+        bind(*mods)
     finally:
         sys.path.remove(root)
         for k in _package_modules():
             del sys.modules[k]
         sys.modules.update(mine)
-    return km, pm
+    return mods
 
 
 def call_ms(fn, reps: int = 10) -> float:
@@ -197,7 +196,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     versions = {}
     if "parent" in order:
-        versions["parent"] = load_checkout(args.parent, dev)
+        versions["parent"] = load_checkout(
+            args.parent, ("kernels.marching", "recon.marching"),
+            lambda km, pm: km._lib_on(dev))
     if "change" in order:
         km._lib_on(dev)
         versions["change"] = (km, PM)

@@ -25,23 +25,33 @@ tensor launches ``csrc/voxelize.cu``, a CPU tensor takes the plain version
 
 The backward, JAX's autodiff of the same function with its rules at ties
 (``ops/voxelize.py``: :func:`box_smooth3d_bwd_plain`,
-:func:`voxel_splat_bwd_plain`):
+:func:`voxel_splat_bwd_plain`), is one private entry,
+:func:`_voxelize_bwd`, which ``_Voxelize.backward`` calls:
 
-- ``box_smooth3d_bwd``: the smooth's two passes on the 4-channel gradient,
-  with the mirrored window; the D pass forms each voxel's gradient from the
-  output's, the output and the smoothed weight the forward kept (under a
-  gradient its H and W pass also writes the weight). Bit-identical to the
-  plain version.
-- ``voxel_splat_bwd``: a thread per vertex gathers its eight corners'
-  gradients: no atomics, the plain version's sums in its order.
+- ``box_smooth3d_bwd``: the accumulator's gradient only at the voxels the
+  splat's backward reads, those of the vertices' trilinear corners inside
+  the volume. A lane per (vertex, corner) marks and lists the bricks (2 x
+  8 x 8 voxels, one plane past k = 74) that hold such a voxel; persistent
+  blocks then walk the list, each brick's D, H and W sums of the mirrored
+  window over its halo in shared memory, each voxel's gradient of the
+  smoothed accumulator formed from the output's gradient, the output and
+  the smoothed weight the forward kept (under a gradient its H and W pass
+  also writes the weight) as it is read. Each written voxel is
+  bit-identical to the plain version's
+  (:func:`box_smooth3d_bwd_rows_plain` sums them in the kernel's order).
+  The count and the marks (64 KB at 128^3) are zeroed by each call.
+- ``voxel_splat_bwd``: a lane per (vertex, corner) gathers its voxel's
+  gradient; the vertex's eight lanes add their terms by shuffles in the
+  plain version's corner order: no atomics, its sums in its order.
 
 :func:`voxelize_semantic` differentiates through an
 ``autograd.Function`` when an input needs a gradient (on the CPU the same
 Function over the plain versions); otherwise it launches the two forward
 kernels as before and keeps nothing. All the kernels need 16-byte aligned
 float32 accumulators. ``launches_splat``, ``launches_smooth``,
-``launches_splat_bwd`` and ``launches_smooth_bwd`` count the wrapper's
-launches (a smooth call is one count for its two passes).
+``launches_splat_bwd`` and ``launches_smooth_bwd`` count the wrappers'
+launches (a smooth call, or its backward's, is one count for its
+launches).
 """
 
 from __future__ import annotations
@@ -115,8 +125,11 @@ def _load() -> ctypes.CDLL:
             lib.icon_box_smooth3d.restype = ci
             lib.icon_box_smooth3d_keep.argtypes = [vp] * 4 + [ci] * 8 + [vp]
             lib.icon_box_smooth3d_keep.restype = ci
-            lib.icon_box_smooth3d_bwd.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+            lib.icon_box_smooth3d_bwd.argtypes = [vp] * 4 + [ci] * 4 + \
+                [vp] * 3
             lib.icon_box_smooth3d_bwd.restype = ci
+            lib.icon_box_smooth3d_bwd_scratch.argtypes = [ci] * 3
+            lib.icon_box_smooth3d_bwd_scratch.restype = ctypes.c_longlong
             lib.icon_voxel_splat_bwd.argtypes = [vp] * 3 + [ci] * 4 + \
                 [vp] * 3
             lib.icon_voxel_splat_bwd.restype = ci
@@ -261,82 +274,83 @@ def _smooth(acc, k: int, t1, out, weight=None) -> None:
     _raise_on(lib, err, "box_smooth3d")
 
 
-def box_smooth3d_bwd(g_out: torch.Tensor, out: torch.Tensor,
-                     weight: torch.Tensor, k: int) -> torch.Tensor:
-    """The gradient ``[B, D, H, W, C + 1]`` of :func:`box_smooth3d`'s
-    accumulator from the gradient ``g_out`` of its output ``out`` (both
-    ``[B, D, H, W, C]``) and the smoothed ``weight [B, D, H, W]`` it kept.
-    CPU tensors take :func:`box_smooth3d_bwd_plain`; CUDA tensors (C = 3)
-    launch the kernel on the current stream or raise."""
-    global launches_smooth_bwd
-    if out.ndim != 5 or g_out.shape != out.shape or \
-            weight.shape != out.shape[:4]:
-        raise ValueError(f"g_out and out [B, D, H, W, C] and weight [B, D, "
-                         f"H, W] expected, got {tuple(g_out.shape)}, "
-                         f"{tuple(out.shape)} and {tuple(weight.shape)}")
-    if g_out.device.type == "cpu":
-        return pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
-    for name, t in (("g_out", g_out), ("out", out), ("weight", weight)):
-        _check_card(name, t)
-    if out.shape[-1] != 3:
-        raise ValueError(f"the kernel takes 3 code channels, got "
-                         f"{tuple(out.shape)}")
-    g_acc = torch.empty(out.shape[:4] + (4,), dtype=torch.float32,
-                        device=out.device)
-    _smooth_bwd(g_out, out, weight, k, torch.empty_like(g_acc), g_acc)
-    launches_smooth_bwd += 1
-    return g_acc
-
-
-def _smooth_bwd(g_out, out, weight, k: int, t1, g_acc) -> None:
-    """One ``box_smooth3d_bwd`` (the D pass into the scratch ``t1`` of
-    ``g_acc``'s size, then the H and W passes into ``g_acc``) on
-    caller-checked tensors, on the current stream; counts nothing. Raises
-    ``ValueError`` past :data:`MAX_K` or if ``t1`` or ``g_acc`` is not
-    16-byte aligned."""
-    g = smooth_geometry(k)
-    _check_aligned("t1", t1)
-    _check_aligned("g_acc", g_acc)
-    B, D, H, W = out.shape[:4]
-    lib = _load()
-    with torch.cuda.device(out.device):
-        err = lib.icon_box_smooth3d_bwd(
-            g_out.data_ptr(), out.data_ptr(), weight.data_ptr(),
-            t1.data_ptr(), g_acc.data_ptr(), B, D, H, W, k, g.rz, g.tx,
-            g.ty, torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "box_smooth3d_bwd")
-
-
-def voxel_splat_bwd(verts: torch.Tensor, codes: torch.Tensor,
-                    g_acc: torch.Tensor, res: int, codes_grad: bool = True):
+def _voxelize_bwd(verts, codes, g_out, out, weight, res: int, k: int,
+                  codes_grad: bool = True):
     """The gradients (``verts``', and ``codes``' or None without
-    ``codes_grad``) of :func:`voxel_splat` from its accumulators' gradient
-    ``g_acc [B, res^3, C + 1]``. CPU tensors take
-    :func:`voxel_splat_bwd_plain`; CUDA tensors launch the kernel on the
-    current stream or raise."""
-    global launches_splat_bwd
-    B, V = verts.shape[:2]
-    if g_acc.shape != (B, res ** 3, codes.shape[-1] + 1):
-        raise ValueError(f"g_acc [B, res^3, C + 1] expected, got "
-                         f"{tuple(g_acc.shape)}")
+    ``codes_grad``) of :func:`voxelize_semantic` from its output's gradient
+    ``g_out``, given what the forward kept: its output ``out`` and smoothed
+    weight ``weight``. CPU tensors take :func:`box_smooth3d_bwd_plain` and
+    :func:`voxel_splat_bwd_plain`; CUDA tensors launch ``box_smooth3d_bwd``
+    and ``voxel_splat_bwd`` on the current stream or raise."""
+    global launches_smooth_bwd, launches_splat_bwd
+    B = verts.shape[0]
+    shape = (B, res, res, res)
+    if out.shape != shape + (codes.shape[-1],) or g_out.shape != out.shape \
+            or weight.shape != shape:
+        raise ValueError(f"g_out and out [B, res, res, res, C] and weight "
+                         f"[B, res, res, res] of verts' batch expected, got "
+                         f"{tuple(g_out.shape)}, {tuple(out.shape)} and "
+                         f"{tuple(weight.shape)} for verts "
+                         f"{tuple(verts.shape)}")
     if verts.device.type == "cpu":
-        return pv.voxel_splat_bwd_plain(verts, codes, g_acc, res, codes_grad)
-    for name, t in (("verts", verts), ("codes", codes), ("g_acc", g_acc)):
+        g_acc = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+        return pv.voxel_splat_bwd_plain(verts, codes, g_acc.view(B, -1, 4),
+                                        res, codes_grad)
+    for name, t in (("g_out", g_out), ("out", out), ("weight", weight),
+                    ("verts", verts), ("codes", codes)):
         _check_card(name, t)
     if codes.shape[-1] != 3:
-        raise ValueError(f"the kernel takes 3 code channels per vertex, got "
+        raise ValueError(f"the kernels take 3 code channels per vertex, got "
                          f"codes {tuple(codes.shape)}")
+    dev = out.device
+    g_acc = torch.empty(shape + (4,), dtype=torch.float32, device=dev)
+    _smooth_bwd(g_out, out, weight, k, verts, _bwd_scratch(B, res, k, dev),
+                g_acc)
+    launches_smooth_bwd += 1
     g_verts = torch.empty_like(verts)
     g_codes = torch.empty_like(codes) if codes_grad else None
-    _splat_bwd(verts, codes, g_acc, res, g_verts, g_codes)
+    _splat_bwd(verts, codes, g_acc.view(B, -1, 4), res, g_verts, g_codes)
     launches_splat_bwd += 1
     return g_verts, g_codes
 
 
-def _splat_bwd(verts, codes, g_acc, res: int, g_verts, g_codes) -> None:
-    """One ``voxel_splat_bwd`` into ``g_verts`` and ``g_codes`` (None: not
-    computed) on caller-checked tensors, on the current stream; counts
+def _bwd_scratch(B: int, res: int, k: int, device) -> torch.Tensor:
+    """:func:`_smooth_bwd`'s int32 scratch for ``B`` volumes of ``res^3``
+    and box ``k`` on ``device`` (a count, a mark a brick and the list of
+    bricks; ``icon_box_smooth3d_bwd`` zeroes what must be zero). Raises
+    ``ValueError`` past :data:`MAX_K` (the one-plane brick's halo then
+    outgrows shared memory, as the forward's 8 x 8 tile does)."""
+    words = _load().icon_box_smooth3d_bwd_scratch(B, res, k)
+    if words < 0:
+        raise ValueError(f"box_smooth3d_bwd's kernel takes 1 <= k <= "
+                         f"{MAX_K}, got k={k} (B={B}, res={res})")
+    return torch.empty((words,), dtype=torch.int32, device=device)
+
+
+def _smooth_bwd(g_out, out, weight, k: int, verts, scratch, g_acc) -> None:
+    """One ``box_smooth3d_bwd`` (the count and marks zeroed, the mark
+    launch, then the bricks) into ``g_acc`` at the voxels of ``verts``'
+    trilinear corners (``ops/voxelize.py:touched_rows``; the other voxels
+    are left as they were) on caller-checked tensors of a cube, on the
+    current stream, with ``scratch`` from :func:`_bwd_scratch`; counts
     nothing. Raises ``ValueError`` if ``g_acc`` is not 16-byte aligned."""
+    _check_aligned("g_acc", g_acc)
+    B, V = verts.shape[:2]
+    lib = _load()
+    with torch.cuda.device(out.device):
+        err = lib.icon_box_smooth3d_bwd(
+            g_out.data_ptr(), out.data_ptr(), weight.data_ptr(),
+            verts.data_ptr(), B, V, out.shape[1], k, scratch.data_ptr(),
+            g_acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "box_smooth3d_bwd")
+
+
+def _splat_bwd(verts, codes, g_acc, res: int, g_verts, g_codes) -> None:
+    """One ``voxel_splat_bwd`` from ``g_acc [B, res^3, 4]`` (read at the
+    voxels of the vertices' corners inside the volume) into ``g_verts``
+    and ``g_codes`` (None: not computed) on caller-checked tensors, on the
+    current stream; counts nothing. Raises ``ValueError`` if ``g_acc`` is
+    not 16-byte aligned."""
     _check_aligned("g_acc", g_acc)
     lib = _load()
     B, V = verts.shape[:2]
@@ -368,10 +382,9 @@ class _Voxelize(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_out):
         verts, codes, out, weight = ctx.saved_tensors
-        g_acc = box_smooth3d_bwd(g_out.contiguous(), out, weight, ctx.k)
-        g_verts, g_codes = voxel_splat_bwd(
-            verts, codes, g_acc.view(verts.shape[0], -1, g_acc.shape[-1]),
-            ctx.res, codes_grad=ctx.needs_input_grad[1])
+        g_verts, g_codes = _voxelize_bwd(
+            verts, codes, g_out.contiguous(), out, weight, ctx.res, ctx.k,
+            codes_grad=ctx.needs_input_grad[1])
         return (g_verts if ctx.needs_input_grad[0] else None), g_codes, \
             None, None
 

@@ -148,17 +148,15 @@ def box_smooth3d_plain(acc: torch.Tensor, k: int,
     return (out, acc[..., -1]) if keep_weight else out
 
 
-def box_smooth3d_bwd_plain(g_out: torch.Tensor, out: torch.Tensor,
-                           weight: torch.Tensor, k: int) -> torch.Tensor:
-    """The gradient ``[B, D, H, W, C + 1]`` of :func:`box_smooth3d_plain`'s
-    accumulator, from the gradient ``g_out`` of its output ``out`` (both
-    ``[B, D, H, W, C]``) and the smoothed weight ``weight [B, D, H, W]``.
-    Per voxel, with ``m = max(weight, 1e-3)``: ``g_out / m`` for the codes;
-    for the weight ``-(sum_c g_out_c out_c) / m`` (``out_c = t_c / m``)
-    where ``weight > 1e-3``, half of it at the tie ``weight == 1e-3``
-    (JAX's ``maximum``), 0 below. Then the adjoint box over D, then H, then
-    W: :func:`_blur_axis_pad` ``mirrored``, each window summed from 0 in
-    the order of its offsets and divided by ``k``."""
+def voxel_grad(g_out: torch.Tensor, out: torch.Tensor,
+               weight: torch.Tensor) -> torch.Tensor:
+    """The gradient ``[B, D, H, W, C + 1]`` of the smoothed accumulator
+    (before the adjoint box) from the gradient ``g_out`` of the output
+    ``out`` (both ``[B, D, H, W, C]``) and the smoothed weight ``weight
+    [B, D, H, W]``. Per voxel, with ``m = max(weight, 1e-3)``: ``g_out /
+    m`` for the codes; for the weight ``-(sum_c g_out_c out_c) / m``
+    (``out_c = t_c / m``) where ``weight > 1e-3``, half of it at the tie
+    ``weight == 1e-3`` (JAX's ``maximum``), 0 below."""
     floor = torch.tensor(WEIGHT_FLOOR, dtype=weight.dtype,
                          device=weight.device)
     m = torch.maximum(weight, floor)
@@ -168,10 +166,74 @@ def box_smooth3d_bwd_plain(g_out: torch.Tensor, out: torch.Tensor,
     g_w = -(s / m)
     g_w = torch.where(weight > floor, g_w, torch.where(
         weight == floor, g_w * 0.5, torch.zeros_like(g_w)))
-    g = torch.cat([g_out / m[..., None], g_w[..., None]], -1)
+    return torch.cat([g_out / m[..., None], g_w[..., None]], -1)
+
+
+def box_smooth3d_bwd_plain(g_out: torch.Tensor, out: torch.Tensor,
+                           weight: torch.Tensor, k: int) -> torch.Tensor:
+    """The gradient ``[B, D, H, W, C + 1]`` of :func:`box_smooth3d_plain`'s
+    accumulator, from the gradient ``g_out`` of its output ``out`` (both
+    ``[B, D, H, W, C]``) and the smoothed weight ``weight [B, D, H, W]``:
+    :func:`voxel_grad`, then the adjoint box over D, then H, then W:
+    :func:`_blur_axis_pad` ``mirrored``, each window summed from 0 in the
+    order of its offsets and divided by ``k``."""
+    g = voxel_grad(g_out, out, weight)
     for axis in (1, 2, 3):
         g = _blur_axis_pad(g, axis, k, mirrored=True)
     return g
+
+
+def touched_rows(verts: torch.Tensor, res: int) -> torch.Tensor:
+    """The rows of the splat's accumulators ``[B * res^3]`` that
+    :func:`voxel_splat_bwd_plain` reads, sorted, each once (int64): the
+    voxel of every trilinear corner of ``verts [B, V, 3]`` inside the
+    volume, decided as the kernels decide it, on the float coordinate
+    ``floor(g) + d`` in ``[0, res - 1]`` (no voxel for a NaN)."""
+    B = verts.shape[0]
+    g = (verts + 1.0) * 0.5 * (res - 1)
+    base = torch.floor(g)
+    first = torch.arange(B, device=verts.device)[:, None] * res ** 3
+    rows = []
+    for d in CORNERS:
+        x = base + torch.tensor(d, dtype=verts.dtype, device=verts.device)
+        inside = torch.all((x >= 0) & (x <= res - 1), dim=-1)
+        i = torch.where(inside[..., None], x, torch.zeros_like(x)).long()
+        lin = (i[..., 2] * res + i[..., 1]) * res + i[..., 0] + first
+        rows.append(lin[inside])
+    return torch.unique(torch.cat(rows))
+
+
+def box_smooth3d_bwd_rows_plain(g_out: torch.Tensor, out: torch.Tensor,
+                                weight: torch.Tensor, k: int,
+                                rows: torch.Tensor) -> torch.Tensor:
+    """:func:`box_smooth3d_bwd_plain` at ``rows`` (flat indices into ``[B
+    * D * H * W]``) only: ``[len(rows), C + 1]``, each row from its own
+    window, as the ``box_smooth3d_bwd`` kernel forms it: the
+    :func:`voxel_grad` of the ``k x k x k`` voxels of the mirrored window
+    (zero outside the volume); for each of its ``(y, x)`` columns the sum
+    over z, from 0 in the order of the offsets, divided by ``k``; the sums
+    of those over y, then over x, each divided by ``k``. The same
+    operations in the same order as the dense version's, so the same
+    bits."""
+    B, D, H, W = out.shape[:4]
+    lo = k - 1 - k // 2
+    pad = (0, 0) + (lo, k - 1 - lo) * 3
+    grad = F.pad(voxel_grad(g_out, out, weight), pad)
+    rows = rows.to(device=out.device, dtype=torch.int64)
+    x, rest = rows % W, rows // W
+    y, rest = rest % H, rest // H
+    z, b = rest % D, rest // D
+    off = torch.arange(k, device=out.device)
+    win = grad[b[:, None, None, None], (z[:, None] + off)[:, :, None, None],
+               (y[:, None] + off)[:, None, :, None],
+               (x[:, None] + off)[:, None, None, :]]     # [n, kz, ky, kx, C]
+    kt = torch.tensor(float(k), dtype=out.dtype, device=out.device)
+    for _ in range(3):                    # D, then H, then W
+        s = torch.zeros_like(win[:, 0])
+        for o in range(k):
+            s = s + win[:, o]
+        win = s / kt
+    return win
 
 
 def voxel_splat_bwd_plain(verts: torch.Tensor, codes: torch.Tensor,

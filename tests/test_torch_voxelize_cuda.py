@@ -4,11 +4,14 @@
 the same order, true divisions). ``voxel_splat``'s float atomics add in an
 order that changes from run to run: every term is non-negative, so each
 voxel of m terms may differ from the plain sum by at most 2 m 2^-24 of it
-(``ops/voxelize.py:splat_terms``). The backward kernels,
-``box_smooth3d_bwd`` and ``voxel_splat_bwd``, must equal their plain twins
-bit for bit (the same operations in the same order, no atomics); the
-whole gradient through ``voxelize_semantic`` on the card equals the CPU's
-to ``GRAD_RTOL`` of its largest value (the forward splat's atomics).
+(``ops/voxelize.py:splat_terms``). The backward kernels must equal their
+plain twins bit for bit (the same operations in the same order, no
+atomics): ``box_smooth3d_bwd`` at the rows the splat's backward reads
+(``touched_rows``) against ``box_smooth3d_bwd_rows_plain`` and the dense
+``box_smooth3d_bwd_plain``, ``voxel_splat_bwd`` against
+``voxel_splat_bwd_plain``; the whole gradient through ``voxelize_semantic``
+on the card equals the CPU's to ``GRAD_RTOL`` of its largest value (the
+forward splat's atomics).
 
 Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_voxelize_cuda.py --noconftest -m cuda -q``. Where no card
@@ -158,14 +161,20 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match=f"k <= {kv.MAX_K}"):
         kv.box_smooth3d(torch.zeros(1, 8, 8, 8, 4, device=cuda_device),
                         kv.MAX_K + 1)
+    z = torch.zeros(1, 8, 8, 8, 3, device=cuda_device)
+    with pytest.raises(ValueError, match=f"k <= {kv.MAX_K}"):
+        kv._voxelize_bwd(verts, codes, z, z,
+                         torch.zeros(1, 8, 8, 8, device=cuda_device), 8,
+                         kv.MAX_K + 1)
     with torch.no_grad():             # no gradient asked: the kernels run
         kv.voxel_splat(verts.clone().requires_grad_(True), codes, 16)
 
 
-def _grad_inputs(shape, seed, dev):
+def _grad_inputs(shape, seed, dev, ties=None):
     """(g_out, out, weight) of the smooth's backward: ``out`` and ``weight``
-    from the plain forward of a sparse accumulator, a few weights set to the
-    floor 1e-3 exactly and below it, and a random ``g_out``."""
+    from the plain forward of a sparse accumulator, 32 weights set to the
+    floor 1e-3 exactly and 32 below it (at the flat voxels ``ties`` of the
+    volume when given, else at random ones), and a random ``g_out``."""
     rng = np.random.RandomState(seed)
     acc = rng.rand(*shape, 4).astype(np.float32)
     acc[rng.rand(*shape) < 0.7] = 0.0
@@ -174,28 +183,128 @@ def _grad_inputs(shape, seed, dev):
                                         keep_weight=True)
     weight = weight.contiguous()
     flat = weight.view(-1)
-    idx = torch.from_numpy(rng.choice(flat.numel(), 64, replace=False))
+    idx = torch.from_numpy(rng.choice(flat.numel(), 64, replace=False)) \
+        if ties is None else ties[:64].cpu()
     flat[idx[:32].to(dev)] = 1e-3
     flat[idx[32:].to(dev)] = 5e-4
     g_out = torch.from_numpy(rng.randn(*shape, 3).astype(np.float32))
     return g_out.to(dev), out.contiguous(), weight
 
 
+def _windows(rows, shape, k):
+    """``[B, D, H, W]`` bool: the voxels the mirrored k-box windows of the
+    flat ``rows`` read."""
+    import torch.nn.functional as F
+    lo = k - 1 - k // 2
+    m = torch.zeros(int(np.prod(shape)), device=rows.device)
+    m[rows] = 1.0
+    m = F.pad(m.view(shape[0], 1, *shape[1:]), (k - 1 - lo, lo) * 3)
+    return F.max_pool3d(m, k, stride=1)[:, 0] > 0
+
+
+def _rows_held(g_out, out, weight, k, verts):
+    """box_smooth3d_bwd's kernels against both twins at the touched rows,
+    twice, the scratch filled with ones before the second call (the call
+    zeroes its count and marks itself); they count no launch. Returns the
+    kernels' output."""
+    B, res = out.shape[0], out.shape[1]
+    rows = pv.touched_rows(verts, res)
+    want = pv.box_smooth3d_bwd_rows_plain(g_out, out, weight, k, rows)
+    dense = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+    assert torch.equal(want, dense.view(-1, 4)[rows])
+    before = kv.launches_smooth_bwd
+    scratch = kv._bwd_scratch(B, res, k, out.device)
+    got = torch.empty_like(dense)
+    for _ in range(2):
+        kv._smooth_bwd(g_out, out, weight, k, verts, scratch, got)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(-1, 4)[rows], want)
+        scratch.fill_(1)
+    assert kv.launches_smooth_bwd == before
+    return got
+
+
 @pytest.mark.parametrize("shape,k", [((1, 128, 128, 128), 11),
-                                     ((2, 33, 17, 40), 3),
+                                     ((2, 33, 33, 33), 3),
                                      ((1, 64, 64, 64), 4),
                                      ((1, 9, 9, 9), 1),
                                      ((1, 128, 128, 128), 2)])
 def test_box_smooth3d_bwd_is_bit_identical(cuda_device, shape, k):
-    g_out, out, weight = _grad_inputs(shape, k, cuda_device)
-    assert int((weight == 1e-3).sum()) >= 32   # the ties are in the input
-    before = kv.launches_smooth_bwd
-    got = kv.box_smooth3d_bwd(g_out, out, weight, k)
+    verts, _ = _inputs(shape[0], 3000, False, k, cuda_device, pad=1000)
+    res = shape[1]
+    rows = pv.touched_rows(verts, res)
+    # the ties at rows and, where the window is wider than a voxel, beside
+    # them: inside the windows the kernels read
+    inside = _windows(rows, shape, k)
+    near = rows if k == 1 else torch.cat([rows, rows + 1, rows + res])
+    near = torch.unique(near.clamp(max=int(np.prod(shape)) - 1))
+    near = near[inside.view(-1)[near]]
+    ties = near[torch.randperm(len(near), generator=torch.Generator()
+                               .manual_seed(k))[:64].to(near.device)]
+    g_out, out, weight = _grad_inputs(shape, k, cuda_device, ties)
+    assert int(((weight == 1e-3) & inside).sum()) >= 32
+    assert int(((weight < 1e-3) & inside).sum()) >= 32
+    _rows_held(g_out, out, weight, k, verts)
+
+
+@pytest.mark.parametrize("k", [75, kv.MAX_K])
+def test_box_smooth3d_bwd_one_plane_bricks(cuda_device, k):
+    """Past k = 74 a brick is one plane: its rows against the dense twin
+    (the row twin's windows of k^3 voxels a row are too large here)."""
+    shape = (1, 20, 20, 20)
+    verts, _ = _inputs(1, 200, False, k, cuda_device, pad=100)
+    rows = pv.touched_rows(verts, shape[1])
+    g_out, out, weight = _grad_inputs(shape, k, cuda_device, rows)
+    dense = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
+    got = torch.empty_like(dense)
+    kv._smooth_bwd(g_out, out, weight, k, verts,
+                   kv._bwd_scratch(1, shape[1], k, cuda_device), got)
     torch.cuda.synchronize()
-    assert kv.launches_smooth_bwd == before + 1
-    want = pv.box_smooth3d_bwd_plain(g_out, out, weight, k)
-    assert got.shape == want.shape == shape + (4,)
-    assert torch.equal(got, want)
+    assert torch.equal(got.view(-1, 4)[rows], dense.view(-1, 4)[rows])
+    assert float(dense.view(-1, 4)[rows].abs().max()) > 0
+
+
+def _footprint(name, dev):
+    """(verts, codes): phase 18a's kind of input (642 vertices, the rest
+    at one point with zero codes), the dense footprint (the body's first
+    8,000 vertices, ``kernels/profile_voxelize.py``) or two padded entries
+    with their own codes."""
+    if name == "dense":
+        from icon_tpu_torch.kernels.profile_voxelize import voxel_input
+        return voxel_input(dev)
+    if name == "padded":
+        return _inputs(1, 8000, False, 18, dev, pad=7358)
+    return _inputs(2, 8000, True, 19, dev, pad=(7358, 5438))
+
+
+@pytest.mark.parametrize("name", ["padded", "dense", "batched"])
+def test_backward_kernels_on_footprints(cuda_device, name):
+    """Both backward kernels at PaMIR's 128^3 and k = 11 on the forward's
+    own output and weight: the box at the touched rows, then the splat's
+    backward on the box's output against its twin on those rows alone,
+    and the entry (one launch of each) against both."""
+    verts, codes = _footprint(name, cuda_device)
+    B, res, k = verts.shape[0], 128, 11
+    out, weight = kv.box_smooth3d(kv.voxel_splat(verts, codes, res).view(
+        B, res, res, res, 4), k, keep_weight=True)
+    g_out = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(7))
+    got = _rows_held(g_out, out, weight, k, verts)
+    rows = pv.touched_rows(verts, res)
+    clean = torch.zeros(B * res ** 3, 4, device=cuda_device)
+    clean[rows] = got.view(-1, 4)[rows]
+    gv, gc = torch.empty_like(verts), torch.empty_like(codes)
+    kv._splat_bwd(verts, codes, got.view(B, -1, 4), res, gv, gc)
+    want_v, want_c = pv.voxel_splat_bwd_plain(verts, codes,
+                                              clean.view(B, -1, 4), res)
+    before = (kv.launches_splat_bwd, kv.launches_smooth_bwd)
+    ev, ec = kv._voxelize_bwd(verts, codes, g_out, out, weight, res, k)
+    torch.cuda.synchronize()
+    assert (kv.launches_splat_bwd, kv.launches_smooth_bwd) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(gv, want_v) and torch.equal(gc, want_c)
+    assert torch.equal(ev, want_v) and torch.equal(ec, want_c)
+    assert float(gv.abs().max()) > 0
 
 
 @pytest.mark.parametrize("k", [11, 4])
@@ -224,15 +333,16 @@ def test_splat_bwd_is_bit_identical(cuda_device, B, V, batched, res, pad):
     verts[:, 25:50, 1:] = 1.0
     g_acc = torch.randn(B, res ** 3, 4, device=cuda_device)
     before = kv.launches_splat_bwd
-    gv, gc = kv.voxel_splat_bwd(verts, codes, g_acc, res)
+    gv, gc = torch.empty_like(verts), torch.empty_like(codes)
+    kv._splat_bwd(verts, codes, g_acc, res, gv, gc)
     torch.cuda.synchronize()
-    assert kv.launches_splat_bwd == before + 1
+    assert kv.launches_splat_bwd == before
     want_v, want_c = pv.voxel_splat_bwd_plain(verts, codes, g_acc, res)
-    assert gv.shape == verts.shape and gc.shape == codes.shape
     assert torch.equal(gv, want_v) and torch.equal(gc, want_c)
-    only_v, none = kv.voxel_splat_bwd(verts, codes, g_acc, res,
-                                      codes_grad=False)
-    assert none is None and torch.equal(only_v, want_v)
+    only_v = torch.empty_like(verts)
+    kv._splat_bwd(verts, codes, g_acc, res, only_v, None)
+    torch.cuda.synchronize()
+    assert torch.equal(only_v, want_v)
 
 
 def test_voxelize_semantic_grad_matches_cpu(cuda_device):

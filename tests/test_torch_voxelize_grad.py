@@ -184,25 +184,26 @@ def test_codes_gradient_only_where_asked():
 
 
 def test_backward_twins_shapes_and_refusals():
-    """The backward wrappers on CPU tensors are the plain twins, launch
-    nothing, and refuse mismatched shapes."""
+    """The backward entry on CPU tensors is the plain twins, launches
+    nothing, and refuses mismatched shapes."""
     verts, codes = _inputs(6, True)
-    g_acc = torch.randn(2, RES ** 3, 4)
+    rng = np.random.RandomState(6)
+    out = torch.from_numpy(rng.rand(2, RES, RES, RES, 3).astype(np.float32))
+    w = torch.from_numpy(rng.rand(2, RES, RES, RES).astype(np.float32))
+    g_out = torch.from_numpy(rng.randn(2, RES, RES, RES, 3)
+                             .astype(np.float32))
     before = (kv.launches_splat_bwd, kv.launches_smooth_bwd)
-    gv, gc = kv.voxel_splat_bwd(t(verts), t(codes), g_acc, RES)
+    gv, gc = kv._voxelize_bwd(t(verts), t(codes), g_out, out, w, RES, 4)
+    g_acc = pv.box_smooth3d_bwd_plain(g_out, out, w, 4).view(2, -1, 4)
     want = pv.voxel_splat_bwd_plain(t(verts), t(codes), g_acc, RES)
     assert torch.equal(gv, want[0]) and torch.equal(gc, want[1])
-    assert kv.voxel_splat_bwd(t(verts), t(codes), g_acc, RES,
-                              codes_grad=False)[1] is None
-    out = torch.rand(2, 8, 8, 8, 3)
-    w = torch.rand(2, 8, 8, 8)
-    g = kv.box_smooth3d_bwd(torch.randn(2, 8, 8, 8, 3), out, w, 4)
-    assert g.shape == (2, 8, 8, 8, 4)
+    assert kv._voxelize_bwd(t(verts), t(codes), g_out, out, w, RES, 4,
+                            codes_grad=False)[1] is None
     assert (kv.launches_splat_bwd, kv.launches_smooth_bwd) == before
     with pytest.raises(ValueError):
-        kv.voxel_splat_bwd(t(verts), t(codes), g_acc[:, :-1], RES)
+        kv._voxelize_bwd(t(verts), t(codes), g_out, out, w[..., :-1], RES, 4)
     with pytest.raises(ValueError):
-        kv.box_smooth3d_bwd(torch.randn(2, 8, 8, 8, 3), out, w[..., :-1], 4)
+        kv._voxelize_bwd(t(verts)[:1], t(codes)[:1], g_out, out, w, RES, 4)
 
 
 @pytest.mark.parametrize("k", [3, 4])
