@@ -31,7 +31,13 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    icon-filter config, 512^2 normals, the subdiv-5 body, res 256 -> levels
    33/65/129/257), seeded random weights: 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
-   package's values for the same level set;
+   package's values for the same level set; then the non-blocking
+   dispatch: 5 warm ``compute()`` calls under
+   ``torch.cuda.set_sync_debug_mode("error")``, bench.py's same-thread
+   2-deep loop and ``Frame.serve`` (the decode on a worker thread), each
+   timed over SERVE_FRAMES frames, every mesh equal to the sequential
+   frame's (faces and vertices), no overflow, the kNN kernel launched, and
+   the device's idle share over a served window under torch.profiler;
 5. the rasterizer on the card (the raster_fwd kernel) against the CPU's
    plain version, on the subdiv-5 body: the normal renders of the NormalNet
    frame (512^2, azimuth 0 and 180) and the vertex-visibility raster
@@ -42,7 +48,10 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    widths at 512^2, the rest as in phase 4): 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
    package's values for the variant field, predicted normals of unit
-   length;
+   length; the synchronizations a warm ``compute()`` still makes
+   (``set_sync_debug_mode("warn")``, by file and line), then
+   ``serve`` over SERVE_FRAMES frames, timed, every mesh equal to the
+   sequential frame's;
 7. the rasterizer kernels (raster_setup, raster_bin, raster_fwd,
    raster_bwd) against the plain version on the card, at the demo's shapes
    (512^2 normal renders with K=256 and the fit's K=96; the 1024^2
@@ -142,11 +151,13 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
 14. the geometry trainer: the fixture (2 subjects x 3 views at 512^2) on
    the card, its items' signs against the card's ray parity, 3 small
    steps card vs CPU, the train CLI at the published width (4 steps,
-   ``-resume`` to 6, ``-test`` on 2 items, a pamir run of 1 step), the
+   ``-resume`` to 6, ``-test`` on EVAL_ITEMS items, a pamir run of 1
+   step), the
    kernels against their plain versions on those runs' inputs;
 15. the dataset renderer and the NormalNet trainer on phase 14's scans and
-   fits, TF32 off: the render CLI at the reference's settings (``-views
-   36 -size 512 -prt -prt_dirs 64 -vis_res 4096``, ``-procs 1``; the file
+   fits, TF32 off: the render CLI at the reference's settings but for
+   the depth of its views (``-views 12`` of the reference's 36, ``-size
+   512 -prt -prt_dirs 64 -vis_res 4096``, ``-procs 1``; the file
    set, every subject rendered with its body), the raster kernels against
    the plain version on the first and last call of each raster kind of
    that run (512^2 K=256 renders, the 4096^2 K=512 visibility with its
@@ -202,7 +213,7 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    times (torch.profiler), the wrappers', their fills' and the whole
    indexed marcher's times; then the same on the grid's 513^3
    align_corners upsample with budgets that hold it (1,188,432
-   triangles), and the bytes the wrappers keep there; (d)
+   triangles), and the bytes the wrappers hold after it (none); (d)
    ``ReconEngine(virtual_final=True)`` with ``AutoMarcher(virtual=True)``
    against the materialized final level at 257^3 (face set, u8 step), and at
    513^3 both ways' peak memory, the virtual one allocating no fine grid;
@@ -617,7 +628,139 @@ def phase_full_frame(dev, card, iters: int = 5):
                            ("n_tris", len(faces), JAX_N_TRIS)):
         if abs(got - ref) > COUNT_RTOL * ref:
             raise AssertionError(f"{name} {got} vs JAX {ref}")
-    return launched, dict(fr.engine._bucket_used)
+    buckets = dict(fr.engine._bucket_used)
+    serving(fr, "4", card, statistics.median(times), verts, faces)
+    return launched, buckets
+
+
+# frames a timed serving loop runs (phases 4 and 6); frames of the window
+# whose device idle share phase 4 records under torch.profiler
+SERVE_FRAMES, SERVE_PROFILED = 12, 6
+
+
+def sync_sites(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, {the innermost ``file:line`` of the port, or of this script,
+    that called a synchronizing operation: times}) in the order found."""
+    import traceback
+    import warnings
+    sites = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if f.filename.startswith(root)]
+        f = stack[-1] if stack else None
+        site = f"{os.path.relpath(f.filename, root)}:{f.lineno}" if f \
+            else f"{filename}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def same_mesh(got, verts, faces) -> bool:
+    return np.array_equal(got[1], faces) and np.array_equal(got[0], verts)
+
+
+def serving(fr, tag, card, seq_s, verts, faces):
+    """[4]/[6] The frame's non-blocking dispatch after its sequential
+    timing (``seq_s`` s/image, the mesh ``verts``, ``faces``): the
+    synchronizations a warm ``compute()`` makes (sync debug mode "warn",
+    by file and line). Phase 4: then 5 warm ``compute()`` calls under the
+    mode "error", bench.py's same-thread 2-deep loop (b) and ``serve``,
+    each over SERVE_FRAMES frames, and the device idle share of a served
+    window. Phase 6: then ``serve``. Every mesh must equal the sequential
+    one, with no overflow and the kNN kernel launched."""
+    token, sites = sync_sites(fr.compute)
+    meshes = [fr.marcher.unpack(token[0])]
+    print(f"[{tag}] synchronizations in a warm compute() "
+          f"(set_sync_debug_mode('warn')): {sum(sites.values())} at "
+          f"{sites}", flush=True)
+    if tag == "4":
+        tokens = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(5):
+                tokens.append(fr.compute())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        bad = sum(not same_mesh(fr.marcher.unpack(t[0]), verts, faces)
+                  for t in tokens)
+        print(f"[4] 5 warm compute() under set_sync_debug_mode('error'): "
+              f"no synchronizing operation; meshes equal to the sequential "
+              f"frame's: {5 - bad} of 5", flush=True)
+        if bad:
+            raise AssertionError("phase 4: a compute() token's mesh differs")
+        pending = fr.compute()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_FRAMES):
+            nxt = fr.compute()
+            meshes.append(fr.marcher.unpack(pending[0]))
+            pending = nxt
+        same_thread = (time.perf_counter() - t0) / SERVE_FRAMES
+        meshes.append(fr.marcher.unpack(pending[0]))
+    reset_launches()
+    t0 = time.perf_counter()
+    served = fr.serve(SERVE_FRAMES)
+    served_s = (time.perf_counter() - t0) / SERVE_FRAMES
+    launched = read_launches()
+    meshes += [(v, f) for _, v, f in served]
+    over = [int(s[k]) for s, _, _ in served for k in s
+            if k.endswith("_overflow")]
+    bad = sum(not same_mesh(m, verts, faces) for m in meshes)
+    line = (f"[{tag}] s/image on {card}, TF32 off: sequential {seq_s:.4f} "
+            f"(median)")
+    if tag == "4":
+        line += f", same-thread 2-deep loop {same_thread:.4f}"
+    print(f"{line}, served {served_s:.4f} (each over {SERVE_FRAMES} frames"
+          f"); kNN launches a served frame "
+          f"{launched['knn_f32'] / SERVE_FRAMES:.2f}; meshes equal to the "
+          f"sequential frame's: {len(meshes) - bad} of {len(meshes)}; "
+          f"overflow {max(over)}", flush=True)
+    if bad or any(over):
+        raise AssertionError(f"phase {tag}: served meshes differ or "
+                             f"overflow")
+    check_launched(launched, ("knn_f32",), f"phase {tag}'s served frames")
+    if tag == "4":
+        t0 = time.perf_counter()
+        wall_ms, busy_ms = device_busy(lambda: fr.serve(SERVE_PROFILED))
+        held_s = time.perf_counter() - t0
+        idle = f"{1 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else \
+            "not measured (no device time recorded)"
+        print(f"[4] served window of {SERVE_PROFILED} frames under "
+              f"torch.profiler (device activity only): wall "
+              f"{wall_ms:.3f} ms ({wall_ms / SERVE_PROFILED / 1e3:.4f} "
+              f"s/image), device busy {busy_ms:.3f} ms, idle share {idle}; "
+              f"{held_s:.2f} s with the profiler's start and stop",
+              flush=True)
+
+
+def device_busy(fn):
+    """(wall ms, device busy ms) of ``fn()`` under torch.profiler,
+    recording device activity only (the host's ops are not traced, which
+    would slow the dispatch it measures): the kernels, copies and memsets
+    of one stream do not overlap, so their sum is the busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    return wall_ms, busy_ms
 
 
 def phase_raster(dev, verts_np, faces_np):
@@ -767,6 +910,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
                            ("n_tris", len(faces), JAX_VARIANT_N_TRIS)):
         if abs(got - ref) > COUNT_RTOL * ref:
             raise AssertionError(f"{name} {got} vs JAX {ref}")
+    serving(fr, "6", card, statistics.median(times), verts, faces)
     return launched
 
 
@@ -2246,6 +2390,7 @@ def phase_priors(dev, card):
 # (data/fixture.py:train_config: batch 4, 512^2, 8,000 samples an item)
 TRAIN_SIZE, TRAIN_SAMPLES, TRAIN_BATCH = 512, 8000, 4
 TRAIN_STEPS, RESUME_STEPS = 4, 6
+EVAL_ITEMS = 1          # items of the -test run (cut in depth from 2)
 # the small card-vs-CPU steps (c): the first step's loss (the same weights)
 # to TRAIN_LOSS_RTOL; after a step a parameter may differ by up to the
 # optimizer's largest move (RMSprop's |u| <= lr / sqrt(1 - 0.9)) where its
@@ -2447,7 +2592,8 @@ def phase_train(dev, card, d):
     remove = knn_spy(knn_calls)
     try:
         rec3, launched = run_cli(["-cfg", cfg_path, "-test",
-                                  "--max_eval_items", "2"], "eval")
+                                  "--max_eval_items", str(EVAL_ITEMS)],
+                           "eval")
     finally:
         remove()
     runs.append(launched)
@@ -2459,7 +2605,7 @@ def phase_train(dev, card, d):
               f"{r['chamfer']:.4f} P2S {r['p2s']:.4f} NC {r['NC']:.4f}, "
               f"levels {r['levels']}, {r['n_tris']} tris, {r['s']:.3f} "
               f"s/item", flush=True)
-    if len(items) != 2 or not all(
+    if len(items) != EVAL_ITEMS or not all(
             np.isfinite([r["chamfer"], r["p2s"], r["NC"]]).all()
             for r in items):
         raise AssertionError("phase 14: eval metrics missing or "
@@ -2543,7 +2689,8 @@ def train_kernels_agree(dev, root, knn_calls, voxel_calls, items):
     return worst
 
 
-RENDER_VIEWS, RENDER_SIZE, PRT_DIRS, VIS_RES = 36, 512, 64, 4096
+# the reference's render settings but for the depth of its views (36 there)
+RENDER_VIEWS, RENDER_SIZE, PRT_DIRS, VIS_RES = 12, 512, 64, 4096
 PRT_RES = 512                   # compute_prt's depth rasters, as render_one
 RENDER_DIRS = ("calib", "render", "normal_F", "normal_B", "T_normal_F",
                "T_normal_B", "vis")
@@ -2683,7 +2830,8 @@ def render_kernels_agree(calls, recs, rng):
                 worst[k] = max(worst.get(k, 0.0), errs[k])
             if size != VIS_RES:
                 continue
-            # call i of the visibility is view i % 36 of subject i // 36
+            # call i of the visibility is view i % RENDER_VIEWS of subject
+            # i // RENDER_VIEWS
             rec = recs[i // RENDER_VIEWS]
             y = (i % RENDER_VIEWS) * (360 // RENDER_VIEWS)
             with torch.no_grad():
@@ -3963,14 +4111,17 @@ def march_upsampled(km, PM, occ, dev):
     del up
     cx, cy, cz, _, _, n_cells, _ = PM._active_cells(fine, 0.5, mc, None)
     cells = (cx, cy, cz, n_cells)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
     n_act, nt, nu = march_identical(km, fine, cells, mt, mv,
                                     "513^3 upsample")
-    kept = sum(t.numel() * t.element_size() for t in km._kept.values())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
     bitmap = km.index_sizes(mt, tuple(fine.shape))["bitmap"] * 4
-    print(f"[17c] 513^3: the wrappers keep {kept} bytes zeroed (summary and "
-          f"scan scratch); the bitmap's {bitmap} bytes go back after each "
-          f"call", flush=True)
-    km.release_buffers()
+    print(f"[17c] 513^3: the wrappers hold {held} bytes after their calls "
+          f"(each call's bitmap, {bitmap} bytes, summary and scan scratch "
+          f"go back; the C entries zero the summary and scratch a call)",
+          flush=True)
     eb = km.emit_buffers(cx.shape[0], mt, dev)
     ib = km.index_buffers(mt, mv, tuple(fine.shape), dev)
     e_ms = kernel_ms(lambda: km._emit_launch(fine, cx, cy, cz, n_cells, 0.5,

@@ -30,16 +30,17 @@
 // operation rounded on its own, as the plain version does) and the int64
 // edge id min(lin_a, lin_b) * 8 + direction code. Triangles past max_tris
 // are dropped (the total still counts them). Only tiles holding live cells
-// (below *n_cells) run. The block that takes the launch's last ticket
-// zeroes the ticket and the statuses used, so the scratch is zero again for
-// the next launch.
+// (below *n_cells) run. The C entry zeroes the scan's scratch (one
+// cudaMemsetAsync) before the launch.
 //
 // mt_index (four launches, each over the live slots or the summary):
 // every vertex lies on one lattice edge and edge ids are below D H W 8.
 // A bitmap of that id space (one bit an id) holds anything on entry: only
 // the words of live ids are ever read, and the first pass zeroes those.
-// Its summary (one bit a bitmap word, 1/32 of the bitmap's bytes) is zero
-// on entry and left zero.
+// Its summary (one bit a bitmap word, 1/32 of the bitmap's bytes) and the
+// scan's scratch are zeroed by the C entry (two cudaMemsetAsync) before the
+// first pass, so that a call owns them whole: launches of two calls that
+// host threads interleave on one stream never share a summary bit.
 // 1. clear: a grid-stride loop over the 3 * n_tris live slots zeroes each
 //    id's bitmap word.
 // 2. mark: the same loop ORs each id into the bitmap (the slots of one
@@ -52,7 +53,7 @@
 //    distinct ids before it. The thread writes
 //    (touched words before it, its bits) for its summary word, and (ids
 //    before it, its bits) for each touched bitmap word in a compact array
-//    indexed by the touched words' rank; it zeroes its summary word.
+//    indexed by the touched words' rank.
 // 4. write: a live slot's rank is its touched word's ids before it plus the
 //    popcount of its word below its bit; it is the slot's face index, and
 //    the slot writes its point to that row of the vertex table (rows below
@@ -159,7 +160,7 @@ __device__ unsigned long long look_back(const unsigned long long* status,
 }
 
 // Scratch of a single-pass scan: [0] the tile ticket, [1 + t] tile t's
-// status; zero between launches.
+// status; zero on entry (the C entries' memset).
 struct Scan {
   unsigned long long* ticket;
   unsigned long long* status;
@@ -169,23 +170,14 @@ __device__ __forceinline__ Scan scan_of(unsigned long long* scratch) {
   return Scan{scratch, scratch + 1};
 }
 
-// The block's next tile, or -1 when none is left. Each block takes one
-// ticket past the tiles, after its last tile, so the block that takes the
-// launch's last ticket knows that every block's look-backs are over: it
-// zeroes the ticket and the first `tiles` statuses for the next launch.
+// The block's next tile, or -1 when none is left.
 __device__ long long next_tile(const Scan& sc, long long tiles,
                                long long* shared_tile) {
   if (threadIdx.x == 0)
     *shared_tile = static_cast<long long>(atomicAdd(sc.ticket, 1ull));
   __syncthreads();                   // also: the block's last tile is done
   const long long t = *shared_tile;
-  if (t < tiles) return t;
-  if (t == tiles + gridDim.x - 1) {
-    for (long long k = threadIdx.x; k < tiles; k += blockDim.x)
-      sc.status[k] = 0;
-    if (threadIdx.x == 0) *sc.ticket = 0;
-  }
-  return -1;
+  return t < tiles ? t : -1;
 }
 
 __global__ void __launch_bounds__(kEmitThreads, kEmitMinBlocks)
@@ -397,7 +389,7 @@ index_mark_kernel(const long long* __restrict__ teid,
 
 __global__ void __launch_bounds__(kThreads)
 index_scan_kernel(long long n_sum, const unsigned* __restrict__ bitmap,
-                  unsigned* __restrict__ summary,
+                  const unsigned* __restrict__ summary,
                   int2* __restrict__ sum_rank, int2* __restrict__ word_rank,
                   long long* __restrict__ n_unique,
                   unsigned long long* __restrict__ scratch) {
@@ -464,7 +456,6 @@ index_scan_kernel(long long n_sum, const unsigned* __restrict__ bitmap,
         word_rank[k++] = make_int2(id, static_cast<int>(wb));
         id += __popc(wb);
       }
-      summary[s0] = 0;
     }
     __syncthreads();                 // warp_sums and sBefore reused
   }
@@ -557,11 +548,12 @@ int icon_mt_emit_tile_cells() { return kTileCells; }
 int icon_mt_index_tile_words() { return kThreads; }
 
 // occ [D, H, W] f32; cx, cy, cz [nc] int64 cell coordinates (cells past
-// *n_cells are dead); scratch [1 + ceil(nc / 128)] u64, zero on entry and
-// left zero; writes the triangles' vertex slots tvx, tvy, tvz
-// [max_tris * 3] f32 and teid [max_tris * 3] int64 (rows past the total
-// left as the caller filled them) and *n_total (int64), the triangle count
-// before the max_tris cut. Returns a cudaError_t.
+// *n_cells are dead); scratch [1 + ceil(nc / 128)] u64 (any contents:
+// zeroed here on the stream before the launch); writes the triangles'
+// vertex slots tvx, tvy, tvz [max_tris * 3] f32 and teid [max_tris * 3]
+// int64 (rows past the total left as the caller filled them) and *n_total
+// (int64), the triangle count before the max_tris cut. Returns a
+// cudaError_t.
 int icon_mt_emit(const float* occ, int D, int H, int W, const long long* cx,
                  const long long* cy, const long long* cz,
                  const long long* n_cells, int nc, float iso,
@@ -574,7 +566,11 @@ int icon_mt_emit(const float* occ, int D, int H, int W, const long long* cx,
   cudaError_t err = grid_for(0, emit_kernel, kEmitThreads, nc,
                              kTileCells, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  emit_kernel<<<grid, kEmitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long words = 1 + (nc + kTileCells - 1) / kTileCells;
+  err = cudaMemsetAsync(scratch, 0, words * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  emit_kernel<<<grid, kEmitThreads, 0, s>>>(
       occ, Grid{D, H, W}, cx, cy, cz, n_cells, nc, iso, max_tris, tvx, tvy,
       tvz, teid, n_total, scratch);
   return static_cast<int>(cudaGetLastError());
@@ -582,9 +578,10 @@ int icon_mt_emit(const float* occ, int D, int H, int W, const long long* cx,
 
 // teid, tvx, tvy, tvz [n_slots] (3 slots a triangle, the first 3 * *n_tris
 // live, ids below n_sum * 1024); bitmap [n_sum * 32] u32 (any contents);
-// summary [n_sum] u32 and scratch [1 + ceil(n_sum / 256)] u64, each zero
-// on entry and left zero; sum_rank [n_sum] and word_rank [min(n_slots,
-// n_sum * 32)] int2 (scratch, never cleared). Writes faces [n_slots] i32
+// summary [n_sum] u32 and scratch [1 + ceil(n_sum / 256)] u64 (any
+// contents: zeroed here on the stream before the first pass); sum_rank
+// [n_sum] and word_rank [min(n_slots, n_sum * 32)] int2 (scratch, never
+// cleared). Writes faces [n_slots] i32
 // (each live slot's vertex rank, 0 elsewhere), the vertex table vx, vy, vz
 // [max_verts] in ascending edge-id order (rows past the count untouched)
 // and *n_unique (int64), the count of distinct ids. Returns a
@@ -599,9 +596,14 @@ int icon_mt_index(const long long* teid, const float* tvx, const float* tvy,
   if (n_slots < 1 || n_slots >= (1LL << 31) || n_sum < 1 || max_verts < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long scan_words = 1 + (n_sum + kThreads - 1) / kThreads;
+  cudaError_t err = cudaMemsetAsync(summary, 0, n_sum * sizeof(unsigned), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0,
+                          scan_words * sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   unsigned grid = 0;
-  cudaError_t err = grid_for(1, index_clear_kernel, kThreads, n_slots,
-                             kThreads, &grid);
+  err = grid_for(1, index_clear_kernel, kThreads, n_slots, kThreads, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   index_clear_kernel<<<grid, kThreads, 0, s>>>(teid, n_tris, n_slots,
                                                bitmap);

@@ -20,14 +20,14 @@ stable ``torch.sort`` in place of ``lax.sort``).
   word) and prefix popcounts, with no sort; only the summary is read
   whole, and only the bitmap words of live ids are cleared and read.
 
-The kernels' scan scratch and the summary are zero on entry and left zero;
-the bitmap may hold anything. :func:`emit_buffers` and
-:func:`index_buffers` zero the former once for a caller that launches on
-its own buffers. The wrappers keep them for each device and stream
-(:func:`_kept_zeros`; the summary is D H W / 32 bytes, 0.52 MB at 256^3
-cells and 4.2 MB at 512^3), so that no call clears a buffer at the grid's
-scale, until :func:`release_buffers` frees them. The bitmap is allocated
-for each call and goes back to the caching allocator after it.
+Each call's buffers are its own: the wrappers allocate them from the
+caching allocator, and the C entries zero the scan scratch and the summary
+(D H W / 32 bytes, 0.52 MB at 256^3 cells and 4.2 MB at 512^3) with
+``cudaMemsetAsync`` on the call's stream before the first launch; the
+bitmap may hold anything. So two host threads whose calls interleave their
+launches on one stream share no state (``mt_index`` is four launches from
+one ctypes call, which releases the GIL). Everything goes back to the
+allocator after the call.
 
 ``launches_emit`` and ``launches_index`` count the wrappers' launches (a
 call is one count for its launches).
@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +55,6 @@ launches_index = 0      # mt_index calls on the card since the last reset
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tables_on = set()      # device indices whose constant tables are set
-# (device index, stream, name) -> a buffer kept zero between launches
-_kept: Dict[Tuple[int, int, str], torch.Tensor] = {}
 
 
 def _load() -> ctypes.CDLL:
@@ -201,14 +199,8 @@ def mt_emit(occ: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     dev = occ.device
     cx, cy, cz = cx.contiguous(), cy.contiguous(), cz.contiguous()
     n_cells = n_cells.reshape(()).contiguous()
-    bufs = EmitBuffers(
-        _kept_zeros(dev, "emit_scan", emit_scratch_words(nc), torch.int64),
-        *_emit_outputs(max_tris, dev))
-    try:
-        _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris, bufs)
-    except RuntimeError:
-        _forget_kept(dev)
-        raise
+    bufs = emit_buffers(nc, max_tris, dev)
+    _emit_launch(occ, cx, cy, cz, n_cells, iso, max_tris, bufs)
     launches_emit += 1
     tv = bufs.tv
     return tv[0], tv[1], tv[2], bufs.teid, \
@@ -217,7 +209,7 @@ def mt_emit(occ: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
 
 class EmitBuffers(NamedTuple):
     """mt_emit's buffers: ``scan`` [emit_scratch_words(nc)] int64, the
-    scan's ticket and tile statuses (zero on entry, left zero); ``tv``
+    scan's ticket and tile statuses (zeroed by the C entry); ``tv``
     [3, max_tris, 3] f32 (rows past the total unspecified); ``teid``
     [max_tris, 3] int64 filled with INT64_MAX; ``n_total``."""
     scan: torch.Tensor
@@ -241,10 +233,10 @@ def _emit_outputs(max_tris: int, device):
 
 
 def emit_buffers(nc: int, max_tris: int, device) -> EmitBuffers:
-    """mt_emit's buffers for ``nc`` cells on ``device``, its scan scratch
-    zeroed (:class:`EmitBuffers`); the kernel leaves the scratch zero, so
-    they serve any number of launches in stream order."""
-    return EmitBuffers(torch.zeros((emit_scratch_words(nc),),
+    """mt_emit's buffers for ``nc`` cells on ``device``
+    (:class:`EmitBuffers`); they serve any number of launches in stream
+    order."""
+    return EmitBuffers(torch.empty((emit_scratch_words(nc),),
                                    dtype=torch.int64, device=device),
                        *_emit_outputs(max_tris, device))
 
@@ -317,18 +309,9 @@ def mt_index(tvx: torch.Tensor, tvy: torch.Tensor, tvz: torch.Tensor,
     if 3 * max_tris >= 2 ** 31 or max_verts < 1:
         raise ValueError(f"{max_tris} triangles, {max_verts} vertices")
     tvx, tvy, tvz = (t.contiguous() for t in (tvx, tvy, tvz))
-    sz = index_sizes(max_tris, grid_shape)
-    bufs = IndexBuffers(
-        torch.empty((sz["bitmap"],), dtype=torch.int32, device=dev),
-        _kept_zeros(dev, "summary", sz["summary"], torch.int32),
-        _kept_zeros(dev, "index_scan", sz["scan"], torch.int64),
-        *_index_outputs(sz, max_tris, max_verts, dev))
-    try:
-        _index_launch(tvx, tvy, tvz, teid.contiguous(),
-                      n_tris.reshape(()).contiguous(), max_verts, bufs)
-    except RuntimeError:
-        _forget_kept(dev)
-        raise
+    bufs = index_buffers(max_tris, max_verts, grid_shape, dev)
+    _index_launch(tvx, tvy, tvz, teid.contiguous(),
+                  n_tris.reshape(()).contiguous(), max_verts, bufs)
     launches_index += 1
     verts = bufs.verts
     return verts[0], verts[1], verts[2], bufs.faces, bufs.n_unique
@@ -337,8 +320,7 @@ def mt_index(tvx: torch.Tensor, tvy: torch.Tensor, tvz: torch.Tensor,
 class IndexBuffers(NamedTuple):
     """mt_index's buffers (sizes from :func:`index_sizes`): ``bitmap``
     int32, a bit an edge id (any contents); ``summary`` int32, a bit a
-    bitmap word, and the scan's ``scan`` int64, each zero on entry and left
-    zero;
+    bitmap word, and the scan's ``scan`` int64, both zeroed by the C entry;
     ``sum_rank`` [summary, 2] and ``word_rank`` [touched, 2] int32
     scratch; ``verts`` [3, max_verts] f32 (rows past the count
     unspecified); ``faces`` [max_tris, 3] int32; ``n_unique``."""
@@ -377,14 +359,13 @@ def _index_outputs(sz: dict, max_tris: int, max_verts: int, device):
 
 def index_buffers(max_tris: int, max_verts: int,
                   grid_shape: Tuple[int, int, int], device) -> IndexBuffers:
-    """mt_index's buffers on ``device`` (:class:`IndexBuffers`), the
-    summary and scan scratch zeroed; the kernels leave them zero, so they
+    """mt_index's buffers on ``device`` (:class:`IndexBuffers`); they
     serve any number of launches in stream order."""
     sz = index_sizes(max_tris, grid_shape)
     return IndexBuffers(
         torch.empty((sz["bitmap"],), dtype=torch.int32, device=device),
-        torch.zeros((sz["summary"],), dtype=torch.int32, device=device),
-        torch.zeros((sz["scan"],), dtype=torch.int64, device=device),
+        torch.empty((sz["summary"],), dtype=torch.int32, device=device),
+        torch.empty((sz["scan"],), dtype=torch.int64, device=device),
         *_index_outputs(sz, max_tris, max_verts, device))
 
 
@@ -406,35 +387,3 @@ def _index_launch(tvx, tvy, tvz, teid, n_tris, max_verts,
             v[0].data_ptr(), v[1].data_ptr(), v[2].data_ptr(),
             bufs.n_unique.data_ptr(), stream), "icon_mt_index")
 
-
-def _stream_key(device) -> Tuple[int, int]:
-    return device.index, torch.cuda.current_stream(device).cuda_stream
-
-
-def _kept_zeros(device, name: str, numel: int, dtype) -> torch.Tensor:
-    """The first ``numel`` elements of a buffer that the kernels keep zero,
-    one a (device, current stream, name), grown (zeroed anew) when a call
-    needs more. Launches on one stream run in order, so they share it."""
-    key = (*_stream_key(device), name)
-    with _lock:
-        buf = _kept.get(key)
-        if buf is None or buf.numel() < numel:
-            buf = torch.zeros((numel,), dtype=dtype, device=device)
-            _kept[key] = buf
-    return buf[:numel]
-
-
-def release_buffers() -> None:
-    """Frees the buffers the wrappers keep zero (every device and stream);
-    the next call on each zeroes them anew."""
-    with _lock:
-        _kept.clear()
-
-
-def _forget_kept(device) -> None:
-    """Drops the current stream's kept buffers: a launch that failed part
-    way may have left them dirty."""
-    key = _stream_key(device)
-    with _lock:
-        for k in [k for k in _kept if k[:2] == key]:
-            del _kept[k]

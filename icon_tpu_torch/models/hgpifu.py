@@ -51,6 +51,7 @@ from icon_tpu_torch.models.hourglass import HGFilter
 from icon_tpu_torch.models.mlp import MLP
 from icon_tpu_torch.models.normalnet import NormalNet
 from icon_tpu_torch.models.volume_encoder import VolumeEncoder
+from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.select import feat_select
@@ -149,7 +150,8 @@ class HGPIFuNet(nn.Module):
         in_filter = self.get_normal(in_tensor_dict).permute(0, 3, 1, 2)
 
         def features(chans):
-            x = in_filter[:, chans]
+            x = in_filter[:, device_constant(chans, torch.int64,
+                                             in_filter.device)]
             if self.F_filter is None:
                 return [x]
             stacks = self.F_filter(x)

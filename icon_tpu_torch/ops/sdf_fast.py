@@ -33,6 +33,7 @@ import torch
 
 from icon_tpu_torch.kernels.knn import nearest_vertices_kernel
 from icon_tpu_torch.kernels.winding import cluster_table, fast_winding_kernel
+from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.ops.mesh import (barycentric_projection_weights,
                                      vertex_normals)
 
@@ -363,7 +364,7 @@ def _packed_edges(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     see bit-identical values and a column through the edge is counted by
     exactly one of them (the watertight parity of ``ray_parity_inside``)."""
     i_from = faces
-    i_to = faces[:, [1, 2, 0]]
+    i_to = faces[:, device_constant([1, 2, 0], torch.int64, faces.device)]
     swap = i_from > i_to
     lo = verts[torch.where(swap, i_to, i_from)]           # [F, 3, 3]
     hi = verts[torch.where(swap, i_from, i_to)]
@@ -679,8 +680,7 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
     n_interp = torch.sum(n_f * w, dim=1)                  # [N, 3]
     cmap_q = torch.sum(cm_f * w, dim=1)
     vis_q = (torch.sum(vi_f * w, dim=1) >= 0.1).to(points.dtype)
-    flip = torch.tensor([-1.0, 1.0, -1.0], dtype=points.dtype,
-                        device=points.device)
+    flip = device_constant([-1.0, 1.0, -1.0], points.dtype, points.device)
     normal_q = n_interp * flip
 
     dist = torch.sqrt(torch.clamp(d2b, min=0.0)) / math.sqrt(3.0)

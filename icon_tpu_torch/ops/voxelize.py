@@ -24,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from icon_tpu_torch.ops.constants import device_constant
+
 # the eight trilinear corners (dx, dy, dz), in the JAX package's order
 CORNERS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
            (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
@@ -39,9 +41,10 @@ def _blur_axis_pad(vol: torch.Tensor, axis: int, k: int,
     ``mirrored``, from ``-(k - 1 - k // 2)`` to ``k // 2`` (the adjoint of
     the blur, the same window for odd ``k``).
 
-    The divisor is a tensor on ``vol``'s device: a CUDA tensor divided by a
-    Python scalar is multiplied by its reciprocal instead, which can round
-    differently from the division the kernel does."""
+    The divisor is a tensor on ``vol``'s device (made once a device): a
+    CUDA tensor divided by a Python scalar is multiplied by its reciprocal
+    instead, which can round differently from the division the kernel
+    does."""
     lo = k - 1 - k // 2 if mirrored else k // 2
     n = vol.shape[axis]
     pad = [0, 0] * vol.ndim
@@ -51,7 +54,7 @@ def _blur_axis_pad(vol: torch.Tensor, axis: int, k: int,
     out = torch.zeros_like(vol)
     for off in range(k):
         out = out + vp.narrow(axis, off, n)
-    return out / torch.tensor(float(k), dtype=vol.dtype, device=vol.device)
+    return out / device_constant(float(k), vol.dtype, vol.device)
 
 
 def smooth_conv3d(vol: torch.Tensor, k: int) -> torch.Tensor:

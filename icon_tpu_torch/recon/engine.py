@@ -24,6 +24,14 @@ ladder, level 0) up to a multiple of a mesh's size, so that
 ``parallel.mesh.shard_query`` splits each level evenly. The counts stay
 0-d device tensors: nothing inside a level reads the device.
 
+A frame never waits for the card (the JAX engine's lazy counts,
+``icon_tpu/recon/engine.py:147-197``, on CUDA events): with
+``auto_budget`` each level's boundary count starts its copy to pinned host
+memory as soon as it is enqueued (:class:`HostCopy`), and the next frame
+takes it only once that copy has landed, reusing the last bucket until
+then; only the first count of a level is waited for. Constants come from
+``ops/constants.py``, never from a copy out of pageable memory.
+
 The world box is b_min=(-1, 1, -1), b_max=(1, -1, 1) (y flipped), as in the
 reference's apps/ICON.py:78-90.
 """
@@ -35,6 +43,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
 from icon_tpu_torch.ops.voxelize import smooth_conv3d
 
@@ -42,8 +51,8 @@ B_MIN = (-1.0, 1.0, -1.0)
 B_MAX = (1.0, -1.0, 1.0)
 BALANCE = 0.5           # the occupancy iso level
 # the 27 offsets (dz, dy, dx) of a voxel's 3^3 neighbourhood
-_NEIGHBOURS = torch.tensor([(dz, dy, dx) for dz in (-1, 0, 1)
-                            for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+_NEIGHBOURS = np.array([(dz, dy, dx) for dz in (-1, 0, 1)
+                       for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
 
 
 def reconstruction_resolutions(mcube_res: int) -> Tuple[int, ...]:
@@ -86,17 +95,49 @@ def _compact(mask_flat: torch.Tensor, budget: int):
 
 def _grid_to_world(coords01: torch.Tensor) -> torch.Tensor:
     """[..., 3] in [0, 1] grid space (x, y, z) -> world (align_corners)."""
-    bmin = torch.tensor(B_MIN, dtype=coords01.dtype, device=coords01.device)
-    bmax = torch.tensor(B_MAX, dtype=coords01.dtype, device=coords01.device)
+    bmin = device_constant(B_MIN, coords01.dtype, coords01.device)
+    bmax = device_constant(B_MAX, coords01.dtype, coords01.device)
     return coords01 * (bmax - bmin) + bmin
+
+
+class HostCopy:
+    """A tensor's copy to the host, started when this is made. On a CUDA
+    device it goes into pinned memory with ``non_blocking=True`` and an
+    event is recorded on the tensor's current stream after it, so making
+    it never waits for the card; on the CPU the tensor itself stands for
+    the copy, which has always landed and pins nothing."""
+
+    def __init__(self, value: torch.Tensor):
+        if value.device.type == "cuda":
+            self.host = torch.empty(value.shape, dtype=value.dtype,
+                                    pin_memory=True)
+            self.host.copy_(value, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(value.device))
+        elif value.device.type == "cpu":
+            self.host, self.event = value, None
+        else:
+            raise ValueError(f"unsupported device {value.device}")
+
+    def ready(self) -> bool:
+        """Whether the copy has landed; never waits."""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> torch.Tensor:
+        """The host tensor, once the copy has landed (waits for it)."""
+        if not self.ready():
+            self.event.synchronize()
+        return self.host
 
 
 def _set_dropped(flat: torch.Tensor, idx: torch.Tensor,
                  vals) -> torch.Tensor:
     """``flat[idx] = vals`` where idx == len(flat) means "drop": writes into
-    a buffer one longer and slices the extra slot off."""
+    a buffer one longer and slices the extra slot off. A Python scalar
+    ``vals`` is filled on the device (indexing a CUDA tensor with a host
+    scalar copies it there, which waits for the stream)."""
     buf = torch.cat([flat, flat.new_zeros(1)])
-    buf[idx] = vals
+    buf[idx] = vals if torch.is_tensor(vals) else buf.new_full((), vals)
     return buf[:-1]
 
 
@@ -141,20 +182,24 @@ class ReconEngine:
         self.auto_budget = auto_budget
         self.auto_headroom = auto_headroom
         self.virtual_final = virtual_final and self.faster
-        self._last_counts: Dict[int, torch.Tensor] = {}
+        self._last_counts: Dict[int, HostCopy] = {}
         self._last_hosts: Dict[int, int] = {}
         self._bucket_used: Dict[int, int] = {}
 
     def _bucket(self, lv: int) -> int:
-        """Current budget for level lv (1-based). Reads the previous
-        frame's boundary count back to the host (a blocking copy of one
-        scalar, long landed when frames run in sequence)."""
+        """Current budget for level lv (1-based). Never waits but once: a
+        frame's boundary count is taken once its copy to the host has
+        landed, and until then the last bucket is reused; the first count
+        ever of a level is waited for (one start-up wait), else a pipelined
+        loop would run every frame at the caps."""
         cap = self.budgets[lv - 1]
         if not self.auto_budget:
             return cap
-        arr = self._last_counts.pop(lv, None)
-        if arr is not None:
-            self._last_hosts[lv] = int(arr)
+        copy = self._last_counts.get(lv)
+        if copy is not None and (lv not in self._last_hosts or
+                                 copy.ready()):
+            self._last_hosts[lv] = int(copy.wait())
+            del self._last_counts[lv]
         if lv not in self._last_hosts:
             return self._bucket_used.get(lv, cap)
         need = self._last_hosts[lv]
@@ -244,7 +289,7 @@ class ReconEngine:
         neighbourhoods no round examined (0: converged)."""
         m = self.pad_multiple
         cbudget = -(-max(budget // 2, 1024) // m) * m
-        offsets = _NEIGHBOURS.to(idx.device)
+        offsets = device_constant(_NEIGHBOURS, torch.int64, idx.device)
 
         def conflicting(idx, vals, alive):
             interp = interp_flat[torch.where(alive, idx,
@@ -262,7 +307,7 @@ class ReconEngine:
                                torch.full_like(nidx, r ** 3))
             flags = torch.zeros(r ** 3 + 1, dtype=torch.bool,
                                 device=idx.device)
-            flags[nidx.reshape(-1)] = True
+            flags[nidx.reshape(-1)] = flags.new_ones(())
             flags = flags[:-1] & ~evaluated.reshape(-1)
             idx, n_sel, _ = _compact(flags, cbudget)
             vals = eval_at(idx)
@@ -295,8 +340,8 @@ class ReconEngine:
             budget = self._bucket(lv)
             occ, evaluated, n_total, conflicts, residual = self._level_step(
                 lv, occ, evaluated, query_fn, budget, query_args)
-            if self.auto_budget:
-                self._last_counts[lv] = n_total   # read at the next frame
+            if self.auto_budget:               # taken at a later frame
+                self._last_counts[lv] = HostCopy(n_total)
             stats[f"level{lv}_points"] = n_total
             stats[f"level{lv}_overflow"] = torch.clamp(n_total - budget,
                                                        min=0)

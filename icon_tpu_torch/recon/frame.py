@@ -30,6 +30,14 @@ reuses the NormalNet frame's pieces (:func:`body_bins`, :func:`icon_feats`,
 :func:`crossing_columns`). The demo CLI (``apps/infer.py``) runs it with the
 CLI's own engine and marcher.
 
+The serving frames' ``compute()`` enqueues a frame's device work, up to
+the packed mesh and its copy to pinned host memory, without waiting for
+the card (the engine's and the marcher's counts are taken once landed);
+``frame()`` then blocks on the mesh. ``serve(n)`` is bench.py's 2-deep
+loop (``bench.py:246-258``): frame i+1 is enqueued before frame i is
+unpacked, and frame i's host decode runs on a worker thread while this
+thread dispatches frame i+1 (:func:`serve_frames`).
+
 The frames run on the card unless the caller asks for the CPU. Each
 ``build_*`` function takes an optional device ``mesh``
 (``parallel.mesh``): its engine
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import os.path as osp
+from concurrent.futures import ThreadPoolExecutor
 from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
                     Tuple)
 
@@ -255,10 +264,43 @@ def _marcher(res: int) -> AutoMarcher:
                        codec="lattice")
 
 
+def serve_frames(compute: Callable, marcher: AutoMarcher, n: int
+                 ) -> List[Tuple[Dict[str, torch.Tensor], np.ndarray,
+                                 np.ndarray]]:
+    """bench.py's 2-deep serving loop over ``n`` frames of ``compute``
+    (-> (token, mesh, stats), waiting for nothing): frame i+1 is enqueued
+    before frame i is unpacked, and frame i's :meth:`AutoMarcher.decode`
+    (a wait for its copy, then the host decoder, a ctypes call that
+    releases the GIL) runs on one worker thread while this thread
+    dispatches frame i+1. Only this thread launches device work: a frame
+    whose pack overflowed is re-packed here. Returns each frame's (stats,
+    verts, faces) in order."""
+    out = []
+
+    def finish(pending):
+        token, stats, decoded = pending
+        verts, faces, overflow = decoded.result()
+        if overflow:
+            verts, faces = marcher.repack(token)
+        out.append((stats, verts, faces))
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = None
+        for _ in range(n):
+            token, _, stats = compute()
+            if pending is not None:
+                finish(pending)
+            pending = (token, stats, pool.submit(marcher.decode, token))
+        if pending is not None:
+            finish(pending)
+    return out
+
+
 @dataclasses.dataclass
 class Frame:
     compute: Callable          # -> (token, mesh, stats): up to the pack
     frame: Callable            # -> (stats, mesh, verts, faces): blocking
+    serve: Callable            # (n) -> [(stats, verts, faces)]: 2-deep loop
     columns: Callable          # -> (cross_z, counts) of the body
     features: Callable         # -> HGPIFuNet.filter of the batch's normals
     net_occ: Callable          # (points [1,N,3], cross_z, features) -> preds
@@ -357,8 +399,11 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         verts, faces = marcher.unpack(token)     # blocking host transfer
         return stats, mesh, verts, faces
 
-    return Frame(compute, frame, columns, features, net_occ, query_fn,
-                 engine, marcher)
+    def serve(n: int):
+        return serve_frames(compute, marcher, n)
+
+    return Frame(compute, frame, serve, columns, features, net_occ,
+                 query_fn, engine, marcher)
 
 
 def spurious_occ(pts: torch.Tensor) -> torch.Tensor:
@@ -385,6 +430,7 @@ def variant_occ(preds: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 class NormalNetFrame:
     compute: Callable    # -> (token, mesh, stats): up to the pack
     frame: Callable      # -> (stats, mesh, verts, faces): blocking
+    serve: Callable      # (n) -> [(stats, verts, faces)]: 2-deep loop
     render: Callable     # -> (T_normal_F, T_normal_B) [1, H, W, 3]
     normals: Callable    # (T_F, T_B) -> (normal_F, normal_B) of NormalNet
     features: Callable   # (normal_F, normal_B) -> HGPIFuNet.filter
@@ -475,8 +521,11 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         verts_out, faces_out = marcher.unpack(token)   # blocking transfer
         return stats, mesh, verts_out, faces_out
 
-    return NormalNetFrame(compute, frame, render, normals, features, body,
-                          columns, net_occ, query_fn, engine, marcher)
+    def serve(n: int):
+        return serve_frames(compute, marcher, n)
+
+    return NormalNetFrame(compute, frame, serve, render, normals, features,
+                          body, columns, net_occ, query_fn, engine, marcher)
 
 
 class FitResult(NamedTuple):

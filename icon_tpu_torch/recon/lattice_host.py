@@ -146,8 +146,10 @@ def lattice_decode(buf: np.ndarray, nvb: int, ncb: int, H: int, W: int,
 
 
 def decode_lattice(packed, H: int, W: int, return_overflow: bool = False):
-    """Blocking transfer + host rebuild of a ``pack_lattice`` buffer: verts
-    from (edge id, fraction), faces from (cell id, corner bits). ``H``/``W``
+    """Host rebuild of a ``pack_lattice`` buffer ``(buf, nvb, ncb)``,
+    ``buf`` a device tensor (copied to the host, blocking) or a host array
+    (such as a pinned tensor's numpy view): verts from (edge id,
+    fraction), faces from (cell id, corner bits). ``H``/``W``
     are the marched grid's dims. Returns (verts [V, 3] f32 grid coords,
     faces [F, 3] int64) (+ the overflow flag: the true counts exceeded the
     packed sizes, so the caller re-packs at full size). The wire format (v1

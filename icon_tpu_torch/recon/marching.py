@@ -23,6 +23,13 @@ ids wrap past ~645^3). The lattice wire is word-for-word the JAX package's:
 wire v2 (implicit edge ids, the serving default) carries no edge ids at
 all; wire v1 carries them as int32 and raises for a grid whose ids do not
 fit.
+
+The serving marcher (:class:`AutoMarcher`) never waits for the card in
+``__call__`` or :meth:`AutoMarcher.pack`: its counts and its packed
+buffer start their copies to pinned host memory at once
+(``engine.HostCopy``), the counts are taken once landed, and only
+:meth:`AutoMarcher.unpack` (or :meth:`AutoMarcher.decode`, which a worker
+thread may run) waits, for its own frame's buffer.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import numpy as np
 import torch
 
 from icon_tpu_torch.kernels.marching import mt_emit, mt_index
-from icon_tpu_torch.recon.engine import _compact
+from icon_tpu_torch.ops.constants import device_constant
+from icon_tpu_torch.recon.engine import HostCopy, _compact
 from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
                                                decode_lattice)
 
@@ -83,7 +91,7 @@ def _coarse_candidates(coarse_occ: torch.Tensor, iso: float,
     ccz = idxc // ((Hc - 1) * (Wc - 1))
     ccy = (idxc // (Wc - 1)) % (Hc - 1)
     ccx = idxc % (Wc - 1)
-    offs = torch.as_tensor(_CORNER_OFF, dtype=torch.int64, device=dev)
+    offs = device_constant(_CORNER_OFF, torch.int64, dev)
     fx = 2 * ccx[:, None] - 1 + offs[None, :, 0]
     fy = 2 * ccy[:, None] - 1 + offs[None, :, 1]
     fz = 2 * ccz[:, None] - 1 + offs[None, :, 2]
@@ -204,7 +212,7 @@ def marching_lattice(occ: torch.Tensor, iso: float = 0.5,
     dev = occ.device
     cx, cy, cz, cell_idx, alive_cells, n_cells, n_cells_total = \
         _active_cells(occ, iso, max_cells, coarse_occ, max_candidates)
-    offs = torch.as_tensor(_CORNER_OFF, dtype=torch.int64, device=dev)
+    offs = device_constant(_CORNER_OFF, torch.int64, dev)
     lin = ((cz[:, None] + offs[None, :, 2]) * H +
            (cy[:, None] + offs[None, :, 1])) * W + \
         (cx[:, None] + offs[None, :, 0])
@@ -223,12 +231,12 @@ def _lattice_emit(cvals, cx, cy, cz, cell_idx, alive_cells, n_cells,
     max_cells = cx.shape[0]
     cbits = (cvals > iso).to(torch.int32)
 
-    slots = torch.as_tensor(_EDGE_SLOTS, dtype=torch.int64, device=dev)
+    slots = device_constant(_EDGE_SLOTS, torch.int64, dev)
     v_lo = cvals[:, slots[:, 0]]                          # [NC, 19]
     v_hi = cvals[:, slots[:, 1]]
     crossing = (v_lo > iso) != (v_hi > iso)
-    olo = torch.as_tensor(_CORNER_OFF[_EDGE_SLOTS[:, 0]], dtype=torch.int64,
-                          device=dev)                     # [19, 3] (x, y, z)
+    olo = device_constant(_CORNER_OFF[_EDGE_SLOTS[:, 0]], torch.int64,
+                          dev)                            # [19, 3] (x, y, z)
     own = (((olo[None, :, 0] == 0) | (cx[:, None] == cw - 1)) &
            ((olo[None, :, 1] == 0) | (cy[:, None] == ch - 1)) &
            ((olo[None, :, 2] == 0) | (cz[:, None] == D - 2)))
@@ -252,8 +260,8 @@ def _lattice_emit(cvals, cx, cy, cz, cell_idx, alive_cells, n_cells,
     vert_eid, order = torch.sort(vert_eid, stable=True)
     vert_s = vert_s[order]
 
-    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.int32,
-                           device=dev)
+    weights = device_constant([1, 2, 4, 8, 16, 32, 64, 128], torch.int32,
+                              dev)
     cbyte = (cbits * weights).sum(-1, dtype=torch.int32)
     return LatticeOut(vert_eid, vert_s, cell_idx, cbyte,
                       torch.clamp(n_verts, max=max_verts),
@@ -297,8 +305,8 @@ def marching_lattice_virtual(coarse_occ: torch.Tensor, iso: float = 0.5,
 
     # per-axis corner -> tap weights: an even base takes corner 0 exact
     # and corner 1 at the midpoint; an odd base the reverse
-    w_even = torch.tensor([[1.0, 0.0], [0.5, 0.5]], dtype=dt, device=dev)
-    w_odd = torch.tensor([[0.5, 0.5], [0.0, 1.0]], dtype=dt, device=dev)
+    w_even = device_constant([[1.0, 0.0], [0.5, 0.5]], dt, dev)
+    w_odd = device_constant([[0.5, 0.5], [0.0, 1.0]], dt, dev)
 
     def wsel(u):                                          # [mcand, 2, 2]
         return torch.where(((u & 1) == 0)[:, None, None], w_even[None],
@@ -336,10 +344,11 @@ def pack_lattice(out: LatticeOut, bucket: int = 16384,
                  implicit_eid: bool = False):
     """One int32 device buffer: [header 4 | vert_eid nvb (v1 only) |
     vert_s u8 x4/word | cell_id ncb | cell_bits u8 x4/word]. The header
-    holds (n_verts, n_cells, implicit flag, 0), written on the device, so
-    packing never waits for it. ``sizes`` = (n_verts, n_cells) upper bounds,
-    rounded up to ``bucket``; the decoder reports an overflow when the true
-    counts exceed them. Returns (buf, nvb, ncb)."""
+    holds (n_verts, n_cells, implicit flag, 0), written on the device
+    without a copy from the host, so packing never waits for it. ``sizes``
+    = (n_verts, n_cells) upper bounds, rounded up to ``bucket``; the
+    decoder reports an overflow when the true counts exceed them. Returns
+    (buf, nvb, ncb)."""
     cap_v = out.vert_eid.shape[0]
     cap_c = out.cell_id.shape[0]
     want_v, want_c = sizes if sizes is not None else (cap_v, cap_c)
@@ -347,10 +356,9 @@ def pack_lattice(out: LatticeOut, bucket: int = 16384,
         want_v, want_c = cap_v, cap_c
     nvb = min(-(-want_v // bucket) * bucket, cap_v)
     ncb = min(-(-want_c // bucket) * bucket, cap_c)
-    dev = out.vert_eid.device
     counts = torch.stack([out.n_verts, out.n_cells,
-                          torch.tensor(int(implicit_eid), device=dev),
-                          torch.tensor(0, device=dev)]).to(torch.int32)
+                          out.n_verts.new_full((), int(implicit_eid)),
+                          out.n_verts.new_zeros(())]).to(torch.int32)
     parts = [counts]
     if not implicit_eid:
         D, H, W = out.grid_shape
@@ -414,10 +422,12 @@ def pack_mesh(out: MarchOut, quantize: bool = True, bucket: int = 16384,
 
 def unpack_mesh(packed, quantize: bool = True,
                 return_overflow: bool = False):
-    """Blocking host copy and decode of a :func:`pack_mesh` buffer:
-    (verts [V, 3] f32, faces [F, 3] int64) (+ the overflow flag: the true
-    counts exceeded the packed sizes, the mesh is truncated; faces past the
-    copied vertices are dropped). Degenerate faces (dedup merges a
+    """Host decode of a :func:`pack_mesh` buffer ``(buf, nvb, ntb)``,
+    ``buf`` a device tensor (copied to the host, blocking) or a host array
+    (such as a pinned tensor's numpy view): (verts [V, 3] f32, faces
+    [F, 3] int64) (+ the overflow flag: the true counts exceeded the packed
+    sizes, the mesh is truncated; faces past the copied vertices are
+    dropped). Degenerate faces (dedup merges a
     triangle's vertices when the iso value sits on a lattice vertex) are
     dropped."""
     empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
@@ -491,8 +501,9 @@ class AutoMarcher:
     buffers from the previous frame's measured totals x ``headroom``,
     snapped to a geometric bucket ladder; the first frame and any frame
     after an overflow use the caps. The pack sizes come from the latest
-    measured counts the same way. The counts are read back with one
-    blocking copy at the next frame's start."""
+    measured counts the same way. The counts are those of the latest march
+    whose copy to the host has landed (``icon_tpu/recon/marching.py:
+    918-938``): only the first is waited for."""
 
     def __init__(self, max_cells: int = 1 << 18, max_tris: int = 1 << 20,
                  max_verts: Optional[int] = None, iso: float = 0.5,
@@ -526,7 +537,7 @@ class AutoMarcher:
         self.slice_one = slice_one
         self.codec = codec
         self.implicit_eid = implicit_eid
-        self._last: Optional[torch.Tensor] = None   # device [4] counts
+        self._last: Optional[HostCopy] = None   # the latest [4] counts
         self._counts_host: Optional[Tuple[int, ...]] = None
         self._dims: Optional[Tuple[int, int]] = None
 
@@ -538,12 +549,17 @@ class AutoMarcher:
         return min(b, cap)
 
     def _counts(self) -> Optional[Tuple[int, ...]]:
-        """The latest march's counts, read back to the host once (a
-        blocking copy): lattice (n_cells_total, n_verts_total, n_verts,
-        n_cells), indexed (n_cells_total, n_tris_total, n_verts,
-        n_tris)."""
-        if self._last is not None:
-            self._counts_host = tuple(int(v) for v in self._last.tolist())
+        """The counts of the latest march whose copy has landed, taken to
+        the host once: lattice (n_cells_total, n_verts_total, n_verts,
+        n_cells), indexed (n_cells_total, n_tris_total, n_verts, n_tris).
+        Never waits but for the first march's: :meth:`pack` runs right
+        after :meth:`__call__` stamped this frame's counts, so waiting here
+        would chain every frame's dispatch to its own march. Until a newer
+        copy lands the last counts serve; the packed header still reports
+        an overflow."""
+        last = self._last
+        if last is not None and (self._counts_host is None or last.ready()):
+            self._counts_host = tuple(int(v) for v in last.wait().tolist())
             self._last = None
         return self._counts_host
 
@@ -581,8 +597,9 @@ class AutoMarcher:
             out = marching_lattice_virtual(occ, iso=self.iso, max_cells=mc,
                                            max_verts=mv,
                                            max_candidates=self.caps[0])
-            self._last = torch.stack([out.n_cells_total, out.n_verts_total,
-                                      out.n_verts, out.n_cells])
+            self._last = HostCopy(torch.stack([
+                out.n_cells_total, out.n_verts_total, out.n_verts,
+                out.n_cells]))
             return out
         if self.slice_one:
             occ = occ[1:, 1:, 1:]
@@ -594,46 +611,72 @@ class AutoMarcher:
             out = marching_lattice(occ, iso=self.iso, max_cells=mc,
                                    max_verts=mv, coarse_occ=coarse_occ,
                                    max_candidates=self.caps[0])
-            self._last = torch.stack([out.n_cells_total, out.n_verts_total,
-                                      out.n_verts, out.n_cells])
+            self._last = HostCopy(torch.stack([
+                out.n_cells_total, out.n_verts_total, out.n_verts,
+                out.n_cells]))
         else:
             out = marching_tetrahedra_indexed(
                 occ, iso=self.iso, max_cells=mc, max_tris=mt,
                 max_verts=mv, coarse_occ=coarse_occ,
                 max_candidates=self.caps[0])
-            self._last = torch.stack([out.n_cells_total, out.n_tris_total,
-                                      out.n_verts, out.n_tris])
+            self._last = HostCopy(torch.stack([
+                out.n_cells_total, out.n_tris_total, out.n_verts,
+                out.n_tris]))
         return out
 
     def pack(self, out, quantize: bool = True):
-        """Device-side pack sized from the measured counts x headroom (first
+        """Device-side pack sized from the landed counts x headroom (first
         frame: the full buffers) in this marcher's codec (``quantize``: the
-        indexed wire's fixed point). Returns a token for :meth:`unpack`."""
+        indexed wire's fixed point), its copy to pinned host memory started
+        at once. Waits for nothing past the first frame's counts, so a
+        serving loop can enqueue the next frame before this one's copy
+        lands. Returns a token for :meth:`decode` and :meth:`unpack`:
+        ``((copy, n0, n1), out, meta)``, ``copy`` the buffer's
+        :class:`~icon_tpu_torch.recon.engine.HostCopy`."""
         c = self._counts()
         if self.codec == "lattice":
             sizes = (int(c[1] * self.headroom),
                      int(c[0] * self.headroom)) if c is not None else None
-            packed = pack_lattice(out, sizes=sizes,
-                                  implicit_eid=self.implicit_eid)
-            return packed, out, self._dims
-        sizes = (int(c[2] * self.headroom), int(c[3] * self.headroom)) \
-            if c is not None else None
-        return pack_mesh(out, quantize=quantize, sizes=sizes), out, quantize
+            buf, n0, n1 = pack_lattice(out, sizes=sizes,
+                                       implicit_eid=self.implicit_eid)
+            meta = self._dims
+        else:
+            sizes = (int(c[2] * self.headroom), int(c[3] * self.headroom)) \
+                if c is not None else None
+            buf, n0, n1 = pack_mesh(out, quantize=quantize, sizes=sizes)
+            meta = quantize
+        return (HostCopy(buf), n0, n1), out, meta
+
+    def decode(self, token) -> Tuple[np.ndarray, np.ndarray, bool]:
+        """Host decode of a :meth:`pack` token: waits for its copy to land
+        and decodes the host bytes. Returns (verts, faces, overflow), the
+        overflow flag set when the frame outgrew the packed sizes (the mesh
+        is then truncated: :meth:`repack`). Launches nothing on the device,
+        so a worker thread may run it while another dispatches."""
+        (buf, n0, n1), _, meta = token
+        if isinstance(buf, HostCopy):
+            buf = buf.wait().numpy()
+        if self.codec == "lattice":
+            H, W = meta
+            return decode_lattice((buf, n0, n1), H, W, return_overflow=True)
+        return unpack_mesh((buf, n0, n1), quantize=meta,
+                           return_overflow=True)
+
+    def repack(self, token) -> Tuple[np.ndarray, np.ndarray]:
+        """The token's mesh packed anew at the full buffers, copied and
+        decoded, blocking: for a frame whose counts outgrew the packed
+        sizes (the one place a frame waits for the card). Launches device
+        work: run it on the dispatching thread."""
+        _, out, meta = token
+        if self.codec == "lattice":
+            H, W = meta
+            return decode_lattice(pack_lattice(out), H, W)
+        return unpack_mesh(pack_mesh(out, quantize=meta), quantize=meta)
 
     def unpack(self, token) -> Tuple[np.ndarray, np.ndarray]:
-        """Blocking transfer + host decode of a :meth:`pack` token; a frame
-        that outgrew the packed sizes re-packs at full size."""
-        if self.codec == "lattice":
-            packed, out, (H, W) = token
-            verts, faces, overflow = decode_lattice(packed, H, W,
-                                                    return_overflow=True)
-            if overflow:
-                verts, faces = decode_lattice(pack_lattice(out), H, W)
-            return verts, faces
-        packed, out, quantize = token
-        verts, faces, overflow = unpack_mesh(packed, quantize=quantize,
-                                             return_overflow=True)
+        """:meth:`decode`, waiting for the copy; a frame that outgrew the
+        packed sizes re-packs at full size (:meth:`repack`)."""
+        verts, faces, overflow = self.decode(token)
         if overflow:
-            verts, faces = unpack_mesh(pack_mesh(out, quantize=quantize),
-                                       quantize=quantize)
+            return self.repack(token)
         return verts, faces

@@ -20,6 +20,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.ops.constants import device_constant
+
 __all__ = ["clothed_human_sdf", "clothed_human_occ", "prior_readout",
            "sdf_readout",
            "synthetic_body", "synthetic_fit_item", "synthetic_icon_batch",
@@ -242,8 +244,9 @@ def clothed_human_sdf(pts: torch.Tensor, pose: np.ndarray = None,
     ra, rb = ra * scale, rb * scale
     neck_y = float((joints[12, 1] - center[1]) * scale)
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=pts.device)
+    def t(x):                       # made once a device, never copied again
+        return device_constant(np.asarray(x, np.float32), torch.float32,
+                               pts.device)
 
     p = pts
     a_t, ab = t(a), t(b - a)                             # [K, 3]

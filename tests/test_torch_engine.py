@@ -94,7 +94,7 @@ def test_auto_budget_shrinks_and_recovers():
     assert float((occ1 - occ2).abs().max()) < 1e-6
     np.testing.assert_allclose(occ2.numpy(), np.asarray(jocc1), rtol=0,
                                atol=1e-5)
-    eng._last_counts[1] = torch.tensor(10 ** 9)
+    eng._last_counts[1] = P.HostCopy(torch.tensor(10 ** 9))
     assert eng._bucket(1) == b_default
     with pytest.raises(ValueError, match="odd"):
         P.ReconEngine((16, 33), device="cpu")

@@ -10,6 +10,9 @@ Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_marching_cuda.py --noconftest -m cuda -q``. Where no card
 exists the tests skip."""
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -290,10 +293,10 @@ def test_look_back_over_many_tiles(cuda_device):
 
 def test_same_buffers_twice_leave_no_dirty_state(cuda_device):
     """One set of buffers (emit_buffers, index_buffers) through four
-    surfaces in a row, the bitmap filled with ones before each (it may hold
-    anything), and the wrappers' kept buffers likewise: each call equals
-    plain, so no call sees a bit, a summary bit or a scan status of the
-    one before."""
+    surfaces in a row, the bitmap, the summary and both scans' scratch
+    filled with ones before each (the C entries zero what they need), and
+    the wrappers likewise: each call equals plain, so no call sees a bit,
+    a summary bit or a scan status of the one before."""
     shape = (40, 57, 71)
     a = _far_corner(shape)
     b = torch.flip(a, (0, 1, 2)).contiguous()
@@ -302,43 +305,91 @@ def test_same_buffers_twice_leave_no_dirty_state(cuda_device):
     for occ in (a, b, a, b):
         cells = _active(occ, max_cells=1 << 14)
         dev_cells = [c.to(cuda_device) for c in cells]
-        ib.bitmap.fill_(-1)
+        for buf in (ib.bitmap, ib.summary, ib.scan, eb.scan):
+            buf.fill_(-1)
         got = _on_buffers(eb, ib, occ.to(cuda_device), dev_cells, 0.5,
                           1 << 15, 1 << 15)
         _held(*got, occ, cells, 0.5, 1 << 15, 1 << 15)
         got = _wrappers(occ.to(cuda_device), dev_cells, 0.5, 1 << 15,
                         1 << 15)
         _held(*got, occ, cells, 0.5, 1 << 15, 1 << 15)
-    assert not eb.scan.any() and not ib.summary.any() and \
-        not ib.scan.any()
 
 
-def test_release_frees_what_the_wrappers_keep(cuda_device):
-    """On a 513^3 grid (a sphere of radius 100) the wrappers keep only the
-    summary and the two scans' scratch (4.3 MB, against the 135 MB bitmap,
-    which goes back to the allocator after the call; a kept block may be a
-    cached one up to 1 MiB larger); release_buffers frees them, leaving
-    memory_allocated where it started."""
+def test_wrappers_keep_nothing_between_calls(cuda_device):
+    """On a 513^3 grid (a sphere of radius 100) a wrapper call holds
+    nothing once its outputs are dropped: its bitmap (135 MB), summary and
+    scan scratch are its own and go back to the allocator, so
+    memory_allocated returns to where it started."""
     z, y, x = torch.meshgrid(*(torch.arange(513.0, device=cuda_device),) * 3,
                              indexing="ij")
     occ = (1.0 - ((x - 256) ** 2 + (y - 250) ** 2 + (z - 260) ** 2).sqrt()
            / 200.0).contiguous()
     del z, y, x
     cells = _active(occ, max_cells=1 << 20)
-    km.release_buffers()
     torch.cuda.synchronize()
     start = torch.cuda.memory_allocated(cuda_device)
     got = _wrappers(occ, cells, 0.5, 1 << 21, 1 << 21)
     assert int(got[0][4]) > 500000
     del got
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated(cuda_device) - start
-    sz = km.index_sizes(1 << 21, tuple(occ.shape))
-    kept = 4 * sz["summary"] + 8 * sz["scan"] + \
-        8 * km.emit_scratch_words(cells[0].shape[0])
-    assert kept <= held <= kept + 3 * (1 << 20) < 4 * sz["bitmap"] // 16
-    km.release_buffers()
     assert torch.cuda.memory_allocated(cuda_device) == start
+
+
+def test_two_host_threads_on_one_stream(cuda_device):
+    """Two host threads call the wrappers on one stream at once, on
+    different grids, many times over: first mt_index on each grid's
+    emitted slots, then mt_emit. Every result is bit-identical to the plain
+    versions', so no call reads a summary bit, a scan status or a ticket
+    of a call whose launches interleave with its own."""
+    grids = [_grids(n)[1][1:, 1:, 1:].contiguous().to(cuda_device)
+             for n in (33, 25)]
+    mt, mv, reps = 1 << 15, 1 << 15, 300
+    cells = [_active(g, max_cells=1 << 14) for g in grids]
+    plain = [_plain(g, c, 0.5, mt, mv) for g, c in zip(grids, cells)]
+    emitted = [km.mt_emit(g, *c, 0.5, mt) for g, c in zip(grids, cells)]
+    torch.cuda.synchronize()
+    got = [{"index": [], "emit": []} for _ in grids]
+    start = threading.Barrier(len(grids))
+
+    def work(i):
+        g, c, e = grids[i], cells[i], emitted[i]
+        start.wait()
+        for _ in range(reps):
+            got[i]["index"].append(km.mt_index(*e[:5], mv, tuple(g.shape)))
+        start.wait()
+        for _ in range(reps):
+            got[i]["emit"].append(km.mt_emit(g, *c, 0.5, mt))
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(grids))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)         # the threads trade the GIL often
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    bad = []
+    for i, (pe, pi) in enumerate(plain):
+        nt, nu = int(pe[4]), min(int(pi[4]), mv)
+        assert nt > 1000
+        for r, gi in enumerate(got[i]["index"]):
+            same = int(gi[4]) == int(pi[4]) and torch.equal(gi[3], pi[3]) \
+                and all(torch.equal(gi[k][:nu], pi[k][:nu])
+                        for k in range(3))
+            if not same:
+                bad.append(("mt_index", i, r))
+        for r, ge in enumerate(got[i]["emit"]):
+            same = [int(ge[4]), int(ge[5])] == [nt, int(pe[5])] and \
+                torch.equal(ge[3], pe[3]) and \
+                all(torch.equal(ge[k][:nt], pe[k][:nt]) for k in range(3))
+            if not same:
+                bad.append(("mt_emit", i, r))
+    assert not bad, f"{len(bad)} of {4 * reps} calls differ: {bad[:8]}"
 
 
 def test_wrappers_count_one_launch_each(cuda_device):

@@ -158,3 +158,17 @@ def test_normalnet_frame_parity(frames):
     ref = np.asarray(net_occ(jnp.asarray(pts.numpy())))
     np.testing.assert_allclose(raw.numpy(), ref, rtol=0, atol=1e-4)
     assert float(raw.std()) > 0.0
+
+
+def test_normalnet_serve_matches_the_jax_frame(frames):
+    """The frame's 2-deep serving loop gives the JAX frame's counts and
+    mesh on every frame of an unchanged input."""
+    (jstats, (jv, jf), _, _), pframe = frames
+    served = pframe.serve(3)
+    assert len(served) == 3
+    for stats, verts, faces in served:
+        for k in ("level1_points", "level1_overflow"):
+            assert int(stats[k]) == int(jstats[k]), k
+        np.testing.assert_array_equal(faces, jf)
+        np.testing.assert_allclose(verts, jv, rtol=0, atol=1 / 255 + 1e-6)
+        assert (np.abs(verts - jv) > 1e-5).mean() < 1e-3
