@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[18], then the /proc check [19], a kernel
+Phases (lines tagged [1]..[19], then the /proc check [20], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -31,7 +31,11 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    icon-filter config, 512^2 normals, the subdiv-5 body, res 256 -> levels
    33/65/129/257), seeded random weights: 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
-   package's values for the same level set; then the non-blocking
+   package's values for the same level set; the lattice kernels
+   (``lattice_cells``, ``lattice_emit``, ``lattice_decode``) launched once
+   a frame, no host decode, and the warm-up frames' meshes, decoded on the
+   card, bit-equal to the host decoder's on the same march (wire v1 at
+   full size); then the non-blocking
    dispatch: 5 warm ``compute()`` calls under
    ``torch.cuda.set_sync_debug_mode("error")``, bench.py's same-thread
    2-deep loop and ``Frame.serve`` (the decode on a worker thread), each
@@ -48,10 +52,14 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    widths at 512^2, the rest as in phase 4): 3 warm-up frames, then timed
    frames; level counts and triangle count checked against the JAX
    package's values for the variant field, predicted normals of unit
-   length; the synchronizations a warm ``compute()`` still makes
+   length, the lattice kernels and meshes as in phase 4; the
+   synchronizations a warm ``compute()`` still makes
    (``set_sync_debug_mode("warn")``, by file and line), then
    ``serve`` over SERVE_FRAMES frames, timed, every mesh equal to the
-   sequential frame's;
+   sequential frame's (in phases 4 and 6 the served frames also launch
+   each lattice kernel once a frame, no host decode, and every mesh of a
+   second, untimed served run, whose pack tokens are held, is bit-equal
+   to the host decoder's on its march);
 7. the rasterizer kernels (raster_setup, raster_bin, raster_fwd,
    raster_bwd) against the plain version on the card, at the demo's shapes
    (512^2 normal renders with K=256 and the fit's K=96; the 1024^2
@@ -69,7 +77,8 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
 9. the fit frame at full width (the subdiv-5 SMPL-X-layout body, a 512^2
    matted image, 100 fit iterations, recon at res 256 on bench.py's variant
    field, remesh, 200 cloth iterations, colours): per-stage times, losses,
-   kernel launches and peak memory; level counts against the JAX
+   kernel launches and peak memory; the recon's lattice kernels and mesh
+   as in phase 4; level counts against the JAX
    package's; the raster kernels against the plain version, as in phase 7,
    on the frame's own meshes (the fitted body at K=96, the cloth loop's
    input and output at K=256, the remeshed mesh and the colour stage's
@@ -140,8 +149,9 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    38-512-256-128-1, res 256 on the variant field): 3 warm-up and 5 timed
    recons with the stage split (filter; prep = voxelize and the volume
    encoder; engine; march; decode), peak memory, level counts against the
-   JAX package's; then the CLI on the RGB scene photo with a pifu config
-   (no filter: its seeded readout extrudes the photo's silhouette) and a
+   JAX package's, the lattice kernels and meshes as in phase 4; then the
+   CLI on the RGB scene photo with a pifu config (no filter: its seeded
+   readout extrudes the photo's silhouette) and a
    pamir config, seeded reference-layout ``.ckpt`` files (pamir's with the
    volume encoder's dead modules), ``-loop_smpl 100 -loop_cloth 20
    -no_remesh``: the artifact set per prior (no ``_smpl.*`` for pifu), the
@@ -203,8 +213,9 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    (b) the pseudo-normal sign card vs CPU at small size, then phase 4's
    full-width frame with the winding-cluster sign through
    ``HGPIFuNet.query`` (level counts and triangles against the JAX
-   package's, latency and the engine stage beside the crossing-column
-   frame's); (c) that frame's 257^3 grid through ``extract_mesh`` without a
+   package's, the lattice kernels and mesh as in phase 4, latency and the
+   engine stage beside the crossing-column frame's); (c) that frame's
+   257^3 grid through ``extract_mesh`` without a
    marcher (``mt_emit``, ``mt_index``): 295,244 triangles, the lattice
    marcher's vertex count and face set, vertices within the u8 step of its,
    the kernels' counts, faces, emitted slots and vertex table identical to
@@ -234,7 +245,15 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    CLI (``python -m icon_tpu_torch.data.test_dataset``) on the card over
    phase 10's two seeded photos with the seeded PyMAF, and each photo's
    panel drawn on the card and on the CPU from the card's item: within
-   one u8 step on all but 1e-4 of the pixels.
+   one u8 step on all but 1e-4 of the pixels;
+19. the lattice kernels alone: ``lattice_cells``, ``lattice_emit`` and
+   ``lattice_decode`` against their plain twins (bit-equal) at phase 4's
+   257^3 final grid (phase 17b's column frame) and at phase 17d's 513^3
+   virtual level (the emit on the cells that ``marching_lattice_virtual``
+   hands it; ``lattice_cells`` on the materialized upsample), each alone
+   beside its bound and plain twin, ``torch.sort`` of the shuffled vertex
+   buffer beside the emit, and the C++ host decode of the serving wire
+   alone on the card machine's host.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -256,9 +275,9 @@ one compare per pair over the float32 instruction rate) and the time of
 one PyTorch call computing the same function where one exists (the kNN's
 ``cdist`` + ``topk``, the splat's ``index_add_``, the smooth's
 ``avg_pool3d`` and its backward's ``avg_pool3d_backward``, ``mt_index``'s
-``torch.unique`` with the inverse; none for the rasterizer,
-``fast_winding``, ``mt_emit`` and the splat's backward), and its share of
-the bound.
+``torch.unique`` with the inverse, ``lattice_emit``'s ``torch.sort``; none
+for the rasterizer, ``fast_winding``, ``mt_emit``, the splat's backward,
+``lattice_cells`` and ``lattice_decode``), and its share of the bound.
 """
 
 import json
@@ -393,15 +412,16 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(launch, reps: int = 20) -> float:
+def kernel_ms(launch, reps: int = 20, sleep: int = 2_000_000) -> float:
     """Median over 5 runs of the CUDA-event time per launch of ``reps``
-    back-to-back ``launch()`` calls, queued behind a device sleep so that
-    the host's dispatch does not reach the timed window."""
+    back-to-back ``launch()`` calls, queued behind a device sleep of
+    ``sleep`` cycles so that the host's dispatch does not reach the timed
+    window."""
     launch()
     torch.cuda.synchronize()
     times = []
     for _ in range(5):
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -592,8 +612,11 @@ def phase_full_frame(dev, card, iters: int = 5):
 
     reset_launches()                  # count only the main path's launches
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        fr.frame()
+    # the spy holds the warm-up frames' tokens for the bitwise check; the
+    # timed frames release theirs (a held token keeps its pinned copy)
+    with PackSpy(fr.marcher) as spy:
+        for _ in range(3):
+            fr.frame()
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -602,6 +625,7 @@ def phase_full_frame(dev, card, iters: int = 5):
         times.append(time.perf_counter() - t0)
     launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    lattice_held("4", launched, 3 + iters, spy.records)
 
     _, counts = fr.columns()
     n_over = int((counts > 32).sum())
@@ -672,6 +696,71 @@ def same_mesh(got, verts, faces) -> bool:
     return np.array_equal(got[1], faces) and np.array_equal(got[0], verts)
 
 
+LATTICE_KERNELS = ("lattice_cells", "lattice_emit", "lattice_decode")
+
+
+class PackSpy:
+    """Records (marcher, token) for each token that ``pack`` returns while
+    it is entered, of one marcher or (``target`` the class) of every
+    ``AutoMarcher``; the calls themselves go through unchanged."""
+
+    def __init__(self, target):
+        self.target, self.records = target, []
+
+    def __enter__(self):
+        self.orig = orig = self.target.pack
+        records = self.records
+        if isinstance(self.target, type):
+            def pack(marcher, out, *args, **kw):
+                token = orig(marcher, out, *args, **kw)
+                records.append((marcher, token))
+                return token
+        else:
+            marcher = self.target
+
+            def pack(out, *args, **kw):
+                token = orig(out, *args, **kw)
+                records.append((marcher, token))
+                return token
+        self.target.pack = pack
+        return self
+
+    def __exit__(self, *exc):
+        if isinstance(self.target, type):
+            self.target.pack = self.orig
+        else:
+            del self.target.pack
+
+
+def lattice_held(tag, launched, frames, records) -> None:
+    """A main path's ``frames`` frames (None: one a recorded pack) launched
+    each lattice kernel once a frame and ran no host decode
+    (``launched``), and the mesh of each recorded pack token (decoded on
+    the card) equals bit for bit the host decoder's on the same march
+    (wire v1 at full size). ``records``: a :class:`PackSpy`'s."""
+    from icon_tpu_torch.recon.marching import decode_lattice, pack_lattice
+    frames = len(records) if frames is None else frames
+    per = {k: launched[k] / max(frames, 1) for k in LATTICE_KERNELS}
+    same = 0
+    for marcher, token in records:
+        verts, faces, over = marcher.decode(token)
+        if over:
+            verts, faces = marcher.repack(token)
+        out = token[1]
+        hv, hf = decode_lattice(pack_lattice(out), *out.grid_shape[1:])
+        same += bool(np.array_equal(faces, hf) and np.array_equal(
+            verts.view(np.int32), hv.view(np.int32)))
+    print(f"[{tag}] lattice kernels a frame over {frames} frames {per}, "
+          f"host decodes {launched['host_decode']}; meshes decoded on the "
+          f"card equal to the host decoder's on the same march (bitwise): "
+          f"{same} of {len(records)}", flush=True)
+    if not frames or any(v != 1 for v in per.values()) or \
+            launched["host_decode"] or same != len(records):
+        raise AssertionError(f"phase {tag}: lattice kernels not launched "
+                             f"once a frame, a host decode ran, or a mesh "
+                             f"differs from the host decoder's")
+
+
 def serving(fr, tag, card, seq_s, verts, faces):
     """[4]/[6] The frame's non-blocking dispatch after its sequential
     timing (``seq_s`` s/image, the mesh ``verts``, ``faces``): the
@@ -714,6 +803,10 @@ def serving(fr, tag, card, seq_s, verts, faces):
     served = fr.serve(SERVE_FRAMES)
     served_s = (time.perf_counter() - t0) / SERVE_FRAMES
     launched = read_launches()
+    # untimed: the spy holds every token, whose pinned copies then cannot
+    # be reused (~5 ms a frame, profile_frame.py --serve)
+    with PackSpy(fr.marcher) as spy:
+        served += fr.serve(SERVE_FRAMES)
     meshes += [(v, f) for _, v, f in served]
     over = [int(s[k]) for s, _, _ in served for k in s
             if k.endswith("_overflow")]
@@ -731,6 +824,7 @@ def serving(fr, tag, card, seq_s, verts, faces):
         raise AssertionError(f"phase {tag}: served meshes differ or "
                              f"overflow")
     check_launched(launched, ("knn_f32",), f"phase {tag}'s served frames")
+    lattice_held(tag, launched, SERVE_FRAMES, spy.records)
     if tag == "4":
         t0 = time.perf_counter()
         wall_ms, busy_ms = device_busy(lambda: fr.serve(SERVE_PROFILED))
@@ -861,8 +955,11 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
 
     reset_launches()                  # count only the main path's launches
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        fr.frame()
+    # the spy holds the warm-up frames' tokens for the bitwise check; the
+    # timed frames release theirs (a held token keeps its pinned copy)
+    with PackSpy(fr.marcher) as spy:
+        for _ in range(3):
+            fr.frame()
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -871,6 +968,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
         times.append(time.perf_counter() - t0)
     launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    lattice_held("6", launched, 3 + iters, spy.records)
 
     with torch.no_grad():
         nml = torch.cat(fr.normals(*fr.render()), -1)[0].reshape(-1, 2, 3)
@@ -1279,14 +1377,16 @@ def phase_full_fit_frame(dev, card):
         stage[name] = time.perf_counter() - t
         return out
 
-    fit = timed("fit", fr.fit, item)
-    verts, faces, stats = timed("recon", fr.recon, image, fit, calib)
-    rverts, rfaces = timed("remesh", fr.remesh, verts, faces)
-    refined, closses = timed("cloth", fr.cloth, rverts, rfaces, fit)
-    faces_t = torch.as_tensor(rfaces, device=dev)
-    colors = timed("color", fr.color, refined, faces_t, image)
+    with PackSpy(fr.marcher) as spy:
+        fit = timed("fit", fr.fit, item)
+        verts, faces, stats = timed("recon", fr.recon, image, fit, calib)
+        rverts, rfaces = timed("remesh", fr.remesh, verts, faces)
+        refined, closses = timed("cloth", fr.cloth, rverts, rfaces, fit)
+        faces_t = torch.as_tensor(rfaces, device=dev)
+        colors = timed("color", fr.color, refined, faces_t, image)
     launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    lattice_held("9", launched, 1, spy.records)
 
     n_fit, n_cloth = len(fit.losses), len(closses)
     l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
@@ -1386,6 +1486,7 @@ def phase_cli(dev, card):
     from icon_tpu_torch.apps.infer import main
     from icon_tpu_torch.data.test_dataset import TestDataset
     from icon_tpu_torch.recon.frame import bench_config
+    from icon_tpu_torch.recon.marching import AutoMarcher
     from icon_tpu_torch.utils.synthetic import write_demo_inputs
 
     with tempfile.TemporaryDirectory() as d:
@@ -1427,11 +1528,13 @@ def phase_cli(dev, card):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            records = main(argv, device=dev, keep_meshes=True)
+            with PackSpy(AutoMarcher) as packs:
+                records = main(argv, device=dev, keep_meshes=True)
         finally:
             remove_spy()
         total_s = time.perf_counter() - t0
         launched = read_launches()
+        lattice_held("10", launched, None, packs.records)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         written = sorted(os.listdir(paths["out_dir"]))
 
@@ -2247,11 +2350,13 @@ def phase_pamir_frame(dev, card, iters: int = 5):
 
     reset_launches()                  # count only the main path's launches
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        recon()
-    runs = [recon() for _ in range(iters)]
+    with PackSpy(fr.marcher) as spy:
+        for _ in range(3):
+            recon()
+        runs = [recon() for _ in range(iters)]
     launched = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    lattice_held("13", launched, 3 + iters, spy.records)
     _, stats, verts, faces = runs[-1]
     med = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
     total = [sum(v for k, v in r[0].items() if k not in ("voxelize", "ve"))
@@ -2523,6 +2628,7 @@ def phase_train(dev, card, d):
     worst error})."""
     from icon_tpu_torch.data.fixture import (make_synthetic_dataset,
                                              train_config)
+    from icon_tpu_torch.recon.marching import AutoMarcher
     runs, worst = [], dict.fromkeys(("knn_f32", "raster_setup",
                                      "raster_bin", "raster_fwd",
                                      "voxel_splat", "box_smooth3d"), 0.0)
@@ -2591,12 +2697,14 @@ def phase_train(dev, card, d):
 
     remove = knn_spy(knn_calls)
     try:
-        rec3, launched = run_cli(["-cfg", cfg_path, "-test",
-                                  "--max_eval_items", str(EVAL_ITEMS)],
-                           "eval")
+        with PackSpy(AutoMarcher) as packs:
+            rec3, launched = run_cli(["-cfg", cfg_path, "-test",
+                                      "--max_eval_items", str(EVAL_ITEMS)],
+                                     "eval")
     finally:
         remove()
     runs.append(launched)
+    lattice_held("14", launched, None, packs.records)
     check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
                               "raster_fwd"), "phase 14 eval")
     items = rec3["items"]
@@ -3869,9 +3977,11 @@ def phase_winding_frame(dev, card, iters: int = 3):
               for s in ("columns", "winding")}
     lat_c, eng_c = stage_times(frames["columns"], iters)
     reset_launches()                  # count only the main path's launches
-    stats, _, verts, faces = frames["winding"].frame()
-    torch.cuda.synchronize()
+    with PackSpy(frames["winding"].marcher) as spy:
+        stats, _, verts, faces = frames["winding"].frame()
+        torch.cuda.synchronize()
     launched = read_launches()
+    lattice_held("17b", launched, 1, spy.records)
     lat_w, eng_w = stage_times(frames["winding"], iters)
     l1, l2 = int(stats["level1_points"]), int(stats["level2_points"])
     ov = [int(stats[k]) for k in sorted(stats) if k.endswith("_overflow")]
@@ -4233,15 +4343,179 @@ def phase_virtual(dev):
 
 
 def phase_signs_meshing(dev, card, verts_np, faces_np):
-    """Phase 17: returns (summary entries, main-path launch counts)."""
+    """Phase 17: returns (summary entries, main-path launch counts, the
+    column frame's final and coarse grids for phase 19)."""
     entries = [phase_winding_kernel(dev, verts_np, faces_np)]
     pseudo_normal_small(dev)
-    launched_w, occ, _ = phase_winding_frame(dev, card)
+    launched_w, occ, coarse = phase_winding_frame(dev, card)
     launched_e, march_entries = phase_indexed_export(dev, occ)
     entries += march_entries
-    del occ
     phase_virtual(dev)
-    return entries, [launched_w, launched_e]
+    return entries, [launched_w, launched_e], (occ, coarse)
+
+
+# phase 19: the lattice kernels alone. A device sleep (cycles) long enough
+# for the host to queue 20 wrapper calls behind it, so that "alone" is the
+# device's time; where they stand in the JAX package
+LATTICE_SLEEP = 40_000_000
+LATTICE_REPLACES = {"lattice_cells": "icon_tpu/recon/marching.py:168",
+                    "lattice_emit": "icon_tpu/recon/marching.py:542",
+                    "lattice_decode": "icon_tpu/recon/marching.py:749"}
+
+
+def touched_fine_points(coarse, nc_budget: int) -> int:
+    """The fine points lattice_cells reads: the 3^3 blocks of the first
+    ``nc_budget`` mixed coarse cells, each point once."""
+    from icon_tpu_torch.kernels.lattice import _mixed_cells
+    Dc, Hc, Wc = coarse.shape
+    idx = torch.nonzero(_mixed_cells(coarse, 0.5).reshape(-1))[:nc_budget, 0]
+    cz, cy, cx = idx // ((Hc - 1) * (Wc - 1)), \
+        (idx // (Wc - 1)) % (Hc - 1), idx % (Wc - 1)
+    o = torch.arange(3, device=coarse.device)
+    D, H, W = 2 * Dc - 2, 2 * Hc - 2, 2 * Wc - 2
+    pz = (2 * cz - 1)[:, None, None, None] + o[None, :, None, None]
+    py = (2 * cy - 1)[:, None, None, None] + o[None, None, :, None]
+    px = (2 * cx - 1)[:, None, None, None] + o[None, None, None, :]
+    ok = (pz >= 0) & (pz < D) & (py >= 0) & (py < H) & (px >= 0) & (px < W)
+    lin = ((pz * H + py) * W + px)[ok]
+    return int(torch.unique(lin).numel())
+
+
+def lattice_case(tag, card, fine, coarse, mc, mv, emit_args=None):
+    """[19] The three lattice kernels alone (device time a call, queued
+    behind a sleep, their memsets included) against their plain twins at
+    one size: lattice_cells on (``fine``, ``coarse``); lattice_emit on its
+    cells, or on ``emit_args`` (the virtual level's own cells); the decode
+    on the emit's lattice at full buffers. Each output bit-equal to its
+    twin's; torch.sort of the shuffled vertex buffer and the C++ host
+    decode of the serving wire (v2) alone on this host. Returns {kernel:
+    (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from icon_tpu_torch.kernels import lattice as kl
+    from icon_tpu_torch.recon import lattice_host as PH
+    from icon_tpu_torch.recon.marching import pack_lattice
+    res = {}
+    nc_budget = mc // 8
+    cells = kl.lattice_cells(fine, 0.5, mc, coarse, mc)
+    want = kl.lattice_cells_plain(fine, 0.5, mc, coarse, mc)
+    same_c = all(torch.equal(a, b) for a, b in zip(cells, want))
+    n_cells = int(cells.n_cells)
+    touched = touched_fine_points(coarse, nc_budget)
+    b_ms, b_by = bound(4.0 * coarse.numel() + 4.0 * touched + 64.0 * mc +
+                       16, 0)
+    res["lattice_cells"] = (
+        kernel_ms(lambda: kl.lattice_cells(fine, 0.5, mc, coarse, mc),
+                  sleep=LATTICE_SLEEP),
+        cuda_ms(lambda: kl.lattice_cells_plain(fine, 0.5, mc, coarse, mc),
+                reps=3), b_ms, b_by, None)
+    if emit_args is None:
+        emit_args = (cells.cvals, cells.cx, cells.cy, cells.cz,
+                     cells.cell_idx, cells.n_cells, cells.n_cells_total,
+                     tuple(fine.shape), 0.5, mv)
+    out = kl.lattice_emit(*emit_args)
+    ref = kl.lattice_emit_plain(*emit_args)
+    same_e = all(torch.equal(a, b) for a, b in zip(out[:8], ref[:8]))
+    ne, nv = int(emit_args[5]), int(out.n_verts)
+    nc_rows = emit_args[1].shape[0]
+    keys = out.vert_eid.clone()
+    gen = torch.Generator(device=keys.device).manual_seed(0)
+    keys[:nv] = keys[:nv][torch.randperm(nv, generator=gen,
+                                         device=keys.device)]
+    b_ms, b_by = bound(56.0 * ne + 12.0 * out.vert_eid.numel() +
+                       4.0 * nc_rows + 16, 0)
+    res["lattice_emit"] = (
+        kernel_ms(lambda: kl.lattice_emit(*emit_args), sleep=LATTICE_SLEEP),
+        cuda_ms(lambda: kl.lattice_emit_plain(*emit_args), reps=3), b_ms,
+        b_by, cuda_ms(lambda: torch.sort(keys, stable=True)))
+    nvb, nfb = kl.decode_sizes(out)
+    buf = kl.lattice_decode(out, nvb, nfb)
+    dref = kl.lattice_decode_plain(ref, nvb, nfb)
+    nf, ncl = int(dref[1]), int(dref[2])
+    fo = kl.HEADER + 3 * nvb
+    same_d = torch.equal(buf[:kl.HEADER + 3 * nv],
+                         dref[:kl.HEADER + 3 * nv]) and \
+        torch.equal(buf[fo:fo + 3 * nf], dref[fo:fo + 3 * nf])
+    b_ms, b_by = bound(12.0 * nv + 12.0 * ncl + 16 + 12.0 * nv + 12.0 * nf,
+                       0)
+    res["lattice_decode"] = (
+        kernel_ms(lambda: kl.lattice_decode(out, nvb, nfb),
+                  sleep=LATTICE_SLEEP),
+        cuda_ms(lambda: kl.lattice_decode_plain(out, nvb, nfb), reps=3),
+        b_ms, b_by, None)
+    calls = {"lattice_cells": lambda: kl.lattice_cells(fine, 0.5, mc, coarse,
+                                                       mc),
+             "lattice_emit": lambda: kl.lattice_emit(*emit_args),
+             "lattice_decode": lambda: kl.lattice_decode(out, nvb, nfb)}
+    dispatch = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        dispatch[name] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+    H, W = out.grid_shape[1:]
+    wire, wvb, wcb = pack_lattice(out, implicit_eid=True)
+    host = wire.cpu().numpy()
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        PH.lattice_decode(host, wvb, wcb, H, W, True)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[19] {tag}: {n_cells} cells ({touched} fine points read), {nv} "
+          f"verts, {nf} faces; bit-equal to the plain twins: cells "
+          f"{same_c}, emit {same_e}, decode {same_d}", flush=True)
+    for name, (ms, pms, bms, bby, lms) in res.items():
+        lib = f", torch.sort {lms:.4f} ms" if lms is not None else ""
+        print(f"[19] {tag} {name}: alone {ms:.4f} ms, plain {pms:.4f} ms"
+              f"{lib}, bound {bms:.4f} ms ({bby}), {bms / ms:.1%} of it, "
+              f"on {card}; the wrapper's host dispatch "
+              f"{dispatch[name]:.4f} ms a call", flush=True)
+    print(f"[19] {tag} C++ host decode of the wire v2 alone (host time, "
+          f"this machine's host): median {statistics.median(host_ms):.3f} "
+          f"ms, all {[round(x, 3) for x in host_ms]}", flush=True)
+    if not (same_c and same_e and same_d) or nf < 1000:
+        raise AssertionError(f"[19] {tag}: a lattice kernel differs from "
+                             f"its plain twin")
+    return res
+
+
+def phase_lattice_kernels(dev, card, grids):
+    """[19] lattice_cells, lattice_emit and lattice_decode alone against
+    their plain twins at phase 4's 257^3 final grid (phase 17b's column
+    frame) and at the 513^3 virtual level of phase 17d (its emit's own
+    cells, recorded from ``marching_lattice_virtual``; lattice_cells there
+    on the materialized upsample, which the virtual path does not march).
+    Returns the summary entries (the 257^3 times)."""
+    from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
+    from icon_tpu_torch.recon import marching as PM
+    from icon_tpu_torch.recon.engine import (ReconEngine,
+                                             reconstruction_resolutions)
+    from icon_tpu_torch.utils.synthetic import clothed_human_occ
+    occ, coarse = grids
+    r257 = lattice_case("257^3", card, occ[1:, 1:, 1:], coarse, 1 << 18,
+                        1 << 19)
+    eng = ReconEngine(reconstruction_resolutions(VIRTUAL_RES),
+                      virtual_final=True, device=dev)
+    with torch.no_grad():
+        c513, _ = eng(lambda p: clothed_human_occ(p)[..., None])
+    mc = mv = (1 << 19) * (VIRTUAL_RES // 256) ** 2
+    recorded, emit = [], PM.lattice_emit
+    PM.lattice_emit = lambda *a: recorded.append(a) or emit(*a)
+    try:
+        PM.marching_lattice_virtual(c513, max_cells=mc, max_verts=mv,
+                                    max_candidates=mc)
+    finally:
+        PM.lattice_emit = emit
+    fine = resize3d_trilinear_align_corners(
+        c513[None, None], (2 * c513.shape[0] - 1,) * 3)[0, 0, 1:, 1:, 1:]
+    lattice_case(f"{VIRTUAL_RES + 1}^3 virtual", card, fine, c513, mc, mv,
+                 emit_args=recorded[0])
+    return [{"name": name, "route": "cuda",
+             "source": "icon_tpu_torch/csrc/lattice.cu",
+             "replaces": LATTICE_REPLACES[name], "max_abs_err": 0.0,
+             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+             "library_ms": lms}
+            for name, (ms, pms, bms, bby, lms) in r257.items()]
 
 
 # phase 18: PaMIR's occupancy differentiated in the body at full width, and
@@ -4647,7 +4921,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[19] descendant processes left: {len(left)}", flush=True)
+    print(f"[20] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -4663,9 +4937,12 @@ def normal_inputs(verts, faces, azimuth):
 
 
 def reset_launches() -> None:
-    from icon_tpu_torch.kernels import knn, marching, raster, voxelize, \
-        winding
+    from icon_tpu_torch.kernels import knn, lattice, marching, raster, \
+        voxelize, winding
+    from icon_tpu_torch.recon import lattice_host
     knn.launches = 0
+    lattice.launches_cells = lattice.launches_emit = 0
+    lattice.launches_decode = lattice_host.host_decodes = 0
     raster.launches_setup = raster.launches_bin = 0
     raster.launches_fwd = raster.launches_bwd = 0
     voxelize.launches_splat = voxelize.launches_smooth = 0
@@ -4675,8 +4952,11 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    from icon_tpu_torch.kernels import knn, marching, raster, voxelize, \
-        winding
+    """Each kernel's launches since :func:`reset_launches`, and the host
+    lattice decoder's calls (``host_decode``, not a kernel)."""
+    from icon_tpu_torch.kernels import knn, lattice, marching, raster, \
+        voxelize, winding
+    from icon_tpu_torch.recon import lattice_host
     return {"knn_f32": knn.launches, "raster_setup": raster.launches_setup,
             "raster_bin": raster.launches_bin,
             "raster_fwd": raster.launches_fwd,
@@ -4687,7 +4967,11 @@ def read_launches() -> dict:
             "box_smooth3d_bwd": voxelize.launches_smooth_bwd,
             "fast_winding": winding.launches,
             "mt_emit": marching.launches_emit,
-            "mt_index": marching.launches_index}
+            "mt_index": marching.launches_index,
+            "lattice_cells": lattice.launches_cells,
+            "lattice_emit": lattice.launches_emit,
+            "lattice_decode": lattice.launches_decode,
+            "host_decode": lattice_host.host_decodes}
 
 
 def timed(label: str, fn, *args):
@@ -4758,8 +5042,8 @@ def main() -> int:
         runs += launched
         launched, dist_errs = timed("16", phase_dist, dev, card, d)
         runs += launched
-    entries, launched = timed("17", phase_signs_meshing, dev, card,
-                              verts_np, faces_np)
+    entries, launched, grids = timed("17", phase_signs_meshing, dev, card,
+                                     verts_np, faces_np)
     summary += entries
     runs += launched
     # the frames, CLIs and trainers differentiate no voxel input
@@ -4771,6 +5055,8 @@ def main() -> int:
                               verts_np)
     summary += entries
     runs += launched
+    summary += timed("19", phase_lattice_kernels, dev, card, grids)
+    del grids
     for entry in summary:           # the launches of the main paths' runs
         entry["launches"] = sum(run.get(entry["name"], 0) for run in runs)
         entry["max_abs_err"] = max(

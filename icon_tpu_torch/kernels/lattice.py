@@ -1,0 +1,541 @@
+"""The serving marcher's lattice kernels and their plain twins: the active
+cells, the lattice emit and the decode of the mesh on the card.
+
+``recon/marching.py`` calls the wrappers. A CUDA tensor launches
+``csrc/lattice.cu`` or raises; a CPU tensor takes the plain version (the
+JAX package's function in PyTorch: ``_active_cells`` with
+``_compact_indices``, ``_lattice_emit`` with a stable ``torch.sort`` in
+place of ``lax.sort``, and the host codec's decode,
+``csrc/latticecodec.cc:77-150``).
+
+- :func:`lattice_cells`: each mixed cell of the coarse grid expands into
+  its 8 fine cells, each tested exactly on its own 8 corners; the alive
+  ones in candidate order, the first ``max_cells``, with their
+  coordinates, linear ids and corner values (without a coarse grid, the
+  fine grid's mixed cells in linear order). One launch.
+- :func:`lattice_emit`: each alive cell's corner byte and owned crossing
+  edges; the first ``max_verts`` in (cell, slot) order, as (edge id,
+  fraction) in ascending edge-id order. Five launches from one call: the
+  emit, then the id bitmap's clear, mark, rank scan and write.
+- :func:`lattice_decode`: the host decoder's mesh (wire v1 at full size)
+  from a :class:`LatticeOut`, in one int32 buffer ``[header 4 | verts 3
+  nvb f32 | faces 3 nfb i32]``, header (vertices, faces, cells, 0), for one
+  copy to the host (:func:`unpack_decoded`). One launch.
+
+Rows past the counts: :func:`lattice_cells` and :func:`lattice_emit` give
+zeros (and INT64_MAX edge ids) in both versions; the decode buffer's rows
+past its counts are unspecified. Each call's buffers and scratch are its
+own (the C entries zero the scratch with ``cudaMemsetAsync`` on the call's
+stream), so host threads on one stream share no state.
+
+``launches_cells``, ``launches_emit`` and ``launches_decode`` count the
+wrappers' calls on the card (a call is one count for its launches).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from icon_tpu_torch.ops.constants import device_constant
+from icon_tpu_torch.recon.engine import _compact
+from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
+                                               _host_tables_flat)
+
+INT64_MAX = 2 ** 63 - 1
+TILE_CELLS = 256          # csrc/lattice.cu's kThreads
+DECODE_TILE_CELLS = 128   # csrc/lattice.cu's kDecodeThreads
+HEADER = 4                # int32 words before the decoded vertices
+
+launches_cells = 0        # lattice_cells calls on the card since the reset
+launches_emit = 0
+launches_decode = 0
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_tables_on = set()        # device indices whose constant tables are set
+
+
+class LatticeOut(NamedTuple):
+    vert_eid: torch.Tensor     # [max_verts] int64 sorted unique edge ids
+    vert_s: torch.Tensor       # [max_verts] f32 fraction from the lo end
+    cell_id: torch.Tensor      # [max_cells] int64 linear cell ids
+    cell_bits: torch.Tensor    # [max_cells] int32 (low 8 bits: corners)
+    n_verts: torch.Tensor      # 0-d, clamped to max_verts
+    n_cells: torch.Tensor      # 0-d, clamped to max_cells
+    n_verts_total: torch.Tensor  # true count; > n_verts = overflow
+    n_cells_total: torch.Tensor
+    grid_shape: Tuple[int, int, int]   # (D, H, W) of the marched grid
+
+
+class Cells(NamedTuple):
+    cx: torch.Tensor           # [max_cells] int64 cell coordinates
+    cy: torch.Tensor
+    cz: torch.Tensor
+    cell_idx: torch.Tensor     # [max_cells] int64 linear cell ids
+    cvals: torch.Tensor        # [max_cells, 8] f32, corner c = x + 2y + 4z
+    n_cells: torch.Tensor      # 0-d int64, min(alive, max_cells)
+    n_cells_total: torch.Tensor  # 0-d int64; > n_cells = overflow
+
+
+def _load() -> ctypes.CDLL:
+    """Build (first use) and bind the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            from icon_tpu_torch.kernels.build import build
+            lib = ctypes.CDLL(build()["lattice.cu"])
+            vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            cf = ctypes.c_float
+            lib.icon_lattice_set_tables.argtypes = [vp] * 5
+            lib.icon_lattice_cells.argtypes = [vp, ci, ci, ci, vp, vp, ci, ci,
+                                               ci, vp, cf, cl, cl, vp, vp, vp,
+                                               vp]
+            lib.icon_lattice_emit.argtypes = [vp, vp, vp, vp, vp, cl, ci, ci,
+                                              ci, cf, cl, vp, vp, vp, cl, vp,
+                                              vp, vp, vp, vp, vp, vp, vp]
+            lib.icon_lattice_decode.argtypes = [vp, vp, vp, cl, vp, vp, vp,
+                                                cl, ci, ci, cl, cl, vp, vp,
+                                                vp]
+            lib.icon_lattice_error_string.argtypes = [ci]
+            lib.icon_lattice_error_string.restype = ctypes.c_char_p
+            for fn in (lib.icon_lattice_tile_cells,
+                       lib.icon_lattice_decode_tile_cells):
+                fn.argtypes = []
+            for fn in (lib.icon_lattice_set_tables, lib.icon_lattice_cells,
+                       lib.icon_lattice_emit, lib.icon_lattice_decode,
+                       lib.icon_lattice_tile_cells,
+                       lib.icon_lattice_decode_tile_cells):
+                fn.restype = ci
+            if (lib.icon_lattice_tile_cells(),
+                    lib.icon_lattice_decode_tile_cells()) != (
+                        TILE_CELLS, DECODE_TILE_CELLS):
+                raise RuntimeError("csrc/lattice.cu's tile sizes differ "
+                                   "from kernels/lattice.py's")
+            _lib = lib
+    return _lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.icon_lattice_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def _lib_on(device: torch.device) -> ctypes.CDLL:
+    """The library, with the edge slots and the codec's tables in
+    ``device``'s constant memory."""
+    lib = _load()
+    with _lock:
+        if device.index not in _tables_on:
+            tables = [np.ascontiguousarray(_EDGE_SLOTS, dtype=np.uint8)]
+            tables += [np.ascontiguousarray(t, dtype=np.uint8)
+                       for t in _host_tables_flat()]
+            with torch.cuda.device(device):
+                _raise_on(lib, lib.icon_lattice_set_tables(
+                    *(t.ctypes.data for t in tables)),
+                    "icon_lattice_set_tables")
+            _tables_on.add(device.index)
+    return lib
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+# --- lattice_cells -----------------------------------------------------------
+
+def _mixed_cells(arr: torch.Tensor, iso: float) -> torch.Tensor:
+    """[D-1, H-1, W-1] bool: the cells of ``arr`` whose 8 corners lie on
+    both sides of ``iso``."""
+    inside = arr > iso
+    D, H, W = arr.shape
+
+    def corner(c):
+        dx, dy, dz = (int(o) for o in _CORNER_OFF[c])
+        return inside[dz:dz + D - 1, dy:dy + H - 1, dx:dx + W - 1]
+
+    cnt = sum(corner(c).to(torch.int8) for c in range(8))
+    return (cnt > 0) & (cnt < 8)
+
+
+def _coarse_candidates(coarse_occ: torch.Tensor, iso: float,
+                       fine_shape: Tuple[int, int, int], nc_budget: int):
+    """The fine cells that the first ``nc_budget`` mixed cells of
+    ``coarse_occ`` cover in its 2x upsample sliced by one (``fine_shape``):
+    coarse cell c covers fine cells {2c-1, 2c} per axis. Returns (kx, ky,
+    kz, cand_idx, valid [nc_budget * 8], n_mixed_total)."""
+    D, H, W = fine_shape
+    cw, ch = W - 1, H - 1
+    Dc, Hc, Wc = coarse_occ.shape
+    dev = coarse_occ.device
+    idxc, n_c, n_mixed_total = _compact(
+        _mixed_cells(coarse_occ, iso).reshape(-1), nc_budget)
+    ccz = idxc // ((Hc - 1) * (Wc - 1))
+    ccy = (idxc // (Wc - 1)) % (Hc - 1)
+    ccx = idxc % (Wc - 1)
+    offs = device_constant(_CORNER_OFF, torch.int64, dev)
+    fx = 2 * ccx[:, None] - 1 + offs[None, :, 0]
+    fy = 2 * ccy[:, None] - 1 + offs[None, :, 1]
+    fz = 2 * ccz[:, None] - 1 + offs[None, :, 2]
+    valid = ((fx >= 0) & (fx < cw) & (fy >= 0) & (fy < ch) &
+             (fz >= 0) & (fz < D - 1) &
+             (torch.arange(nc_budget, device=dev)[:, None] < n_c))
+    kx = torch.clamp(fx, 0, cw - 1).reshape(-1)
+    ky = torch.clamp(fy, 0, ch - 1).reshape(-1)
+    kz = torch.clamp(fz, 0, D - 2).reshape(-1)
+    return kx, ky, kz, (kz * ch + ky) * cw + kx, valid.reshape(-1), \
+        n_mixed_total
+
+
+def lattice_cells_plain(occ: torch.Tensor, iso: float, max_cells: int,
+                        coarse_occ: Optional[torch.Tensor] = None,
+                        max_candidates: Optional[int] = None) -> Cells:
+    """See :func:`lattice_cells`."""
+    D, H, W = occ.shape
+    cw, ch = W - 1, H - 1
+    dev = occ.device
+    if coarse_occ is None:
+        cell_idx, n_cells, n_cells_total = _compact(
+            _mixed_cells(occ, iso).reshape(-1), max_cells)
+        cz = cell_idx // (ch * cw)
+        cy = (cell_idx // cw) % ch
+        cx = cell_idx % cw
+    else:
+        nc_budget = (max_candidates or max_cells) // 8
+        kx, ky, kz, cand_idx, valid, n_mixed_total = _coarse_candidates(
+            coarse_occ, iso, (D, H, W), nc_budget)
+        # exact mixed test: separable all-inside / any-inside reductions
+        inside = occ > iso
+        ai = inside[:, :, :-1] & inside[:, :, 1:]
+        ao = inside[:, :, :-1] | inside[:, :, 1:]
+        ai = ai[:, :-1] & ai[:, 1:]
+        ao = ao[:, :-1] | ao[:, 1:]
+        mixedv = ((ao[:-1] | ao[1:]) & ~(ai[:-1] & ai[1:])).reshape(-1)
+        alive_cand = valid & mixedv[cand_idx]
+        cpos, n_cells, n_alive_total = _compact(alive_cand, max_cells)
+        # each dropped mixed coarse cell hides up to 8 fine candidates
+        n_cells_total = n_alive_total + 8 * torch.clamp(
+            n_mixed_total - nc_budget, min=0)
+        cx, cy, cz, cell_idx = kx[cpos], ky[cpos], kz[cpos], cand_idx[cpos]
+    alive = torch.arange(max_cells, device=dev) < n_cells
+    cx, cy, cz, cell_idx = (torch.where(alive, a, torch.zeros_like(a))
+                            for a in (cx, cy, cz, cell_idx))
+    offs = device_constant(_CORNER_OFF, torch.int64, dev)
+    cvals = occ[cz[:, None] + offs[None, :, 2], cy[:, None] + offs[None, :, 1],
+                cx[:, None] + offs[None, :, 0]]           # [NC, 8]
+    cvals = torch.where(alive[:, None], cvals, torch.zeros_like(cvals))
+    return Cells(cx, cy, cz, cell_idx, cvals, n_cells, n_cells_total)
+
+
+def lattice_cells(occ: torch.Tensor, iso: float, max_cells: int,
+                  coarse_occ: Optional[torch.Tensor] = None,
+                  max_candidates: Optional[int] = None) -> Cells:
+    """The active cells of ``occ [D, H, W]`` (float32, any strides).
+
+    With ``coarse_occ`` (``occ`` is its 2x align_corners upsample sliced by
+    one) every mixed coarse cell among the first ``(max_candidates or
+    max_cells) // 8`` expands into its 8 fine cells, and those exactly
+    mixed at fine resolution are kept in that candidate order;
+    ``n_cells_total`` adds 8 for each mixed coarse cell past that budget.
+    Without it the fine grid's mixed cells, in linear order. The first
+    ``max_cells`` are kept (:class:`Cells`; rows past ``n_cells`` are
+    zero)."""
+    global launches_cells
+    if not _on_card(occ):
+        return lattice_cells_plain(occ, iso, max_cells, coarse_occ,
+                                   max_candidates)
+    grids = (occ,) if coarse_occ is None else (occ, coarse_occ)
+    for g in grids:
+        if g.dtype != torch.float32 or g.ndim != 3 or min(g.shape) < 2 or \
+                g.device != occ.device:
+            raise ValueError("occ and coarse_occ must be float32 [D, H, W] "
+                             "grids on one device, each side at least 2")
+    if max_cells < 1:
+        raise ValueError(f"max_cells {max_cells}")
+    D, H, W = occ.shape
+    dev = occ.device
+    nc_budget = (max_candidates or max_cells) // 8
+    if coarse_occ is None:
+        n_items = (D - 1) * (H - 1) * (W - 1)
+        cptr, cshape, cstr = None, (0, 0, 0), None
+    else:
+        Dc, Hc, Wc = coarse_occ.shape
+        n_items = (Dc - 1) * (Hc - 1) * (Wc - 1)
+        cptr, cshape = coarse_occ.data_ptr(), coarse_occ.shape
+        cstr = (ctypes.c_longlong * 3)(*coarse_occ.stride())
+    fstr = (ctypes.c_longlong * 3)(*occ.stride())
+    tiles = -(-n_items // TILE_CELLS)
+    scratch = torch.empty((4 + tiles,), dtype=torch.int64, device=dev)
+    out = torch.empty((8 * max_cells,), dtype=torch.int64, device=dev)
+    counts = torch.empty((2,), dtype=torch.int64, device=dev)
+    lib = _lib_on(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(lib, lib.icon_lattice_cells(
+            occ.data_ptr(), D, H, W, fstr, cptr, *cshape, cstr, float(iso),
+            nc_budget, max_cells, out.data_ptr(), counts.data_ptr(),
+            scratch.data_ptr(), stream), "icon_lattice_cells")
+    launches_cells += 1
+    mc = max_cells
+    return Cells(out[:mc], out[mc:2 * mc], out[2 * mc:3 * mc],
+                 out[3 * mc:4 * mc],
+                 out[4 * mc:].view(torch.float32).view(mc, 8),
+                 counts[0], counts[1])
+
+
+# --- lattice_emit ------------------------------------------------------------
+
+def lattice_emit_plain(cvals: torch.Tensor, cx: torch.Tensor,
+                       cy: torch.Tensor, cz: torch.Tensor,
+                       cell_idx: torch.Tensor, n_cells: torch.Tensor,
+                       n_cells_total: torch.Tensor,
+                       fine_shape: Tuple[int, int, int], iso: float,
+                       max_verts: int) -> LatticeOut:
+    """See :func:`lattice_emit`."""
+    D, H, W = fine_shape
+    cw, ch = W - 1, H - 1
+    dev = cvals.device
+    max_cells = cx.shape[0]
+    alive = torch.arange(max_cells, device=dev) < n_cells
+    cbits = (cvals > iso).to(torch.int32)
+
+    slots = device_constant(_EDGE_SLOTS, torch.int64, dev)
+    v_lo = cvals[:, slots[:, 0]]                          # [NC, 19]
+    v_hi = cvals[:, slots[:, 1]]
+    crossing = (v_lo > iso) != (v_hi > iso)
+    olo = device_constant(_CORNER_OFF[_EDGE_SLOTS[:, 0]], torch.int64,
+                          dev)                            # [19, 3] (x, y, z)
+    own = (((olo[None, :, 0] == 0) | (cx[:, None] == cw - 1)) &
+           ((olo[None, :, 1] == 0) | (cy[:, None] == ch - 1)) &
+           ((olo[None, :, 2] == 0) | (cz[:, None] == D - 2)))
+    valid = crossing & own & alive[:, None]
+
+    denom = v_hi - v_lo
+    s = torch.clamp((iso - v_lo) / torch.where(denom == 0,
+                                               torch.ones_like(denom), denom),
+                    0.0, 1.0)
+    plin = ((cz[:, None] + olo[None, :, 2]) * H +
+            (cy[:, None] + olo[None, :, 1])) * W + \
+        (cx[:, None] + olo[None, :, 0])
+    eid = plin * 8 + slots[None, :, 2]                    # [NC, 19] int64
+
+    vpos, n_verts, n_verts_total = _compact(valid.reshape(-1), max_verts)
+    live = torch.arange(max_verts, device=dev) < n_verts
+    # canonical wire order: ascending edge id; dead slots sort to the tail
+    vert_eid = torch.where(live, eid.reshape(-1)[vpos],
+                           torch.full_like(vpos, INT64_MAX))
+    vert_s = torch.where(live, s.reshape(-1)[vpos],
+                         torch.zeros((), dtype=s.dtype, device=dev))
+    vert_eid, order = torch.sort(vert_eid, stable=True)
+    vert_s = vert_s[order]
+
+    weights = device_constant([1, 2, 4, 8, 16, 32, 64, 128], torch.int32,
+                              dev)
+    cbyte = torch.where(alive, (cbits * weights).sum(-1, dtype=torch.int32),
+                        torch.zeros((), dtype=torch.int32, device=dev))
+    return LatticeOut(vert_eid, vert_s, cell_idx, cbyte,
+                      torch.clamp(n_verts, max=max_verts),
+                      torch.clamp(n_cells, max=max_cells),
+                      n_verts_total, n_cells_total, (D, H, W))
+
+
+def lattice_emit(cvals: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
+                 cz: torch.Tensor, cell_idx: torch.Tensor,
+                 n_cells: torch.Tensor, n_cells_total: torch.Tensor,
+                 fine_shape: Tuple[int, int, int], iso: float,
+                 max_verts: int) -> LatticeOut:
+    """The lattice vertices and corner bytes of the cells ``(cx, cy, cz)
+    [NC]`` (int64, ids ``cell_idx``, corner values ``cvals [NC, 8]`` f32;
+    those at and past ``n_cells``, a 0-d tensor, are dead) of a fine grid
+    of ``fine_shape`` (D, H, W).
+
+    Each alive cell owns the crossing edges of its 19 slots (the far ones
+    only on the grid's last cells); their (edge id ``plin * 8 + dir``,
+    fraction ``clamp((iso - v_lo) / (v_hi - v_lo), 0, 1)``) in (cell,
+    slot) order, the first ``max_verts``, sorted by edge id, then
+    INT64_MAX and 0. Returns a :class:`LatticeOut` (``n_cells_total``
+    passed through; dead corner bytes 0)."""
+    global launches_emit
+    if not _on_card(cvals):
+        return lattice_emit_plain(cvals, cx, cy, cz, cell_idx, n_cells,
+                                  n_cells_total, fine_shape, iso, max_verts)
+    nc = cx.shape[0]
+    dev = cvals.device
+    if cvals.dtype != torch.float32 or tuple(cvals.shape) != (nc, 8):
+        raise ValueError("cvals must be float32 [NC, 8]")
+    for t in (cx, cy, cz, n_cells):
+        if t.dtype != torch.int64 or t.device != dev:
+            raise TypeError("cell coordinates and n_cells must be int64 on "
+                            "cvals' device")
+    D, H, W = fine_shape
+    if nc < 1 or max_verts < 1 or min(fine_shape) < 2:
+        raise ValueError(f"{nc} cells, {max_verts} vertices, grid "
+                         f"{fine_shape}")
+    cvals = cvals.contiguous()
+    if cvals.data_ptr() % 16:
+        cvals = cvals.clone()
+    cx, cy, cz = cx.contiguous(), cy.contiguous(), cz.contiguous()
+    n_cells = n_cells.reshape(()).contiguous()
+    n_sum = max(1, -(-(D * H * W * 8) // 1024))
+    words = (1 + -(-nc // TILE_CELLS)) + (1 + -(-n_sum // TILE_CELLS)) + \
+        -(-n_sum // 2)
+    i64, f32, i32 = torch.int64, torch.float32, torch.int32
+    scratch = torch.empty((words,), dtype=i64, device=dev)
+    keid = torch.empty((max_verts,), dtype=i64, device=dev)
+    ks = torch.empty((max_verts,), dtype=f32, device=dev)
+    bitmap = torch.empty((32 * n_sum,), dtype=i32, device=dev)
+    sum_rank = torch.empty((n_sum, 2), dtype=i32, device=dev)
+    word_rank = torch.empty((min(max_verts, 32 * n_sum), 2), dtype=i32,
+                            device=dev)
+    cell_bits = torch.empty((nc,), dtype=i32, device=dev)
+    vert_eid = torch.empty((max_verts,), dtype=i64, device=dev)
+    vert_s = torch.empty((max_verts,), dtype=f32, device=dev)
+    counts = torch.empty((2,), dtype=i64, device=dev)
+    lib = _lib_on(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(lib, lib.icon_lattice_emit(
+            cvals.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
+            n_cells.data_ptr(), nc, D, H, W, float(iso), max_verts,
+            keid.data_ptr(), ks.data_ptr(), bitmap.data_ptr(), n_sum,
+            scratch.data_ptr(), sum_rank.data_ptr(), word_rank.data_ptr(),
+            cell_bits.data_ptr(), vert_eid.data_ptr(), vert_s.data_ptr(),
+            counts.data_ptr(), stream), "icon_lattice_emit")
+    launches_emit += 1
+    return LatticeOut(vert_eid, vert_s, cell_idx, cell_bits, counts[0],
+                      torch.clamp(n_cells, max=nc), counts[1],
+                      n_cells_total, (D, H, W))
+
+
+# --- lattice_decode ----------------------------------------------------------
+
+def decode_sizes(out: LatticeOut) -> Tuple[int, int]:
+    """The full buffers of :func:`lattice_decode` for ``out``: every vertex
+    row, and 12 faces (6 tets x 2) a cell row."""
+    return out.vert_eid.shape[0], 12 * out.cell_id.shape[0]
+
+
+def lattice_decode_plain(out: LatticeOut, nvb: int, nfb: int
+                         ) -> torch.Tensor:
+    """See :func:`lattice_decode` (reads the counts on the host; the rows
+    past the counts are 0)."""
+    D, H, W = out.grid_shape
+    cw, ch = W - 1, H - 1
+    dev = out.vert_eid.device
+    nv = max(0, min(int(out.n_verts), out.vert_eid.shape[0]))
+    nc = max(0, min(int(out.n_cells), out.cell_id.shape[0]))
+    eid = out.vert_eid[:nv]
+    q = torch.clamp(torch.round(out.vert_s[:nv] * 255.0), 0, 255)
+    # a 0-d tensor divisor: CUDA divides by a host scalar through its
+    # reciprocal, which the host decoder's exact division does not
+    s = q / q.new_full((), 255.0)
+    lo, d = eid >> 3, eid & 7
+    verts = torch.stack([
+        (lo % W).to(torch.float32) + s * (d & 1).to(torch.float32),
+        ((lo // W) % H).to(torch.float32) + s * ((d >> 1) & 1).to(
+            torch.float32),
+        (lo // (H * W)).to(torch.float32) + s * ((d >> 2) & 1).to(
+            torch.float32)], -1)                          # [nv, 3]
+
+    tet_case, tri_lo, tri_dcode, tri_valid = (
+        device_constant(t, torch.int64, dev) for t in _host_tables_flat())
+    cid = out.cell_id[:nc]
+    bits = out.cell_bits[:nc].to(torch.int64) & 0xFF
+    cx, cy, cz = cid % cw, (cid // cw) % ch, cid // (cw * ch)
+    t6 = torch.arange(6, device=dev)
+    e96 = t6 * 16 + tet_case[bits[:, None] * 6 + t6]      # [nc, 6]
+    tri = (e96[:, :, None] * 2 + torch.arange(2, device=dev)).reshape(nc, 12)
+    slot = tri[:, :, None] * 3 + torch.arange(3, device=dev)  # [nc, 12, 3]
+    lo_loc, dc = tri_lo[slot], tri_dcode[slot]
+    lin = ((cz[:, None, None] + ((lo_loc >> 2) & 1)) * H +
+           (cy[:, None, None] + ((lo_loc >> 1) & 1))) * W + \
+        (cx[:, None, None] + (lo_loc & 1))
+    key = lin * 8 + dc
+    if nv:
+        r = torch.searchsorted(eid, key)
+        found = (r < nv) & (eid[torch.clamp(r, max=nv - 1)] == key)
+    else:
+        r, found = torch.zeros_like(key), torch.zeros_like(key,
+                                                           dtype=torch.bool)
+    ok = (tri_valid[tri] != 0) & found.all(-1) & \
+        (r[..., 0] != r[..., 1]) & (r[..., 1] != r[..., 2]) & \
+        (r[..., 0] != r[..., 2])
+    faces = r[ok].to(torch.int32)                         # (cell, slot) order
+    nf = faces.shape[0]
+
+    buf = torch.zeros((HEADER + 3 * nvb + 3 * nfb,), dtype=torch.int32,
+                      device=dev)
+    buf[:3] = torch.tensor([nv, nf, nc], dtype=torch.int32)
+    nw, fw = min(nv, nvb), min(nf, nfb)
+    buf[HEADER:HEADER + 3 * nw] = verts[:nw].reshape(-1).view(torch.int32)
+    fo = HEADER + 3 * nvb
+    buf[fo:fo + 3 * fw] = faces[:fw].reshape(-1)
+    return buf
+
+
+def lattice_decode(out: LatticeOut, nvb: int, nfb: int) -> torch.Tensor:
+    """The mesh of ``out`` as the host decoder builds it from the wire v1
+    at full size (``csrc/latticecodec.cc:77-150``): vertices in ascending
+    edge-id order, ``lo + s8 / 255 * d`` an axis with ``s8 = clamp(rint(s
+    * 255), 0, 255)`` as :func:`~icon_tpu_torch.recon.marching.pack_lattice`
+    quantizes it; faces cell by cell, tet by tet, slot by slot, a face
+    whose edge is no vertex or whose ranks repeat dropped.
+
+    Returns one int32 buffer ``[header 4 | verts 3 nvb f32 | faces 3 nfb
+    i32]``: the header (vertices, faces, cells, 0) holds the true counts,
+    written on the device, then the first ``nvb`` vertices and ``nfb``
+    faces (rows past the counts unspecified on the card).
+    :func:`unpack_decoded` reads it."""
+    global launches_decode
+    if not _on_card(out.vert_eid):
+        return lattice_decode_plain(out, nvb, nfb)
+    D, H, W = out.grid_shape
+    dev = out.vert_eid.device
+    nv_cap, nc_cap = out.vert_eid.shape[0], out.cell_id.shape[0]
+    if out.vert_eid.dtype != torch.int64 or out.cell_id.dtype != torch.int64 \
+            or out.cell_bits.dtype != torch.int32 or \
+            out.vert_s.dtype != torch.float32:
+        raise TypeError("LatticeOut must hold int64 ids, int32 corner bytes "
+                        "and float32 fractions")
+    if nvb < 0 or nfb < 0 or min(H, W) < 2:
+        raise ValueError(f"sizes {nvb}, {nfb} on grid {out.grid_shape}")
+    buf = torch.empty((HEADER + 3 * nvb + 3 * nfb,), dtype=torch.int32,
+                      device=dev)
+    scratch = torch.empty((1 + -(-nc_cap // DECODE_TILE_CELLS),),
+                          dtype=torch.int64, device=dev)
+    ts = [t.contiguous() for t in (out.vert_eid, out.vert_s, out.n_verts,
+                                   out.cell_id, out.cell_bits, out.n_cells)]
+    lib = _lib_on(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(lib, lib.icon_lattice_decode(
+            ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(), nv_cap,
+            ts[3].data_ptr(), ts[4].data_ptr(), ts[5].data_ptr(), nc_cap, H,
+            W, nvb, nfb, buf.data_ptr(), scratch.data_ptr(), stream),
+            "icon_lattice_decode")
+    launches_decode += 1
+    return buf
+
+
+def unpack_decoded(buf, nvb: int, nfb: int
+                   ) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """(verts [V, 3] f32, faces [F, 3] int64, overflow) of a
+    :func:`lattice_decode` buffer on the host (a numpy array or a CPU
+    tensor); the overflow flag is set when the true counts exceed ``nvb``
+    or ``nfb`` (the mesh is then truncated: decode again with the header's
+    counts)."""
+    host = buf.numpy() if torch.is_tensor(buf) else np.asarray(buf)
+    nv, nf = int(host[0]), int(host[1])
+    nw, fw = min(nv, nvb), min(nf, nfb)
+    verts = host[HEADER:HEADER + 3 * nw].view(np.float32).reshape(nw, 3)
+    fo = HEADER + 3 * nvb
+    faces = host[fo:fo + 3 * fw].reshape(fw, 3).astype(np.int64)
+    return verts.copy(), faces, nv > nvb or nf > nfb

@@ -90,7 +90,9 @@ def vertex_visibility(verts_ndc: torch.Tensor, faces: torch.Tensor,
     fv = faces[torch.clamp(pf, min=0)]                    # [P, 3]
     fv = torch.where(pf[:, None] >= 0, fv, torch.full_like(fv, n_verts))
     vis = verts_ndc.new_zeros((n_verts + 1,))
-    vis[fv.reshape(-1)] = 1.0                             # slot V: empty px
+    # slot V: empty pixels; a device fill (a host scalar written by index
+    # copies it to the card, which waits for the stream)
+    vis[fv.reshape(-1)] = vis.new_ones(())
     return vis[:n_verts, None]
 
 

@@ -21,7 +21,8 @@ from icon_tpu_torch.recon.marching import (AutoMarcher, fetch_mesh,
 
 def make_marcher(max_cells: int = 1 << 18, max_tris: int = 1 << 20,
                  iso: float = 0.5) -> AutoMarcher:
-    """A serving-loop marcher for :func:`extract_mesh`: lattice wire v2,
+    """A serving-loop marcher for :func:`extract_mesh`: the lattice codec
+    (decoded on the card for a grid there, else wire v2 to the host),
     buffer autotuning across frames, the dropped-first-slice convention."""
     return AutoMarcher(max_cells=max_cells, max_tris=max_tris,
                        max_verts=min(2 * max_tris, 1 << 21), iso=iso,

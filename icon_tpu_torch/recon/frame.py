@@ -6,7 +6,8 @@ front/back normal maps; the body rasterized into per-column crossing
 depths; the coarse-to-fine engine in faster mode with ``auto_budget``,
 querying ``preds * 1e-6 + clothed_human_occ`` (the random-init net runs at
 full compute, while the level set, and so every buffer size, is that of a
-posed clothed human); lattice marching; pack; host decode. With
+posed clothed human); lattice marching; the decode (on the card, or on
+the host for a CPU frame). With
 ``sign="winding"`` the body features sign by the body's winding-cluster
 fast winding numbers instead of the crossing columns.
 
@@ -35,7 +36,8 @@ the packed mesh and its copy to pinned host memory, without waiting for
 the card (the engine's and the marcher's counts are taken once landed);
 ``frame()`` then blocks on the mesh. ``serve(n)`` is bench.py's 2-deep
 loop (``bench.py:246-258``): frame i+1 is enqueued before frame i is
-unpacked, and frame i's host decode runs on a worker thread while this
+unpacked, and frame i's decode (on the host: the wait for its copy and,
+for a CPU frame, the host decoder) runs on a worker thread while this
 thread dispatches frame i+1 (:func:`serve_frames`).
 
 The frames run on the card unless the caller asks for the CPU. Each
@@ -270,11 +272,12 @@ def serve_frames(compute: Callable, marcher: AutoMarcher, n: int
     """bench.py's 2-deep serving loop over ``n`` frames of ``compute``
     (-> (token, mesh, stats), waiting for nothing): frame i+1 is enqueued
     before frame i is unpacked, and frame i's :meth:`AutoMarcher.decode`
-    (a wait for its copy, then the host decoder, a ctypes call that
-    releases the GIL) runs on one worker thread while this thread
-    dispatches frame i+1. Only this thread launches device work: a frame
-    whose pack overflowed is re-packed here. Returns each frame's (stats,
-    verts, faces) in order."""
+    (a wait for its copy, then the mesh sliced from it or, for a CPU
+    frame, the host decoder, a ctypes call that releases the GIL) runs on
+    one worker thread while this thread dispatches frame i+1. Only this
+    thread launches device work: a frame whose pack overflowed is
+    re-packed here. Returns each frame's (stats, verts, faces) in
+    order."""
     out = []
 
     def finish(pending):

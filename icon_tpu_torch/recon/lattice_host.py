@@ -18,6 +18,7 @@ import numpy as np
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+host_decodes = 0        # lattice_decode calls since the last reset
 
 # cube corner c -> offset (x, y, z)
 _CORNER_OFF = np.array([[c & 1, (c >> 1) & 1, (c >> 2) & 1]
@@ -128,6 +129,7 @@ def lattice_decode(buf: np.ndarray, nvb: int, ncb: int, H: int, W: int,
     """(verts [n, 3] f32 grid coords, faces [m, 3] i32, info [3] i32:
     n_verts, n_cells, overflow) of a lattice-codec buffer, through the host
     decoder; ``implicit`` selects wire v2 (no edge-id block)."""
+    global host_decodes
     lib = _load()
     buf = np.ascontiguousarray(buf, np.int32)
     verts = np.empty((nvb, 3), np.float32)
@@ -139,6 +141,7 @@ def lattice_decode(buf: np.ndarray, nvb: int, ncb: int, H: int, W: int,
     nf = fn(buf.ctypes.data, nvb, ncb, H, W,
             *(t.ctypes.data for t in tables), verts.ctypes.data,
             faces.ctypes.data, info.ctypes.data)
+    host_decodes += 1
     if nf < 0:
         raise ValueError(f"malformed lattice buffer sizes: {nvb} vertex "
                          f"and {ncb} cell slots for a {H}x{W} grid")

@@ -11,10 +11,14 @@ codecs:
   and decoded on the host (:func:`unpack_mesh`).
 - **lattice** (:func:`marching_lattice`, the serving wire): unique vertices
   as (lattice edge id, fraction along the edge) and active cells as (cell
-  id, 8 corner-inside bits). Faces never exist on the device; the host
-  derives them from the corner bits through the same (tet, case) tables
-  (:mod:`icon_tpu_torch.recon.lattice_host`). Every lattice edge has
-  exactly one owner cell, so vertices are unique by construction.
+  id, 8 corner-inside bits), from the hand-written ``lattice_cells`` and
+  ``lattice_emit`` kernels (``kernels/lattice.py``). Every lattice edge has
+  exactly one owner cell, so vertices are unique by construction. The
+  faces follow from the corner bits through the (tet, case) tables: on the
+  card ``lattice_decode`` builds the host decoder's mesh there and
+  :class:`AutoMarcher` copies it whole; on the CPU the wire
+  (:func:`pack_lattice`) goes to the host decoder
+  (:mod:`icon_tpu_torch.recon.lattice_host`).
   :func:`marching_lattice_virtual` marches the engine's final level as the
   virtual 2x upsample of its coarse grid, which never materializes.
 
@@ -26,7 +30,8 @@ fit.
 
 The serving marcher (:class:`AutoMarcher`) never waits for the card in
 ``__call__`` or :meth:`AutoMarcher.pack`: its counts and its packed
-buffer start their copies to pinned host memory at once
+buffer (on the card, its decoded mesh) start their copies to pinned host
+memory at once
 (``engine.HostCopy``), the counts are taken once landed, and only
 :meth:`AutoMarcher.unpack` (or :meth:`AutoMarcher.decode`, which a worker
 thread may run) waits, for its own frame's buffer.
@@ -39,113 +44,35 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.kernels.lattice import (LatticeOut, _coarse_candidates,
+                                            decode_sizes, lattice_cells,
+                                            lattice_decode, lattice_emit,
+                                            unpack_decoded)
 from icon_tpu_torch.kernels.marching import mt_emit, mt_index
 from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.recon.engine import HostCopy, _compact
-from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
-                                               decode_lattice)
+from icon_tpu_torch.recon.lattice_host import decode_lattice
 
 _INT32_MAX = 2 ** 31 - 1
 _INT64_MAX = 2 ** 63 - 1
 _HEADROOM = 1.3         # buffer and pack sizes over the measured counts
-
-
-class LatticeOut(NamedTuple):
-    vert_eid: torch.Tensor     # [max_verts] int64 sorted unique edge ids
-    vert_s: torch.Tensor       # [max_verts] f32 fraction from the lo end
-    cell_id: torch.Tensor      # [max_cells] int64 linear cell ids
-    cell_bits: torch.Tensor    # [max_cells] int32 (low 8 bits: corners)
-    n_verts: torch.Tensor      # 0-d, clamped to max_verts
-    n_cells: torch.Tensor      # 0-d, clamped to max_cells
-    n_verts_total: torch.Tensor  # true count; > n_verts = overflow
-    n_cells_total: torch.Tensor
-    grid_shape: Tuple[int, int, int]   # (D, H, W) of the marched grid
-
-
-def _mixed_cells(arr: torch.Tensor, iso: float) -> torch.Tensor:
-    """[D-1, H-1, W-1] bool: the cells of ``arr`` whose 8 corners lie on
-    both sides of ``iso``."""
-    inside = arr > iso
-    D, H, W = arr.shape
-
-    def corner(c):
-        dx, dy, dz = (int(o) for o in _CORNER_OFF[c])
-        return inside[dz:dz + D - 1, dy:dy + H - 1, dx:dx + W - 1]
-
-    cnt = sum(corner(c).to(torch.int8) for c in range(8))
-    return (cnt > 0) & (cnt < 8)
-
-
-def _coarse_candidates(coarse_occ: torch.Tensor, iso: float,
-                       fine_shape: Tuple[int, int, int], nc_budget: int):
-    """The fine cells that the first ``nc_budget`` mixed cells of
-    ``coarse_occ`` cover in its 2x upsample sliced by one (``fine_shape``):
-    coarse cell c covers fine cells {2c-1, 2c} per axis. Returns (kx, ky,
-    kz, cand_idx, valid [nc_budget * 8], n_mixed_total)."""
-    D, H, W = fine_shape
-    cw, ch = W - 1, H - 1
-    Dc, Hc, Wc = coarse_occ.shape
-    dev = coarse_occ.device
-    idxc, n_c, n_mixed_total = _compact(
-        _mixed_cells(coarse_occ, iso).reshape(-1), nc_budget)
-    ccz = idxc // ((Hc - 1) * (Wc - 1))
-    ccy = (idxc // (Wc - 1)) % (Hc - 1)
-    ccx = idxc % (Wc - 1)
-    offs = device_constant(_CORNER_OFF, torch.int64, dev)
-    fx = 2 * ccx[:, None] - 1 + offs[None, :, 0]
-    fy = 2 * ccy[:, None] - 1 + offs[None, :, 1]
-    fz = 2 * ccz[:, None] - 1 + offs[None, :, 2]
-    valid = ((fx >= 0) & (fx < cw) & (fy >= 0) & (fy < ch) &
-             (fz >= 0) & (fz < D - 1) &
-             (torch.arange(nc_budget, device=dev)[:, None] < n_c))
-    kx = torch.clamp(fx, 0, cw - 1).reshape(-1)
-    ky = torch.clamp(fy, 0, ch - 1).reshape(-1)
-    kz = torch.clamp(fz, 0, D - 2).reshape(-1)
-    return kx, ky, kz, (kz * ch + ky) * cw + kx, valid.reshape(-1), \
-        n_mixed_total
+_DECODED = "decoded"    # a pack token's meta: the mesh decoded on the card
 
 
 def _active_cells(occ: torch.Tensor, iso: float, max_cells: int,
                   coarse_occ: Optional[torch.Tensor],
                   max_candidates: Optional[int] = None):
-    """Candidate cells. Returns (cx, cy, cz, cell_idx, alive_cells,
-    n_cells, n_cells_total), each [max_cells] except the 0-d counts.
+    """Candidate cells (``kernels/lattice.py:lattice_cells``). Returns
+    (cx, cy, cz, cell_idx, alive_cells, n_cells, n_cells_total), each
+    [max_cells] except the 0-d counts.
 
     With ``coarse_occ`` (``occ`` is its 2x align_corners upsample sliced by
     one), every mixed coarse cell expands into its 8 fine cells (buffer
     ``max_candidates``); those that are exactly mixed at fine resolution
     are compacted into the [max_cells] output."""
-    D, H, W = occ.shape
-    cw, ch = W - 1, H - 1
-    alive_range = torch.arange(max_cells, device=occ.device)
-    if coarse_occ is None:
-        cell_idx, n_cells, n_cells_total = _compact(
-            _mixed_cells(occ, iso).reshape(-1), max_cells)
-        cz = cell_idx // (ch * cw)
-        cy = (cell_idx // cw) % ch
-        cx = cell_idx % cw
-        return cx, cy, cz, cell_idx, alive_range < n_cells, n_cells, \
-            n_cells_total
-
-    nc_budget = (max_candidates or max_cells) // 8
-    kx, ky, kz, cand_idx, valid, n_mixed_total = _coarse_candidates(
-        coarse_occ, iso, (D, H, W), nc_budget)
-
-    # exact mixed test: separable all-inside / any-inside reductions
-    inside = occ > iso
-    ai = inside[:, :, :-1] & inside[:, :, 1:]
-    ao = inside[:, :, :-1] | inside[:, :, 1:]
-    ai = ai[:, :-1] & ai[:, 1:]
-    ao = ao[:, :-1] | ao[:, 1:]
-    mixedv = ((ao[:-1] | ao[1:]) & ~(ai[:-1] & ai[1:])).reshape(-1)
-    alive_cand = valid & mixedv[cand_idx]
-
-    cpos, n_cells, n_alive_total = _compact(alive_cand, max_cells)
-    # each dropped mixed coarse cell hides up to 8 fine candidates
-    n_cells_total = n_alive_total + 8 * torch.clamp(
-        n_mixed_total - nc_budget, min=0)
-    return kx[cpos], ky[cpos], kz[cpos], cand_idx[cpos], \
-        alive_range < n_cells, n_cells, n_cells_total
+    c = lattice_cells(occ, iso, max_cells, coarse_occ, max_candidates)
+    alive = torch.arange(max_cells, device=occ.device) < c.n_cells
+    return c.cx, c.cy, c.cz, c.cell_idx, alive, c.n_cells, c.n_cells_total
 
 
 class MarchOut(NamedTuple):
@@ -207,66 +134,12 @@ def marching_lattice(occ: torch.Tensor, iso: float = 0.5,
                      coarse_occ: Optional[torch.Tensor] = None,
                      max_candidates: Optional[int] = None) -> LatticeOut:
     """Marching tetrahedra over ``occ [D, H, W]`` ([z, y, x]) emitting the
-    lattice codec; see the module docstring."""
-    D, H, W = occ.shape
-    dev = occ.device
-    cx, cy, cz, cell_idx, alive_cells, n_cells, n_cells_total = \
-        _active_cells(occ, iso, max_cells, coarse_occ, max_candidates)
-    offs = device_constant(_CORNER_OFF, torch.int64, dev)
-    lin = ((cz[:, None] + offs[None, :, 2]) * H +
-           (cy[:, None] + offs[None, :, 1])) * W + \
-        (cx[:, None] + offs[None, :, 0])
-    cvals = occ.reshape(-1)[lin]                          # [NC, 8]
-    return _lattice_emit(cvals, cx, cy, cz, cell_idx, alive_cells, n_cells,
-                         n_cells_total, (D, H, W), iso, max_verts)
-
-
-def _lattice_emit(cvals, cx, cy, cz, cell_idx, alive_cells, n_cells,
-                  n_cells_total, fine_shape, iso, max_verts) -> LatticeOut:
-    """Per-cell corner values -> owned crossing edges -> (edge id,
-    fraction) vertices sorted by edge id + (cell id, corner bits)."""
-    D, H, W = fine_shape
-    cw, ch = W - 1, H - 1
-    dev = cvals.device
-    max_cells = cx.shape[0]
-    cbits = (cvals > iso).to(torch.int32)
-
-    slots = device_constant(_EDGE_SLOTS, torch.int64, dev)
-    v_lo = cvals[:, slots[:, 0]]                          # [NC, 19]
-    v_hi = cvals[:, slots[:, 1]]
-    crossing = (v_lo > iso) != (v_hi > iso)
-    olo = device_constant(_CORNER_OFF[_EDGE_SLOTS[:, 0]], torch.int64,
-                          dev)                            # [19, 3] (x, y, z)
-    own = (((olo[None, :, 0] == 0) | (cx[:, None] == cw - 1)) &
-           ((olo[None, :, 1] == 0) | (cy[:, None] == ch - 1)) &
-           ((olo[None, :, 2] == 0) | (cz[:, None] == D - 2)))
-    valid = crossing & own & alive_cells[:, None]
-
-    denom = v_hi - v_lo
-    s = torch.clamp((iso - v_lo) / torch.where(denom == 0,
-                                               torch.ones_like(denom), denom),
-                    0.0, 1.0)
-    plin = ((cz[:, None] + olo[None, :, 2]) * H +
-            (cy[:, None] + olo[None, :, 1])) * W + \
-        (cx[:, None] + olo[None, :, 0])
-    eid = plin * 8 + slots[None, :, 2]                    # [NC, 19] int64
-
-    vpos, n_verts, n_verts_total = _compact(valid.reshape(-1), max_verts)
-    vert_eid = eid.reshape(-1)[vpos]
-    vert_s = s.reshape(-1)[vpos]
-    # canonical wire order: ascending edge id; dead slots sort to the tail
-    vert_eid = torch.where(torch.arange(max_verts, device=dev) < n_verts,
-                           vert_eid, torch.full_like(vert_eid, _INT64_MAX))
-    vert_eid, order = torch.sort(vert_eid, stable=True)
-    vert_s = vert_s[order]
-
-    weights = device_constant([1, 2, 4, 8, 16, 32, 64, 128], torch.int32,
-                              dev)
-    cbyte = (cbits * weights).sum(-1, dtype=torch.int32)
-    return LatticeOut(vert_eid, vert_s, cell_idx, cbyte,
-                      torch.clamp(n_verts, max=max_verts),
-                      torch.clamp(n_cells, max=max_cells),
-                      n_verts_total, n_cells_total, (D, H, W))
+    lattice codec; see the module docstring. The active cells come from
+    ``lattice_cells`` and the vertices from ``lattice_emit``
+    (``kernels/lattice.py``)."""
+    c = lattice_cells(occ, iso, max_cells, coarse_occ, max_candidates)
+    return lattice_emit(c.cvals, c.cx, c.cy, c.cz, c.cell_idx, c.n_cells,
+                        c.n_cells_total, tuple(occ.shape), iso, max_verts)
 
 
 def marching_lattice_virtual(coarse_occ: torch.Tensor, iso: float = 0.5,
@@ -324,12 +197,11 @@ def marching_lattice_virtual(coarse_occ: torch.Tensor, iso: float = 0.5,
     ins = cvals8 > iso
     mixed_f = valid & ins.any(-1) & (~ins).any(-1)
     cpos, n_cells, n_alive_total = _compact(mixed_f, max_cells)
-    alive_cells = torch.arange(max_cells, device=dev) < n_cells
     n_cells_total = n_alive_total + 8 * torch.clamp(
         n_mixed_total - nc_budget, min=0)
-    return _lattice_emit(cvals8[cpos], kx[cpos], ky[cpos], kz[cpos],
-                         cand_idx[cpos], alive_cells, n_cells,
-                         n_cells_total, (D, H, W), iso, max_verts)
+    return lattice_emit(cvals8[cpos], kx[cpos], ky[cpos], kz[cpos],
+                        cand_idx[cpos], n_cells, n_cells_total, (D, H, W),
+                        iso, max_verts)
 
 
 def _pack4(b: torch.Tensor) -> torch.Tensor:
@@ -337,6 +209,17 @@ def _pack4(b: torch.Tensor) -> torch.Tensor:
     pad = (-b.shape[0]) % 4
     b8 = torch.cat([b.to(torch.uint8), b.new_zeros(pad, dtype=torch.uint8)])
     return b8.view(torch.int32)
+
+
+def _pack_rows(sizes: Optional[Tuple[int, ...]], caps: Tuple[int, ...],
+               bucket: int = 16384) -> Tuple[int, ...]:
+    """The rows a pack holds: each of ``sizes`` (upper bounds; None, or
+    any <= 0, means unknown: the caps) rounded up to ``bucket``, at most
+    its cap."""
+    if sizes is None or min(sizes) <= 0:
+        sizes = caps
+    return tuple(min(-(-w // bucket) * bucket, c)
+                 for w, c in zip(sizes, caps))
 
 
 def pack_lattice(out: LatticeOut, bucket: int = 16384,
@@ -349,13 +232,8 @@ def pack_lattice(out: LatticeOut, bucket: int = 16384,
     = (n_verts, n_cells) upper bounds, rounded up to ``bucket``; the
     decoder reports an overflow when the true counts exceed them. Returns
     (buf, nvb, ncb)."""
-    cap_v = out.vert_eid.shape[0]
-    cap_c = out.cell_id.shape[0]
-    want_v, want_c = sizes if sizes is not None else (cap_v, cap_c)
-    if want_v <= 0 or want_c <= 0:
-        want_v, want_c = cap_v, cap_c
-    nvb = min(-(-want_v // bucket) * bucket, cap_v)
-    ncb = min(-(-want_c // bucket) * bucket, cap_c)
+    nvb, ncb = _pack_rows(sizes, (out.vert_eid.shape[0],
+                                  out.cell_id.shape[0]), bucket)
     counts = torch.stack([out.n_verts, out.n_cells,
                           out.n_verts.new_full((), int(implicit_eid)),
                           out.n_verts.new_zeros(())]).to(torch.int32)
@@ -394,11 +272,7 @@ def pack_mesh(out: MarchOut, quantize: bool = True, bucket: int = 16384,
     if quantize and cap_v > (1 << 21):
         raise ValueError(f"{cap_v} vertex rows exceed the 21-bit face "
                          f"indices of the quantized wire")
-    want_v, want_t = sizes if sizes is not None else (cap_v, cap_t)
-    if want_v <= 0 or want_t <= 0:          # unknown -> full buffers
-        want_v, want_t = cap_v, cap_t
-    nvb = min(-(-want_v // bucket) * bucket, cap_v)
-    ntb = min(-(-want_t // bucket) * bucket, cap_t)
+    nvb, ntb = _pack_rows(sizes, (cap_v, cap_t), bucket)
     counts = torch.stack([out.n_verts, out.n_tris]).to(torch.int32)
     vx, vy, vz = out.verts_x[:nvb], out.verts_y[:nvb], out.verts_z[:nvb]
     f = out.faces[:ntb].to(torch.int32)
@@ -514,11 +388,13 @@ class AutoMarcher:
         export grid convention, seg3d_lossless.py:585). ``codec``: the
         wire :meth:`pack` and :meth:`unpack` use, ``"indexed"`` (explicit
         vertices and faces, :func:`pack_mesh`) or ``"lattice"`` (edge ids,
-        fractions and cells, faces rebuilt on the host,
-        :func:`pack_lattice`); ``implicit_eid`` drops the lattice wire's
-        edge-id block (wire v2). ``use_coarse``: take the candidate cells
-        from the coarse grid when one is given. ``virtual``: ``__call__``
-        receives the engine's coarse final grid
+        fractions and cells, :func:`pack_lattice`, faces rebuilt on the
+        host; a march on the card is decoded there, ``lattice_decode``);
+        ``implicit_eid`` drops the lattice wire's edge-id block (wire
+        v2): it shapes only the wire of a march on the CPU, as one on the
+        card sends its decoded mesh. ``use_coarse``: take the candidate
+        cells from the coarse grid when one is given. ``virtual``:
+        ``__call__`` receives the engine's coarse final grid
         (``ReconEngine(virtual_final=True)``) and marches its virtual 2x
         upsample (:func:`marching_lattice_virtual`); it implies the lattice
         codec, and the slice by one is built into its mapping."""
@@ -628,12 +504,22 @@ class AutoMarcher:
         """Device-side pack sized from the landed counts x headroom (first
         frame: the full buffers) in this marcher's codec (``quantize``: the
         indexed wire's fixed point), its copy to pinned host memory started
-        at once. Waits for nothing past the first frame's counts, so a
-        serving loop can enqueue the next frame before this one's copy
-        lands. Returns a token for :meth:`decode` and :meth:`unpack`:
-        ``((copy, n0, n1), out, meta)``, ``copy`` the buffer's
-        :class:`~icon_tpu_torch.recon.engine.HostCopy`."""
+        at once. A lattice on the card is decoded there instead
+        (``lattice_decode``: the host decoder's mesh in one buffer), and
+        that buffer is copied. Waits for nothing past the first frame's
+        counts, so a serving loop can enqueue the next frame before this
+        one's copy lands. Returns a token for :meth:`decode` and
+        :meth:`unpack`: ``((copy, n0, n1), out, meta)``, ``copy`` the
+        buffer's :class:`~icon_tpu_torch.recon.engine.HostCopy`."""
         c = self._counts()
+        if self.codec == "lattice" and out.vert_eid.device.type == "cuda":
+            # the decoded mesh: at most 12 faces (6 tets x 2) a cell
+            sizes = (int(c[1] * self.headroom),
+                     int(12 * c[0] * self.headroom)) if c is not None \
+                else None
+            nvb, nfb = _pack_rows(sizes, decode_sizes(out))
+            return (HostCopy(lattice_decode(out, nvb, nfb)), nvb, nfb), \
+                out, _DECODED
         if self.codec == "lattice":
             sizes = (int(c[1] * self.headroom),
                      int(c[0] * self.headroom)) if c is not None else None
@@ -648,14 +534,18 @@ class AutoMarcher:
         return (HostCopy(buf), n0, n1), out, meta
 
     def decode(self, token) -> Tuple[np.ndarray, np.ndarray, bool]:
-        """Host decode of a :meth:`pack` token: waits for its copy to land
-        and decodes the host bytes. Returns (verts, faces, overflow), the
-        overflow flag set when the frame outgrew the packed sizes (the mesh
-        is then truncated: :meth:`repack`). Launches nothing on the device,
-        so a worker thread may run it while another dispatches."""
+        """Host side of a :meth:`pack` token: waits for its copy to land
+        and reads the mesh from the host bytes (a mesh decoded on the card
+        is sliced; a lattice wire goes through the host decoder). Returns
+        (verts, faces, overflow), the overflow flag set when the frame
+        outgrew the packed sizes (the mesh is then truncated:
+        :meth:`repack`). Launches nothing on the device, so a worker thread
+        may run it while another dispatches."""
         (buf, n0, n1), _, meta = token
         if isinstance(buf, HostCopy):
             buf = buf.wait().numpy()
+        if meta is _DECODED:
+            return unpack_decoded(buf, n0, n1)
         if self.codec == "lattice":
             H, W = meta
             return decode_lattice((buf, n0, n1), H, W, return_overflow=True)
@@ -663,11 +553,18 @@ class AutoMarcher:
                            return_overflow=True)
 
     def repack(self, token) -> Tuple[np.ndarray, np.ndarray]:
-        """The token's mesh packed anew at the full buffers, copied and
-        decoded, blocking: for a frame whose counts outgrew the packed
-        sizes (the one place a frame waits for the card). Launches device
-        work: run it on the dispatching thread."""
-        _, out, meta = token
+        """The token's mesh packed anew at the full buffers (a mesh decoded
+        on the card: at its header's true counts), copied and decoded,
+        blocking: for a frame whose counts outgrew the packed sizes (the
+        one place a frame waits for the card). Launches device work: run
+        it on the dispatching thread."""
+        (buf, _, _), out, meta = token
+        if meta is _DECODED:
+            host = buf.wait() if isinstance(buf, HostCopy) else buf
+            nv, nf = int(host[0]), int(host[1])
+            verts, faces, _ = unpack_decoded(
+                lattice_decode(out, nv, nf).cpu(), nv, nf)
+            return verts, faces
         if self.codec == "lattice":
             H, W = meta
             return decode_lattice(pack_lattice(out), H, W)

@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.ops.constants import device_constant
+
 
 def view_matrix(azimuth_deg: float) -> np.ndarray:
     """Rotation ``[3, 3]`` bringing world verts into the camera frame at an
@@ -27,10 +29,8 @@ def verts_to_ndc(verts: torch.Tensor, azimuth_deg: float = 0.0
                  ) -> torch.Tensor:
     """World verts ``[V, 3]`` (y up) -> rasterizer NDC: x right, y down,
     smaller z closer (the front, +z, faces the camera at azimuth 0)."""
-    R = torch.as_tensor(view_matrix(azimuth_deg), dtype=verts.dtype,
-                        device=verts.device)
-    flip = torch.tensor([1.0, -1.0, -1.0], dtype=verts.dtype,
-                        device=verts.device)
+    R = device_constant(view_matrix(azimuth_deg), verts.dtype, verts.device)
+    flip = device_constant([1.0, -1.0, -1.0], verts.dtype, verts.device)
     return (verts @ R.T) * flip
 
 

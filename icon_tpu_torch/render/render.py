@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.ops.grid_sample import grid_sample_2d
 from icon_tpu_torch.ops.mesh import vertex_normals
 from icon_tpu_torch.ops.raster import rasterize, vertex_visibility
@@ -21,8 +22,7 @@ def normal_raster(verts: torch.Tensor, faces: torch.Tensor, size: int = 512,
     are the vertex normals in the view frame (x right, y up, z toward the
     viewer)."""
     vn = vertex_normals(verts[None], faces)[0]
-    R = torch.as_tensor(view_matrix(azimuth), dtype=verts.dtype,
-                        device=verts.device)
+    R = device_constant(view_matrix(azimuth), verts.dtype, verts.device)
     return rasterize(verts_to_ndc(verts, azimuth), faces, vn @ R.T,
                      H=size, W=size, K=K)
 

@@ -1,0 +1,286 @@
+"""The lattice kernels' plain twins (``icon_tpu_torch/kernels/lattice.py``)
+against the JAX package on the same numpy inputs: the clothed-human field
+of ``utils/synthetic.py`` at 65^3 and 129^3 with its coarse grid, and a
+random field.
+
+- ``lattice_cells_plain`` against JAX ``_active_cells`` (coarse and not):
+  the live cells' coordinates, ids and the counts equal, their corner
+  values the grid's own, rows past the count zero;
+- ``lattice_emit_plain`` against JAX ``_lattice_emit`` on shared inputs:
+  edge ids, corner bytes and counts equal, fractions bit-equal (their u8
+  quantization therefore equal too);
+- ``lattice_decode_plain`` against JAX ``decode_lattice(pack_lattice(...))``
+  on wire v1 and v2: vertices bit-identical, faces identical in order; on
+  an overflowed frame against wire v1 at full size (wire v2 reports the
+  overflow, and the serving path re-packs it so);
+- a decode buffer that overflows its sizes, re-packed by the marcher.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from torch_port_helpers import t
+
+from icon_tpu.recon import marching as JM
+from icon_tpu_torch.kernels import lattice as PL
+from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
+from icon_tpu_torch.recon import lattice_host as PH
+from icon_tpu_torch.recon import marching as PM
+from icon_tpu_torch.utils.synthetic import clothed_human_occ
+
+
+def _human(n: int):
+    """The clothed human's occupancy at n^3 over [-1, 1]^3 and its 2x
+    align_corners upsample sliced by one (the engine's final level)."""
+    g = torch.linspace(-1.0, 1.0, n)
+    z, y, x = torch.meshgrid(g, g, g, indexing="ij")
+    pts = torch.stack([x, y, z], -1).reshape(1, -1, 3)
+    coarse = clothed_human_occ(pts, sharpness=40.0).reshape(n, n, n)
+    fine = resize3d_trilinear_align_corners(coarse[None, None],
+                                            (2 * n - 1,) * 3)[0, 0]
+    return coarse.numpy(), fine[1:, 1:, 1:].contiguous().numpy()
+
+
+def _random(n: int, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    coarse = rng.rand(n, n, n).astype(np.float32)
+    fine = resize3d_trilinear_align_corners(
+        torch.from_numpy(coarse)[None, None], (2 * n - 1,) * 3)[0, 0]
+    return coarse, fine[1:, 1:, 1:].contiguous().numpy()
+
+
+FIELDS = {"human65": lambda: _human(33), "human129": lambda: _human(65),
+          "random": lambda: _random(17)}
+
+
+@pytest.fixture(scope="module", params=sorted(FIELDS))
+def field(request):
+    return request.param, FIELDS[request.param]()
+
+
+def _jax_cells(occ, coarse, max_cells, max_candidates=None):
+    return JM._active_cells(jnp.asarray(occ), 0.5, max_cells,
+                            None if coarse is None else jnp.asarray(coarse),
+                            max_candidates)
+
+
+@pytest.mark.parametrize("coarse_path", [True, False])
+@pytest.mark.parametrize("max_cells", [1 << 16, 700])
+def test_cells_equal_jax(field, coarse_path, max_cells):
+    name, (coarse, occ) = field
+    cg = coarse if coarse_path else None
+    ref = _jax_cells(occ, cg, max_cells)
+    got = PL.lattice_cells_plain(t(occ), 0.5, max_cells,
+                                 None if cg is None else t(cg))
+    n = int(ref[5])
+    assert (int(got.n_cells), int(got.n_cells_total)) == (n, int(ref[6]))
+    assert n > 0 and got.cx.dtype == torch.int64
+    for a, b in zip((got.cx, got.cy, got.cz, got.cell_idx), ref[:4]):
+        np.testing.assert_array_equal(a[:n].numpy(), np.asarray(b)[:n])
+        assert not a[n:].any()
+    cx, cy, cz = (a[:n].numpy() for a in (got.cx, got.cy, got.cz))
+    want = np.stack([occ[cz + (c >> 2 & 1), cy + (c >> 1 & 1), cx + (c & 1)]
+                     for c in range(8)], -1)
+    np.testing.assert_array_equal(got.cvals[:n].numpy(), want)
+    assert not got.cvals[n:].any()
+    if max_cells == 700:
+        assert int(got.n_cells_total) > 700
+
+
+def test_cells_candidate_budget_overflow():
+    """A candidate budget below the mixed coarse cells: the first budget's
+    cells, and 8 more for each mixed coarse cell dropped."""
+    coarse, occ = _human(33)
+    ref = _jax_cells(occ, coarse, 1 << 16, max_candidates=8 * 300)
+    got = PL.lattice_cells_plain(t(occ), 0.5, 1 << 16, t(coarse),
+                                 max_candidates=8 * 300)
+    n = int(ref[5])
+    assert (int(got.n_cells), int(got.n_cells_total)) == (n, int(ref[6]))
+    assert int(got.n_cells_total) > n
+    np.testing.assert_array_equal(got.cell_idx[:n].numpy(),
+                                  np.asarray(ref[3])[:n])
+
+
+def test_cells_take_strided_grids():
+    """The engine's sliced view (not contiguous) gives the cells of its
+    contiguous copy."""
+    coarse, occ = _human(33)
+    full = torch.zeros((occ.shape[0] + 1,) * 3)
+    full[1:, 1:, 1:] = t(occ)
+    view = full[1:, 1:, 1:]
+    assert not view.is_contiguous()
+    a = PL.lattice_cells(view, 0.5, 1 << 15, t(coarse))
+    b = PL.lattice_cells(t(occ), 0.5, 1 << 15, t(coarse))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _shared_emit_inputs(occ, coarse, max_cells):
+    cx, cy, cz, cell_idx, alive, n_cells, n_total = _jax_cells(
+        occ, coarse, max_cells)
+    cx, cy, cz, cell_idx = (np.asarray(a) for a in (cx, cy, cz, cell_idx))
+    D, H, W = occ.shape
+    cvals = np.stack([occ[np.minimum(cz + (c >> 2 & 1), D - 1),
+                          np.minimum(cy + (c >> 1 & 1), H - 1),
+                          np.minimum(cx + (c & 1), W - 1)]
+                      for c in range(8)], -1).astype(np.float32)
+    return cvals, cx, cy, cz, cell_idx, np.asarray(alive), int(n_cells), \
+        int(n_total)
+
+
+@pytest.mark.parametrize("max_verts", [1 << 17, 900])
+def test_emit_equals_jax(field, max_verts):
+    name, (coarse, occ) = field
+    cvals, cx, cy, cz, cid, alive, n, n_total = _shared_emit_inputs(
+        occ, coarse, 1 << 16)
+    ref = JM._lattice_emit(jnp.asarray(cvals), jnp.asarray(cx),
+                           jnp.asarray(cy), jnp.asarray(cz),
+                           jnp.asarray(cid), jnp.asarray(alive),
+                           jnp.int32(n), jnp.int32(n_total), occ.shape, 0.5,
+                           max_verts)
+    i64 = (lambda a: torch.from_numpy(a.astype(np.int64)))
+    got = PL.lattice_emit_plain(torch.from_numpy(cvals), i64(cx), i64(cy),
+                                i64(cz), i64(cid), torch.tensor(n),
+                                torch.tensor(n_total), occ.shape, 0.5,
+                                max_verts)
+    nv = int(ref.n_verts)
+    assert [int(x) for x in (got.n_verts, got.n_cells, got.n_verts_total,
+                             got.n_cells_total)] == [
+        nv, int(ref.n_cells), int(ref.n_verts_total), int(ref.n_cells_total)]
+    assert nv > 0
+    np.testing.assert_array_equal(got.vert_eid[:nv].numpy(),
+                                  np.asarray(ref.vert_eid)[:nv])
+    np.testing.assert_array_equal(got.vert_s[:nv].numpy().view(np.int32),
+                                  np.asarray(ref.vert_s)[:nv].view(np.int32))
+    np.testing.assert_array_equal(got.cell_bits[:n].numpy(),
+                                  np.asarray(ref.cell_bits)[:n])
+    assert (got.vert_eid[nv:] == PL.INT64_MAX).all()
+    assert not got.vert_s[nv:].any() and not got.cell_bits[n:].any()
+    if max_verts == 900:
+        assert int(got.n_verts_total) > 900
+
+
+def _port_lattice(ref, shape) -> PL.LatticeOut:
+    """The JAX package's LatticeOut with the port's dtypes (int64 ids, dead
+    ids INT64_MAX)."""
+    nv = int(ref.n_verts)
+    eid = np.asarray(ref.vert_eid).astype(np.int64)
+    eid[nv:] = PL.INT64_MAX
+    return PL.LatticeOut(
+        torch.from_numpy(eid), torch.from_numpy(np.array(ref.vert_s)),
+        torch.from_numpy(np.asarray(ref.cell_id).astype(np.int64)),
+        torch.from_numpy(np.asarray(ref.cell_bits).astype(np.int32)),
+        torch.tensor(nv), torch.tensor(int(ref.n_cells)),
+        torch.tensor(int(ref.n_verts_total)),
+        torch.tensor(int(ref.n_cells_total)), tuple(shape))
+
+
+def _decoded(out):
+    return PL.unpack_decoded(PL.lattice_decode_plain(
+        out, *PL.decode_sizes(out)), *PL.decode_sizes(out))
+
+
+def _same_mesh(got, want):
+    verts, faces = got
+    assert verts.dtype == np.float32 and faces.dtype == np.int64
+    np.testing.assert_array_equal(verts.view(np.int32),
+                                  np.asarray(want[0], np.float32).view(
+                                      np.int32))
+    np.testing.assert_array_equal(faces, want[1])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_decode_equals_jax_decode(field, implicit):
+    name, (coarse, occ) = field
+    D, H, W = occ.shape
+    kw = dict(max_cells=1 << 16, max_verts=1 << 17)
+    ref = JM.marching_lattice(jnp.asarray(occ), coarse_occ=jnp.asarray(coarse),
+                              **kw)
+    want = JM.decode_lattice(JM.pack_lattice(ref, implicit_eid=implicit),
+                             H, W)
+    assert len(want[1]) > 100
+    verts, faces, overflow = _decoded(_port_lattice(ref, occ.shape))
+    assert not overflow
+    _same_mesh((verts, faces), want)
+    # the port's own march and decode give the same mesh
+    out = PM.marching_lattice(t(occ), coarse_occ=t(coarse), **kw)
+    verts, faces, overflow = _decoded(out)
+    assert not overflow
+    _same_mesh((verts, faces), want)
+
+
+@pytest.mark.parametrize("cut", ["cells", "verts"])
+def test_decode_of_an_overflowed_frame(cut):
+    """A march that outgrew its own buffers: the decode equals wire v1 at
+    full size (faces whose edges were dropped go), and wire v2 reports the
+    overflow, which the serving path re-packs as v1."""
+    coarse, occ = _human(33)
+    D, H, W = occ.shape
+    kw = dict(max_cells=600, max_verts=1 << 17) if cut == "cells" else \
+        dict(max_cells=1 << 16, max_verts=2000)
+    ref = JM.marching_lattice(jnp.asarray(occ), coarse_occ=jnp.asarray(coarse),
+                              **kw)
+    assert int(ref.n_cells_total) > int(ref.n_cells) or \
+        int(ref.n_verts_total) > int(ref.n_verts)
+    want = JM.decode_lattice(JM.pack_lattice(ref), H, W)
+    _, _, v2_over = JM.decode_lattice(JM.pack_lattice(ref, implicit_eid=True),
+                                      H, W, return_overflow=True)
+    assert v2_over and len(want[1]) > 100
+    verts, faces, overflow = _decoded(_port_lattice(ref, occ.shape))
+    assert not overflow
+    _same_mesh((verts, faces), want)
+    out = PM.marching_lattice(t(occ), coarse_occ=t(coarse), **kw)
+    _same_mesh(_decoded(out)[:2], want)
+
+
+def test_small_decode_buffer_overflows_and_repacks():
+    """A decode buffer below the mesh's counts reports the overflow; the
+    marcher re-packs it at the header's counts, giving the whole mesh."""
+    coarse, occ = _human(33)
+    m = PM.AutoMarcher(max_cells=1 << 15, max_verts=1 << 16,
+                       codec="lattice")
+    out = m(t(occ), coarse_occ=t(coarse))
+    full = _decoded(out)
+    small = PL.lattice_decode_plain(out, 64, 64)
+    assert int(small[0]) == len(full[0]) and int(small[1]) == len(full[1])
+    v, f, overflow = PL.unpack_decoded(small, 64, 64)
+    assert overflow and len(v) == 64 and len(f) == 64
+    np.testing.assert_array_equal(f, full[1][:64])
+    token = ((small, 64, 64), out, PM._DECODED)
+    verts, faces = m.unpack(token)
+    _same_mesh((verts, faces), full[:2])
+    assert len(faces) > 1000
+
+
+def test_empty_lattice_decodes_to_nothing():
+    occ = torch.full((9, 10, 11), 0.25)
+    out = PM.marching_lattice(occ, max_cells=64, max_verts=64)
+    assert int(out.n_verts) == 0 and int(out.n_cells) == 0
+    verts, faces, overflow = _decoded(out)
+    assert verts.shape == (0, 3) and faces.shape == (0, 3) and not overflow
+
+
+def test_cpu_tensors_take_the_plain_twins():
+    """On CPU tensors the wrappers are the plain twins and count no
+    launch; the CPU marcher still packs the wire for the host decoder."""
+    coarse, occ = _human(33)
+    before = (PL.launches_cells, PL.launches_emit, PL.launches_decode)
+    c = PL.lattice_cells(t(occ), 0.5, 1 << 15, t(coarse))
+    p = PL.lattice_cells_plain(t(occ), 0.5, 1 << 15, t(coarse))
+    assert all(torch.equal(a, b) for a, b in zip(c, p))
+    out = PL.lattice_emit(c.cvals, c.cx, c.cy, c.cz, c.cell_idx, c.n_cells,
+                          c.n_cells_total, occ.shape, 0.5, 1 << 16)
+    sizes = PL.decode_sizes(out)
+    assert torch.equal(PL.lattice_decode(out, *sizes),
+                       PL.lattice_decode_plain(out, *sizes))
+    assert (PL.launches_cells, PL.launches_emit, PL.launches_decode) == before
+    m = PM.AutoMarcher(max_cells=1 << 15, max_verts=1 << 16,
+                       codec="lattice")
+    token = m.pack(m(t(occ), coarse_occ=t(coarse)))
+    assert token[2] == m._dims            # the wire, for the host decoder
+    decodes = PH.host_decodes
+    verts, faces = m.unpack(token)
+    assert PH.host_decodes == decodes + 1
+    _same_mesh((verts, faces), _decoded(out)[:2])

@@ -12,6 +12,7 @@ from torch_port_helpers import t
 
 from icon_tpu.recon import export as JE
 from icon_tpu.recon import marching as JM
+from icon_tpu_torch.kernels import lattice as PL
 from icon_tpu_torch.recon import export as PE
 from icon_tpu_torch.recon import lattice_host as PH
 from icon_tpu_torch.recon import marching as PM
@@ -154,9 +155,8 @@ def test_edge_ids_are_int64_past_int32():
                           [0.0, 1, 1, 1, 1, 1, 1, 1]])
     cell_idx = (cz * (H - 1) + cy) * (W - 1) + cx
     n = torch.tensor(2)
-    out = PM._lattice_emit(cvals, cx, cy, cz, cell_idx,
-                           torch.tensor([True, True]), n, n, (D, H, W), 0.5,
-                           64)
+    out = PL.lattice_emit(cvals, cx, cy, cz, cell_idx, n, n, (D, H, W),
+                          0.5, 64)
     nv = int(out.n_verts)
     eids = out.vert_eid[:nv].tolist()
     assert nv == 14 and max(eids) > 2 ** 31 and min(eids) > 0

@@ -182,6 +182,12 @@ occ, st = ReconEngine((17, 33), virtual_final=True, device="cpu")(
 marcher = AutoMarcher(codec="lattice", virtual=True, max_cells=1 << 14,
                       max_tris=1 << 15)
 vv, vf = marcher.unpack(marcher.pack(marcher(occ)))
+from icon_tpu_torch.kernels.lattice import (decode_sizes, lattice_decode,
+                                            unpack_decoded)
+lat = marcher(occ)
+dv, df, _ = unpack_decoded(lattice_decode(lat, *decode_sizes(lat)),
+                           *decode_sizes(lat))
+assert np.array_equal(df, vf) and np.array_equal(dv, vv)
 ev, ef = extract_mesh(ReconEngine((17, 33), device="cpu")(
     lambda p: clothed_human_occ(p)[..., None])[0], max_cells=1 << 14,
     max_tris=1 << 15)
@@ -233,7 +239,12 @@ PHOTO_PATH = ("models/yolo.py", "models/u2net.py", "models/detector.py",
               # virtual final level
               "ops/sdf_fast.py", "kernels/winding.py", "csrc/winding.cu",
               "kernels/marching.py", "csrc/marching.cu",
-              "recon/marching.py", "recon/export.py")
+              "recon/marching.py", "recon/export.py",
+              # the lattice kernels and the card's decode, and the
+              # NormalNet frame's device constants
+              "kernels/lattice.py", "csrc/lattice.cu",
+              "recon/lattice_host.py", "render/camera.py",
+              "render/render.py", "ops/constants.py")
 
 
 def test_no_jax_import_in_package_sources():
