@@ -4445,13 +4445,16 @@ def lattice_case(tag, card, fine, coarse, mc, mv, emit_args=None):
                                                        mc),
              "lattice_emit": lambda: kl.lattice_emit(*emit_args),
              "lattice_decode": lambda: kl.lattice_decode(out, nvb, nfb)}
-    dispatch = {}
+    dispatch = {}                     # median of 5 runs of 20 calls
     for name, fn in calls.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        dispatch[name] = (time.perf_counter() - t0) / 20 * 1e3
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            runs.append((time.perf_counter() - t0) / 20 * 1e3)
+        dispatch[name] = statistics.median(runs)
         torch.cuda.synchronize()
     H, W = out.grid_shape[1:]
     wire, wvb, wcb = pack_lattice(out, implicit_eid=True)

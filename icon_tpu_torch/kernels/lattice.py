@@ -12,21 +12,32 @@ place of ``lax.sort``, and the host codec's decode,
   its 8 fine cells, each tested exactly on its own 8 corners; the alive
   ones in candidate order, the first ``max_cells``, with their
   coordinates, linear ids and corner values (without a coarse grid, the
-  fine grid's mixed cells in linear order). One launch.
+  fine grid's mixed cells in linear order). One launch: tiles of whole
+  rows of up to ``CELLS_TILE_CELLS`` cells, the mixed bits from ballots of
+  each point row's inside bits, the mixed cells listed in shared memory
+  and expanded a lane a (mixed cell, fine cell) pair.
 - :func:`lattice_emit`: each alive cell's corner byte and owned crossing
   edges; the first ``max_verts`` in (cell, slot) order, as (edge id,
   fraction) in ascending edge-id order. Five launches from one call: the
-  emit, then the id bitmap's clear, mark, rank scan and write.
+  emit, then the id bitmap's clear, mark, rank scan and write. The rank
+  tables (the bitmap's summary, ``sum_rank``, ``word_rank``) stay with the
+  lattice on the card (``LatticeOut.rank``) for the decode.
 - :func:`lattice_decode`: the host decoder's mesh (wire v1 at full size)
   from a :class:`LatticeOut`, in one int32 buffer ``[header 4 | verts 3
   nvb f32 | faces 3 nfb i32]``, header (vertices, faces, cells, 0), for one
-  copy to the host (:func:`unpack_decoded`). One launch.
+  copy to the host (:func:`unpack_decoded`). One launch: a cell a thread,
+  its faces' edge ids ranked in O(1) through the emit's rank tables
+  (:func:`rank_lookup_plain` is that lookup in PyTorch), each tile's faces
+  written as one run. A lattice whose tables were released
+  (:func:`release_rank`) or that holds none gets them anew from its sorted
+  ids (three more launches, the emit's clear, mark and rank scan).
 
 Rows past the counts: :func:`lattice_cells` and :func:`lattice_emit` give
 zeros (and INT64_MAX edge ids) in both versions; the decode buffer's rows
 past its counts are unspecified. Each call's buffers and scratch are its
 own (the C entries zero the scratch with ``cudaMemsetAsync`` on the call's
-stream), so host threads on one stream share no state.
+stream), so host threads on one stream share no state; a lattice's rank
+tables are its emit's own.
 
 ``launches_cells``, ``launches_emit`` and ``launches_decode`` count the
 wrappers' calls on the card (a call is one count for its launches).
@@ -35,6 +46,7 @@ wrappers' calls on the card (a call is one count for its launches).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -47,7 +59,8 @@ from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
                                                _host_tables_flat)
 
 INT64_MAX = 2 ** 63 - 1
-TILE_CELLS = 256          # csrc/lattice.cu's kThreads
+TILE_CELLS = 256          # csrc/lattice.cu's kThreads (the emit's tiles)
+CELLS_TILE_CELLS = 4096   # kCellsTileCells: lattice_cells' tiles at most
 DECODE_TILE_CELLS = 128   # csrc/lattice.cu's kDecodeThreads
 HEADER = 4                # int32 words before the decoded vertices
 
@@ -70,6 +83,10 @@ class LatticeOut(NamedTuple):
     n_verts_total: torch.Tensor  # true count; > n_verts = overflow
     n_cells_total: torch.Tensor
     grid_shape: Tuple[int, int, int]   # (D, H, W) of the marched grid
+    # on the card, from lattice_emit: [scratch whose first n_sum u32 words
+    # are the summary, sum_rank, word_rank], the decode's rank tables of
+    # the kept ids (emptied by release_rank)
+    rank: Optional[list] = None
 
 
 class Cells(NamedTuple):
@@ -91,29 +108,31 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()["lattice.cu"])
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             cf = ctypes.c_float
-            lib.icon_lattice_set_tables.argtypes = [vp] * 5
+            lib.icon_lattice_set_tables.argtypes = [vp] * 4
             lib.icon_lattice_cells.argtypes = [vp, ci, ci, ci, vp, vp, ci, ci,
                                                ci, vp, cf, cl, cl, vp, vp, vp,
                                                vp]
             lib.icon_lattice_emit.argtypes = [vp, vp, vp, vp, vp, cl, ci, ci,
                                               ci, cf, cl, vp, vp, vp, cl, vp,
                                               vp, vp, vp, vp, vp, vp, vp]
+            lib.icon_lattice_rank.argtypes = [vp, vp, cl, vp, cl, vp, vp,
+                                              vp, vp]
             lib.icon_lattice_decode.argtypes = [vp, vp, vp, cl, vp, vp, vp,
-                                                cl, ci, ci, cl, cl, vp, vp,
-                                                vp]
+                                                cl, ci, ci, cl, vp, vp, vp,
+                                                cl, cl, vp, vp, vp]
             lib.icon_lattice_error_string.argtypes = [ci]
             lib.icon_lattice_error_string.restype = ctypes.c_char_p
-            for fn in (lib.icon_lattice_tile_cells,
-                       lib.icon_lattice_decode_tile_cells):
+            tiles = (lib.icon_lattice_tile_cells,
+                     lib.icon_lattice_cells_tile_cells,
+                     lib.icon_lattice_decode_tile_cells)
+            for fn in tiles:
                 fn.argtypes = []
             for fn in (lib.icon_lattice_set_tables, lib.icon_lattice_cells,
-                       lib.icon_lattice_emit, lib.icon_lattice_decode,
-                       lib.icon_lattice_tile_cells,
-                       lib.icon_lattice_decode_tile_cells):
+                       lib.icon_lattice_emit, lib.icon_lattice_rank,
+                       lib.icon_lattice_decode, *tiles):
                 fn.restype = ci
-            if (lib.icon_lattice_tile_cells(),
-                    lib.icon_lattice_decode_tile_cells()) != (
-                        TILE_CELLS, DECODE_TILE_CELLS):
+            if tuple(fn() for fn in tiles) != (
+                    TILE_CELLS, CELLS_TILE_CELLS, DECODE_TILE_CELLS):
                 raise RuntimeError("csrc/lattice.cu's tile sizes differ "
                                    "from kernels/lattice.py's")
             _lib = lib
@@ -126,15 +145,42 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {msg} ({err})")
 
 
+@functools.lru_cache(maxsize=1)
+def _cell_face_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The decode's tables by corner byte, from the host codec's (tet,
+    case) tables: (used [256] u32, the edge slots its faces use, a bit a
+    slot of ``_EDGE_SLOTS``; nf [256] u8, its faces (valid triangles);
+    faces [256, 36] u8, their slot triples in the codec's order, tet then
+    triangle). A face corner's (lo corner, direction) is the slot's."""
+    tet_case, tri_lo, tri_dcode, tri_valid = _host_tables_flat()
+    slot_of = {(int(lo), int(d)): s for s, (lo, _, d) in
+               enumerate(_EDGE_SLOTS)}
+    used = np.zeros(256, np.uint32)
+    nf = np.zeros(256, np.uint8)
+    faces = np.zeros((256, 36), np.uint8)
+    for bits in range(256):
+        for t in range(6):
+            e96 = t * 16 + int(tet_case[bits * 6 + t])
+            for k in range(2):
+                if not tri_valid[e96 * 2 + k]:
+                    continue
+                for j in range(3):
+                    i = (e96 * 2 + k) * 3 + j
+                    s = slot_of[(int(tri_lo[i]), int(tri_dcode[i]))]
+                    faces[bits, 3 * nf[bits] + j] = s
+                    used[bits] |= 1 << s
+                nf[bits] += 1
+    return used, nf, faces
+
+
 def _lib_on(device: torch.device) -> ctypes.CDLL:
-    """The library, with the edge slots and the codec's tables in
-    ``device``'s constant memory."""
+    """The library, with the edge slots and the decode's tables on
+    ``device``."""
     lib = _load()
     with _lock:
         if device.index not in _tables_on:
             tables = [np.ascontiguousarray(_EDGE_SLOTS, dtype=np.uint8)]
-            tables += [np.ascontiguousarray(t, dtype=np.uint8)
-                       for t in _host_tables_flat()]
+            tables += [np.ascontiguousarray(t) for t in _cell_face_tables()]
             with torch.cuda.device(device):
                 _raise_on(lib, lib.icon_lattice_set_tables(
                     *(t.ctypes.data for t in tables)),
@@ -235,6 +281,20 @@ def lattice_cells_plain(occ: torch.Tensor, iso: float, max_cells: int,
     return Cells(cx, cy, cz, cell_idx, cvals, n_cells, n_cells_total)
 
 
+def cells_tile_rows(iw: int) -> int:
+    """Rows of ``iw`` cells a tile of :func:`lattice_cells` (whole rows,
+    at most ``CELLS_TILE_CELLS`` cells as 32-cell words)."""
+    return (CELLS_TILE_CELLS // 32) // -(-iw // 32)
+
+
+def cells_tiles(scanned_shape: Tuple[int, int, int]) -> int:
+    """The tiles of :func:`lattice_cells` over the cells of a grid of
+    ``scanned_shape`` (D, H, W) points (the coarse grid, or the fine one
+    without it)."""
+    D, H, W = scanned_shape
+    return -(-((D - 1) * (H - 1)) // cells_tile_rows(W - 1))
+
+
 def lattice_cells(occ: torch.Tensor, iso: float, max_cells: int,
                   coarse_occ: Optional[torch.Tensor] = None,
                   max_candidates: Optional[int] = None) -> Cells:
@@ -263,17 +323,18 @@ def lattice_cells(occ: torch.Tensor, iso: float, max_cells: int,
     D, H, W = occ.shape
     dev = occ.device
     nc_budget = (max_candidates or max_cells) // 8
+    scanned = occ.shape if coarse_occ is None else coarse_occ.shape
+    if scanned[2] - 1 > CELLS_TILE_CELLS:
+        raise ValueError(f"rows of {scanned[2] - 1} cells: at most "
+                         f"{CELLS_TILE_CELLS}")
     if coarse_occ is None:
-        n_items = (D - 1) * (H - 1) * (W - 1)
         cptr, cshape, cstr = None, (0, 0, 0), None
     else:
-        Dc, Hc, Wc = coarse_occ.shape
-        n_items = (Dc - 1) * (Hc - 1) * (Wc - 1)
         cptr, cshape = coarse_occ.data_ptr(), coarse_occ.shape
         cstr = (ctypes.c_longlong * 3)(*coarse_occ.stride())
     fstr = (ctypes.c_longlong * 3)(*occ.stride())
-    tiles = -(-n_items // TILE_CELLS)
-    scratch = torch.empty((4 + tiles,), dtype=torch.int64, device=dev)
+    scratch = torch.empty((2 + cells_tiles(scanned),), dtype=torch.int64,
+                          device=dev)
     out = torch.empty((8 * max_cells,), dtype=torch.int64, device=dev)
     counts = torch.empty((2,), dtype=torch.int64, device=dev)
     lib = _lib_on(dev)
@@ -292,6 +353,13 @@ def lattice_cells(occ: torch.Tensor, iso: float, max_cells: int,
 
 
 # --- lattice_emit ------------------------------------------------------------
+
+def _n_sum(grid_shape: Tuple[int, int, int]) -> int:
+    """Summary words of the edge-id bitmap of a grid (D, H, W): a bit a
+    bitmap word, 1024 ids a summary word."""
+    D, H, W = grid_shape
+    return max(1, -(-(D * H * W * 8) // 1024))
+
 
 def lattice_emit_plain(cvals: torch.Tensor, cx: torch.Tensor,
                        cy: torch.Tensor, cz: torch.Tensor,
@@ -384,9 +452,9 @@ def lattice_emit(cvals: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
         cvals = cvals.clone()
     cx, cy, cz = cx.contiguous(), cy.contiguous(), cz.contiguous()
     n_cells = n_cells.reshape(()).contiguous()
-    n_sum = max(1, -(-(D * H * W * 8) // 1024))
-    words = (1 + -(-nc // TILE_CELLS)) + (1 + -(-n_sum // TILE_CELLS)) + \
-        -(-n_sum // 2)
+    n_sum = _n_sum(fine_shape)
+    words = -(-n_sum // 2) + (1 + -(-nc // TILE_CELLS)) + \
+        (1 + -(-n_sum // TILE_CELLS))
     i64, f32, i32 = torch.int64, torch.float32, torch.int32
     scratch = torch.empty((words,), dtype=i64, device=dev)
     keid = torch.empty((max_verts,), dtype=i64, device=dev)
@@ -410,12 +478,104 @@ def lattice_emit(cvals: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
             cell_bits.data_ptr(), vert_eid.data_ptr(), vert_s.data_ptr(),
             counts.data_ptr(), stream), "icon_lattice_emit")
     launches_emit += 1
+    # the scratch's first n_sum u32 words are the summary
     return LatticeOut(vert_eid, vert_s, cell_idx, cell_bits, counts[0],
                       torch.clamp(n_cells, max=nc), counts[1],
-                      n_cells_total, (D, H, W))
+                      n_cells_total, (D, H, W),
+                      [scratch, sum_rank, word_rank])
 
 
 # --- lattice_decode ----------------------------------------------------------
+
+def _popc32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of the low 32 bits of each int64 of ``x``."""
+    x = x & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def rank_tables_plain(vert_eid: torch.Tensor, n_verts,
+                      grid_shape: Tuple[int, int, int]) -> list:
+    """The rank tables that ``lattice_emit`` leaves on the card for the
+    decode, from its sorted ids (the first ``n_verts`` live):
+    [summary [n_sum] (bit b of word s: bitmap word 32 s + b holds an id),
+    sum_rank [n_sum, 2] (touched words before summary word s, its bits),
+    word_rank [touched words, 2] (ids before the word, its bits)], all
+    int64 holding u32 bits. On the card the summary is the first n_sum
+    u32 words of the emit's scratch, and sum_rank's rows of untouched
+    summary words are never read (here (touched words before, 0))."""
+    n_sum = _n_sum(grid_shape)
+    dev = vert_eid.device
+    ids = vert_eid[:max(0, min(int(n_verts), vert_eid.shape[0]))]
+    words, inv = torch.unique(ids >> 5, sorted=True, return_inverse=True)
+    bits = torch.zeros(words.shape[0], dtype=torch.int64, device=dev)
+    bits.index_put_((inv,), torch.ones_like(ids) << (ids & 31),
+                    accumulate=True)                  # distinct ids: OR
+    word_rank = torch.stack([torch.cumsum(_popc32(bits), 0) - _popc32(bits),
+                             bits], -1)
+    summary = torch.zeros(n_sum, dtype=torch.int64, device=dev)
+    summary.index_put_((words >> 5,),
+                       torch.ones_like(words) << (words & 31),
+                       accumulate=True)                # distinct words
+    touched = _popc32(summary)
+    sum_rank = torch.stack([torch.cumsum(touched, 0) - touched, summary], -1)
+    return [summary, sum_rank, word_rank]
+
+
+def rank_lookup_plain(tables: list, keys: torch.Tensor) -> torch.Tensor:
+    """The rank of each edge id of ``keys`` among the kept ids, or -1
+    where it is none, as the decode kernel looks it up in ``tables``
+    (:func:`rank_tables_plain`): two dependent reads, the summary word's
+    row, then the bitmap word's."""
+    summary, sum_rank, word_rank = tables
+    n_ids = summary.shape[0] * 1024
+    ok = (keys >= 0) & (keys < n_ids)
+    e = torch.where(ok, keys, torch.zeros_like(keys))
+    w = e >> 5
+    sw = summary[w >> 5]
+    below_w = (torch.ones_like(w) << (w & 31)) - 1
+    ok = ok & (((sw >> (w & 31)) & 1) == 1)
+    k = sum_rank[w >> 5, 0] + _popc32(sw & below_w)
+    # an id that is none reads a zero row past the table's end
+    rows = torch.cat([word_rank, word_rank.new_zeros((1, 2))])
+    wr = rows[torch.where(ok, k, torch.full_like(k, word_rank.shape[0]))]
+    ok = ok & (((wr[..., 1] >> (e & 31)) & 1) == 1)
+    below_e = (torch.ones_like(e) << (e & 31)) - 1
+    r = wr[..., 0] + _popc32(wr[..., 1] & below_e)
+    return torch.where(ok, r, torch.full_like(r, -1))
+
+
+def release_rank(out: LatticeOut) -> None:
+    """Free ``out``'s rank tables on the card (after its decode is
+    launched: the stream orders their reuse); a later decode of ``out``
+    builds them anew."""
+    if out.rank:
+        out.rank.clear()
+
+
+def _rank_tables(out: LatticeOut, lib) -> list:
+    """The rank tables of ``out``'s live ids on the card
+    (``icon_lattice_rank``: the emit's clear, mark and rank scan)."""
+    dev = out.vert_eid.device
+    n_sum = _n_sum(out.grid_shape)
+    cap = out.vert_eid.shape[0]
+    scratch = torch.empty((-(-n_sum // 2) + 1 + -(-n_sum // TILE_CELLS),),
+                          dtype=torch.int64, device=dev)
+    bitmap = torch.empty((32 * n_sum,), dtype=torch.int32, device=dev)
+    sum_rank = torch.empty((n_sum, 2), dtype=torch.int32, device=dev)
+    word_rank = torch.empty((min(cap, 32 * n_sum), 2), dtype=torch.int32,
+                            device=dev)
+    ids = out.vert_eid.contiguous()
+    n = out.n_verts.reshape(()).contiguous()
+    with torch.cuda.device(dev):
+        _raise_on(lib, lib.icon_lattice_rank(
+            ids.data_ptr(), n.data_ptr(), cap, bitmap.data_ptr(), n_sum,
+            scratch.data_ptr(), sum_rank.data_ptr(), word_rank.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "icon_lattice_rank")
+    return [scratch, sum_rank, word_rank]        # the summary first
+
 
 def decode_sizes(out: LatticeOut) -> Tuple[int, int]:
     """The full buffers of :func:`lattice_decode` for ``out``: every vertex
@@ -514,12 +674,14 @@ def lattice_decode(out: LatticeOut, nvb: int, nfb: int) -> torch.Tensor:
     ts = [t.contiguous() for t in (out.vert_eid, out.vert_s, out.n_verts,
                                    out.cell_id, out.cell_bits, out.n_cells)]
     lib = _lib_on(dev)
+    rank = out.rank or _rank_tables(out, lib)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(lib, lib.icon_lattice_decode(
             ts[0].data_ptr(), ts[1].data_ptr(), ts[2].data_ptr(), nv_cap,
             ts[3].data_ptr(), ts[4].data_ptr(), ts[5].data_ptr(), nc_cap, H,
-            W, nvb, nfb, buf.data_ptr(), scratch.data_ptr(), stream),
+            W, _n_sum(out.grid_shape), *(t.data_ptr() for t in rank), nvb,
+            nfb, buf.data_ptr(), scratch.data_ptr(), stream),
             "icon_lattice_decode")
     launches_decode += 1
     return buf

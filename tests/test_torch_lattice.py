@@ -13,7 +13,14 @@ random field.
   on wire v1 and v2: vertices bit-identical, faces identical in order; on
   an overflowed frame against wire v1 at full size (wire v2 reports the
   overflow, and the serving path re-packs it so);
-- a decode buffer that overflows its sizes, re-packed by the marcher.
+- a decode buffer that overflows its sizes, re-packed by the marcher;
+- ``lattice_cells_plain`` against JAX ``_active_cells`` on the layouts that
+  the kernel's wide tiles make delicate (``tests/lattice_layouts.py``);
+- the decode kernel's O(1) rank lookup through the emit's tables
+  (``rank_tables_plain`` / ``rank_lookup_plain``) against
+  ``torch.searchsorted`` on every key of the JAX-derived lattices, an
+  overflowed emit among them, and its faces through the per-corner-byte
+  tables against ``lattice_decode_plain``.
 """
 
 import numpy as np
@@ -21,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from lattice_layouts import LAYOUTS, fine_of, mixed_in_first_tile
 from torch_port_helpers import t
 
 from icon_tpu.recon import marching as JM
@@ -284,3 +292,142 @@ def test_cpu_tensors_take_the_plain_twins():
     verts, faces = m.unpack(token)
     assert PH.host_decodes == decodes + 1
     _same_mesh((verts, faces), _decoded(out)[:2])
+
+
+@pytest.mark.parametrize("max_cells", [1 << 14, 40])
+@pytest.mark.parametrize("coarse_path", [True, False])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cells_layouts_equal_jax(layout, coarse_path, max_cells):
+    """The tiles' delicate layouts: the budget's last mixed coarse cell at
+    the first tile's edge (and one either side), ragged sides, mixed cells
+    on every face, a single mixed cell at either corner, an empty grid."""
+    coarse, max_candidates = LAYOUTS[layout]()
+    occ = fine_of(coarse)
+    cg = coarse if coarse_path else None
+    ref = _jax_cells(occ, cg, max_cells, max_candidates)
+    got = PL.lattice_cells_plain(t(occ), 0.5, max_cells,
+                                 None if cg is None else t(cg),
+                                 max_candidates)
+    n = int(ref[5])
+    assert (int(got.n_cells), int(got.n_cells_total)) == (n, int(ref[6]))
+    for a, b in zip((got.cx, got.cy, got.cz, got.cell_idx), ref[:4]):
+        np.testing.assert_array_equal(a[:n].numpy(), np.asarray(b)[:n])
+        assert not a[n:].any()
+    assert not got.cvals[n:].any()
+    if layout == "empty":
+        assert int(got.n_cells_total) == 0
+    elif layout.startswith("single"):
+        assert int(PL._mixed_cells(t(coarse), 0.5).sum()) == 1 and n > 0
+    elif layout.startswith("tile_edge") and coarse_path and \
+            max_cells > 40:
+        # the budget ends at, before or after the first tile's last
+        # mixed cell, and cuts the second tile's
+        assert mixed_in_first_tile(coarse) > 0
+        assert int(got.n_cells_total) > n
+
+
+def _all_keys(out: PL.LatticeOut) -> torch.Tensor:
+    """Every edge id the decode looks up: each live cell's 19 slots."""
+    D, H, W = out.grid_shape
+    nc = int(out.n_cells)
+    cid = out.cell_id[:nc]
+    cw, ch = W - 1, H - 1
+    x, y, z = cid % cw, (cid // cw) % ch, cid // (cw * ch)
+    slots = torch.from_numpy(PL._EDGE_SLOTS.astype(np.int64))
+    lo = slots[:, 0]
+    lin = ((z[:, None] + ((lo >> 2) & 1)) * H +
+           (y[:, None] + ((lo >> 1) & 1))) * W + (x[:, None] + (lo & 1))
+    return (lin * 8 + slots[:, 2]).reshape(-1)
+
+
+def _searchsorted_rank(out: PL.LatticeOut, keys: torch.Tensor):
+    nv = int(out.n_verts)
+    ids = out.vert_eid[:nv]
+    r = torch.searchsorted(ids, keys)
+    found = (r < nv) & (ids[torch.clamp(r, max=max(nv - 1, 0))] == keys)
+    return torch.where(found, r, torch.full_like(r, -1))
+
+
+def _jax_lattice(field_arrays, **kw):
+    coarse, occ = field_arrays
+    ref = JM.marching_lattice(jnp.asarray(occ),
+                              coarse_occ=jnp.asarray(coarse), **kw)
+    return _port_lattice(ref, occ.shape)
+
+
+@pytest.mark.parametrize("max_verts", [1 << 17, 2000])
+def test_rank_lookup_equals_searchsorted(field, max_verts):
+    """The decode's rank of each key through the emit's tables equals
+    torch.searchsorted's among the kept ids (-1 where none), on every slot
+    key of every live cell, every id, and keys past the grid. With 2000
+    vertices the emit overflows: dropped ids share bitmap words with kept
+    ones and rank -1."""
+    name, arrays = field
+    out = _jax_lattice(arrays, max_cells=1 << 16, max_verts=max_verts)
+    nv = int(out.n_verts)
+    tables = PL.rank_tables_plain(out.vert_eid, out.n_verts,
+                                  out.grid_shape)
+    n_ids = tables[0].shape[0] * 1024
+    keys = torch.cat([_all_keys(out), out.vert_eid[:nv],
+                      torch.tensor([0, n_ids - 1, n_ids, n_ids + 99, -1])])
+    got = PL.rank_lookup_plain(tables, keys)
+    assert torch.equal(got, _searchsorted_rank(out, keys))
+    assert torch.equal(PL.rank_lookup_plain(tables, out.vert_eid[:nv]),
+                       torch.arange(nv))
+    if max_verts == 2000:
+        full = _jax_lattice(arrays, max_cells=1 << 16, max_verts=1 << 17)
+        all_ids = full.vert_eid[:int(full.n_verts)]
+        dropped = all_ids[~torch.isin(all_ids, out.vert_eid[:nv])]
+        shared = torch.isin(dropped >> 5, out.vert_eid[:nv] >> 5)
+        assert int(out.n_verts_total) > nv and shared.any()
+        assert (PL.rank_lookup_plain(tables, dropped) == -1).all()
+
+
+def _table_decode_faces(out: PL.LatticeOut) -> torch.Tensor:
+    """The decode kernel's faces in PyTorch: each live cell's used slots
+    ranked through the rank tables, its faces from the per-corner-byte
+    tables, a face with a missing or repeated rank dropped."""
+    used, nf, faces = PL._cell_face_tables()
+    nc = int(out.n_cells)
+    keys = _all_keys(out).reshape(nc, 19)
+    tables = PL.rank_tables_plain(out.vert_eid, out.n_verts,
+                                  out.grid_shape)
+    bits = (out.cell_bits[:nc].to(torch.int64) & 0xFF).numpy()
+    slot_used = (used[bits][:, None] >> np.arange(19)) & 1     # [nc, 19]
+    rank = PL.rank_lookup_plain(tables, keys)
+    rank = torch.where(torch.from_numpy(slot_used.astype(bool)), rank,
+                       torch.full_like(rank, -7))   # never read
+    tri = torch.from_numpy(faces[bits].astype(np.int64)).reshape(nc, 12, 3)
+    r = torch.gather(rank, 1, tri.reshape(nc, 36)).reshape(nc, 12, 3)
+    live = torch.arange(12)[None] < torch.from_numpy(nf[bits].astype(
+        np.int64))[:, None]
+    assert (r[live] != -7).all()
+    ok = live & (r >= 0).all(-1) & (r[..., 0] != r[..., 1]) & \
+        (r[..., 1] != r[..., 2]) & (r[..., 0] != r[..., 2])
+    return r[ok].to(torch.int32)
+
+
+@pytest.mark.parametrize("cut", [None, "verts"])
+def test_table_decode_equals_plain(field, cut):
+    """The decode kernel's algorithm (used slots, O(1) ranks, the
+    per-corner-byte face tables) gives the plain twin's faces in order,
+    on an overflowed emit too."""
+    name, arrays = field
+    kw = dict(max_cells=1 << 16, max_verts=1 << 17 if cut is None else 2000)
+    out = _jax_lattice(arrays, **kw)
+    nvb, nfb = PL.decode_sizes(out)
+    buf = PL.lattice_decode_plain(out, nvb, nfb)
+    nf = int(buf[1])
+    fo = PL.HEADER + 3 * nvb
+    got = _table_decode_faces(out)
+    assert nf > 100 and got.shape[0] == nf
+    assert torch.equal(got.reshape(-1), buf[fo:fo + 3 * nf])
+
+
+def test_cells_tiles():
+    """Tiles of whole rows, at most CELLS_TILE_CELLS cells as 32-cell
+    words: 512 over phase 19's 129^3 coarse grid, 4,096 over 257^3."""
+    assert PL.cells_tile_rows(128) == 32 and PL.cells_tile_rows(129) == 25
+    assert PL.cells_tiles((129, 129, 129)) == 512
+    assert PL.cells_tiles((257, 257, 257)) == 4096
+    assert PL.cells_tile_rows(4096) == 1 and PL.cells_tile_rows(1) == 128

@@ -5,7 +5,10 @@ card's serving marcher against the host decoder.
 Every kernel rounds each operation as its twin does, so the outputs are
 bit-identical: the cells' coordinates, ids, corner values and counts; the
 lattice's edge ids, fractions, corner bytes and counts; the decoded
-header, vertices and faces.
+header, vertices and faces. The cells kernel also on the layouts its wide
+tiles make delicate (``tests/lattice_layouts.py``); the emit's rank
+tables against ``rank_tables_plain``; the decode of a lattice without
+them (released, or from the plain emit).
 
 Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_lattice_cuda.py --noconftest -m cuda -q``. Where no card
@@ -17,6 +20,8 @@ import threading
 import numpy as np
 import pytest
 import torch
+
+from lattice_layouts import LAYOUTS, fine_of
 
 from icon_tpu_torch.kernels import lattice as kl
 from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
@@ -93,6 +98,68 @@ def test_kernels_equal_plain(cuda_device, n, seed, max_cells, max_verts,
                              nvb, nfb)
 
 
+@pytest.mark.parametrize("max_cells", [1 << 14, 40])
+@pytest.mark.parametrize("coarse_path", [True, False])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_layouts_equal_plain(cuda_device, layout, coarse_path, max_cells):
+    """The budget's last mixed coarse cell at a tile's edge, ragged sides,
+    mixed cells on every face, a single mixed cell, an empty grid: the
+    kernel's cells bit-equal to the twin's, twice (the scratch reused)."""
+    coarse, max_candidates = LAYOUTS[layout]()
+    occ = torch.from_numpy(fine_of(coarse)).to(cuda_device)
+    cg = torch.from_numpy(coarse).to(cuda_device) if coarse_path else None
+    want = kl.lattice_cells_plain(occ, 0.5, max_cells, cg, max_candidates)
+    for _ in range(2):
+        got = kl.lattice_cells(occ, 0.5, max_cells, cg, max_candidates)
+        assert _equal(got, want)
+
+
+def test_rank_tables_equal_plain(cuda_device):
+    """The emit's rank tables (kept on the lattice) and the decode's own
+    build of them equal rank_tables_plain where the decode reads them:
+    the summary, the touched summary words' rows, the touched words'."""
+    coarse, occ = _grids(65, cuda_device)
+    for max_verts in (1 << 18, 5000):
+        out = PM.marching_lattice(occ, max_cells=1 << 17,
+                                  max_verts=max_verts, coarse_occ=coarse)
+        want = kl.rank_tables_plain(out.vert_eid, out.n_verts,
+                                    out.grid_shape)
+        for tables in (out.rank, kl._rank_tables(out, kl._lib_on(
+                cuda_device))):
+            n_sum = want[0].shape[0]
+            summary = tables[0].view(torch.int32)[:n_sum].to(
+                torch.int64) & 0xFFFFFFFF
+            assert torch.equal(summary, want[0])
+            touched = want[0] != 0
+            sum_rank = tables[1].to(torch.int64) & 0xFFFFFFFF
+            assert torch.equal(sum_rank[touched], want[1][touched])
+            n = want[2].shape[0]
+            word_rank = tables[2][:n].to(torch.int64) & 0xFFFFFFFF
+            assert torch.equal(word_rank, want[2]) and n > 500
+
+
+def test_decode_without_the_emits_tables(cuda_device):
+    """A lattice whose tables were released, or from the plain emit, is
+    decoded through tables built anew: the twin's buffer, each call."""
+    coarse, occ = _grids(33, cuda_device)
+    out = PM.marching_lattice(occ, max_cells=1 << 15, max_verts=1 << 16,
+                              coarse_occ=coarse)
+    sizes = kl.decode_sizes(out)
+    want = kl.lattice_decode_plain(out, *sizes)
+    assert _decode_equal(kl.lattice_decode(out, *sizes), want, *sizes)
+    kl.release_rank(out)
+    assert not out.rank
+    before = kl.launches_decode
+    for _ in range(2):
+        assert _decode_equal(kl.lattice_decode(out, *sizes), want, *sizes)
+    assert kl.launches_decode == before + 2 and not out.rank
+    c = kl.lattice_cells_plain(occ, 0.5, 1 << 15, coarse)
+    plain = kl.lattice_emit_plain(c.cvals, *c[:4], *c[5:],
+                                  tuple(occ.shape), 0.5, 1 << 16)
+    assert plain.rank is None
+    assert _decode_equal(kl.lattice_decode(plain, *sizes), want, *sizes)
+
+
 def test_candidate_budget_and_empty_grid(cuda_device):
     coarse, occ = _grids(33, cuda_device)
     got = kl.lattice_cells(occ, 0.5, 1 << 15, coarse, max_candidates=2400)
@@ -167,10 +234,11 @@ def test_virtual_level_decodes_on_the_card(cuda_device):
 
 def test_two_host_threads_on_one_stream(cuda_device):
     """Two host threads call the three wrappers on one stream at once, on
-    different grids, 200 times each (1,200 calls): every result is
-    bit-identical to the plain twins', so no call reads a scan status, a
-    ticket or a summary bit of a call whose launches interleave with its
-    own."""
+    different grids, 200 times each (1,600 calls: the decode of the plain
+    lattice, which builds its rank tables, and of the thread's own emit):
+    every result is bit-identical to the plain twins', so no call reads a
+    scan status, a ticket, a summary bit or a rank table of a call whose
+    launches interleave with its own."""
     grids = [_grids(n, cuda_device) for n in (33, 25)]
     mc, mv, reps = 1 << 15, 1 << 16, 200
     plain = []
@@ -193,6 +261,8 @@ def test_two_host_threads_on_one_stream(cuda_device):
                 kl.lattice_emit(c.cvals, *c[:4], *c[5:], tuple(occ.shape),
                                 0.5, mv),
                 kl.lattice_decode(e, *sizes)))
+            # the main path's decode: through its own emit's tables
+            got[i][-1] += (kl.lattice_decode(got[i][-1][1], *sizes),)
 
     threads = [threading.Thread(target=work, args=(i,))
                for i in range(len(grids))]
@@ -210,11 +280,13 @@ def test_two_host_threads_on_one_stream(cuda_device):
     bad = []
     for i, (c, e, d, sizes) in enumerate(plain):
         assert int(d[1]) > 1000
-        for r, (gc, ge, gd) in enumerate(got[i]):
+        for r, (gc, ge, gd, gt) in enumerate(got[i]):
             if not _equal(gc, c):
                 bad.append(("lattice_cells", i, r))
             if not _equal(ge[:8], e[:8]):
                 bad.append(("lattice_emit", i, r))
             if not _decode_equal(gd, d, *sizes):
                 bad.append(("lattice_decode", i, r))
-    assert not bad, f"{len(bad)} of {6 * reps} calls differ: {bad[:8]}"
+            if not _decode_equal(gt, d, *sizes):
+                bad.append(("lattice_decode (emit's tables)", i, r))
+    assert not bad, f"{len(bad)} of {8 * reps} calls differ: {bad[:8]}"
