@@ -252,8 +252,10 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    virtual level (the emit on the cells that ``marching_lattice_virtual``
    hands it; ``lattice_cells`` on the materialized upsample), each alone
    beside its bound and plain twin, ``torch.sort`` of the shuffled vertex
-   buffer beside the emit, and the C++ host decode of the serving wire
-   alone on the card machine's host.
+   buffer beside the emit, the operations each wrapper queues a call
+   (torch.profiler's device activity; ``lattice_emit`` fails above one),
+   and the C++ host decode of the serving wire alone on the card
+   machine's host.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -4387,10 +4389,12 @@ def lattice_case(tag, card, fine, coarse, mc, mv, emit_args=None):
     one size: lattice_cells on (``fine``, ``coarse``); lattice_emit on its
     cells, or on ``emit_args`` (the virtual level's own cells); the decode
     on the emit's lattice at full buffers. Each output bit-equal to its
-    twin's; torch.sort of the shuffled vertex buffer and the C++ host
-    decode of the serving wire (v2) alone on this host. Returns {kernel:
-    (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    twin's; the operations each wrapper queues a call (the emit's one
+    cooperative launch); torch.sort of the shuffled vertex buffer and the
+    C++ host decode of the serving wire (v2) alone on this host. Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     from icon_tpu_torch.kernels import lattice as kl
+    from icon_tpu_torch.kernels.profile_marching import device_split
     from icon_tpu_torch.recon import lattice_host as PH
     from icon_tpu_torch.recon.marching import pack_lattice
     res = {}
@@ -4456,6 +4460,11 @@ def lattice_case(tag, card, fine, coarse, mc, mv, emit_args=None):
             runs.append((time.perf_counter() - t0) / 20 * 1e3)
         dispatch[name] = statistics.median(runs)
         torch.cuda.synchronize()
+    # the operations a call queues on the stream (kernels and memsets),
+    # from torch.profiler's device activity over 10 calls (it may drop a
+    # late launch, never add one)
+    queued = {name: device_split(fn, reps=10)["launches"]
+              for name, fn in calls.items()}
     H, W = out.grid_shape[1:]
     wire, wvb, wcb = pack_lattice(out, implicit_eid=True)
     host = wire.cpu().numpy()
@@ -4469,10 +4478,16 @@ def lattice_case(tag, card, fine, coarse, mc, mv, emit_args=None):
           f"{same_c}, emit {same_e}, decode {same_d}", flush=True)
     for name, (ms, pms, bms, bby, lms) in res.items():
         lib = f", torch.sort {lms:.4f} ms" if lms is not None else ""
+        ops = sum(c for _, c in queued[name].values()) / 10
         print(f"[19] {tag} {name}: alone {ms:.4f} ms, plain {pms:.4f} ms"
               f"{lib}, bound {bms:.4f} ms ({bby}), {bms / ms:.1%} of it, "
               f"on {card}; the wrapper's host dispatch "
-              f"{dispatch[name]:.4f} ms a call", flush=True)
+              f"{dispatch[name]:.4f} ms a call; {ops:g} operations queued "
+              f"a call {queued[name]}", flush=True)
+    emit_ops = sum(c for _, c in queued["lattice_emit"].values()) / 10
+    if emit_ops > 1:
+        raise AssertionError(f"[19] {tag}: lattice_emit queued {emit_ops:g} "
+                             f"operations a call, one expected")
     print(f"[19] {tag} C++ host decode of the wire v2 alone (host time, "
           f"this machine's host): median {statistics.median(host_ms):.3f} "
           f"ms, all {[round(x, 3) for x in host_ms]}", flush=True)

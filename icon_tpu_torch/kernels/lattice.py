@@ -18,10 +18,11 @@ place of ``lax.sort``, and the host codec's decode,
   and expanded a lane a (mixed cell, fine cell) pair.
 - :func:`lattice_emit`: each alive cell's corner byte and owned crossing
   edges; the first ``max_verts`` in (cell, slot) order, as (edge id,
-  fraction) in ascending edge-id order. Five launches from one call: the
-  emit, then the id bitmap's clear, mark, rank scan and write. The rank
-  tables (the bitmap's summary, ``sum_rank``, ``word_rank``) stay with the
-  lattice on the card (``LatticeOut.rank``) for the decode.
+  fraction) in ascending edge-id order. One cooperative launch a call, its
+  phases between grid-wide barriers: the emit, then the rank tables of the
+  kept ids (the summary of the 32-id words that hold one, ``sum_rank``,
+  ``word_rank``), then each id written at its rank. The tables stay with
+  the lattice on the card (``LatticeOut.rank``) for the decode.
 - :func:`lattice_decode`: the host decoder's mesh (wire v1 at full size)
   from a :class:`LatticeOut`, in one int32 buffer ``[header 4 | verts 3
   nvb f32 | faces 3 nfb i32]``, header (vertices, faces, cells, 0), for one
@@ -30,14 +31,16 @@ place of ``lax.sort``, and the host codec's decode,
   (:func:`rank_lookup_plain` is that lookup in PyTorch), each tile's faces
   written as one run. A lattice whose tables were released
   (:func:`release_rank`) or that holds none gets them anew from its sorted
-  ids (three more launches, the emit's clear, mark and rank scan).
+  ids (one more cooperative launch, the emit's rank phases).
 
 Rows past the counts: :func:`lattice_cells` and :func:`lattice_emit` give
 zeros (and INT64_MAX edge ids) in both versions; the decode buffer's rows
 past its counts are unspecified. Each call's buffers and scratch are its
-own (the C entries zero the scratch with ``cudaMemsetAsync`` on the call's
-stream), so host threads on one stream share no state; a lattice's rank
-tables are its emit's own.
+own (the cells and decode entries zero their scratch with
+``cudaMemsetAsync`` on the call's stream; the emit's phases write every
+word they read), so host threads on one stream share no state; a
+lattice's rank tables are its emit's own, views of the one workspace that
+holds its outputs.
 
 ``launches_cells``, ``launches_emit`` and ``launches_decode`` count the
 wrappers' calls on the card (a call is one count for its launches).
@@ -59,7 +62,7 @@ from icon_tpu_torch.recon.lattice_host import (_CORNER_OFF, _EDGE_SLOTS,
                                                _host_tables_flat)
 
 INT64_MAX = 2 ** 63 - 1
-TILE_CELLS = 256          # csrc/lattice.cu's kThreads (the emit's tiles)
+EMIT_THREADS = 512        # csrc/lattice.cu's kEmitThreads (emit and rank)
 CELLS_TILE_CELLS = 4096   # kCellsTileCells: lattice_cells' tiles at most
 DECODE_TILE_CELLS = 128   # csrc/lattice.cu's kDecodeThreads
 HEADER = 4                # int32 words before the decoded vertices
@@ -67,6 +70,11 @@ HEADER = 4                # int32 words before the decoded vertices
 launches_cells = 0        # lattice_cells calls on the card since the reset
 launches_emit = 0
 launches_decode = 0
+
+# csrc/lattice.cu's kEmitBlocksPerSm: the cooperative grids (emit, rank
+# tables) take at most this many blocks an SM (the C entry also clamps
+# them to the blocks the card holds at once)
+EMIT_BLOCKS_PER_SM = 2
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -83,9 +91,9 @@ class LatticeOut(NamedTuple):
     n_verts_total: torch.Tensor  # true count; > n_verts = overflow
     n_cells_total: torch.Tensor
     grid_shape: Tuple[int, int, int]   # (D, H, W) of the marched grid
-    # on the card, from lattice_emit: [scratch whose first n_sum u32 words
-    # are the summary, sum_rank, word_rank], the decode's rank tables of
-    # the kept ids (emptied by release_rank)
+    # on the card, from lattice_emit: [summary, sum_rank, word_rank], the
+    # decode's rank tables of the kept ids, int32 views of the emit's
+    # workspace (emptied by release_rank)
     rank: Optional[list] = None
 
 
@@ -113,16 +121,16 @@ def _load() -> ctypes.CDLL:
                                                ci, vp, cf, cl, cl, vp, vp, vp,
                                                vp]
             lib.icon_lattice_emit.argtypes = [vp, vp, vp, vp, vp, cl, ci, ci,
-                                              ci, cf, cl, vp, vp, vp, cl, vp,
-                                              vp, vp, vp, vp, vp, vp, vp]
-            lib.icon_lattice_rank.argtypes = [vp, vp, cl, vp, cl, vp, vp,
-                                              vp, vp]
+                                              ci, cf, cl, cl, vp, vp, vp, vp,
+                                              cl, vp, vp, vp, vp, vp, vp, vp]
+            lib.icon_lattice_rank.argtypes = [vp, vp, cl, cl, vp, vp, vp,
+                                              vp, cl, vp]
             lib.icon_lattice_decode.argtypes = [vp, vp, vp, cl, vp, vp, vp,
                                                 cl, ci, ci, cl, vp, vp, vp,
                                                 cl, cl, vp, vp, vp]
             lib.icon_lattice_error_string.argtypes = [ci]
             lib.icon_lattice_error_string.restype = ctypes.c_char_p
-            tiles = (lib.icon_lattice_tile_cells,
+            tiles = (lib.icon_lattice_emit_threads,
                      lib.icon_lattice_cells_tile_cells,
                      lib.icon_lattice_decode_tile_cells)
             for fn in tiles:
@@ -132,8 +140,8 @@ def _load() -> ctypes.CDLL:
                        lib.icon_lattice_decode, *tiles):
                 fn.restype = ci
             if tuple(fn() for fn in tiles) != (
-                    TILE_CELLS, CELLS_TILE_CELLS, DECODE_TILE_CELLS):
-                raise RuntimeError("csrc/lattice.cu's tile sizes differ "
+                    EMIT_THREADS, CELLS_TILE_CELLS, DECODE_TILE_CELLS):
+                raise RuntimeError("csrc/lattice.cu's block sizes differ "
                                    "from kernels/lattice.py's")
             _lib = lib
     return _lib
@@ -187,6 +195,31 @@ def _lib_on(device: torch.device) -> ctypes.CDLL:
                     "icon_lattice_set_tables")
             _tables_on.add(device.index)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _grid_blocks(device: torch.device) -> Tuple[int, int]:
+    """(The blocks a cooperative launch on ``device`` may take at most,
+    the bytes of its block totals: three scans' u32 rows, each rounded up
+    to 16 bytes)."""
+    blocks = EMIT_BLOCKS_PER_SM * _sm_count(device.index)
+    return blocks, 3 * 4 * -(-blocks // 4) * 4
+
+
+def _workspace(device: torch.device, nbytes) -> Tuple[torch.Tensor, list]:
+    """One allocation for parts of ``nbytes`` bytes each, every part
+    16-byte aligned: (the workspace, int64 words; each part's offset in
+    bytes)."""
+    offs, at = [], 0
+    for n in nbytes:
+        offs.append(at)
+        at += -(-n // 16) * 16
+    return torch.empty((max(at, 16) // 8,), dtype=torch.int64,
+                       device=device), offs
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -453,36 +486,33 @@ def lattice_emit(cvals: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
     cx, cy, cz = cx.contiguous(), cy.contiguous(), cz.contiguous()
     n_cells = n_cells.reshape(()).contiguous()
     n_sum = _n_sum(fine_shape)
-    words = -(-n_sum // 2) + (1 + -(-nc // TILE_CELLS)) + \
-        (1 + -(-n_sum // TILE_CELLS))
-    i64, f32, i32 = torch.int64, torch.float32, torch.int32
-    scratch = torch.empty((words,), dtype=i64, device=dev)
-    keid = torch.empty((max_verts,), dtype=i64, device=dev)
-    ks = torch.empty((max_verts,), dtype=f32, device=dev)
-    bitmap = torch.empty((32 * n_sum,), dtype=i32, device=dev)
-    sum_rank = torch.empty((n_sum, 2), dtype=i32, device=dev)
-    word_rank = torch.empty((min(max_verts, 32 * n_sum), 2), dtype=i32,
-                            device=dev)
-    cell_bits = torch.empty((nc,), dtype=i32, device=dev)
-    vert_eid = torch.empty((max_verts,), dtype=i64, device=dev)
-    vert_s = torch.empty((max_verts,), dtype=f32, device=dev)
-    counts = torch.empty((2,), dtype=i64, device=dev)
+    rows = min(max_verts, 32 * n_sum)
+    blocks, totals = _grid_blocks(dev)
+    mv = max_verts
+    # vert_eid, keid, word_rank, sum_rank, counts, totals, summary, ks,
+    # vert_s, cell_bits
+    ws, o = _workspace(dev, (8 * mv, 8 * mv, 8 * rows, 8 * n_sum, 24,
+                             totals, 4 * n_sum, 4 * mv, 4 * mv, 4 * nc))
+    w32, base = ws.view(torch.int32), ws.data_ptr()
+    o32 = [b // 4 for b in o]
+    counts = ws[o[4] // 8:o[4] // 8 + 3]    # kept, total, clamped n_cells
     lib = _lib_on(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(lib, lib.icon_lattice_emit(
             cvals.data_ptr(), cx.data_ptr(), cy.data_ptr(), cz.data_ptr(),
-            n_cells.data_ptr(), nc, D, H, W, float(iso), max_verts,
-            keid.data_ptr(), ks.data_ptr(), bitmap.data_ptr(), n_sum,
-            scratch.data_ptr(), sum_rank.data_ptr(), word_rank.data_ptr(),
-            cell_bits.data_ptr(), vert_eid.data_ptr(), vert_s.data_ptr(),
-            counts.data_ptr(), stream), "icon_lattice_emit")
+            n_cells.data_ptr(), nc, D, H, W, float(iso), max_verts, n_sum,
+            base + o[6], base + o[3], base + o[2], base + o[5], blocks,
+            base + o[1], base + o[7], base + o[9], base + o[0], base + o[8],
+            base + o[4], stream), "icon_lattice_emit")
     launches_emit += 1
-    # the scratch's first n_sum u32 words are the summary
-    return LatticeOut(vert_eid, vert_s, cell_idx, cell_bits, counts[0],
-                      torch.clamp(n_cells, max=nc), counts[1],
-                      n_cells_total, (D, H, W),
-                      [scratch, sum_rank, word_rank])
+    rank = [w32[o32[6]:o32[6] + n_sum],
+            w32[o32[3]:o32[3] + 2 * n_sum].view(n_sum, 2),
+            w32[o32[2]:o32[2] + 2 * rows].view(rows, 2)]
+    vert_s = ws.view(torch.float32)[o32[8]:o32[8] + mv]
+    return LatticeOut(ws[:mv], vert_s, cell_idx, w32[o32[9]:o32[9] + nc],
+                      counts[0], counts[2], counts[1], n_cells_total,
+                      (D, H, W), rank)
 
 
 # --- lattice_decode ----------------------------------------------------------
@@ -500,12 +530,13 @@ def rank_tables_plain(vert_eid: torch.Tensor, n_verts,
                       grid_shape: Tuple[int, int, int]) -> list:
     """The rank tables that ``lattice_emit`` leaves on the card for the
     decode, from its sorted ids (the first ``n_verts`` live):
-    [summary [n_sum] (bit b of word s: bitmap word 32 s + b holds an id),
-    sum_rank [n_sum, 2] (touched words before summary word s, its bits),
-    word_rank [touched words, 2] (ids before the word, its bits)], all
-    int64 holding u32 bits. On the card the summary is the first n_sum
-    u32 words of the emit's scratch, and sum_rank's rows of untouched
-    summary words are never read (here (touched words before, 0))."""
+    [summary [n_sum] (bit b of word s: the ids of 32-id word 32 s + b
+    hold one), sum_rank [n_sum, 2] (touched words before summary word s,
+    its bits), word_rank [touched words, 2] (ids before the word, its
+    bits)], all int64 holding u32 bits. On the card they are int32 views
+    of the emit's workspace, and sum_rank's rows of untouched summary
+    words are neither written nor read (here (touched words before,
+    0))."""
     n_sum = _n_sum(grid_shape)
     dev = vert_eid.device
     ids = vert_eid[:max(0, min(int(n_verts), vert_eid.shape[0]))]
@@ -548,33 +579,35 @@ def rank_lookup_plain(tables: list, keys: torch.Tensor) -> torch.Tensor:
 
 
 def release_rank(out: LatticeOut) -> None:
-    """Free ``out``'s rank tables on the card (after its decode is
-    launched: the stream orders their reuse); a later decode of ``out``
-    builds them anew."""
+    """Drop ``out``'s rank tables (views of its emit's workspace, which
+    lives as long as ``out``'s outputs); a later decode of ``out`` builds
+    them anew."""
     if out.rank:
         out.rank.clear()
 
 
 def _rank_tables(out: LatticeOut, lib) -> list:
     """The rank tables of ``out``'s live ids on the card
-    (``icon_lattice_rank``: the emit's clear, mark and rank scan)."""
+    (``icon_lattice_rank``: one cooperative launch of the emit's rank
+    phases), views of one workspace."""
     dev = out.vert_eid.device
     n_sum = _n_sum(out.grid_shape)
     cap = out.vert_eid.shape[0]
-    scratch = torch.empty((-(-n_sum // 2) + 1 + -(-n_sum // TILE_CELLS),),
-                          dtype=torch.int64, device=dev)
-    bitmap = torch.empty((32 * n_sum,), dtype=torch.int32, device=dev)
-    sum_rank = torch.empty((n_sum, 2), dtype=torch.int32, device=dev)
-    word_rank = torch.empty((min(cap, 32 * n_sum), 2), dtype=torch.int32,
-                            device=dev)
+    rows = min(cap, 32 * n_sum)
+    blocks, totals = _grid_blocks(dev)
+    # word_rank, sum_rank, totals, summary
+    ws, o = _workspace(dev, (8 * rows, 8 * n_sum, totals, 4 * n_sum))
+    w32, base = ws.view(torch.int32), ws.data_ptr()
     ids = out.vert_eid.contiguous()
     n = out.n_verts.reshape(()).contiguous()
     with torch.cuda.device(dev):
         _raise_on(lib, lib.icon_lattice_rank(
-            ids.data_ptr(), n.data_ptr(), cap, bitmap.data_ptr(), n_sum,
-            scratch.data_ptr(), sum_rank.data_ptr(), word_rank.data_ptr(),
+            ids.data_ptr(), n.data_ptr(), cap, n_sum, base + o[3],
+            base + o[1], base + o[0], base + o[2], blocks,
             torch.cuda.current_stream().cuda_stream), "icon_lattice_rank")
-    return [scratch, sum_rank, word_rank]        # the summary first
+    return [w32[o[3] // 4:o[3] // 4 + n_sum],
+            w32[o[1] // 4:o[1] // 4 + 2 * n_sum].view(n_sum, 2),
+            w32[:2 * rows].view(rows, 2)]
 
 
 def decode_sizes(out: LatticeOut) -> Tuple[int, int]:

@@ -66,10 +66,11 @@ def vgg_perceptual_loss(vgg: Vgg19Features, x: torch.Tensor,
     return loss
 
 
-def load_vgg19(path: Optional[str] = None, device="cpu"
+def load_vgg19(path: Optional[str] = None, device="cuda"
                ) -> Optional[Vgg19Features]:
     """:class:`Vgg19Features` with torchvision's VGG19 weights from
-    ``path`` (default ``data/vgg/vgg19.pth``) on ``device``, in eval mode;
+    ``path`` (default ``data/vgg/vgg19.pth``) on ``device`` (the card
+    unless the caller passes its own), in eval mode;
     ``None`` when the file is absent (the trainer then says that the
     perceptual term is left out). The 13 convolutions of the five slices
     load strictly by name; the file's later convolutions

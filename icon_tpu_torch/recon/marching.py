@@ -47,7 +47,7 @@ import torch
 from icon_tpu_torch.kernels.lattice import (LatticeOut, _coarse_candidates,
                                             decode_sizes, lattice_cells,
                                             lattice_decode, lattice_emit,
-                                            release_rank, unpack_decoded)
+                                            unpack_decoded)
 from icon_tpu_torch.kernels.marching import mt_emit, mt_index
 from icon_tpu_torch.ops.constants import device_constant
 from icon_tpu_torch.recon.engine import HostCopy, _compact
@@ -505,8 +505,8 @@ class AutoMarcher:
         frame: the full buffers) in this marcher's codec (``quantize``: the
         indexed wire's fixed point), its copy to pinned host memory started
         at once. A lattice on the card is decoded there instead
-        (``lattice_decode``: the host decoder's mesh in one buffer; the
-        emit's rank tables are released once it is launched), and that
+        (``lattice_decode``: the host decoder's mesh in one buffer, through
+        the emit's rank tables, which a repack reads again), and that
         buffer is copied. Waits for nothing past the first frame's
         counts, so a serving loop can enqueue the next frame before this
         one's copy lands. Returns a token for :meth:`decode` and
@@ -520,7 +520,6 @@ class AutoMarcher:
                 else None
             nvb, nfb = _pack_rows(sizes, decode_sizes(out))
             buf = lattice_decode(out, nvb, nfb)
-            release_rank(out)         # a repack builds the tables anew
             return (HostCopy(buf), nvb, nfb), out, _DECODED
         if self.codec == "lattice":
             sizes = (int(c[1] * self.headroom),

@@ -20,7 +20,12 @@ random field.
   (``rank_tables_plain`` / ``rank_lookup_plain``) against
   ``torch.searchsorted`` on every key of the JAX-derived lattices, an
   overflowed emit among them, and its faces through the per-corner-byte
-  tables against ``lattice_decode_plain``.
+  tables against ``lattice_decode_plain``;
+- the emit kernel's cooperative phases emulated in numpy (each phase's
+  block shares for 1, 7 and 132 x k blocks, block totals summed across
+  blocks, in-block scans) against ``lattice_emit_plain`` and
+  ``rank_tables_plain`` on the fields' cells and the layouts', with
+  empty blocks, no live cell and ``max_verts`` below the total.
 """
 
 import numpy as np
@@ -431,3 +436,196 @@ def test_cells_tiles():
     assert PL.cells_tiles((129, 129, 129)) == 512
     assert PL.cells_tiles((257, 257, 257)) == 4096
     assert PL.cells_tile_rows(4096) == 1 and PL.cells_tile_rows(1) == 128
+
+
+def _share(n: int, grid: int, b: int):
+    """``csrc/lattice.cu:block_share``: block ``b``'s contiguous share
+    [lo, hi) of ``n`` items among ``grid`` blocks, in multiples of 32."""
+    per = -(-n // grid)
+    per = -(-per // 32) * 32
+    lo = min(b * per, n)
+    return lo, min(lo + per, n)
+
+
+def _exclusive(x: np.ndarray) -> np.ndarray:
+    return np.cumsum(x) - x
+
+
+# csrc/lattice.cu's kSumRun: summary words a thread takes at once
+SUM_RUN = 8
+
+
+def _emit_phases(cvals, cx, cy, cz, n_cells, fine_shape, iso, max_verts,
+                 grid, threads=PL.EMIT_THREADS):
+    """``lattice_emit``'s cooperative launch (``csrc/lattice.cu:
+    emit_kernel`` with ``rank_phases``) in numpy for ``grid`` blocks of
+    ``threads``: each phase's block shares, the block totals summed before
+    each block after a barrier, the in-block scans tile by tile (runs of
+    ``SUM_RUN`` summary words a thread), the summary marks, the word rows
+    zeroed over the touched words' shares, the ORed bits, the rows' scan,
+    the placement. Returns (vert_eid, vert_s, cell_bits, counts [kept,
+    total, min(n_cells, nc)], [summary, sum_rank, word_rank], the shares
+    of each phase); rows no phase writes hold -1."""
+    D, H, W = fine_shape
+    nc = cx.shape[0]
+    slots = PL._EDGE_SLOTS.astype(np.int64)               # (lo, hi, dir)
+    off = PL._CORNER_OFF[slots[:, 0]].astype(np.int64)    # (x, y, z)
+    key = ((off[:, 2] * H + off[:, 1]) * W + off[:, 0]) * 8 + slots[:, 2]
+    n_sum = PL._n_sum(fine_shape)
+    live = min(max(n_cells, 0), nc)
+    iso = np.float32(iso)
+    inside = cvals > iso
+    own = (((off[None, :, 0] == 0) | (cx[:, None] == W - 2)) &
+           ((off[None, :, 1] == 0) | (cy[:, None] == H - 2)) &
+           ((off[None, :, 2] == 0) | (cz[:, None] == D - 2)))
+    mask = (inside[:, slots[:, 0]] != inside[:, slots[:, 1]]) & own
+    popc = np.bitwise_count
+    shares = {"cells": [_share(live, grid, b) for b in range(grid)],
+              "summary": [_share(n_sum, grid, b) for b in range(grid)]}
+
+    # 1. block totals; after the barrier each block's slots in order
+    cell_bits = np.full(nc, -1, np.int64)
+    totals = np.array([mask[lo:hi].sum() for lo, hi in shares["cells"]])
+    total = int(totals.sum())
+    kept = min(total, max_verts)
+    keid = np.full(max_verts, -1, np.int64)
+    ks = np.full(max_verts, np.nan, np.float32)
+    summary = np.zeros(n_sum, np.int64)
+    for (lo, hi), at in zip(shares["cells"], _exclusive(totals)):
+        cell_bits[lo:hi] = (inside[lo:hi] * (1 << np.arange(8))).sum(-1)
+        for t0 in range(lo, hi, threads):
+            m = mask[t0:min(t0 + threads, hi)]
+            cnt = m.sum(1)
+            pos = (at + _exclusive(cnt))[:, None] + np.cumsum(m, 1) - 1
+            rows, s = np.nonzero(m & (pos < max_verts))
+            c = t0 + rows
+            v = cvals[c]
+            vlo = v[np.arange(len(c)), slots[s, 0]]
+            vhi = v[np.arange(len(c)), slots[s, 1]]
+            den = vhi - vlo
+            f = np.clip((iso - vlo) / np.where(den == 0, np.float32(1), den),
+                        np.float32(0), np.float32(1))
+            e = ((cz[c] * H + cy[c]) * W + cx[c]) * 8 + key[s]
+            keid[pos[rows, s]] = e
+            ks[pos[rows, s]] = f
+            np.bitwise_or.at(summary, e >> 10, 1 << ((e >> 5) & 31))
+            at += int(cnt.sum())
+
+    # 2. the summary words' totals; sum_rank and the touched rows zeroed
+    t_words = np.array([popc(summary[lo:hi]).sum()
+                        for lo, hi in shares["summary"]], np.int64)
+    touched = int(t_words.sum())
+    shares["words"] = [_share(touched, grid, b) for b in range(grid)]
+    sum_rank = np.full((n_sum, 2), -1, np.int64)
+    for (lo, hi), at in zip(shares["summary"], _exclusive(t_words)):
+        for t0 in range(lo, hi, threads * SUM_RUN):
+            t1 = min(t0 + threads * SUM_RUN, hi)
+            runs = np.zeros(-(-(t1 - t0) // SUM_RUN) * SUM_RUN, np.int64)
+            runs[:t1 - t0] = summary[t0:t1]
+            runs = runs.reshape(-1, SUM_RUN)            # a thread's words
+            n = popc(runs)
+            k = (at + _exclusive(n.sum(1)))[:, None] + \
+                np.cumsum(n, 1) - n
+            hit = np.nonzero(runs.reshape(-1))[0]
+            sum_rank[t0 + hit] = np.stack([k.reshape(-1)[hit],
+                                           runs.reshape(-1)[hit]], -1)
+            at += int(n.sum())
+    word_rank = np.full((min(max_verts, 32 * n_sum), 2), -1, np.int64)
+    for lo, hi in shares["words"]:
+        word_rank[lo:hi] = 0
+    # each kept id's bit in its word's row; the rows past the live cells
+    e = keid[:kept]
+    sr = sum_rank[e >> 10]
+    k = sr[:, 0] + popc(sr[:, 1] & ((1 << ((e >> 5) & 31)) - 1))
+    np.bitwise_or.at(word_rank[:, 1], k, 1 << (e & 31))
+    cell_bits[live:] = 0
+    # the rows' totals, then each row's ids before it
+    t_rows = np.array([popc(word_rank[lo:hi, 1]).sum()
+                       for lo, hi in shares["words"]], np.int64)
+    for (lo, hi), at in zip(shares["words"], _exclusive(t_rows)):
+        for t0 in range(lo, hi, threads):
+            n = popc(word_rank[t0:min(t0 + threads, hi), 1])
+            word_rank[t0:min(t0 + threads, hi), 0] = at + _exclusive(n)
+            at += int(n.sum())
+
+    # 3. each kept id at its rank
+    wr = word_rank[k]
+    r = wr[:, 0] + popc(wr[:, 1] & ((1 << (e & 31)) - 1))
+    vert_eid = np.full(max_verts, PL.INT64_MAX, np.int64)
+    vert_s = np.zeros(max_verts, np.float32)
+    vert_eid[r] = e
+    vert_s[r] = ks[:kept]
+    counts = [kept, total, min(n_cells, nc)]
+    return vert_eid, vert_s, cell_bits, counts, \
+        [summary, sum_rank, word_rank], shares
+
+
+def _phases_equal_plain(cells: PL.Cells, shape, max_verts: int, grid: int):
+    """The emulated cooperative emit for ``grid`` blocks against
+    ``lattice_emit_plain`` and ``rank_tables_plain`` on ``cells``; returns
+    the plain lattice."""
+    args = (cells.cx, cells.cy, cells.cz, cells.cell_idx, cells.n_cells,
+            cells.n_cells_total, tuple(shape), 0.5, max_verts)
+    ref = PL.lattice_emit_plain(cells.cvals, *args)
+    vert_eid, vert_s, cell_bits, counts, tables, shares = _emit_phases(
+        cells.cvals.numpy(), cells.cx.numpy(), cells.cy.numpy(),
+        cells.cz.numpy(), int(cells.n_cells), tuple(shape), 0.5, max_verts,
+        grid)
+    np.testing.assert_array_equal(vert_eid, ref.vert_eid.numpy())
+    np.testing.assert_array_equal(vert_s.view(np.int32),
+                                  ref.vert_s.numpy().view(np.int32))
+    np.testing.assert_array_equal(cell_bits, ref.cell_bits.numpy())
+    assert counts == [int(ref.n_verts), int(ref.n_verts_total),
+                      int(ref.n_cells)]
+    summary, sum_rank, word_rank = (t.numpy() for t in PL.rank_tables_plain(
+        ref.vert_eid, ref.n_verts, ref.grid_shape))
+    touched = summary != 0
+    np.testing.assert_array_equal(tables[0], summary)
+    # sum_rank rows for the touched summary words only, as the decode
+    # reads them; word_rank's rows past the touched words untouched
+    np.testing.assert_array_equal(tables[1][touched], sum_rank[touched])
+    assert (tables[1][~touched] == -1).all()
+    n = word_rank.shape[0]
+    np.testing.assert_array_equal(tables[2][:n], word_rank)
+    assert (tables[2][n:] == -1).all()
+    # each phase's shares tile its items in block order
+    for name, n_items in (("cells", int(min(max(int(cells.n_cells), 0),
+                                            cells.cx.shape[0]))),
+                          ("summary", summary.shape[0]), ("words", n)):
+        ends = [b for ab in shares[name] for b in ab]
+        assert ends[0] == 0 and ends[-1] == n_items and \
+            all(a <= b for a, b in zip(ends, ends[1:]))
+    return ref
+
+
+# 1 and 7 blocks, and 132 SMs times 1, 2 and 8 blocks (most of them
+# with an empty share at these sizes)
+PHASE_GRIDS = [1, 7, 132, 264, 1056]
+
+
+@pytest.mark.parametrize("max_verts", [1 << 17, 2000, 777])
+@pytest.mark.parametrize("grid", PHASE_GRIDS)
+def test_emit_phases_equal_plain(field, grid, max_verts):
+    """The cooperative emit's phase structure, emulated for ``grid`` blocks
+    on the JAX-tested fields' cells: the plain twin's outputs and rank
+    tables, with all vertices kept, and with ``max_verts`` below the total
+    (2000, and 777, no multiple of a block)."""
+    name, (coarse, occ) = field
+    cells = PL.lattice_cells_plain(t(occ), 0.5, 1 << 16, t(coarse))
+    ref = _phases_equal_plain(cells, occ.shape, max_verts, grid)
+    assert (int(ref.n_verts_total) > max_verts) == (max_verts < 1 << 17)
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_emit_phases_on_layouts(layout, grid):
+    """The emulated phases on the cells of the tiles' delicate layouts: a
+    single live cell, mixed cells on every face, a grid with no live cell;
+    ``max_verts`` 300, below the total of the larger ones."""
+    coarse, max_candidates = LAYOUTS[layout]()
+    occ = fine_of(coarse)
+    cells = PL.lattice_cells_plain(t(occ), 0.5, 1 << 14, t(coarse),
+                                   max_candidates)
+    ref = _phases_equal_plain(cells, occ.shape, 300, grid)
+    if layout == "empty":
+        assert int(cells.n_cells) == 0 and int(ref.n_verts_total) == 0

@@ -7,8 +7,10 @@ bit-identical: the cells' coordinates, ids, corner values and counts; the
 lattice's edge ids, fractions, corner bytes and counts; the decoded
 header, vertices and faces. The cells kernel also on the layouts its wide
 tiles make delicate (``tests/lattice_layouts.py``); the emit's rank
-tables against ``rank_tables_plain``; the decode of a lattice without
-them (released, or from the plain emit).
+tables against ``rank_tables_plain``, on cooperative grids of 1 and 7
+blocks and the default, on overflowed emits, from the rank entry on a
+released lattice and from a CUDA graph's replays; the decode of a
+lattice without them (released, or from the plain emit).
 
 Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_lattice_cuda.py --noconftest -m cuda -q``. Where no card
@@ -114,6 +116,22 @@ def test_layouts_equal_plain(cuda_device, layout, coarse_path, max_cells):
         assert _equal(got, want)
 
 
+def _tables_equal(tables, want) -> bool:
+    """Rank tables on the card equal ``rank_tables_plain``'s where the
+    decode reads them: the summary, the touched summary words' rows, the
+    touched words' rows."""
+    n_sum = want[0].shape[0]
+    summary = tables[0].view(torch.int32)[:n_sum].to(torch.int64) & \
+        0xFFFFFFFF
+    touched = want[0] != 0
+    sum_rank = tables[1].to(torch.int64) & 0xFFFFFFFF
+    n = want[2].shape[0]
+    word_rank = tables[2][:n].to(torch.int64) & 0xFFFFFFFF
+    return torch.equal(summary, want[0]) and \
+        torch.equal(sum_rank[touched], want[1][touched]) and \
+        torch.equal(word_rank, want[2])
+
+
 def test_rank_tables_equal_plain(cuda_device):
     """The emit's rank tables (kept on the lattice) and the decode's own
     build of them equal rank_tables_plain where the decode reads them:
@@ -124,18 +142,89 @@ def test_rank_tables_equal_plain(cuda_device):
                                   max_verts=max_verts, coarse_occ=coarse)
         want = kl.rank_tables_plain(out.vert_eid, out.n_verts,
                                     out.grid_shape)
+        assert want[2].shape[0] > 500
         for tables in (out.rank, kl._rank_tables(out, kl._lib_on(
                 cuda_device))):
-            n_sum = want[0].shape[0]
-            summary = tables[0].view(torch.int32)[:n_sum].to(
-                torch.int64) & 0xFFFFFFFF
-            assert torch.equal(summary, want[0])
-            touched = want[0] != 0
-            sum_rank = tables[1].to(torch.int64) & 0xFFFFFFFF
-            assert torch.equal(sum_rank[touched], want[1][touched])
-            n = want[2].shape[0]
-            word_rank = tables[2][:n].to(torch.int64) & 0xFFFFFFFF
-            assert torch.equal(word_rank, want[2]) and n > 500
+            assert _tables_equal(tables, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, None])
+def test_emit_grids_and_overflow(cuda_device, monkeypatch, blocks):
+    """The cooperative emit and rank entry on a grid of 1 block, 7 blocks
+    and the default (2 an SM): outputs bit-equal to the twin's, the rank
+    tables equal to rank_tables_plain's, with every vertex kept and with
+    max_verts below the total (5000, and 777, no multiple of a block),
+    where ids reach max_verts and the dropped ones must not be marked."""
+    if blocks:                        # a card of `blocks` SMs, one a block
+        monkeypatch.setattr(kl, "EMIT_BLOCKS_PER_SM", 1)
+        monkeypatch.setattr(kl, "_sm_count", lambda index: blocks)
+    coarse, occ = _grids(65, cuda_device)
+    cells = kl.lattice_cells(occ, 0.5, 1 << 17, coarse)
+    lib = kl._lib_on(cuda_device)
+    for max_verts in (1 << 18, 5000, 777):
+        args = (cells.cx, cells.cy, cells.cz, cells.cell_idx, cells.n_cells,
+                cells.n_cells_total, tuple(occ.shape), 0.5, max_verts)
+        out = kl.lattice_emit(cells.cvals, *args)
+        ref = kl.lattice_emit_plain(cells.cvals, *args)
+        assert _equal(out[:8], ref[:8])
+        assert (int(ref.n_verts_total) > max_verts) == (max_verts < 1 << 18)
+        want = kl.rank_tables_plain(ref.vert_eid, ref.n_verts,
+                                    ref.grid_shape)
+        assert _tables_equal(out.rank, want)
+        assert _tables_equal(kl._rank_tables(out, lib), want)
+        sizes = kl.decode_sizes(out)
+        assert _decode_equal(kl.lattice_decode(out, *sizes),
+                             kl.lattice_decode_plain(ref, *sizes), *sizes)
+
+
+def test_rank_entry_on_a_released_lattice(cuda_device):
+    """A released lattice's tables built anew by the rank entry (one
+    cooperative launch) equal the emit's own, and its decode the twin's."""
+    coarse, occ = _grids(33, cuda_device)
+    out = PM.marching_lattice(occ, max_cells=1 << 15, max_verts=1 << 16,
+                              coarse_occ=coarse)
+    emitted = [t.clone() for t in out.rank]
+    kl.release_rank(out)
+    rebuilt = kl._rank_tables(out, kl._lib_on(cuda_device))
+    want = kl.rank_tables_plain(out.vert_eid, out.n_verts, out.grid_shape)
+    assert _tables_equal(emitted, want) and _tables_equal(rebuilt, want)
+    sizes = kl.decode_sizes(out)
+    assert _decode_equal(kl.lattice_decode(out, *sizes),
+                         kl.lattice_decode_plain(out, *sizes), *sizes)
+
+
+def test_emit_in_a_cuda_graph(cuda_device):
+    """lattice_emit captured in a CUDA graph (its one cooperative launch)
+    and replayed on new cells of the same shapes, copied into the
+    captured inputs: each replay's outputs and rank tables bit-equal to
+    the twin's on those cells."""
+    mc, mv = 1 << 15, 1 << 16
+    inputs = []
+    for seed in (None, 0):
+        coarse, occ = _grids(33, cuda_device, seed)
+        inputs.append(kl.lattice_cells_plain(occ, 0.5, mc, coarse))
+    shape = tuple(occ.shape)
+    static = [t.clone() for t in inputs[0]]
+
+    def emit(c):
+        return kl.lattice_emit(c[4], c[0], c[1], c[2], c[3], c[5], c[6],
+                               shape, 0.5, mv)
+
+    emit(static)                      # binds the library and sizes the grid
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = emit(static)
+    for cells in (inputs[1], inputs[0], inputs[1]):
+        for dst, src in zip(static, cells):
+            dst.copy_(src)
+        graph.replay()
+        ref = kl.lattice_emit_plain(cells.cvals, *cells[:4], *cells[5:],
+                                    shape, 0.5, mv)
+        torch.cuda.synchronize()
+        assert _equal(out[:8], ref[:8]) and int(ref.n_verts) > 1000
+        assert _tables_equal(out.rank, kl.rank_tables_plain(
+            ref.vert_eid, ref.n_verts, ref.grid_shape))
 
 
 def test_decode_without_the_emits_tables(cuda_device):

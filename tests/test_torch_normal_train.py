@@ -61,7 +61,7 @@ def test_vgg_features_and_loss_match(vgg_path, tmp_path):
     from icon_tpu_torch.models.vgg import load_vgg19, vgg_perceptual_loss
     from icon_tpu_torch.utils.convert import vgg19_state_from_flax
     apply_fn, params = _jax_vgg(vgg_path)
-    vgg = load_vgg19(vgg_path)
+    vgg = load_vgg19(vgg_path, device="cpu")
     assert not any(p.requires_grad for p in vgg.parameters())
     assert load_vgg19(str(tmp_path / "absent.pth")) is None
     for k, v in vgg19_state_from_flax(params).items():
@@ -247,7 +247,7 @@ def test_three_adam_steps_match(vgg_path):
         assert d.max() <= bound, (k, d.max())
         if not _gauge(k, 2, 1):
             assert np.median(d) <= PARAM_MEDIAN, (k, np.median(d))
-    vgg = load_vgg19(vgg_path)
+    vgg = load_vgg19(vgg_path, device="cpu")
     jv = _jax_vgg(vgg_path)
     for v, jvv in ((None, None), (vgg, jv)):
         m = normal_eval_step(net, {k: t(x) for k, x in batches[0].items()},
