@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[19], then the /proc check [20], a kernel
+Phases (lines tagged [1]..[20], then the /proc check [21], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -99,10 +99,10 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    set, finite losses, and the per-image stage split; then the kernels
    against their plain versions on the run's own inputs: every kNN call
    (the recon engine's level points against the padded fitted body) as in
-   phase 3, and per photo the raster kernels as in phase 7 on the fitted
-   body (K=96), the cloth loop's input and output (K=256, azimuth 0 and
-   180), and the recon's and the colour stage's visibility rasters (1024^2,
-   K=512);
+   phase 3, every body-feature call bit-equal to its twin, and per photo
+   the raster kernels as in phase 7 on the fitted body (K=96), the cloth
+   loop's input and output (K=256, azimuth 0 and 180), and the recon's
+   and the colour stage's visibility rasters (1024^2, K=512);
 11. the rest of the photo path: the CLI on the RGB scene photo with
    seeded weight files in their published layouts under a temporary
    ``ICON_TPU_DATA_DIR/HPS`` (a darknet ``yolov3-tiny.weights`` whose
@@ -161,7 +161,7 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
 14. the geometry trainer: the fixture (2 subjects x 3 views at 512^2) on
    the card, its items' signs against the card's ray parity, 3 small
    steps card vs CPU, the train CLI at the published width (4 steps,
-   ``-resume`` to 6, ``-test`` on EVAL_ITEMS items, a pamir run of 1
+   ``-resume`` to 5, ``-test`` on EVAL_ITEMS items, a pamir run of 1
    step), the
    kernels against their plain versions on those runs' inputs;
 15. the dataset renderer and the NormalNet trainer on phase 14's scans and
@@ -255,7 +255,16 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    buffer beside the emit, the operations each wrapper queues a call
    (torch.profiler's device activity; ``lattice_emit`` fails above one),
    and the C++ host decode of the serving wire alone on the card
-   machine's host.
+   machine's host;
+20. the body-feature kernel (``csrc/bodyfeat.cu``) against its plain twin
+   at the main path's shapes (run after phase 3): the level-0 lattice of
+   the mirror-symmetric subdiv-5 body (exact ties between candidates),
+   phase 4's level-1 and level-2 buckets and the 232,974-point cap near
+   the body, signed by the crossing columns of phase 4's 257^2 lattice,
+   and the cap with known signs: best_face, sign and vis identical on
+   every point, sdf, normal and cmap bit-equal; each alone (its launches
+   on preallocated outputs, behind a device sleep) beside its plain twin
+   and its bound, and its share of the bound.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -265,8 +274,10 @@ body and the alignment CLI) runs with the kernels' launch counts set to
 0 just before it and read just after; a kernel of the path that did not
 launch fails the run, and so does a backward kernel of the voxelization
 launched by any run before phase 18 (none differentiates in the body).
-Any failed check raises, so the script exits non-zero and prints no
-result.
+The kNN runs only inside the body features, so in every run the
+body-feature kernel must launch as often as the kNN kernel: no query took
+its plain twin. Any failed check raises, so the script exits non-zero and
+prints no result.
 
 The kernel summary gives, for every kernel, its launches in the main
 paths, its error against the plain version, its time and the plain
@@ -279,7 +290,8 @@ one PyTorch call computing the same function where one exists (the kNN's
 ``avg_pool3d`` and its backward's ``avg_pool3d_backward``, ``mt_index``'s
 ``torch.unique`` with the inverse, ``lattice_emit``'s ``torch.sort``; none
 for the rasterizer, ``fast_winding``, ``mt_emit``, the splat's backward,
-``lattice_cells`` and ``lattice_decode``), and its share of the bound.
+``lattice_cells``, ``lattice_decode`` and ``bodyfeat``), and its share of
+the bound.
 """
 
 import json
@@ -367,6 +379,20 @@ VOXEL_STRESS_PADS = 7358
 # the smooth with its division
 VOXEL_BWD_REPLACES = {"voxel_splat_bwd": "icon_tpu/ops/voxelize.py:80",
                       "box_smooth3d_bwd": "icon_tpu/ops/voxelize.py:107"}
+# the body-feature function's float32 operations (csrc/bodyfeat.cu's
+# note), counted from its code: a distinct candidate face's plane test and
+# its compare in the pick, then the one branch it takes (the plane
+# projection, or the three clamped segments and their least); a point's
+# weights, interpolation, distance and sign, and its weights' float64
+# operations (the fused crosses), each counted twice: the data sheet's
+# float64 rate, 34 TFLOP/s, is half the float32 one; the column snap
+# besides one compare a crossing
+BODYFEAT_OPS_CANDIDATE = 63
+BODYFEAT_OPS_PLANE = 20
+BODYFEAT_OPS_SEGMENTS = 104
+BODYFEAT_OPS_PER_POINT = 80
+BODYFEAT_F64_PER_POINT = 18
+BODYFEAT_OPS_COLUMN = 6
 # the JAX package's level counts for the pamir frame (its own network at the
 # same widths, the variant field, the subdiv-5 body, res 256; see
 # CHANGES.md): the variant field's, the net's preds * 1e-6 term moves no
@@ -501,6 +527,16 @@ def knn_picks_agree(idx, key, pts, verts, k):
     return rel, same, float(clear.float().mean()), idx0, key0
 
 
+def near_points(verts_np, n, rng):
+    """``n`` points within 2 cm of random vertices, like boundary
+    queries."""
+    d = rng.normal(size=(n, 3))
+    d *= (0.02 * rng.uniform(0, 1, (n, 1)) ** (1 / 3)
+          / np.linalg.norm(d, axis=1, keepdims=True))
+    return (verts_np[rng.randint(0, len(verts_np), n)] + d).astype(
+        np.float32)
+
+
 def phase_knn(dev, verts_np, buckets):
     """Kernel vs plain at the main path's shapes: the level-0 lattice, the
     engine's level-1 and level-2 buckets (``buckets``) and the cap; returns
@@ -509,18 +545,11 @@ def phase_knn(dev, verts_np, buckets):
     rng = np.random.RandomState(0)
     verts = torch.from_numpy(verts_np).to(dev)
     v = len(verts_np)
-
-    def near(n):         # within 2 cm of the surface, like boundary queries
-        d = rng.normal(size=(n, 3))
-        d *= (0.02 * rng.uniform(0, 1, (n, 1)) ** (1 / 3)
-              / np.linalg.norm(d, axis=1, keepdims=True))
-        return verts_np[rng.randint(0, v, n)] + d
-
     lattice = level0_points(33, dev)[0].contiguous()
     cases = [("level 0 lattice", lattice, 2)]
-    cases += [(f"level {lv} bucket near", near(n), 2)
+    cases += [(f"level {lv} bucket near", near_points(verts_np, n, rng), 2)
               for lv, n in sorted(buckets.items())]
-    cases += [("cap near", near(KNN_CAP), 2),
+    cases += [("cap near", near_points(verts_np, KNN_CAP, rng), 2),
               ("cap cube", rng.uniform(-1, 1, (KNN_CAP, 3)), 2),
               ("k=8 cube", rng.uniform(-1, 1, (4096, 3)), 8)]
     worst, timing = 0.0, {}
@@ -568,6 +597,137 @@ def phase_knn(dev, verts_np, buckets):
             "replaces": "icon_tpu/ops/pallas/knn.py:60",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def bodyfeat_work(pts, nn, verts, faces, table):
+    """(distinct candidates, of them in the plane branch) of the body
+    features of ``pts`` with their kNN ids ``nn``: each point's k * deg
+    candidates less the table's pad repeats and the faces its k vertices
+    share (a repeated face cannot change a first-minimum pick), and of
+    those the ones whose plane projection falls inside the face (every
+    weight in [0, 1]; the body has no degenerate face, so the test is
+    candidate_distances')."""
+    from icon_tpu_torch.kernels import bodyfeat as kb
+    n = len(pts)
+    cand = table[nn.long()].reshape(n, -1).sort(1).values
+    new = torch.ones_like(cand, dtype=torch.bool)
+    new[:, 1:] = cand[:, 1:] != cand[:, :-1]
+    row = new.nonzero()
+    tri = verts[faces[cand[row[:, 0], row[:, 1]]]].reshape(-1, 9)
+    w = torch.stack(kb.projection_weights(pts[row[:, 0]], tri.unbind(-1)))
+    inside = ((w >= 0) & (w <= 1)).all(0)
+    return len(row), int(inside.sum())
+
+
+def bodyfeat_bound(n, k, distinct, plane, body_bytes, col_bytes, n_cross):
+    """(least time in ms, by) of the body features of n points: the point,
+    its k ids and 40 output bytes a point, the body's tables and the
+    columns the points read once, over the memory rate; the operations of
+    the ``distinct`` candidate faces (``plane`` of them in the plane
+    branch), the winning face and the column's snap and compares over the
+    float32 peak."""
+    ops = (distinct * BODYFEAT_OPS_CANDIDATE + plane * BODYFEAT_OPS_PLANE
+           + (distinct - plane) * BODYFEAT_OPS_SEGMENTS
+           + n * (BODYFEAT_OPS_PER_POINT + 2 * BODYFEAT_F64_PER_POINT +
+                  (BODYFEAT_OPS_COLUMN + n_cross if n_cross else 0)))
+    return bound(n * (12.0 + 4 * k + 40) + body_bytes + col_bytes, ops)
+
+
+def phase_bodyfeat(dev, card, verts_np, faces_np, buckets):
+    """[20] The body-feature kernel against its plain twin at the main
+    path's shapes: the level-0 lattice, phase 4's level-1 and level-2
+    bucket sizes and the cap, near the subdiv-5 body, signed by the
+    crossing columns of the frame's 257^2 lattice, and the cap with known
+    signs; every output bit-equal, each timed alone beside its plain twin
+    and its bound. Returns the summary entry."""
+    from icon_tpu_torch.kernels import bodyfeat as kb
+    from icon_tpu_torch.kernels import knn
+    from icon_tpu_torch.ops.mesh import vertex_normals
+    from icon_tpu_torch.ops.sdf_fast import build_crossing_columns_blocked
+    from icon_tpu_torch.recon.frame import body_bins
+    rng = np.random.RandomState(20)
+    verts = torch.from_numpy(verts_np).to(dev)
+    faces = torch.from_numpy(faces_np.astype(np.int64)).to(dev)
+    side = 257                                  # the frame's res 256 + 1
+    bins = body_bins(verts_np, faces_np, side, dev)
+    cross_z, _ = build_crossing_columns_blocked(
+        verts, faces, bins.bins, bins.bin_meta, bins.col_x, bins.col_y,
+        tile_ids=bins.tile_ids)
+    cross_z = cross_z.contiguous()
+    meta = bins.cross_meta
+    normals = vertex_normals(verts[None], faces)[0]
+    cmaps = ((verts - verts.amin(0)) /
+             (verts.amax(0) - verts.amin(0))).contiguous()
+    vis = (verts[:, 2:3] > 0).float()
+    table = bins.vf_table
+    V, F, deg, C = len(verts_np), len(faces_np), table.shape[1], \
+        cross_z.shape[1]
+    body_bytes = 4.0 * (3 * V * 3 + V) + 8.0 * (3 * F + deg * V)
+
+    cases = [("level 0 lattice", level0_points(33, dev)[0].contiguous(),
+              "columns")]
+    cases += [(f"level {lv} bucket near", near_points(verts_np, n, rng),
+               "columns") for lv, n in sorted(buckets.items())]
+    cap = near_points(verts_np, KNN_CAP, rng)
+    cases += [("cap near", cap, "columns"), ("cap near known", cap, "known")]
+    worst, timing = 0.0, {}
+    for name, pts, sign in cases:
+        if not torch.is_tensor(pts):
+            pts = torch.from_numpy(pts).to(dev)
+        n = len(pts)
+        nn, _ = knn.nearest_vertices_kernel(pts, verts, 2)
+        kw = {"cross_z": cross_z, "cross_meta": meta} if sign == "columns" \
+            else {"known_inside": pts[:, 2] > 0.0}
+        args = (pts, nn, verts, faces, table, normals, cmaps, vis)
+        got = kb.body_features_kernel(*args, **kw)
+        want = kb.point_body_features_plain(*args, **kw)
+        torch.cuda.synchronize()
+        n_diff = [int((g != w).reshape(n, -1).any(1).sum())
+                  for g, w in zip(got, want)]
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ties = ""
+        if name == "level 0 lattice":      # the mirror body ties exactly
+            cand = table[nn.long()].reshape(n, -1)
+            d2 = kb.candidate_distances(pts, verts[faces].reshape(-1, 9)[cand])
+            at_min = d2 == d2.min(1, keepdim=True).values
+            tied = int((at_min & (cand != got[4][:, None])).any(1).sum())
+            ties = f", points whose minimum ties another face {tied}"
+        outs = tuple(torch.empty_like(g) for g in got)
+        known = kw.get("known_inside")
+        ms = kernel_ms(lambda: kb._launch(*args, known, kw.get("cross_z"),
+                                          kw.get("cross_meta"), outs))
+        plain_ms = cuda_ms(lambda: kb.point_body_features_plain(*args, **kw),
+                           reps=3)
+        ix = torch.round((pts[:, 0] - meta[0]) * meta[2]).long().clamp(
+            0, side - 1)
+        iy = torch.round((pts[:, 1] - meta[1]) * meta[3]).long().clamp(
+            0, side - 1)
+        cols = int(torch.unique(iy * side + ix).numel()) if sign == \
+            "columns" else 0
+        distinct, plane = bodyfeat_work(pts, nn, verts, faces, table)
+        b_ms, b_by = bodyfeat_bound(n, 2, distinct, plane, body_bytes,
+                                    4.0 * C * cols,
+                                    C if sign == "columns" else 0)
+        inside = float((got[0] > 0).float().mean())
+        print(f"[20] bodyfeat {name} N={n} V={V} F={F} k=2 deg={deg} "
+              f"sign={sign}: points differing (sdf, normal, cmap, vis, "
+              f"best_face) {n_diff}, max|d| {err:.3g}{ties}, inside "
+              f"{inside:.3f}; distinct candidates a point "
+              f"{distinct / n:.2f} of {2 * deg}, in the plane branch "
+              f"{plane / distinct:.3f}; kernel alone {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+              f"{b_ms / ms:.1%} of it, on {card}", flush=True)
+        if any(n_diff) or not 0.0 < inside < 1.0:
+            raise AssertionError(f"bodyfeat kernel disagrees with plain: "
+                                 f"{name}")
+        worst = max(worst, err)
+        timing[name] = (ms, plain_ms, b_ms, b_by)
+    ms, plain_ms, b_ms, b_by = timing["cap near"]
+    return {"name": "bodyfeat", "route": "cuda",
+            "source": "icon_tpu_torch/csrc/bodyfeat.cu",
+            "replaces": "icon_tpu/ops/sdf_fast.py:792",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def phase_small_frame(dev):
@@ -646,7 +806,7 @@ def phase_full_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    check_launched(launched, ("knn_f32",), "the frame")
+    check_launched(launched, ("knn_f32", "bodyfeat"), "the frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     for name, got, ref in (("level1_points", l1, JAX_LEVEL1_POINTS),
@@ -825,7 +985,8 @@ def serving(fr, tag, card, seq_s, verts, faces):
     if bad or any(over):
         raise AssertionError(f"phase {tag}: served meshes differ or "
                              f"overflow")
-    check_launched(launched, ("knn_f32",), f"phase {tag}'s served frames")
+    check_launched(launched, ("knn_f32", "bodyfeat"),
+                   f"phase {tag}'s served frames")
     lattice_held(tag, launched, SERVE_FRAMES, spy.records)
     if tag == "4":
         t0 = time.perf_counter()
@@ -998,8 +1159,9 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
-                              "raster_fwd"), "the NormalNet frame")
+    check_launched(launched, ("knn_f32", "bodyfeat", "raster_setup",
+                              "raster_bin", "raster_fwd"),
+                   "the NormalNet frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     if not unit_err <= 1e-4:
@@ -1404,7 +1566,8 @@ def phase_full_fit_frame(dev, card):
     print(f"[9] launches {launched}; peak "
           f"{peak_gb:.2f} GiB; setup {setup_s:.2f} s; total "
           f"{sum(stage.values()):.3f} s on {card}, TF32 off", flush=True)
-    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "the fit frame")
+    check_launched(launched, ("knn_f32", "bodyfeat", *RASTER_REPLACES),
+                   "the fit frame")
     if not (np.isfinite(fit.losses).all() and np.isfinite(closses).all()
             and bool(torch.isfinite(refined).all())
             and bool(torch.isfinite(colors).all())):
@@ -1523,9 +1686,10 @@ def phase_cli(dev, card):
                 paths["hps_ckpt"], "-loop_smpl", "100", "-loop_cloth", "200",
                 "-no_remesh", "-allow_random_hps", "-img_size",
                 str(FIT_SIZE), "-mcube_res", str(FIT_RES)]
-        knn_calls = []
+        knn_calls, bf_calls = [], []
         torch.cuda.synchronize()
         remove_spy = knn_spy(knn_calls)
+        remove_bf = bodyfeat_spy(bf_calls)
         reset_launches()              # count only the main path's launches
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1533,6 +1697,7 @@ def phase_cli(dev, card):
             with PackSpy(AutoMarcher) as packs:
                 records = main(argv, device=dev, keep_meshes=True)
         finally:
+            remove_bf()
             remove_spy()
         total_s = time.perf_counter() - t0
         launched = read_launches()
@@ -1557,7 +1722,8 @@ def phase_cli(dev, card):
     print(f"[10] demo CLI: {len(records)} photos in {total_s:.2f} s, "
           f"launches {launched}, peak {peak_gb:.2f} GiB on {card}, TF32 off",
           flush=True)
-    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "the demo CLI")
+    check_launched(launched, ("knn_f32", "bodyfeat", *RASTER_REPLACES),
+                   "the demo CLI")
     want = sorted(f"{r['name']}{s}" for r in records for s in CLI_ARTIFACTS)
     if len(records) != 2 or written != want:
         raise AssertionError(f"CLI artifacts {written}, want {want}")
@@ -1570,8 +1736,10 @@ def phase_cli(dev, card):
         if any(v for k, v in r["stats"].items() if k.endswith("overflow")):
             raise AssertionError(f"{r['name']}: engine overflow {r['stats']}")
 
-    return launched, cli_kernels_agree("[10]", records, knn_calls, launched,
-                                       dev, seed=12)
+    worst = cli_kernels_agree("[10]", records, knn_calls, launched, dev,
+                              seed=12)
+    worst["bodyfeat"] = bodyfeat_calls_agree("[10]", bf_calls)
+    return launched, worst
 
 
 def knn_spy(calls: list):
@@ -1590,6 +1758,52 @@ def knn_spy(calls: list):
     def remove():
         sdf_fast.nearest_vertices_kernel = kernel
     return remove
+
+
+def bodyfeat_spy(calls: list, keep: int = 48):
+    """A pass-through spy on ``sdf_fast``'s body-feature wrapper that keeps
+    the first ``keep`` calls' (inputs, outputs, sign inputs), cloned, in
+    ``calls`` and counts nothing; returns a function that removes it."""
+    from icon_tpu_torch.ops import sdf_fast
+    kernel = sdf_fast.body_features_kernel
+
+    def spy(*args, **kw):
+        out = kernel(*args, **kw)
+        if len(calls) < keep:
+            calls.append((tuple(a.detach().clone() for a in args),
+                          tuple(o.clone() for o in out),
+                          {k: v.detach().clone() for k, v in kw.items()}))
+        return out
+
+    sdf_fast.body_features_kernel = spy
+
+    def remove():
+        sdf_fast.body_features_kernel = kernel
+    return remove
+
+
+def bodyfeat_calls_agree(tag, calls) -> float:
+    """Each recorded body-feature call's outputs against the plain twin's
+    on its own inputs: every output bit-equal. Returns the worst error."""
+    from icon_tpu_torch.kernels import bodyfeat as kb
+    worst = 0.0
+    for i, (args, out, kw) in enumerate(calls):
+        want = kb.point_body_features_plain(*args, **kw)
+        n = len(args[0])
+        if n and any(bool((g != w).any()) for g, w in zip(out, want)):
+            raise AssertionError(f"{tag} bodyfeat kernel disagrees with plain "
+                                 f"on the run's call {i} (N={n})")
+        if n:
+            worst = max([worst] + [float((g - w).abs().max())
+                                   for g, w in zip(out, want)])
+    signs = sorted({"known" if "known_inside" in kw else "columns"
+                    if "cross_z" in kw else "unsigned" for _, _, kw in calls})
+    print(f"{tag} bodyfeat kernel vs plain on {len(calls)} calls of the run "
+          f"(N {sorted({len(a[0]) for a, _, _ in calls})}, signs {signs}): "
+          f"every output bit-equal, max|d| {worst:.3g}", flush=True)
+    if not calls:
+        raise AssertionError(f"{tag} no body-feature call recorded")
+    return worst
 
 
 def cli_kernels_agree(tag, records, knn_calls, launched, dev, seed):
@@ -1765,7 +1979,8 @@ def phase_photo_path(dev, card):
           f"written in {inputs_s:.2f} s; mp4 {n_frames} frames of "
           f"{frame_shape}; garments (OBJ, CPU extract_cloth) {garments}",
           flush=True)
-    check_launched(launched, ("knn_f32", *RASTER_REPLACES), "phase 11")
+    check_launched(launched, ("knn_f32", "bodyfeat", *RASTER_REPLACES),
+                   "phase 11")
     want = sorted(f"scene{s}" for s in CLI_ARTIFACTS +
                   ("_cloth.mp4", "_upper.obj", "_lower.obj"))
     if written != want:
@@ -1967,7 +2182,8 @@ def phase_other_hps(dev, card):
             f"{r['stats']}; main {r['total_s']:.2f} s, launches "
             f"{runs[hps_type]}, peak {r['peak_gb']:.2f} GiB on {card}, TF32 "
             f"off; inputs written in {inputs_s:.2f} s", flush=True)
-        check_launched(runs[hps_type], ("knn_f32", *RASTER_REPLACES),
+        check_launched(runs[hps_type],
+                       ("knn_f32", "bodyfeat", *RASTER_REPLACES),
                        f"phase 12 ({hps_type})")
         if r["written"] != want:
             raise AssertionError(f"phase 12 {hps_type} artifacts "
@@ -2496,7 +2712,7 @@ def phase_priors(dev, card):
 # phase 14: the geometry trainer and the evaluator at the published width
 # (data/fixture.py:train_config: batch 4, 512^2, 8,000 samples an item)
 TRAIN_SIZE, TRAIN_SAMPLES, TRAIN_BATCH = 512, 8000, 4
-TRAIN_STEPS, RESUME_STEPS = 4, 6
+TRAIN_STEPS, RESUME_STEPS = 4, 5       # -resume cut in depth from 6
 EVAL_ITEMS = 1          # items of the -test run (cut in depth from 2)
 # the small card-vs-CPU steps (c): the first step's loss (the same weights)
 # to TRAIN_LOSS_RTOL; after a step a parameter may differ by up to the
@@ -2651,16 +2867,18 @@ def phase_train(dev, card, d):
 
     cfg_path = write_train_config(
         train_config(root, d, num_epoch=RESUME_STEPS), d)
-    knn_calls = []
-    remove = knn_spy(knn_calls)
+    knn_calls, bf_calls = [], []
+    remove, remove_bf = knn_spy(knn_calls), bodyfeat_spy(bf_calls)
     try:
         torch.cuda.reset_peak_memory_stats(dev)
         rec, launched = run_cli(["-cfg", cfg_path, "--max_steps",
                                  str(TRAIN_STEPS)], "train")
     finally:
+        remove_bf()
         remove()
+    worst["bodyfeat"] = bodyfeat_calls_agree("[14]", bf_calls)
     runs.append(launched)
-    check_launched(launched, ("knn_f32",), "phase 14 train")
+    check_launched(launched, ("knn_f32", "bodyfeat"), "phase 14 train")
     losses = rec["losses"]
     print(f"[14] train CLI at full width (batch {TRAIN_BATCH}, "
           f"{TRAIN_SIZE}^2, {TRAIN_SAMPLES} samples, 4 loader workers) "
@@ -2707,8 +2925,8 @@ def phase_train(dev, card, d):
         remove()
     runs.append(launched)
     lattice_held("14", launched, None, packs.records)
-    check_launched(launched, ("knn_f32", "raster_setup", "raster_bin",
-                              "raster_fwd"), "phase 14 eval")
+    check_launched(launched, ("knn_f32", "bodyfeat", "raster_setup",
+                              "raster_bin", "raster_fwd"), "phase 14 eval")
     items = rec3["items"]
     for r in items:
         print(f"[14] eval {r['subject']} rot {r['rotation']}: chamfer "
@@ -3560,7 +3778,8 @@ def phase_dist(dev, card, d):
                 raise AssertionError(f"phase 16 {prior}: the ranks' {k} "
                                      "differ")
     icon, pamir = (ranks[0][0], ranks[1][0]), (ranks[0][1], ranks[1][1])
-    check_launched(icon[0]["launched"], ("knn_f32",), "phase 16 rank step")
+    check_launched(icon[0]["launched"], ("knn_f32", "bodyfeat"),
+                   "phase 16 rank step")
     check_launched(pamir[0]["launched"], ("voxel_splat", "box_smooth3d"),
                    "phase 16 pamir rank step")
     print(f"[16] icon on {card}, TF32 off: s/step 2 ranks "
@@ -3646,7 +3865,7 @@ def shard_and_exact(dev, card, iters: int = 5, size: int = 512,
         finally:
             remove()
         launched = read_launches()
-    check_launched(launched, ("knn_f32",), "phase 16 sharded recon")
+    check_launched(launched, ("knn_f32", "bodyfeat"), "phase 16 sharded recon")
     occ_err = float((occ_u - occ_s).abs().max())
     counts_u = {k: int(v) for k, v in st_u.items() if k != "coarse_occ"}
     counts_s = {k: int(v) for k, v in st_s.items() if k != "coarse_occ"}
@@ -3864,12 +4083,7 @@ def phase_winding_kernel(dev, verts_np, faces_np):
     Returns the summary entry."""
     from icon_tpu_torch.kernels import winding as kw
     from icon_tpu_torch.ops.sdf import point_mesh_dist_winding
-    rng = np.random.RandomState(7)
-    v = len(verts_np)
-    d = rng.normal(size=(KNN_CAP, 3))
-    d *= (0.02 * rng.uniform(0, 1, (KNN_CAP, 1)) ** (1 / 3)
-          / np.linalg.norm(d, axis=1, keepdims=True))
-    cap = (verts_np[rng.randint(0, v, KNN_CAP)] + d).astype(np.float32)
+    cap = near_points(verts_np, KNN_CAP, np.random.RandomState(7))
     lattice = level0_points(33, dev)[0].cpu().numpy()
     worst, timing = 0.0, {}
     for name, pts in (("level 0 lattice", lattice), ("cap near", cap)):
@@ -4939,7 +5153,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[20] descendant processes left: {len(left)}", flush=True)
+    print(f"[21] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -4955,10 +5169,10 @@ def normal_inputs(verts, faces, azimuth):
 
 
 def reset_launches() -> None:
-    from icon_tpu_torch.kernels import knn, lattice, marching, raster, \
-        voxelize, winding
+    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, marching, \
+        raster, voxelize, winding
     from icon_tpu_torch.recon import lattice_host
-    knn.launches = 0
+    knn.launches = bodyfeat.launches_bodyfeat = 0
     lattice.launches_cells = lattice.launches_emit = 0
     lattice.launches_decode = lattice_host.host_decodes = 0
     raster.launches_setup = raster.launches_bin = 0
@@ -4972,10 +5186,11 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """Each kernel's launches since :func:`reset_launches`, and the host
     lattice decoder's calls (``host_decode``, not a kernel)."""
-    from icon_tpu_torch.kernels import knn, lattice, marching, raster, \
-        voxelize, winding
+    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, marching, \
+        raster, voxelize, winding
     from icon_tpu_torch.recon import lattice_host
-    return {"knn_f32": knn.launches, "raster_setup": raster.launches_setup,
+    return {"knn_f32": knn.launches, "bodyfeat": bodyfeat.launches_bodyfeat,
+            "raster_setup": raster.launches_setup,
             "raster_bin": raster.launches_bin,
             "raster_fwd": raster.launches_fwd,
             "raster_bwd": raster.launches_bwd,
@@ -5035,6 +5250,8 @@ def main() -> int:
     launched, buckets = timed("4 full", phase_full_frame, dev, card)
     runs = [launched]
     summary = [timed("3", phase_knn, dev, verts_np, buckets)]
+    summary.append(timed("20", phase_bodyfeat, dev, card, verts_np,
+                         faces_np, buckets))
     timed("5", phase_raster, dev, verts_np, faces_np)
     timed("6 small", phase_small_normalnet_frame, dev)
     runs.append(timed("6 full", phase_full_normalnet_frame, dev, card))
@@ -5064,8 +5281,12 @@ def main() -> int:
                                      verts_np, faces_np)
     summary += entries
     runs += launched
-    # the frames, CLIs and trainers differentiate no voxel input
+    # the frames, CLIs and trainers differentiate no voxel input, and
+    # every query that ran the kNN ran the body-feature kernel
     for run in runs:
+        if run.get("bodyfeat", 0) != run.get("knn_f32", 0):
+            raise AssertionError(f"a run's queries took the body features' "
+                                 f"plain twin: {run}")
         if any(run.get(name, 0) for name in VOXEL_BWD_REPLACES):
             raise AssertionError(f"a run without a gradient in the body "
                                  f"launched a backward kernel: {run}")

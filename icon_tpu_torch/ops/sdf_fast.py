@@ -1,12 +1,13 @@
 """SMPL-local features at query points (``icon_tpu.ops.sdf_fast``).
 
 Per point: the k nearest body vertices (the hand-written kernel of
-``icon_tpu_torch/kernels/knn.py``), their incident faces as candidates, the
-exact point-triangle distance to each candidate, and the winning face's
-normal, cmap and visibility interpolated at the unclamped barycentric
-weights of the point's projection (reference ``cal_sdf_batch``,
-lib/dataset/mesh_util.py:357-396, with its (-1, 1, -1) normal flip and 0.1
-visibility threshold).
+``icon_tpu_torch/kernels/knn.py``), then in one hand-written kernel
+(``icon_tpu_torch/kernels/bodyfeat.py``) their incident faces as
+candidates, the exact point-triangle distance to each candidate, and the
+winning face's normal, cmap and visibility interpolated at the unclamped
+barycentric weights of the point's projection (reference
+``cal_sdf_batch``, lib/dataset/mesh_util.py:357-396, with its (-1, 1, -1)
+normal flip and 0.1 visibility threshold).
 
 The sign, in the JAX package's order of preference: known signs; the
 parity of the body's +z crossings above the point in its lattice column
@@ -31,6 +32,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.kernels.bodyfeat import (  # noqa: F401 (re-exported)
+    body_features_kernel, candidate_distances, column_parity_inside)
 from icon_tpu_torch.kernels.knn import nearest_vertices_kernel
 from icon_tpu_torch.kernels.winding import cluster_table, fast_winding_kernel
 from icon_tpu_torch.ops.constants import device_constant
@@ -340,23 +343,6 @@ def ray_parity_inside_np(points: np.ndarray, verts: np.ndarray,
     return out
 
 
-def nearest_vertices(points: torch.Tensor, verts: torch.Tensor,
-                     k: int = 2) -> torch.Tensor:
-    """Indices ``[N, k]`` (int64) of the k nearest vertices, exact (the
-    JAX default is the bucketed ``approx_max_k``)."""
-    idx, _ = nearest_vertices_kernel(points.contiguous(), verts.contiguous(),
-                                     k)
-    return idx.long()
-
-
-def _dot(ax, ay, az, bx, by, bz):
-    return ax * bx + ay * by + az * bz
-
-
-def _cross(ax, ay, az, bx, by, bz):
-    return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
-
-
 def _packed_edges(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     """[F, 18] per-face crossing data: lo.x, lo.y, hi.x, hi.y, sign (3
     each, per edge (a,b), (b,c), (c,a)) and the 3 corner z's. Each edge is
@@ -511,22 +497,6 @@ def build_crossing_columns(verts: torch.Tensor, faces: torch.Tensor,
     return torch.cat(zs), torch.cat(cs)
 
 
-def column_parity_inside(points: torch.Tensor, cross_z: torch.Tensor,
-                         meta: torch.Tensor) -> torch.Tensor:
-    """Inside test [N] bool: parity of the crossings above each point in
-    its column. meta [6] f32 = (x0, y0, inv_dx, inv_dy, W, H); points off
-    the lattice snap to the nearest column."""
-    W = meta[4].long()                  # stays on the device: no host sync
-    H = meta[5].long()
-    ix = torch.minimum(torch.clamp(torch.round(
-        (points[:, 0] - meta[0]) * meta[2]).long(), min=0), W - 1)
-    iy = torch.minimum(torch.clamp(torch.round(
-        (points[:, 1] - meta[1]) * meta[3]).long(), min=0), H - 1)
-    col = cross_z[iy * W + ix]                            # [N, C]
-    above = (col > points[:, 2:3]).sum(-1)
-    return above % 2 == 1
-
-
 def ray_parity_inside(points: torch.Tensor, verts: torch.Tensor,
                       faces: torch.Tensor, bins: torch.Tensor,
                       grid: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
@@ -571,61 +541,6 @@ def ray_parity_inside(points: torch.Tensor, verts: torch.Tensor,
     return torch.cat(out) if out else points.new_zeros((0,), dtype=bool)
 
 
-def _candidate_distances(points: torch.Tensor, tri_block: torch.Tensor,
-                         closest: bool = False):
-    """Squared distance [N, C] from ``points [N, 3]`` to each candidate
-    triangle of ``tri_block [N, C, 9]`` (the plane projection where it
-    falls inside the triangle, else the nearest edge point); with
-    ``closest`` also the closest points' coordinates (x, y, z), each
-    [N, C]."""
-    (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = tri_block.unbind(-1)
-    px = points[:, 0:1]
-    py = points[:, 1:2]
-    pz = points[:, 2:3]
-
-    ux, uy, uz = v1x - v0x, v1y - v0y, v1z - v0z
-    vx, vy, vz = v2x - v0x, v2y - v0y, v2z - v0z
-    nx, ny, nz = _cross(ux, uy, uz, vx, vy, vz)
-    n2 = torch.clamp(_dot(nx, ny, nz, nx, ny, nz), min=1e-12)
-    wx, wy, wz = px - v0x, py - v0y, pz - v0z
-
-    cx, cy, cz = _cross(ux, uy, uz, wx, wy, wz)
-    b2 = _dot(cx, cy, cz, nx, ny, nz) / n2
-    cx, cy, cz = _cross(wx, wy, wz, vx, vy, vz)
-    b1 = _dot(cx, cy, cz, nx, ny, nz) / n2
-    b0 = 1.0 - b1 - b2
-    inside = (b0 >= 0) & (b0 <= 1) & (b1 >= 0) & (b1 <= 1) & \
-        (b2 >= 0) & (b2 <= 1)
-
-    # plane projection closest point
-    pn = _dot(wx, wy, wz, nx, ny, nz) / n2
-    prx, pry, prz = px - pn * nx, py - pn * ny, pz - pn * nz
-    d_in = (px - prx) ** 2 + (py - pry) ** 2 + (pz - prz) ** 2
-
-    def seg(ax_, ay_, az_, bx_, by_, bz_):
-        ex, ey, ez = bx_ - ax_, by_ - ay_, bz_ - az_
-        sx, sy, sz = px - ax_, py - ay_, pz - az_
-        tt = torch.clamp(_dot(sx, sy, sz, ex, ey, ez) /
-                         torch.clamp(_dot(ex, ey, ez, ex, ey, ez), min=1e-12),
-                         0.0, 1.0)
-        qx, qy, qz = ax_ + tt * ex, ay_ + tt * ey, az_ + tt * ez
-        return (px - qx) ** 2 + (py - qy) ** 2 + (pz - qz) ** 2, (qx, qy, qz)
-
-    d01, q01 = seg(v0x, v0y, v0z, v1x, v1y, v1z)
-    d12, q12 = seg(v1x, v1y, v1z, v2x, v2y, v2z)
-    d20, q20 = seg(v2x, v2y, v2z, v0x, v0y, v0z)
-    d_edge = torch.minimum(torch.minimum(d01, d12), d20)
-    d2 = torch.where(inside, d_in, d_edge)                # [N, C]
-    if not closest:
-        return d2
-    e_first = (d01 <= d12) & (d01 <= d20)
-    e_second = (d12 <= d20) & ~e_first
-    q = tuple(torch.where(inside, pr, torch.where(
-        e_first, a, torch.where(e_second, b, c)))
-        for pr, a, b, c in zip((prx, pry, prz), q01, q12, q20))
-    return d2, q
-
-
 def point_body_features(points: torch.Tensor, verts: torch.Tensor,
                         faces: torch.Tensor, vert_face_table: torch.Tensor,
                         cmaps: torch.Tensor, vis: torch.Tensor, k: int = 2,
@@ -646,49 +561,27 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
     :func:`build_ray_bins`, ``cluster_faces``/``cluster_mask`` from
     :func:`build_winding_clusters` (winding number > 0.5 is inside), else
     the pseudo-normal test (fast, but undefined where the body touches
-    itself). Returns (sdf [N,1] positive inside, normal [N,3], cmap [N,3],
-    vis [N,1])."""
-    N = points.shape[0]
+    itself). The k nearest vertices come from the kNN kernel, the rest from
+    the body-feature kernel (``kernels/bodyfeat.py``), which signs by the
+    first two; the others sign its unsigned distance here. Returns (sdf
+    [N,1] positive inside, normal [N,3], cmap [N,3], vis [N,1])."""
+    points = points.contiguous()
+    verts = verts.contiguous()
     faces = faces.long()
     normals = vertex_normals(verts[None], faces)[0]       # [V, 3]
-
-    nn_idx = nearest_vertices(points, verts, k=k)         # [N, k]
-    cand = vert_face_table.long()[nn_idx].reshape(N, -1)  # [N, C]
-
-    packed_tri = torch.cat([verts[faces[:, 0]], verts[faces[:, 1]],
-                            verts[faces[:, 2]]], dim=-1)  # [F, 9]
-    d2 = _candidate_distances(points, packed_tri[cand])   # [N, C]
-
-    best = torch.argmin(d2, dim=1, keepdim=True)          # first minimum
-    d2b = torch.gather(d2, 1, best)[:, 0]
-    best_face = torch.gather(cand, 1, best)[:, 0]
-
-    # the winning face's attributes, interpolated at the reference's
-    # weights: the unclamped plane projection of the raw query point
-    # (barycentric_coordinates_of_projection, mesh_util.py:384-391)
-    packed_attr = torch.cat(
-        [packed_tri] + [normals[faces[:, j]] for j in range(3)] +
-        [cmaps[faces[:, j]] for j in range(3)] +
-        [vis[faces[:, j]] for j in range(3)], dim=-1)     # [F, 30]
-    row = packed_attr[best_face]                          # [N, 30]
-    tri = row[:, 0:9].reshape(-1, 3, 3)
-    n_f = row[:, 9:18].reshape(-1, 3, 3)
-    cm_f = row[:, 18:27].reshape(-1, 3, 3)
-    vi_f = row[:, 27:30].reshape(-1, 3, 1)
-    w = barycentric_projection_weights(points, tri)[..., None]
-
-    n_interp = torch.sum(n_f * w, dim=1)                  # [N, 3]
-    cmap_q = torch.sum(cm_f * w, dim=1)
-    vis_q = (torch.sum(vi_f * w, dim=1) >= 0.1).to(points.dtype)
-    flip = device_constant([-1.0, 1.0, -1.0], points.dtype, points.device)
-    normal_q = n_interp * flip
-
-    dist = torch.sqrt(torch.clamp(d2b, min=0.0)) / math.sqrt(3.0)
+    nn_idx, _ = nearest_vertices_kernel(points, verts, k)     # [N, k]
+    sign = {}
     if known_inside is not None:
-        inside_pt = known_inside.bool()
+        sign = {"known_inside": known_inside.bool().contiguous()}
     elif cross_z is not None:
-        inside_pt = column_parity_inside(points, cross_z, cross_meta)
-    elif ray_bins is not None:
+        sign = {"cross_z": cross_z.contiguous(),
+                "cross_meta": cross_meta.contiguous()}
+    sdf, normal_q, cmap_q, vis_q, best_face = body_features_kernel(
+        points, nn_idx, verts, faces, vert_face_table.contiguous(), normals,
+        cmaps.contiguous(), vis.contiguous(), **sign)
+    if sign:
+        return sdf, normal_q, cmap_q, vis_q
+    if ray_bins is not None:
         inside_pt = ray_parity_inside(points, verts, faces, ray_bins,
                                       ray_grid)
     elif cluster_faces is not None:
@@ -698,17 +591,19 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
         # pseudo-normal sign: the normal interpolated at the CLAMPED,
         # renormalized closest-point barycentrics (the unclamped feature
         # weights extrapolate and flip signs for edge-closest queries)
-        _, q = _candidate_distances(points, packed_tri[best_face][:, None],
-                                    closest=True)
+        corners = faces[best_face]                        # [N, 3]
+        tri = verts[corners]                              # [N, 3, 3]
+        _, q = candidate_distances(points, tri.reshape(-1, 1, 9),
+                                   closest=True)
         cp = torch.cat(q, dim=-1)                         # [N, 3]
         bary_cp = torch.clamp(barycentric_projection_weights(cp, tri),
                               0.0, 1.0)
         bary_cp = bary_cp / torch.clamp(bary_cp.sum(-1, keepdim=True),
                                         min=1e-9)
-        n_sign = torch.sum(n_f * bary_cp[..., None], dim=1)
+        n_sign = torch.sum(normals[corners] * bary_cp[..., None], dim=1)
         inside_pt = torch.sum((points - cp) * n_sign, dim=-1) < 0.0
-    sdf = torch.where(inside_pt, dist, -dist)[..., None]
-    return sdf, normal_q, cmap_q, vis_q
+    return (torch.where(inside_pt[:, None], sdf, -sdf), normal_q, cmap_q,
+            vis_q)
 
 
 def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,

@@ -31,6 +31,13 @@ absorbs the wait, with its callers; the table goes to ``--out``). It reads
 only ``AutoMarcher``, ``HostCopy`` and ``Future`` and so also runs
 against an older tree of the package on the import path.
 
+The plain and NormalNet profiles begin with the kernel launches of one
+warm frame under torch.profiler: the host's launch calls
+(``cudaLaunchKernel`` and kin) in the whole frame, in the engine and in
+the body-feature calls (``ops/sdf_fast.py:cal_sdf_batch_fast``, with
+their count), and the kernels the device ran. It too reads only names
+that older trees have.
+
 ``--frame fit`` profiles the fit frame's two loops instead (their stage
 split is chip_smoke.py's phase 9): 5 iterations of the SMPL fit (512^2,
 the subdiv-5 SMPL-X-layout body, the published NormalNet widths) and 5 of
@@ -373,6 +380,65 @@ def fit_loops(cfg, state, iters: int = 5):
     return lines
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel")
+
+
+def launch_counts(fr):
+    """Lines: the kernel launches of one warm ``fr.frame()`` under
+    torch.profiler: the host's launch calls in all, in the engine and in
+    the body-feature calls (each call a span of its own), and the kernels
+    the device ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from icon_tpu_torch.ops import sdf_fast
+    calls = [0]
+
+    def spanned(owner, attr, span):
+        orig = getattr(owner, attr)
+
+        def fn(*args, **kw):
+            if span == "body features":
+                calls[0] += 1
+            with record_function(span):
+                return orig(*args, **kw)
+
+        setattr(owner, attr, fn)
+        return owner, attr, orig
+
+    undo = [spanned(sdf_fast, "cal_sdf_batch_fast", "body features"),
+            spanned(type(fr.engine), "__call__", "engine")]
+    try:
+        fr.frame()
+        torch.cuda.synchronize()
+        calls[0] = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fr.frame()
+            torch.cuda.synchronize()
+    finally:
+        for owner, attr, orig in reversed(undo):
+            setattr(owner, attr, orig)
+    events = prof.events()
+
+    def within(e, span):
+        while e is not None:
+            if e.name == span:
+                return True
+            e = e.cpu_parent
+        return False
+
+    launches = [e for e in events if e.name.startswith(LAUNCH_CALLS)]
+    engine = sum(within(e, "engine") for e in launches)
+    body = sum(within(e, "body features") for e in launches)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    return [f"launches of one warm frame: {len(launches)} launch calls "
+            f"(engine {engine}; {calls[0]} body-feature calls {body}, "
+            f"{body / max(calls[0], 1):.1f} a call), {kernels} device "
+            f"kernels"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frame", choices=("plain", "normalnet", "fit"),
@@ -413,9 +479,11 @@ def main():
         split = normalnet_stage_times
     for _ in range(3):
         fr.frame()
+    counts = launch_counts(fr)
     if args.serve:
         lines = [f"card: {card}; torch {torch.__version__}; TF32 off; "
-                 f"{args.frame} frame"] + serve_split(fr, args.serve)
+                 f"{args.frame} frame"] + counts + \
+            serve_split(fr, args.serve)
         head = list(lines)
         if args.frame == "plain":
             lines += busy_dispatch(fr)
@@ -426,8 +494,8 @@ def main():
     stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     total = sum(stages.values())
     lines = [f"card: {card}; torch {torch.__version__}; TF32 off; "
-             f"{args.frame} frame",
-             "stage medians of 5 synchronized frames (ms):"]
+             f"{args.frame} frame"] + counts + \
+        ["stage medians of 5 synchronized frames (ms):"]
     lines += [f"  {k:8s} {v:9.3f}  {100 * v / total:5.1f}%"
               for k, v in stages.items()]
     lines.append(f"  {'sum':8s} {total:9.3f}")
@@ -439,7 +507,7 @@ def main():
     lines.append(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=25,
         max_name_column_width=70))
-    return write(lines, args.out, lines[:len(stages) + 4])
+    return write(lines, args.out, lines[:len(stages) + len(counts) + 4])
 
 
 def write(lines, out: str, head) -> int:
