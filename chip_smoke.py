@@ -262,9 +262,12 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    phase 4's level-1 and level-2 buckets and the 232,974-point cap near
    the body, signed by the crossing columns of phase 4's 257^2 lattice,
    and the cap with known signs: best_face, sign and vis identical on
-   every point, sdf, normal and cmap bit-equal; each alone (its launches
-   on preallocated outputs, behind a device sleep) beside its plain twin
-   and its bound, and its share of the bound.
+   every point, sdf, normal and cmap bit-equal, and the face records of
+   the record kernel bit-equal to their plain builder's; each alone (its
+   record build and kernel launch on preallocated outputs, behind a
+   device sleep), split into the record build and the kernel on records
+   built once a body, beside its plain twin and its bound, and its share
+   of the bound; the kernels' registers and occupancy.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -393,6 +396,9 @@ BODYFEAT_OPS_SEGMENTS = 104
 BODYFEAT_OPS_PER_POINT = 80
 BODYFEAT_F64_PER_POINT = 18
 BODYFEAT_OPS_COLUMN = 6
+# cycles of device sleep ahead of 20 timed body-feature calls (~0.1-0.2 ms
+# of host dispatch each on the card machine's host)
+BODYFEAT_SLEEP = 20_000_000
 # the JAX package's level counts for the pamir frame (its own network at the
 # same widths, the variant field, the subdiv-5 body, res 256; see
 # CHANGES.md): the variant field's, the net's preds * 1e-6 term moves no
@@ -694,8 +700,20 @@ def phase_bodyfeat(dev, card, verts_np, faces_np, buckets):
             ties = f", points whose minimum ties another face {tied}"
         outs = tuple(torch.empty_like(g) for g in got)
         known = kw.get("known_inside")
-        ms = kernel_ms(lambda: kb._launch(*args, known, kw.get("cross_z"),
-                                          kw.get("cross_meta"), outs))
+        rec = kb.face_records(verts, faces)
+        if not torch.equal(rec.view(torch.int32), kb.face_records_plain(
+                verts, faces).view(torch.int32)):
+            raise AssertionError("bodyfeat face records disagree with plain")
+
+        # the whole call (record build and kernel) through the wrapper; a
+        # longer sleep, so that 20 calls' host dispatch stays behind it
+        ms = kernel_ms(lambda: kb.body_features_kernel(*args, **kw),
+                       sleep=BODYFEAT_SLEEP)
+        once_ms = kernel_ms(lambda: kb._launch(
+            *args, known, kw.get("cross_z"), kw.get("cross_meta"), outs,
+            rec), sleep=BODYFEAT_SLEEP)
+        rec_ms = kernel_ms(lambda: kb.face_records(verts, faces),
+                           sleep=BODYFEAT_SLEEP)
         plain_ms = cuda_ms(lambda: kb.point_body_features_plain(*args, **kw),
                            reps=3)
         ix = torch.round((pts[:, 0] - meta[0]) * meta[2]).long().clamp(
@@ -714,14 +732,19 @@ def phase_bodyfeat(dev, card, verts_np, faces_np, buckets):
               f"best_face) {n_diff}, max|d| {err:.3g}{ties}, inside "
               f"{inside:.3f}; distinct candidates a point "
               f"{distinct / n:.2f} of {2 * deg}, in the plane branch "
-              f"{plane / distinct:.3f}; kernel alone {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.1%} of it, on {card}", flush=True)
+              f"{plane / distinct:.3f}; alone {ms:.4f} ms (the record "
+              f"build alone {rec_ms:.4f} ms, the kernel on records built "
+              f"once a body {once_ms:.4f} ms), plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it, on "
+              f"{card}", flush=True)
         if any(n_diff) or not 0.0 < inside < 1.0:
             raise AssertionError(f"bodyfeat kernel disagrees with plain: "
                                  f"{name}")
         worst = max(worst, err)
         timing[name] = (ms, plain_ms, b_ms, b_by)
+    info = kb.kernel_info(2 * deg)
+    print(f"[20] bodyfeat kernels at k x deg = {2 * deg}: {info}",
+          flush=True)
     ms, plain_ms, b_ms, b_by = timing["cap near"]
     return {"name": "bodyfeat", "route": "cuda",
             "source": "icon_tpu_torch/csrc/bodyfeat.cu",

@@ -3,18 +3,22 @@ twin.
 
 :func:`body_features_kernel` is the wrapper
 ``ops/sdf_fast.py:point_body_features`` calls with the kNN kernel's
-``[N, k]`` result. A CUDA tensor launches ``csrc/bodyfeat.cu`` (a thread a
-point: the candidate faces, the exact distances, the first minimum, the
-winning face's interpolated attributes and the sign, in one launch) or
-raises; a CPU tensor takes :func:`point_body_features_plain`, the same
+``[N, k]`` result. A CUDA tensor launches ``csrc/bodyfeat.cu`` or raises:
+first the body's per-face records (:func:`face_records_plain`'s layout,
+into a buffer the call owns), then a lane group a point over its
+candidate faces in parallel (the exact distances, the first minimum by a
+shuffle reduction, the winning face's interpolated attributes and the
+sign). A CPU tensor takes :func:`point_body_features_plain`, the same
 function in plain PyTorch. The plain version spells out every product and
 sum as its own tensor operation, and the kernel rounds each as that
-operation does, so the two agree bit for bit on the card.
+operation does, so the two agree bit for bit on the card;
+:func:`record_distances_plain` is the kernel's distance from a record,
+bit-equal to :func:`candidate_distances`.
 
 The sign: ``known_inside``, else the column parity of ``cross_z``; without
 either both write the unsigned distance and the winning face, and the
-caller signs. ``launches_bodyfeat`` counts kernel launches, so a run can
-show that the main path went through the kernel.
+caller signs. ``launches_bodyfeat`` counts the calls that launched the
+kernels, so a run can show that the main path went through them.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import torch
 from icon_tpu_torch.ops.constants import device_constant
 
 SIGN_UNSIGNED, SIGN_KNOWN, SIGN_COLUMNS = 0, 1, 2
+RECORD_WORDS = 16       # a face record: 64 bytes (csrc/bodyfeat.cu)
 
-launches_bodyfeat = 0   # kernel launches since the last reset
+launches_bodyfeat = 0   # calls that launched the kernels since the last reset
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,16 +47,27 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             from icon_tpu_torch.kernels.build import build
-            lib = ctypes.CDLL(build()["bodyfeat.cu"])
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.icon_body_features.argtypes = [
-                vp, ci, vp, ci, vp, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp,
-                ci, vp, vp, vp, vp, vp, vp, vp]
-            lib.icon_body_features.restype = ci
-            lib.icon_bodyfeat_error_string.argtypes = [ci]
-            lib.icon_bodyfeat_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = _bind(build()["bodyfeat.cu"])
     return _lib
+
+
+def _bind(path: str) -> ctypes.CDLL:
+    """The library at ``path`` with its functions' argument types set."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    pi = ctypes.POINTER(ci)
+    lib.icon_bodyfeat_records.argtypes = [vp, vp, ci, vp, vp]
+    lib.icon_bodyfeat_records.restype = ci
+    lib.icon_body_features.argtypes = [
+        vp, ci, vp, ci, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp, ci, vp, vp,
+        vp, vp, vp, vp, vp]
+    lib.icon_body_features.restype = ci
+    lib.icon_bodyfeat_kernel_info.argtypes = [ci, ci, pi, pi, pi, pi, pi,
+                                              pi]
+    lib.icon_bodyfeat_kernel_info.restype = ci
+    lib.icon_bodyfeat_error_string.argtypes = [ci]
+    lib.icon_bodyfeat_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _dot(ax, ay, az, bx, by, bz):
@@ -128,6 +144,69 @@ def candidate_distances(points: torch.Tensor, tri_block: torch.Tensor,
         e_first, a, torch.where(e_second, b, c)))
         for pr, a, b, c in zip((prx, pry, prz), q01, q12, q20))
     return d2, q
+
+
+def face_records_plain(verts: torch.Tensor,
+                       faces: torch.Tensor) -> torch.Tensor:
+    """The kernel's per-face records ``[F, 16]`` float32 of ``verts [V,
+    3]`` and ``faces [F, 3]``: the corners (v0, v1, v2), the clamped
+    squared normal n2, the clamped squared lengths of the edges v0-v1,
+    v1-v2 and v2-v0, rounded as :func:`candidate_distances` rounds them,
+    and the corner ids' int32 bits."""
+    faces = faces.long()
+    (v0x, v0y, v0z), (v1x, v1y, v1z), (v2x, v2y, v2z) = (
+        verts[faces[:, j]].unbind(-1) for j in range(3))
+
+    def clamped_sq(ex, ey, ez):
+        return torch.clamp(_dot(ex, ey, ez, ex, ey, ez), min=1e-12)
+
+    ux, uy, uz = v1x - v0x, v1y - v0y, v1z - v0z
+    n2 = clamped_sq(*_cross(ux, uy, uz, v2x - v0x, v2y - v0y, v2z - v0z))
+    ids = faces.int().view(torch.float32).unbind(-1)
+    return torch.stack([v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z, n2,
+                        clamped_sq(ux, uy, uz),
+                        clamped_sq(v2x - v1x, v2y - v1y, v2z - v1z),
+                        clamped_sq(v0x - v2x, v0y - v2y, v0z - v2z), *ids],
+                       dim=-1)
+
+
+def record_distances_plain(points: torch.Tensor,
+                           rec_block: torch.Tensor) -> torch.Tensor:
+    """Squared distance [N, C] from ``points [N, 3]`` to each candidate
+    face given by its record, ``rec_block [N, C, 16]``: the kernel's
+    reading of :func:`face_records_plain`, the edges, u, v and the cross
+    recomputed from the corners. Bit-equal to :func:`candidate_distances`
+    on the same faces."""
+    (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z, n2, l01, l12,
+     l20) = rec_block[..., :13].unbind(-1)
+    px = points[:, 0:1]
+    py = points[:, 1:2]
+    pz = points[:, 2:3]
+
+    ux, uy, uz = v1x - v0x, v1y - v0y, v1z - v0z
+    vx, vy, vz = v2x - v0x, v2y - v0y, v2z - v0z
+    nx, ny, nz = _cross(ux, uy, uz, vx, vy, vz)
+    wx, wy, wz = px - v0x, py - v0y, pz - v0z
+    b2 = _dot(*_cross(ux, uy, uz, wx, wy, wz), nx, ny, nz) / n2
+    b1 = _dot(*_cross(wx, wy, wz, vx, vy, vz), nx, ny, nz) / n2
+    b0 = 1.0 - b1 - b2
+    inside = (b0 >= 0) & (b0 <= 1) & (b1 >= 0) & (b1 <= 1) & \
+        (b2 >= 0) & (b2 <= 1)
+    pn = _dot(wx, wy, wz, nx, ny, nz) / n2
+    d_in = (px - (px - pn * nx)) ** 2 + (py - (py - pn * ny)) ** 2 + \
+        (pz - (pz - pn * nz)) ** 2
+
+    def seg(ax_, ay_, az_, ex, ey, ez, length):
+        tt = torch.clamp(_dot(px - ax_, py - ay_, pz - az_, ex, ey, ez) /
+                         length, 0.0, 1.0)
+        return (px - (ax_ + tt * ex)) ** 2 + (py - (ay_ + tt * ey)) ** 2 + \
+            (pz - (az_ + tt * ez)) ** 2
+
+    d_edge = torch.minimum(torch.minimum(
+        seg(v0x, v0y, v0z, ux, uy, uz, l01),
+        seg(v1x, v1y, v1z, v2x - v1x, v2y - v1y, v2z - v1z, l12)),
+        seg(v2x, v2y, v2z, v0x - v2x, v0y - v2y, v0z - v2z, l20))
+    return torch.where(inside, d_in, d_edge)
 
 
 def projection_weights(points: torch.Tensor, tri) -> Tuple[torch.Tensor, ...]:
@@ -310,43 +389,106 @@ def body_features_kernel(points: torch.Tensor, nn_idx: torch.Tensor,
     if n * k >= 2 ** 31 or n >= 2 ** 31 // 3:
         raise ValueError(f"{n} points x {k} neighbours exceed int32 "
                          f"indexing")
+    if max(faces.shape[0], verts.shape[0]) >= 2 ** 31:
+        raise ValueError(f"{faces.shape[0]} faces or {verts.shape[0]} "
+                         f"vertices exceed the records' int32 ids")
     dev = points.device
     sdf = torch.empty((n, 1), dtype=torch.float32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     cmap = torch.empty((n, 3), dtype=torch.float32, device=dev)
     vis_q = torch.empty((n, 1), dtype=torch.float32, device=dev)
     best_face = torch.empty((n,), dtype=torch.int64, device=dev)
-    _launch(*args, (sdf, normal, cmap, vis_q, best_face))
     if n:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            records = _records(lib, stream, verts, faces)
+            _features(lib, stream, *args,
+                      (sdf, normal, cmap, vis_q, best_face), records)
         launches_bodyfeat += 1
     return sdf, normal, cmap, vis_q, best_face
 
 
+def face_records(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """The body's face records ``[F, 16]`` (:func:`face_records_plain`):
+    on the card one launch of the record kernel into a new buffer on the
+    current stream (float32 ``verts``, int64 ``faces``, contiguous, every
+    id in range, as :func:`body_features_kernel` checks them); on the CPU
+    the plain version. Counts nothing."""
+    if verts.device.type == "cpu":
+        return face_records_plain(verts, faces)
+    lib = _load()
+    with torch.cuda.device(verts.device):
+        return _records(lib, torch.cuda.current_stream().cuda_stream, verts,
+                        faces)
+
+
 def _launch(points, nn_idx, verts, faces, vert_face_table, normals, cmaps,
-            vis, known_inside, cross_z, cross_meta, outs) -> None:
-    """One kernel launch into the caller-owned ``outs`` (sdf, normal, cmap,
-    vis, best_face; inputs checked by the caller) on the current stream;
-    counts nothing. :func:`body_features_kernel` and the kernel's timing
+            vis, known_inside, cross_z, cross_meta, outs, records) -> None:
+    """The body-feature kernel's launch alone into the caller-owned
+    ``outs`` (sdf, normal, cmap, vis, best_face) on ``records``, the
+    body's :func:`face_records` (inputs checked by the caller, N > 0), on
+    the current stream; counts nothing. The tests and the kernel's timing
     use it."""
     lib = _load()
+    with torch.cuda.device(points.device):
+        _features(lib, torch.cuda.current_stream().cuda_stream, points,
+                  nn_idx, verts, faces, vert_face_table, normals, cmaps, vis,
+                  known_inside, cross_z, cross_meta, outs, records)
+
+
+def _records(lib, stream, verts, faces) -> torch.Tensor:
+    rec = torch.empty((faces.shape[0], RECORD_WORDS), dtype=torch.float32,
+                      device=verts.device)
+    _raise_on(lib, lib.icon_bodyfeat_records(
+        verts.data_ptr(), faces.data_ptr(), faces.shape[0], rec.data_ptr(),
+        stream), "icon_bodyfeat_records launch")
+    return rec
+
+
+def _features(lib, stream, points, nn_idx, verts, faces, vert_face_table,
+              normals, cmaps, vis, known_inside, cross_z, cross_meta, outs,
+              records) -> None:
     sign = SIGN_KNOWN if known_inside is not None else \
         SIGN_COLUMNS if cross_z is not None else SIGN_UNSIGNED
     sdf, normal, cmap, vis_q, best_face = outs
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.icon_body_features(
-            points.data_ptr(), points.shape[0], nn_idx.data_ptr(),
-            nn_idx.shape[1], verts.data_ptr(), faces.data_ptr(),
-            vert_face_table.data_ptr(), vert_face_table.shape[1],
-            int(vert_face_table.dtype == torch.int64),
-            normals.data_ptr(), cmaps.data_ptr(), vis.data_ptr(), sign,
-            known_inside.data_ptr() if sign == SIGN_KNOWN else None,
-            cross_z.data_ptr() if sign == SIGN_COLUMNS else None,
-            cross_z.shape[1] if sign == SIGN_COLUMNS else 0,
-            cross_meta.data_ptr() if sign == SIGN_COLUMNS else None,
-            sdf.data_ptr(), normal.data_ptr(), cmap.data_ptr(),
-            vis_q.data_ptr(), best_face.data_ptr(), stream)
+    err = lib.icon_body_features(
+        points.data_ptr(), points.shape[0], nn_idx.data_ptr(),
+        nn_idx.shape[1], records.data_ptr(), vert_face_table.data_ptr(),
+        vert_face_table.shape[1], int(vert_face_table.dtype == torch.int64),
+        normals.data_ptr(), cmaps.data_ptr(), vis.data_ptr(), sign,
+        known_inside.data_ptr() if sign == SIGN_KNOWN else None,
+        cross_z.data_ptr() if sign == SIGN_COLUMNS else None,
+        cross_z.shape[1] if sign == SIGN_COLUMNS else 0,
+        cross_meta.data_ptr() if sign == SIGN_COLUMNS else None,
+        sdf.data_ptr(), normal.data_ptr(), cmap.data_ptr(),
+        vis_q.data_ptr(), best_face.data_ptr(), stream)
+    _raise_on(lib, err, "icon_body_features launch")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.icon_bodyfeat_error_string(err).decode()
-        raise RuntimeError(f"icon_body_features launch failed: {msg} "
-                           f"({err})")
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def kernel_info(n_cand: int) -> dict:
+    """The body-feature kernel that ``n_cand`` = k x deg candidates launch
+    and the record kernel, on the current card: for each, registers and
+    local memory bytes a thread, threads a block, lanes a point, resident
+    blocks an SM (the occupancy calculator's), SMs, and the resident
+    threads' share of the SM's 2,048 (``occupancy``)."""
+    lib = _load()
+    out = {}
+    for which, name in enumerate(("features", "records")):
+        vals = [ctypes.c_int(0) for _ in range(6)]
+        _raise_on(lib, lib.icon_bodyfeat_kernel_info(
+            which, n_cand, *map(ctypes.byref, vals)),
+            "icon_bodyfeat_kernel_info")
+        regs, local_bytes, threads, group, per_sm, sms = \
+            (v.value for v in vals)
+        out[name] = {"registers": regs, "local_bytes": local_bytes,
+                     "threads": threads, "lanes_a_point": group,
+                     "blocks_per_sm": per_sm, "sms": sms,
+                     "occupancy": per_sm * threads / 2048}
+    return out

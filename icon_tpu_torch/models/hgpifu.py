@@ -198,9 +198,11 @@ class HGPIFuNet(nn.Module):
         smpl_cross_meta (``build_crossing_columns_blocked``), smpl_ray_bins
         and smpl_ray_grid (``build_ray_bins``), smpl_clusters and
         smpl_cluster_mask (``build_winding_clusters``), or none (the
-        pseudo-normal sign); pamir, ``voxel_feats`` (the
-        output of :meth:`volume_features`) or ``voxel_verts`` [B,V,3]
-        (projected) and ``voxel_codes`` [V,3]; pifu, none."""
+        pseudo-normal sign), and optionally smpl_normals [B,V,3], the
+        bodies' ``vertex_normals`` (else computed each call); pamir,
+        ``voxel_feats`` (the output of :meth:`volume_features`) or
+        ``voxel_verts`` [B,V,3] (projected) and ``voxel_codes`` [V,3];
+        pifu, none."""
         net = self.cfg.net
         xyz = project(points, calibs, mode=self.cfg.projection_mode)
         xy = xyz[..., :2]
@@ -251,7 +253,8 @@ class HGPIFuNet(nn.Module):
                 cross_meta=smpl_feat.get("smpl_cross_meta"),
                 ray_bins=smpl_feat.get("smpl_ray_bins"),
                 ray_grid=smpl_feat.get("smpl_ray_grid"),
-                known_inside=smpl_feat.get("smpl_query_inside"))
+                known_inside=smpl_feat.get("smpl_query_inside"),
+                normals=smpl_feat.get("smpl_normals"))
         else:
             from icon_tpu_torch.ops.sdf import cal_sdf_batch
             sdf, norm, cmap, vis = cal_sdf_batch(

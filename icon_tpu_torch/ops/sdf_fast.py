@@ -550,13 +550,17 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
                         cross_meta: Optional[torch.Tensor] = None,
                         ray_bins: Optional[torch.Tensor] = None,
                         ray_grid: Optional[torch.Tensor] = None,
-                        known_inside: Optional[torch.Tensor] = None
+                        known_inside: Optional[torch.Tensor] = None,
+                        normals: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """Single-example SMPL-local features at ``points [N, 3]``.
 
     ``verts [V, 3]``, ``faces [F, 3]``, ``vert_face_table [V, deg]``,
-    ``cmaps [V, 3]``, ``vis [V, 1]``; the sign, in this order of
-    preference: ``known_inside [N]`` bool, ``cross_z``/``cross_meta`` from
+    ``cmaps [V, 3]``, ``vis [V, 1]``; the body's vertex ``normals [V,
+    3]`` (``ops/mesh.py:vertex_normals``, computed here when not given: a
+    caller that queries one body many times computes them once); the sign,
+    in this order of preference: ``known_inside [N]`` bool,
+    ``cross_z``/``cross_meta`` from
     :func:`build_crossing_columns_blocked`, ``ray_bins``/``ray_grid`` from
     :func:`build_ray_bins`, ``cluster_faces``/``cluster_mask`` from
     :func:`build_winding_clusters` (winding number > 0.5 is inside), else
@@ -568,7 +572,9 @@ def point_body_features(points: torch.Tensor, verts: torch.Tensor,
     points = points.contiguous()
     verts = verts.contiguous()
     faces = faces.long()
-    normals = vertex_normals(verts[None], faces)[0]       # [V, 3]
+    if normals is None:
+        normals = vertex_normals(verts[None], faces)[0]   # [V, 3]
+    normals = normals.contiguous()
     nn_idx, _ = nearest_vertices_kernel(points, verts, k)     # [N, k]
     sign = {}
     if known_inside is not None:
@@ -616,9 +622,11 @@ def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,
                        cross_meta: Optional[torch.Tensor] = None,
                        ray_bins: Optional[torch.Tensor] = None,
                        ray_grid: Optional[torch.Tensor] = None,
-                       known_inside: Optional[torch.Tensor] = None):
+                       known_inside: Optional[torch.Tensor] = None,
+                       normals: Optional[torch.Tensor] = None):
     """Batched :func:`point_body_features`: ``verts [B,V,3]``, ``cmaps
-    [B,V,3]``, ``vis [B,V,1]``, ``points [B,N,3]``; ``cross_z`` is
+    [B,V,3]``, ``vis [B,V,1]``, ``points [B,N,3]``, optionally the
+    bodies' vertex ``normals [B,V,3]``; ``cross_z`` is
     ``[H*W, C]`` shared or ``[B, H*W, C]`` per item, likewise
     ``cross_meta``, ``ray_bins`` (``[T^2, S]``), ``ray_grid`` (``[6]``),
     ``cluster_faces`` and ``cluster_mask`` (``[K, M]``);
@@ -639,6 +647,7 @@ def cal_sdf_batch_fast(verts: torch.Tensor, faces: torch.Tensor,
                                 cross_meta=item(cross_meta, b, 1),
                                 ray_bins=item(ray_bins, b, 2),
                                 ray_grid=item(ray_grid, b, 1),
-                                known_inside=item(known_inside, b, 1))
+                                known_inside=item(known_inside, b, 1),
+                                normals=item(normals, b, 2))
             for b in range(B)]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(4))

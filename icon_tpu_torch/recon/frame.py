@@ -65,6 +65,7 @@ from icon_tpu_torch.infer.refine import SmplFit, hps_body_normals, \
 from icon_tpu_torch.models.hgpifu import HGPIFuNet
 from icon_tpu_torch.models.smplx.assets import SMPLX
 from icon_tpu_torch.models.smplx.body import BodyModel
+from icon_tpu_torch.ops.mesh import vertex_normals
 from icon_tpu_torch.ops.projection import project
 from icon_tpu_torch.ops.raster import vertex_visibility
 from icon_tpu_torch.ops.remesh import remesh
@@ -179,7 +180,8 @@ def icon_feats(verts: torch.Tensor, faces: torch.Tensor,
     ``verts [V, 3]`` projected to calib space by ``calib [4, 4]``, the
     vertex visibility of a 1024^2 raster, the cmap (``cmap [V, 3]`` when
     given, the demo's installed asset of :func:`asset_cmap`, else ``(v -
-    vmin) / max(vmax - vmin, 1e-6)`` in calib space): the ``smpl_feat`` of
+    vmin) / max(vmax - vmin, 1e-6)`` in calib space), the vertex normals
+    (``smpl_normals``, once a body): the ``smpl_feat`` of
     ``HGPIFuNet.query`` but for ``smpl_cross_z``, which
     :func:`crossing_columns` gives."""
     v_cal = project(verts[None], calib[None])[0]
@@ -190,6 +192,7 @@ def icon_feats(verts: torch.Tensor, faces: torch.Tensor,
         cmap = (v_cal - vmin) / torch.clamp(vmax - vmin, min=1e-6)
     return {"smpl_verts": v_cal[None], "smpl_faces": faces,
             "smpl_cmap": cmap[None], "smpl_vis": vis[None],
+            "smpl_normals": vertex_normals(v_cal[None], faces),
             "smpl_vf_table": bins.vf_table,
             "smpl_cross_meta": bins.cross_meta}
 
@@ -357,6 +360,9 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         "smpl_vis": dev(batch["smpl_vis"], torch.float32),
         "smpl_vf_table": bins.vf_table,
     }
+    # the body's vertex normals once a frame, not once a query call
+    smpl_feat["smpl_normals"] = vertex_normals(smpl_feat["smpl_verts"],
+                                               smpl_feat["smpl_faces"])
     if sign == "winding":
         cf, cm = build_winding_clusters(verts_np[0], faces_np)
         smpl_feat["smpl_clusters"] = dev(cf, torch.int64)

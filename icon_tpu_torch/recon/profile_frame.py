@@ -36,7 +36,7 @@ warm frame under torch.profiler: the host's launch calls
 (``cudaLaunchKernel`` and kin) in the whole frame, in the engine and in
 the body-feature calls (``ops/sdf_fast.py:cal_sdf_batch_fast``, with
 their count), and the kernels the device ran. It too reads only names
-that older trees have.
+that older trees have. ``--launches`` stops after them.
 
 ``--frame fit`` profiles the fit frame's two loops instead (their stage
 split is chip_smoke.py's phase 9): 5 iterations of the SMPL fit (512^2,
@@ -47,7 +47,7 @@ after a warm-up: wall time, device busy share and device time by kernel.
 Usage, from the repository root on the card:
 
     python3 -m icon_tpu_torch.recon.profile_frame [--frame normalnet|fit]
-        [--out FILE] [--serve N]
+        [--out FILE] [--serve N | --launches]
 
 TF32 stays off, as in chip_smoke.py, so the numbers describe the same
 float32 frame.
@@ -447,6 +447,8 @@ def main():
                     help="where the stage split and kernel table go")
     ap.add_argument("--serve", type=int, default=0, metavar="N",
                     help="measure the serving loop over N frames instead")
+    ap.add_argument("--launches", action="store_true",
+                    help="count one warm frame's launches and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -480,6 +482,10 @@ def main():
     for _ in range(3):
         fr.frame()
     counts = launch_counts(fr)
+    head = [f"card: {card}; torch {torch.__version__}; TF32 off; "
+            f"{args.frame} frame"] + counts
+    if args.launches:
+        return write(head, args.out, head)
     if args.serve:
         lines = [f"card: {card}; torch {torch.__version__}; TF32 off; "
                  f"{args.frame} frame"] + counts + \

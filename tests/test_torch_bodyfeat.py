@@ -4,6 +4,10 @@ icon_tpu.ops.sdf_fast.point_body_features on the subdiv-3 synthetic body,
 for each of the five signs (crossing columns at 65^2, known, ray bins,
 winding clusters, none), on lattice and near-surface points, and on the
 mirror-symmetric body's level-0 lattice, where candidates tie exactly.
+The card kernel's own steps, in plain form: its per-face records against
+the terms candidate_distances computes from the corners, the distances
+from records against candidate_distances, bit for bit, and its lane-group
+pick (emulated in numpy) against torch.argmin.
 
 Signs and vis identical; sdf, normal and cmap within 1e-5 absolute (the
 bar of tests/test_torch_sdf_fast.py); the winning face identical to the
@@ -218,3 +222,125 @@ def test_cpu_route_and_refusals():
         kb.body_features_kernel(*args, known_inside=torch.ones(3, dtype=bool))
     with pytest.raises(ValueError, match="unsupported device"):
         kb.body_features_kernel(*(a.to("meta") for a in args))
+
+
+def _corner_terms(v, f):
+    """The per-face terms of candidate_distances, spelled as it spells
+    them: (corners [F, 9], n2, l01, l12, l20), each [F]."""
+    tri = t(v)[t(f, torch.int64)].reshape(-1, 9)
+    (v0x, v0y, v0z, v1x, v1y, v1z, v2x, v2y, v2z) = tri.unbind(-1)
+    ux, uy, uz = v1x - v0x, v1y - v0y, v1z - v0z
+    vx, vy, vz = v2x - v0x, v2y - v0y, v2z - v0z
+    nx, ny, nz = kb._cross(ux, uy, uz, vx, vy, vz)
+    n2 = torch.clamp(kb._dot(nx, ny, nz, nx, ny, nz), min=1e-12)
+
+    def length(ax_, ay_, az_, bx_, by_, bz_):
+        ex, ey, ez = bx_ - ax_, by_ - ay_, bz_ - az_
+        return torch.clamp(kb._dot(ex, ey, ez, ex, ey, ez), min=1e-12)
+
+    return (tri, n2, length(v0x, v0y, v0z, v1x, v1y, v1z),
+            length(v1x, v1y, v1z, v2x, v2y, v2z),
+            length(v2x, v2y, v2z, v0x, v0y, v0z))
+
+
+def test_face_records_hold_the_candidate_terms():
+    """The records' plain builder on the subdiv-5 body: the corners and
+    every clamped term bit-equal to candidate_distances' own, the corner
+    ids' int32 bits in the last three words, 64 bytes a face."""
+    v, f, _, _, _ = body(subdiv=5)
+    rec = kb.face_records_plain(t(v), t(f, torch.int64))
+    assert rec.dtype == torch.float32 and rec.shape == (len(f), 16)
+    assert kb.RECORD_WORDS * rec.element_size() == 64
+    tri, n2, l01, l12, l20 = _corner_terms(v, f)
+    np.testing.assert_array_equal(rec[:, :9].numpy(), tri.numpy())
+    for col, want in zip(range(9, 13), (n2, l01, l12, l20)):
+        np.testing.assert_array_equal(rec[:, col].numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        rec[:, 13:].contiguous().view(torch.int32).numpy(), f)
+
+
+@pytest.mark.parametrize("case", ["subdiv-5 near", "mirror level-0 lattice",
+                                  "NaN corners"])
+def test_record_distances_match_candidate_distances(case):
+    """The kernel's distance from a face record (the edges, u, v and the
+    cross recomputed from the stored corners) is candidate_distances' bit
+    for bit on each point's k x deg candidates: near the subdiv-5 body,
+    on the mirror body's level-0 lattice (33^3, exact ties) and with NaN
+    corners (NaN where candidate_distances has NaN)."""
+    v, f, _, _, table = body(subdiv=5)
+    v = v.copy()
+    if case == "mirror level-0 lattice":
+        g = np.linspace(-1, 1, 33, dtype=np.float32)
+        zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+        pts = np.stack([xx, -yy, zz], -1).reshape(-1, 3)
+    else:
+        pts = _points(v, "near", seed=11)
+    if case == "NaN corners":
+        v[np.random.RandomState(12).randint(0, len(v), 200)] = np.nan
+    tp, tv, tf = t(pts), t(v), t(f, torch.int64)
+    nn, _ = nearest_vertices_kernel(tp, t(np.nan_to_num(v)), 2)
+    cand = t(table, torch.int64)[nn.long()].reshape(len(pts), -1)
+    want = kb.candidate_distances(tp, tv[tf].reshape(-1, 9)[cand])
+    got = kb.record_distances_plain(tp, kb.face_records_plain(tv, tf)[cand])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (np.isnan(want.numpy()).any(1).mean() > 0.01) == \
+        (case == "NaN corners")
+
+
+def _group_pick(d2: np.ndarray) -> np.ndarray:
+    """csrc/bodyfeat.cu's pick in numpy: G lanes a point (the power of two
+    at or above C, at most 4, kMaxGroup); lane l walks candidates l, l + G,
+    ... with
+    the strict < (a NaN over a number, the first NaN kept), a lane without
+    one holding (+inf, C); then the butterfly of xor shuffles at offsets
+    G/2 ... 1, each lane keeping the earlier of its own and its partner's
+    (NaN first, the lesser d2, the lower index). Every lane must end with
+    the same index, which is returned [N]."""
+    n, c = d2.shape
+    g = 1
+    while g < c and g < 4:
+        g *= 2
+    best = np.full((n, g), np.inf, np.float32)
+    best_j = np.full((n, g), c)
+    for lane in range(g):
+        for j in range(lane, c, g):
+            d, b = d2[:, j], best[:, lane]
+            take = (j == lane) | (d < b) | (np.isnan(d) & ~np.isnan(b))
+            best[take, lane] = d[take]
+            best_j[take, lane] = j
+    off = g // 2
+    while off:
+        partner = np.arange(g) ^ off
+        od, oj = best[:, partner], best_j[:, partner]
+        on, bn = np.isnan(od), np.isnan(best)
+        first = np.where(on != bn, on,
+                         np.where(~on & (od != best), od < best, oj < best_j))
+        best = np.where(first, od, best)
+        best_j = np.where(first, oj, best_j)
+        off //= 2
+    assert (best_j == best_j[:, :1]).all()
+    return best_j[:, 0]
+
+
+@pytest.mark.parametrize("c", [3, 8, 15, 16, 24, 64])
+def test_group_pick_is_argmins(c):
+    """The lane-group pick equals torch.argmin's on rows of exact ties
+    (few distinct values, +0 against -0, +inf), NaNs (the first NaN wins,
+    rows of NaN only), for k x deg = 3, 8, 15, 16, 24 and 64 (G = 4: a
+    lane idle, then 2 to 16 candidates a lane, uneven at 15)."""
+    rng = np.random.RandomState(c)
+    n = 4000
+    d2 = rng.randint(0, 4, (n, c)).astype(np.float32) * 0.25
+    d2[rng.rand(n, c) < 0.05] = np.nan
+    d2[rng.rand(n, c) < 0.05] = np.inf
+    zero = rng.rand(n, c) < 0.1
+    d2[zero] = np.where(rng.rand(int(zero.sum())) < 0.5, 0.0, -0.0)
+    d2[:50] = np.nan
+    d2[50:100] = 1.0
+    d2[100:150] = rng.rand(50, c)
+    got = _group_pick(d2)
+    want = torch.argmin(torch.from_numpy(d2), dim=1).numpy()
+    np.testing.assert_array_equal(got, want)
+    ties = (d2 == np.nanmin(np.where(np.isnan(d2), np.inf, d2), 1,
+                            keepdims=True)).sum(1) > 1
+    assert ties.mean() > 0.3 and np.isnan(d2).any(1).mean() > 0.1

@@ -5,8 +5,12 @@ do on the card, so the two agree bit for bit: best_face, sign and vis
 identical on every point, sdf, normal and cmap equal. The cases: the
 level-0 lattice of the mirror-symmetric body (exact ties between
 candidates), near-surface points with known signs, the cube without a
-sign, an int32 table, an empty N, the wrapper's refusals, and two host
-threads on one stream.
+sign, an int32 table, an empty N, the wrapper's refusals, two host
+threads on one stream; NaN corners, k x deg from 1 to 64, powers of two
+or not (groups of 1, 2 and 4 lanes, idle lanes, up to 16 candidates a
+lane), N = 1, 17 and 33 (groups past the end), the face records built
+per call against once a body and against their plain builder, and a call
+captured in a CUDA graph and replayed.
 
 Needs a CUDA card and nvcc, and imports no JAX: ``python -m pytest
 tests/test_torch_bodyfeat_cuda.py --noconftest -m cuda -q``. Where no card
@@ -76,20 +80,25 @@ def _near(verts, n, seed):
     return torch.from_numpy(p.astype(np.float32)).to(verts.device)
 
 
-def _assert_same(got, want):
-    """Outputs of the kernel and the plain twin: every tensor equal."""
+def _assert_same(got, want, nan=False):
+    """Outputs of the kernel and the plain twin: every tensor equal (with
+    ``nan``, a NaN equal to a NaN)."""
     names = ("sdf", "normal", "cmap", "vis", "best_face")
     for name, g, w in zip(names, got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
-        bad = int((g != w).reshape(len(g), -1).any(1).sum()) if len(g) \
+        diff = g != w
+        if nan and g.is_floating_point():
+            diff &= ~(torch.isnan(g) & torch.isnan(w))
+        bad = int(diff.reshape(len(g), -1).any(1).sum()) if len(g) \
             else 0
         assert bad == 0, (f"{name}: {bad} of {len(g)} points differ, "
                           f"max |d| {float((g - w).abs().max())}")
 
 
-def _run(points, body, sign, k=2):
+def _run(points, body, sign, k=2, nn=None):
     verts, faces, table, normals, cmaps, vis, cross_z, meta = body
-    nn, _ = nearest_vertices_kernel(points, verts, k)
+    if nn is None:
+        nn, _ = nearest_vertices_kernel(points, verts, k)
     kw = {"known": {"known_inside": points[:, 2] > 0.0},
           "columns": {"cross_z": cross_z, "cross_meta": meta},
           "none": {}}[sign]
@@ -257,3 +266,100 @@ def test_point_body_features_on_the_card(cuda_device, monkeypatch):
         _assert_same(got, want)
         inside = float((got[0] > 0).float().mean())
         assert 0.01 < inside < 0.99, (name, inside)
+
+
+def test_nan_candidates(cuda_device):
+    """Corners made NaN: a point whose candidates include a NaN face picks
+    the first NaN candidate, as torch.argmin does, and every output equals
+    the twin's (NaN where the twin's is NaN)."""
+    body = list(_body(cuda_device))
+    verts = body[0]
+    pts = _near(verts, 20000, 7)
+    nn, _ = nearest_vertices_kernel(pts, verts, 2)
+    bad = torch.from_numpy(np.random.RandomState(8).randint(
+        0, len(verts), 300)).to(cuda_device)
+    body[0] = verts.clone()
+    body[0][bad] = float("nan")
+    for sign in ("columns", "known", "none"):
+        got, want, _ = _run(pts, body, sign, nn=nn)
+        _assert_same(got, want, nan=True)
+        assert 0.01 < float(torch.isnan(got[0]).float().mean()) < 0.9
+
+
+@pytest.mark.parametrize("k,deg", [(2, 5), (3, 5), (1, 3), (5, 7), (8, 8),
+                                   (4, 8), (1, 1), (1, 2)])
+def test_candidate_counts(cuda_device, k, deg):
+    """k x deg = 10, 15, 3, 35, 64, 32, 1 and 2 candidates: groups of 4
+    lanes with 3 to 16 candidates a lane, uneven or one lane idle, and
+    groups of 1 and 2; the table cut to its first deg slots (a narrower
+    table of the same body)."""
+    body = list(_body(cuda_device, subdiv=4))
+    body[2] = body[2][:, :deg].contiguous()
+    pts = torch.cat([_near(body[0], 6000, 9), _lattice(17, cuda_device)])
+    for sign in ("columns", "none"):
+        got, want, _ = _run(pts, body, sign, k=k)
+        _assert_same(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 17, 33])
+def test_few_points(cuda_device, n):
+    """N = 1, 17 and 33: the last warp's second group, and the last
+    block's groups, lie past the end and write nothing."""
+    body = _body(cuda_device, subdiv=3)
+    pts = _near(body[0], n, 10)
+    for sign in ("columns", "known"):
+        got, want, _ = _run(pts, body, sign)
+        assert len(got[0]) == n
+        _assert_same(got, want)
+
+
+def test_records_per_call_and_once_a_body(cuda_device):
+    """The record kernel's output equals its plain builder's bit for bit;
+    the body-feature kernel launched on records built once for the body
+    equals the wrapper's, which builds them each call."""
+    verts, faces, table, normals, cmaps, vis, cross_z, meta = \
+        _body(cuda_device)
+    rec = kb.face_records(verts, faces)
+    want = kb.face_records_plain(verts, faces)
+    torch.cuda.synchronize()
+    assert rec.shape == (len(faces), kb.RECORD_WORDS)
+    assert torch.equal(rec.view(torch.int32), want.view(torch.int32))
+    for pts in (_near(verts, 30000, 11), _lattice(33, cuda_device)):
+        nn, _ = nearest_vertices_kernel(pts, verts, 2)
+        args = (pts, nn, verts, faces, table, normals, cmaps, vis)
+        per_call = kb.body_features_kernel(*args, cross_z=cross_z,
+                                           cross_meta=meta)
+        once = tuple(torch.empty_like(o) for o in per_call)
+        kb._launch(*args, None, cross_z, meta, once, rec)
+        torch.cuda.synchronize()
+        _assert_same(once, per_call)
+
+
+def test_graph_capture_replays_bit_equal(cuda_device):
+    """One wrapper call captured in a torch.cuda.graph (the record build
+    and the kernel, buffers from the graph's pool, nothing read back) and
+    replayed on new points in the captured buffers equals an eager call
+    on those points."""
+    verts, faces, table, normals, cmaps, vis, cross_z, meta = \
+        _body(cuda_device)
+    pts = _near(verts, 30000, 12)
+    nn, _ = nearest_vertices_kernel(pts, verts, 2)
+    args = (pts, nn, verts, faces, table, normals, cmaps, vis)
+    kw = {"cross_z": cross_z, "cross_meta": meta}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the capture
+        kb.body_features_kernel(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kb.body_features_kernel(*args, **kw)
+    new = _near(verts, 30000, 13)
+    new_nn, _ = nearest_vertices_kernel(new, verts, 2)
+    pts.copy_(new)
+    nn.copy_(new_nn)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = kb.point_body_features_plain(*args, **kw)
+    _assert_same(captured, want)
+    _assert_same(captured, kb.body_features_kernel(*args, **kw))

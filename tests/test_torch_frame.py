@@ -134,3 +134,38 @@ def test_frame_parity(frames):
     np.testing.assert_allclose(raw.numpy(), ref, rtol=0, atol=1e-4)
     assert float(raw.std()) > 0.0
     assert float((occ - raw * 1e-6).min()) >= 0.0
+
+
+def test_query_with_and_without_body_normals(frames, monkeypatch):
+    """The frame's prep fills ``smpl_normals`` once a frame; the query's
+    body features and occupancy at the level-0 points are bit-equal to the
+    same query without the key, where each call computes the normals."""
+    from icon_tpu_torch.ops import sdf_fast
+    from icon_tpu_torch.recon import frame as frame_mod
+    _, pframe = frames
+    seen, calls = [], sdf_fast.cal_sdf_batch_fast
+
+    def spy(*args, **kw):
+        out = calls(*args, **kw)
+        seen.append((kw.get("normals"), out))
+        return out
+
+    monkeypatch.setattr(sdf_fast, "cal_sdf_batch_fast", spy)
+    g = np.linspace(-1.0, 1.0, 33, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    pts = t(np.stack([xx, -yy, zz], -1).reshape(1, -1, 3))
+    cz, _ = pframe.columns()
+    with torch.no_grad():
+        feats = pframe.features()
+        given = pframe.net_occ(pts, cz, feats)
+        put = frame_mod.to_device
+        monkeypatch.setattr(frame_mod, "to_device", lambda d, dev: {
+            k: v for k, v in put(d, dev).items() if k != "smpl_normals"})
+        computed = pframe.net_occ(pts, cz, feats)
+    (normals, with_key), (none, without) = seen
+    assert normals is not None and normals.shape[0] == 1 and \
+        normals.shape[2] == 3
+    assert none is None
+    for a, b in zip(with_key, without):
+        assert torch.equal(a, b)
+    assert torch.equal(given, computed)
