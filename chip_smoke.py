@@ -6,7 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (lines tagged [1]..[20], then the /proc check [21], a kernel
+Phases (lines tagged [1]..[21], then the /proc check [22], a kernel
 summary, the card, and a last JSON line ``{"ok": true, "device":
 {...}}``):
 
@@ -267,7 +267,27 @@ summary, the card, and a last JSON line ``{"ok": true, "device":
    record build and kernel launch on preallocated outputs, behind a
    device sleep), split into the record build and the kernel on records
    built once a body, beside its plain twin and its bound, and its share
-   of the bound; the kernels' registers and occupancy.
+   of the bound; the kernels' registers and occupancy;
+21. the engine's level step (``csrc/level.cu``) and the serving frames'
+   CUDA graphs, on phase 4's frame right after it (its levels and filter
+   replay as graphs, ``graph_levels``): the four level kernels
+   (``level_upsample``, ``level_mark``, ``level_compact``,
+   ``level_write``) bit-equal to their plain twins on the frame's own
+   level inputs (33^3 -> 65^3 and 65^3 -> 129^3 at phase 4's buckets, and
+   the 257^3 upsample), each alone beside its bound (bytes once), twin and
+   library call (``F.interpolate``, ``F.max_pool3d`` of the indicator,
+   ``nonzero`` and a slice); the engine replayed against the same engine
+   dispatched eagerly on the same inputs, grid, counts, coarse grid and
+   mesh bit-equal, and the filter graph's features equal to the eager
+   filter's; one eager and one replayed frame under torch.profiler (the
+   main-path kernels by their CUDA names, the host's launch calls and
+   graph launches) with their latencies in turns.
+
+Phases 4 and 6 replay their levels and filter as CUDA graphs, whose
+replays tick no launch counter: their first frames (the warm-up and the
+capture) count the kernels, and each served window's kernels are counted
+by name under torch.profiler, which must find every main-path kernel as
+often a frame as an eager frame launches it.
 
 Each main path (phases 4, 6, 9, 10, 11, both runs of 12, in 13 the
 pamir frame and both CLI runs, 14's fixture, train and eval runs, 15's
@@ -297,6 +317,7 @@ for the rasterizer, ``fast_winding``, ``mt_emit``, the splat's backward,
 the bound.
 """
 
+import gc
 import json
 import os
 import signal
@@ -405,6 +426,29 @@ BODYFEAT_SLEEP = 20_000_000
 # voxel across 0.5
 JAX_PAMIR_LEVEL1_POINTS = JAX_VARIANT_LEVEL1_POINTS
 JAX_PAMIR_LEVEL2_POINTS = JAX_VARIANT_LEVEL2_POINTS
+# the engine's level kernels (csrc/level.cu) and the JAX package's XLA
+# functions they stand for
+LEVEL_KERNELS = ("level_upsample", "level_mark", "level_compact",
+                 "level_write")
+LEVEL_REPLACES = {"level_upsample": "icon_tpu/ops/resize.py:87",
+                  "level_mark": "icon_tpu/ops/voxelize.py:34",
+                  "level_compact": "icon_tpu/recon/engine.py:65",
+                  "level_write": "icon_tpu/recon/engine.py:225"}
+# the main-path kernels by their CUDA functions' names in a profiler's
+# device events, and the device launches of each in one serving frame of
+# res 256 (three queries; two level steps and the final upsample)
+KERNEL_NAMES = {"knn_f32": "knn_kernel", "bodyfeat": "body_features_kernel",
+                "fast_winding": "fast_winding_kernel",
+                "level_upsample": "level_upsample_kernel",
+                "level_mark": "level_mark_kernel",
+                "level_compact": "level_compact_kernel",
+                "level_write": "level_write_kernel"}
+FRAME_KERNELS = {"knn_f32": 3, "bodyfeat": 3, "level_upsample": 3,
+                 "level_mark": 2, "level_compact": 2, "level_write": 2}
+# the host's kernel launch calls and its graph launches
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel")
+GRAPH_LAUNCH = "cudaGraphLaunch"
 
 
 def run_cmd(args, timeout: float) -> str:
@@ -829,7 +873,8 @@ def phase_full_frame(dev, card, iters: int = 5):
         raise AssertionError("empty or non-finite mesh")
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
-    check_launched(launched, ("knn_f32", "bodyfeat"), "the frame")
+    check_launched(launched, ("knn_f32", "bodyfeat") + LEVEL_KERNELS,
+                   "the frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
     for name, got, ref in (("level1_points", l1, JAX_LEVEL1_POINTS),
@@ -839,7 +884,7 @@ def phase_full_frame(dev, card, iters: int = 5):
             raise AssertionError(f"{name} {got} vs JAX {ref}")
     buckets = dict(fr.engine._bucket_used)
     serving(fr, "4", card, statistics.median(times), verts, faces)
-    return launched, buckets
+    return launched, buckets, fr
 
 
 # frames a timed serving loop runs (phases 4 and 6); frames of the window
@@ -1001,35 +1046,44 @@ def serving(fr, tag, card, seq_s, verts, faces):
     if tag == "4":
         line += f", same-thread 2-deep loop {same_thread:.4f}"
     print(f"{line}, served {served_s:.4f} (each over {SERVE_FRAMES} frames"
-          f"); kNN launches a served frame "
-          f"{launched['knn_f32'] / SERVE_FRAMES:.2f}; meshes equal to the "
+          f"); kNN launches counted a served frame "
+          f"{launched['knn_f32'] / SERVE_FRAMES:.2f} (a graph's replay "
+          f"counts none); meshes equal to the "
           f"sequential frame's: {len(meshes) - bad} of {len(meshes)}; "
           f"overflow {max(over)}", flush=True)
     if bad or any(over):
         raise AssertionError(f"phase {tag}: served meshes differ or "
                              f"overflow")
-    check_launched(launched, ("knn_f32", "bodyfeat"),
-                   f"phase {tag}'s served frames")
+    if not fr.graphs:
+        check_launched(launched, ("knn_f32", "bodyfeat"),
+                       f"phase {tag}'s served frames")
     lattice_held(tag, launched, SERVE_FRAMES, spy.records)
-    if tag == "4":
-        t0 = time.perf_counter()
-        wall_ms, busy_ms = device_busy(lambda: fr.serve(SERVE_PROFILED))
-        held_s = time.perf_counter() - t0
-        idle = f"{1 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else \
-            "not measured (no device time recorded)"
-        print(f"[4] served window of {SERVE_PROFILED} frames under "
-              f"torch.profiler (device activity only): wall "
-              f"{wall_ms:.3f} ms ({wall_ms / SERVE_PROFILED / 1e3:.4f} "
-              f"s/image), device busy {busy_ms:.3f} ms, idle share {idle}; "
-              f"{held_s:.2f} s with the profiler's start and stop",
-              flush=True)
+    t0 = time.perf_counter()
+    wall_ms, busy_ms, ran = device_busy(lambda: fr.serve(SERVE_PROFILED))
+    held_s = time.perf_counter() - t0
+    idle = f"{1 - busy_ms / wall_ms:.1%}" if busy_ms > 0 else \
+        "not measured (no device time recorded)"
+    per = {k: ran[k] / SERVE_PROFILED for k in FRAME_KERNELS}
+    print(f"[{tag}] served window of {SERVE_PROFILED} frames under "
+          f"torch.profiler (device activity only): wall "
+          f"{wall_ms:.3f} ms ({wall_ms / SERVE_PROFILED / 1e3:.4f} "
+          f"s/image), device busy {busy_ms:.3f} ms, idle share {idle}; "
+          f"{held_s:.2f} s with the profiler's start and stop; device "
+          f"launches a frame by kernel name {per} (levels and filter "
+          f"replayed as CUDA graphs: {fr.graphs})", flush=True)
+    if per != FRAME_KERNELS:
+        raise AssertionError(f"phase {tag}: a served frame did not run "
+                             f"the main path's kernels {FRAME_KERNELS}: "
+                             f"{per}")
 
 
 def device_busy(fn):
-    """(wall ms, device busy ms) of ``fn()`` under torch.profiler,
-    recording device activity only (the host's ops are not traced, which
-    would slow the dispatch it measures): the kernels, copies and memsets
-    of one stream do not overlap, so their sum is the busy time."""
+    """(wall ms, device busy ms, {main-path kernel: device launches by its
+    CUDA function's name}) of ``fn()`` under torch.profiler, recording
+    device activity only (the host's ops are not traced, which would slow
+    the dispatch it measures): the kernels, copies and memsets of one
+    stream do not overlap, so their sum is the busy time. The names count
+    the kernels a CUDA graph's replay runs, which no launch counter sees."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1040,7 +1094,24 @@ def device_busy(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA) / 1e3
-    return wall_ms, busy_ms
+    return wall_ms, busy_ms, kernels_by_name(prof)[0]
+
+
+def kernels_by_name(prof):
+    """({main-path kernel: device launches}, device kernels in all) of a
+    profiler's events, by the kernels' CUDA function names
+    (:data:`KERNEL_NAMES`)."""
+    from torch.autograd import DeviceType
+    ran, total = {k: 0 for k in KERNEL_NAMES}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                e.name.startswith(("Memcpy", "Memset")):
+            continue
+        total += 1
+        for k, sub in KERNEL_NAMES.items():
+            if sub in e.name:
+                ran[k] += 1
+    return ran, total
 
 
 def phase_raster(dev, verts_np, faces_np):
@@ -1183,7 +1254,7 @@ def phase_full_normalnet_frame(dev, card, iters: int = 5):
     if n_over:
         raise AssertionError(f"{n_over} columns exceed 32 crossings")
     check_launched(launched, ("knn_f32", "bodyfeat", "raster_setup",
-                              "raster_bin", "raster_fwd"),
+                              "raster_bin", "raster_fwd") + LEVEL_KERNELS,
                    "the NormalNet frame")
     if any(ov):
         raise AssertionError(f"engine budget overflow {ov}")
@@ -4193,7 +4264,8 @@ def stage_times(fr, iters: int):
             feats = fr.features()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            fr.engine(fr.query_fn, query_args=(cz, feats))
+            fr.engine(fr.query_fn, query_args=(cz, feats),
+                      graph_levels=fr.graphs)
             torch.cuda.synchronize()
         eng.append(time.perf_counter() - t0)
     return lat, eng
@@ -5135,6 +5207,229 @@ def phase_grad_alignment(dev, card, vox, body_verts):
     return entries, [launched, phase_alignment(dev, card)]
 
 
+def frame_launches(fn):
+    """(kernel launches by name, the host's kernel launch calls, its graph
+    launches, device kernels in all) of ``fn()`` under torch.profiler with
+    the host's calls traced."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran, kernels = kernels_by_name(prof)
+    names = [e.name for e in prof.events()]
+    return (ran, sum(n.startswith(LAUNCH_CALLS) for n in names),
+            sum(n.startswith(GRAPH_LAUNCH) for n in names), kernels)
+
+
+def level_case(tag, card, fr, args, occ_c, ev_c, k, budget):
+    """[21] The level kernels against their twins, each alone, on one
+    level's inputs (``k`` None: the final upsample alone). Returns
+    ({kernel: (ms, plain ms, bound ms, library ms or None)}, the largest
+    error, 0 when bit-equal)."""
+    import torch.nn.functional as F
+    from icon_tpu_torch.kernels import level as kl
+    rc = occ_c.shape[0]
+    r = 2 * rc - 1
+    W, nb = kl.words_a_row(r), kl.n_blocks(r)
+
+    def lib_up():
+        return F.interpolate(occ_c[None, None], size=(r, r, r),
+                             mode="trilinear", align_corners=True)
+
+    if k is None:
+        out = torch.empty((r, r, r), dtype=torch.float32, device=occ_c.device)
+        got, want = kl._upsample(occ_c, out).clone(), kl.upsample_plain(occ_c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"level_upsample {tag} differs from plain")
+        times = {"level_upsample": (
+            kernel_ms(lambda: kl._upsample(occ_c, out)),
+            cuda_ms(lambda: kl.upsample_plain(occ_c), 5),
+            bound(4.0 * (rc ** 3 + r ** 3), 0)[0], cuda_ms(lib_up, 5))}
+        print(f"[21] {tag}: level_upsample {rc}^3 -> {r}^3 bit-equal to "
+              f"plain; alone {times['level_upsample'][0]:.4f} ms, plain "
+              f"{times['level_upsample'][1]:.4f}, bound "
+              f"{times['level_upsample'][2]:.4f} (bytes), F.interpolate "
+              f"{times['level_upsample'][3]:.4f} on {card}", flush=True)
+        return times
+    up = kl._upsample_marks(occ_c, ev_c)
+    marks = kl._mark(up[2], ev_c, r, k)
+    cmp = kl._compact_words(*marks, r, budget)
+    vals = fr.query_fn(cmp[1][None], *args)[0, :, 0].contiguous()
+    occ_w, ev_w = up[0].clone(), up[1].clone()
+    kl._write(occ_w, ev_w, cmp[0], cmp[2], vals)
+    checks = (("level_upsample", up, kl.upsample_marks_plain(occ_c, ev_c)),
+              ("level_mark", marks, kl.mark_plain(up[2], ev_c, r, k)),
+              ("level_compact", cmp,
+               kl.compact_words_plain(marks[0], r, budget)),
+              ("level_write", (occ_w, ev_w),
+               kl.write_plain(up[0], up[1], cmp[0], cmp[2], vals)))
+    torch.cuda.synchronize()
+    for name, got, want in checks:
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} {tag} differs from its plain twin")
+    n_sel, total = int(cmp[2][0]), int(cmp[2][1])
+    mask = kl.unpack_rows(marks[0], r)
+    ind = kl.unpack_rows(up[2], r).to(torch.float32)[None, None]
+    flat = mask.reshape(-1)
+    outs = [tuple(torch.empty_like(t) for t in o) for o in (up, marks, cmp)]
+    word_b = 4.0 * r * r * W
+    times = {
+        "level_upsample": (
+            kernel_ms(lambda: kl._upsample_marks(occ_c, ev_c, outs[0])),
+            cuda_ms(lambda: kl.upsample_marks_plain(occ_c, ev_c), 5),
+            bound(5.0 * rc ** 3 + 5.0 * r ** 3 + word_b, 0)[0],
+            cuda_ms(lib_up, 5)),
+        "level_mark": (
+            kernel_ms(lambda: kl._mark(up[2], ev_c, r, k, outs[1])),
+            cuda_ms(lambda: kl.mark_plain(up[2], ev_c, r, k), 5),
+            bound(2 * word_b + rc ** 3 + 4.0 * nb, 0)[0],
+            cuda_ms(lambda: F.max_pool3d(ind, k, 1, k // 2), 5)),
+        "level_compact": (
+            kernel_ms(lambda: kl._compact_words(*marks, r, budget,
+                                                outs[2])),
+            cuda_ms(lambda: kl.compact_words_plain(marks[0], r, budget), 5),
+            bound(word_b + 4.0 * nb + 20.0 * budget + 24, 0)[0],
+            cuda_ms(lambda: torch.nonzero(flat)[:budget], 5)),
+        "level_write": (
+            kernel_ms(lambda: kl._write(occ_w, ev_w, cmp[0], cmp[2], vals)),
+            cuda_ms(lambda: kl.write_plain(up[0], up[1], cmp[0], cmp[2],
+                                           vals), 5),
+            bound(17.0 * n_sel + 24, 0)[0], None)}
+    print(f"[21] {tag}: {rc}^3 -> {r}^3, box {k}, budget {budget}: "
+          f"boundary {total}, selected {n_sel}; the four kernels "
+          f"bit-equal to their plain twins; ms alone / plain / bound "
+          f"(bytes) / library call (F.interpolate, F.max_pool3d, "
+          f"nonzero + slice, none): " + "; ".join(
+              f"{name} {a:.4f} / {p:.4f} / {b:.4f} / "
+              f"{'null' if lib is None else f'{lib:.4f}'}"
+              for name, (a, p, b, lib) in times.items()) + f" on {card}",
+          flush=True)
+    return times
+
+
+def phase_levels(dev, card, fr):
+    """[21] The engine's level step and the frame's CUDA graphs, on phase
+    4's full-width frame ``fr`` (warm, its graphs captured): (a) the four
+    level kernels against their plain twins, bit for bit, and alone beside
+    their bounds, twins and library calls, on the frame's own level inputs
+    (an eager level 0 and level steps at phase 4's buckets) and the final
+    257^3 upsample; (b) the engine replayed as graphs against the same
+    engine dispatched eagerly on the same inputs: grid, level counts,
+    coarse grid and the marched mesh bit-equal, the filter graph's
+    features equal to the eager filter's; (c) one eager and one replayed
+    frame under torch.profiler: the main-path kernels by name, the host's
+    launch calls and graph launches, and each frame's latency. Returns
+    (summary entries, the eager frame's launch counts)."""
+    eng = fr.engine
+    res = eng.resolutions
+    if not fr.graphs:
+        raise AssertionError("phase 21: the card's frame does not replay "
+                             "its levels and filter as CUDA graphs")
+    with torch.no_grad():
+        cz, _ = fr.columns()
+        feats_e = fr.features.fn()
+        feats_g = fr.features()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(feats_g, feats_e)):
+            raise AssertionError("the filter graph's features differ from "
+                                 "the eager filter's")
+        args = (cz, feats_e)
+        occ, ev = eng._level0(fr.query_fn, args, dev)
+        cases = {}
+        for lv in range(1, len(res) - 1):
+            k = 9 if lv == 1 else (7 if lv == 2 else 3)
+            b = eng._bucket_used[lv]
+            cases[f"level {lv}"] = level_case(f"level {lv}", card, fr, args,
+                                              occ, ev, k, b)
+            occ, ev, _, _, _ = eng._level_step(lv, occ, ev, fr.query_fn, b,
+                                               args)
+        cases["final"] = level_case("final", card, fr, args, occ, None,
+                                    None, 0)
+
+        # (b) replayed against eager on the same inputs
+        occ_g, st_g = eng(fr.query_fn, query_args=(cz, feats_g),
+                          graph_levels=True)
+        occ_g = occ_g.clone()
+        buckets_g = dict(eng._bucket_used)
+        occ_e, st_e = eng(fr.query_fn, query_args=args)
+        meshes = [fr.marcher.unpack(fr.marcher.pack(fr.marcher(
+            o, coarse_occ=st["coarse_occ"]))) for o, st in
+            ((occ_g, st_g), (occ_e, st_e))]
+    counts_g = {k: int(v) for k, v in st_g.items() if k != "coarse_occ"}
+    counts_e = {k: int(v) for k, v in st_e.items() if k != "coarse_occ"}
+    same = (torch.equal(occ_g, occ_e) and
+            torch.equal(st_g["coarse_occ"], st_e["coarse_occ"]) and
+            counts_g == counts_e and buckets_g == dict(eng._bucket_used) and
+            same_mesh(meshes[0], *meshes[1]))
+    print(f"[21] engine replayed as CUDA graphs vs dispatched eagerly on the "
+          f"same inputs: grid {res[-1]}^3, coarse grid, counts {counts_g} "
+          f"(buckets {buckets_g}) and mesh ({len(meshes[0][1])} tris) "
+          f"bit-equal: {same}; graphs held {len(eng._graphs)}, replays "
+          f"{sum(c.replays for c in eng._graphs.values())}", flush=True)
+    if not same:
+        raise AssertionError("phase 21: the replayed engine differs from "
+                             "the eager one")
+
+    # (c) launches and latency of an eager and a replayed frame
+    def eager_frame():
+        with torch.no_grad():
+            cz, _ = fr.columns()
+            occ, st = eng(fr.query_fn, query_args=(cz, fr.features.fn()))
+            mesh = fr.marcher(occ, coarse_occ=st["coarse_occ"])
+            return fr.marcher.unpack(fr.marcher.pack(mesh))
+
+    lat = {}
+    for name, fn in (("eager", eager_frame), ("graphs", fr.frame),
+                     ("graphs ", fr.frame), ("eager ", eager_frame)):
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        lat.setdefault(name.strip(), []).append(statistics.median(ts))
+    reset_launches()                  # count only the main path's launches
+    eager_frame()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    check_launched(launched, ("knn_f32", "bodyfeat") + LEVEL_KERNELS,
+                   "phase 21's eager frame")
+    prof = {name: frame_launches(fn) for name, fn in
+            (("eager", eager_frame), ("graphs", fr.frame))}
+    for name, (ran, calls, graphs, kernels) in prof.items():
+        per = {k: ran[k] for k in FRAME_KERNELS}
+        print(f"[21] one warm {name} frame under torch.profiler: "
+              f"{calls} kernel launch calls and {graphs} graph launches "
+              f"by the host, {kernels} device kernels; main-path kernels "
+              f"by name {per}; latency (s, median of 5, in turns) "
+              f"{[round(x, 4) for x in lat[name]]} on {card}, TF32 off",
+              flush=True)
+        if per != FRAME_KERNELS:
+            raise AssertionError(f"phase 21: the {name} frame ran {per}, "
+                                 f"not {FRAME_KERNELS}")
+    if prof["graphs"][2] < 4 or prof["graphs"][1] >= prof["eager"][1]:
+        raise AssertionError("phase 21: the replayed frame launched no "
+                             "fewer kernels from the host")
+
+    entries = []
+    for name in LEVEL_KERNELS:
+        at = "final" if name == "level_upsample" else f"level {len(res) - 2}"
+        ms, plain_ms, b_ms, lib_ms = cases[at][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "icon_tpu_torch/csrc/level.cu",
+            "replaces": LEVEL_REPLACES[name], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "at": "257^3" if at == "final" else "129^3"})
+    return entries, launched
+
+
 def descendants(pid: int) -> list:
     """The live descendants of ``pid`` from /proc (each /proc/<pid>/stat's
     parent id, followed down from ``pid``), zombies left out."""
@@ -5176,7 +5471,7 @@ def no_process_left(wait_s: float = 5.0) -> bool:
             cmd = "?"
         print(f"chip_smoke: process {p} still running: {cmd}",
               file=sys.stderr)
-    print(f"[21] descendant processes left: {len(left)}", flush=True)
+    print(f"[22] descendant processes left: {len(left)}", flush=True)
     return not left
 
 
@@ -5192,8 +5487,8 @@ def normal_inputs(verts, faces, azimuth):
 
 
 def reset_launches() -> None:
-    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, marching, \
-        raster, voxelize, winding
+    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, level, \
+        marching, raster, voxelize, winding
     from icon_tpu_torch.recon import lattice_host
     knn.launches = bodyfeat.launches_bodyfeat = 0
     lattice.launches_cells = lattice.launches_emit = 0
@@ -5204,13 +5499,15 @@ def reset_launches() -> None:
     voxelize.launches_splat_bwd = voxelize.launches_smooth_bwd = 0
     winding.launches = 0
     marching.launches_emit = marching.launches_index = 0
+    level.launches_upsample = level.launches_mark = 0
+    level.launches_compact = level.launches_write = 0
 
 
 def read_launches() -> dict:
     """Each kernel's launches since :func:`reset_launches`, and the host
     lattice decoder's calls (``host_decode``, not a kernel)."""
-    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, marching, \
-        raster, voxelize, winding
+    from icon_tpu_torch.kernels import bodyfeat, knn, lattice, level, \
+        marching, raster, voxelize, winding
     from icon_tpu_torch.recon import lattice_host
     return {"knn_f32": knn.launches, "bodyfeat": bodyfeat.launches_bodyfeat,
             "raster_setup": raster.launches_setup,
@@ -5227,6 +5524,10 @@ def read_launches() -> dict:
             "lattice_cells": lattice.launches_cells,
             "lattice_emit": lattice.launches_emit,
             "lattice_decode": lattice.launches_decode,
+            "level_upsample": level.launches_upsample,
+            "level_mark": level.launches_mark,
+            "level_compact": level.launches_compact,
+            "level_write": level.launches_write,
             "host_decode": lattice_host.host_decodes}
 
 
@@ -5270,9 +5571,13 @@ def main() -> int:
 
     verts_np, faces_np = synthetic_body(subdiv=5)
     timed("4 small", phase_small_frame, dev)
-    launched, buckets = timed("4 full", phase_full_frame, dev, card)
+    launched, buckets, fr = timed("4 full", phase_full_frame, dev, card)
     runs = [launched]
-    summary = [timed("3", phase_knn, dev, verts_np, buckets)]
+    entries, launched = timed("21", phase_levels, dev, card, fr)
+    del fr
+    gc.collect()            # the engine's graphs hold the engine: a cycle
+    runs.append(launched)
+    summary = entries + [timed("3", phase_knn, dev, verts_np, buckets)]
     summary.append(timed("20", phase_bodyfeat, dev, card, verts_np,
                          faces_np, buckets))
     timed("5", phase_raster, dev, verts_np, faces_np)

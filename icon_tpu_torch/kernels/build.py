@@ -26,7 +26,7 @@ _SRC_DIR = osp.join(_PKG, "csrc")
 _CACHE_DIR = osp.join(_PKG, "_build")
 
 SOURCES = ("knn.cu", "raster.cu", "voxelize.cu", "winding.cu",
-           "marching.cu", "lattice.cu", "bodyfeat.cu")
+           "marching.cu", "lattice.cu", "bodyfeat.cu", "level.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 HOST_SOURCE = "latticecodec.cc"

@@ -43,13 +43,13 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from icon_tpu_torch.kernels import level as lk
+from icon_tpu_torch.kernels.level import B_MAX, B_MIN, BALANCE  # noqa: F401
+from icon_tpu_torch.kernels.level import compact_plain as _compact  # noqa
+from icon_tpu_torch.kernels.level import grid_to_world as _grid_to_world
 from icon_tpu_torch.ops.constants import device_constant
-from icon_tpu_torch.ops.resize import resize3d_trilinear_align_corners
-from icon_tpu_torch.ops.voxelize import smooth_conv3d
+from icon_tpu_torch.recon.graphs import GraphedCall, StaticInputs
 
-B_MIN = (-1.0, 1.0, -1.0)
-B_MAX = (1.0, -1.0, 1.0)
-BALANCE = 0.5           # the occupancy iso level
 # the 27 offsets (dz, dy, dx) of a voxel's 3^3 neighbourhood
 _NEIGHBOURS = np.array([(dz, dy, dx) for dz in (-1, 0, 1)
                        for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
@@ -75,29 +75,11 @@ def default_budgets(resolutions: Sequence[int]) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def _compact(mask_flat: torch.Tensor, budget: int):
-    """First ``budget`` true indices of ``mask_flat`` in linear order, by a
-    prefix sum and a scatter (no ``torch.nonzero``, so no host sync).
-    Padded slots hold n - 1. Returns (idx [budget] int64, count = min(total,
-    budget), total) with the counts as 0-d device tensors."""
-    n = mask_flat.shape[0]
-    dev = mask_flat.device
-    pos = torch.cumsum(mask_flat.to(torch.int64), 0) - 1
-    total = pos[-1] + 1 if n else torch.zeros((), dtype=torch.int64,
-                                               device=dev)
-    dest = torch.where(mask_flat & (pos < budget), pos,
-                       torch.full_like(pos, budget))     # dropped -> slot
-    idx = torch.full((budget + 1,), max(n - 1, 0), dtype=torch.int64,
-                     device=dev)
-    idx.scatter_(0, dest, torch.arange(n, device=dev))
-    return idx[:budget], torch.clamp(total, max=budget), total
-
-
-def _grid_to_world(coords01: torch.Tensor) -> torch.Tensor:
-    """[..., 3] in [0, 1] grid space (x, y, z) -> world (align_corners)."""
-    bmin = device_constant(B_MIN, coords01.dtype, coords01.device)
-    bmax = device_constant(B_MAX, coords01.dtype, coords01.device)
-    return coords01 * (bmax - bmin) + bmin
+def _check_ladder(occ: torch.Tensor, r: int) -> None:
+    """The level kernels take the r -> 2r - 1 ladder only."""
+    if r != 2 * occ.shape[0] - 1:
+        raise ValueError(f"level {r} is not the 2x upsample of "
+                         f"{occ.shape[0]}")
 
 
 class HostCopy:
@@ -128,17 +110,6 @@ class HostCopy:
         if not self.ready():
             self.event.synchronize()
         return self.host
-
-
-def _set_dropped(flat: torch.Tensor, idx: torch.Tensor,
-                 vals) -> torch.Tensor:
-    """``flat[idx] = vals`` where idx == len(flat) means "drop": writes into
-    a buffer one longer and slices the extra slot off. A Python scalar
-    ``vals`` is filled on the device (indexing a CUDA tensor with a host
-    scalar copies it there, which waits for the stream)."""
-    buf = torch.cat([flat, flat.new_zeros(1)])
-    buf[idx] = vals if torch.is_tensor(vals) else buf.new_full((), vals)
-    return buf[:-1]
 
 
 class ReconEngine:
@@ -185,6 +156,12 @@ class ReconEngine:
         self._last_counts: Dict[int, HostCopy] = {}
         self._last_hosts: Dict[int, int] = {}
         self._bucket_used: Dict[int, int] = {}
+        # graph_levels: {(key, id(query_fn)): GraphedCall}, {id(query_fn):
+        # (query_fn, its StaticInputs)} (held, so an id is never reused
+        # while its graphs live), and the graphs' one memory pool
+        self._graphs: Dict[tuple, GraphedCall] = {}
+        self._graph_inputs: Dict[int, tuple] = {}
+        self._pool = None
 
     def _bucket(self, lv: int) -> int:
         """Current budget for level lv (1-based). Never waits but once: a
@@ -232,54 +209,38 @@ class ReconEngine:
         return occ, evaluated
 
     def _upsample(self, occ: torch.Tensor, r: int) -> torch.Tensor:
-        return resize3d_trilinear_align_corners(occ[None, None],
-                                                (r, r, r))[0, 0]
+        _check_ladder(occ, r)
+        return lk.upsample(occ)
 
     def _level_step(self, lv, occ, evaluated, query_fn, budget, query_args):
+        """Level ``lv`` from the coarser (occ, evaluated): (occ, evaluated,
+        counts [3] = (n_sel, total, overflow), conflicts, residual); on the
+        card the level kernels (``kernels/level.py``) around the query."""
         r = self.resolutions[lv]
-        occ_up = self._upsample(occ, r)
-        valid = self._upsample((occ > BALANCE).to(torch.float32), r)
-        boundary = (valid > 0.0) & (valid < 1.0)
-
+        _check_ladder(occ, r)
         k = 9 if lv == 1 else (7 if lv == 2 else 3)
-        boundary = smooth_conv3d(boundary.to(torch.float32), k) > 0
+        # the dilated boundary minus the voxels evaluated at coarser levels
+        # (reference coords_accum, seg3d_lossless.py:236-238): coarse (i, j,
+        # k) lands at fine (2i, 2j, 2k)
+        occ_up, ev, idx, pts, counts = lk.level_select(occ, evaluated, k,
+                                                       budget)
 
-        # exclude voxels evaluated at coarser levels (reference
-        # coords_accum, seg3d_lossless.py:236-238): coarse (i, j, k) lands
-        # at fine (2i, 2j, 2k)
-        ev = torch.zeros((r, r, r), dtype=torch.bool, device=occ.device)
-        ev[::2, ::2, ::2] = evaluated
-        boundary = boundary & ~ev
+        def eval_at(pts):
+            vals = query_fn(pts[None], *query_args)
+            return vals[0, :, 0].to(occ_up.dtype).contiguous()
 
-        idx, n_sel, n_total = _compact(boundary.reshape(-1), budget)
-
-        def eval_at(idx):
-            cz = idx // (r * r)
-            cy = (idx // r) % r
-            cx = idx % r
-            pts01 = torch.stack([cx, cy, cz], -1).to(torch.float32) / (r - 1)
-            vals = query_fn(_grid_to_world(pts01[None]), *query_args)
-            return vals[0, :, 0].to(occ_up.dtype)
-
-        def write(occ, evaluated, idx, n, vals):
-            alive = torch.arange(len(idx), device=idx.device) < n
-            safe = torch.where(alive, idx, torch.full_like(idx, r ** 3))
-            occ = _set_dropped(occ.reshape(-1), safe, vals).reshape(r, r, r)
-            evaluated = _set_dropped(evaluated.reshape(-1), safe,
-                                     True).reshape(r, r, r)
-            return occ, evaluated, alive
-
-        vals = eval_at(idx)
-        occ, evaluated, alive = write(occ_up, ev, idx, n_sel, vals)
+        vals = eval_at(pts)
         conflicts = residual = None
         if self.exact:
-            occ, evaluated, conflicts, residual = self._resolve_conflicts(
-                r, occ_up.reshape(-1), occ, evaluated, idx, vals, alive,
-                budget, eval_at, write)
-        return occ, evaluated, n_total, conflicts, residual
+            interp = occ_up.clone().reshape(-1)    # the writes are in place
+        occ, ev = lk.level_write(occ_up, ev, idx, counts, vals)
+        if self.exact:
+            occ, ev, conflicts, residual = self._resolve_conflicts(
+                r, interp, occ, ev, idx, vals, counts, budget, eval_at)
+        return occ, ev, counts, conflicts, residual
 
     def _resolve_conflicts(self, r, interp_flat, occ, evaluated, idx, vals,
-                           alive, budget, eval_at, write):
+                           counts, budget, eval_at):
         """The reference's conflict resolution (seg3d_lossless.py:388-471)
         in ``conflict_rounds`` rounds: a conflict is an evaluated point
         whose value and the interpolation it replaced lie on opposite sides
@@ -291,14 +252,15 @@ class ReconEngine:
         cbudget = -(-max(budget // 2, 1024) // m) * m
         offsets = device_constant(_NEIGHBOURS, torch.int64, idx.device)
 
-        def conflicting(idx, vals, alive):
+        def conflicting(idx, vals, counts):
+            alive = torch.arange(len(idx), device=idx.device) < counts[0]
             interp = interp_flat[torch.where(alive, idx,
                                              torch.zeros_like(idx))]
             return alive & ((vals - BALANCE) * (interp - BALANCE) < 0)
 
         n_conflicts = torch.zeros((), dtype=torch.int64, device=idx.device)
         for _ in range(self.conflict_rounds):
-            conflict = conflicting(idx, vals, alive)
+            conflict = conflicting(idx, vals, counts)
             n_conflicts = n_conflicts + conflict.sum()
             czyx = torch.stack([idx // (r * r), (idx // r) % r, idx % r], -1)
             nb = torch.clamp(czyx[None] + offsets[:, None], 0, r - 1)
@@ -309,15 +271,16 @@ class ReconEngine:
                                 device=idx.device)
             flags[nidx.reshape(-1)] = flags.new_ones(())
             flags = flags[:-1] & ~evaluated.reshape(-1)
-            idx, n_sel, _ = _compact(flags, cbudget)
-            vals = eval_at(idx)
-            occ, evaluated, alive = write(occ, evaluated, idx, n_sel, vals)
-        residual = conflicting(idx, vals, alive).sum()
+            idx, pts, counts = lk.compact(flags.reshape(r, r, r), cbudget)
+            vals = eval_at(pts)
+            occ, evaluated = lk.level_write(occ, evaluated, idx, counts,
+                                            vals)
+        residual = conflicting(idx, vals, counts).sum()
         return occ, evaluated, n_conflicts, residual
 
     @torch.no_grad()
     def __call__(self, query_fn: Callable[..., torch.Tensor],
-                 query_args: tuple = ()):
+                 query_args: tuple = (), graph_levels: bool = False):
         """Returns (occ [R, R, R] float32 in [z, y, x] layout, stats).
 
         ``stats``: ``levelN_points`` (boundary count, 0-d device tensor),
@@ -325,7 +288,24 @@ class ReconEngine:
         ``levelN_residual``, and in faster mode ``coarse_occ`` (the grid
         before the final interpolation-only upsample). With
         ``virtual_final`` the returned grid is ``coarse_occ`` itself and
-        ``stats["final_res"]`` the resolution of the level not written."""
+        ``stats["final_res"]`` the resolution of the level not written.
+
+        ``graph_levels`` (faster mode on a CUDA engine; the JAX engine's
+        ``jit_levels``): level 0, each (level, budget) step with its
+        query, and the final upsample are each captured once as a CUDA
+        graph (``recon/graphs.py``) and replayed after, keyed as the JAX
+        package's executables, with ``query_fn`` itself held by the cache:
+        a new ``query_fn`` captures new graphs. ``query_args`` are their
+        real arguments: the tensors of the first call become the graphs'
+        input buffers, and a later call's tensor at another address is
+        copied into its buffer first. The graphs of an engine share one
+        memory pool and replay on the current stream. The returned grid
+        is the final graph's buffer, rewritten by the engine's next call
+        (work enqueued on it before is safe by stream order); ``stats``
+        are the call's own. The first call at a new bucket waits for the
+        card while it captures."""
+        if graph_levels:
+            return self._replay(query_fn, query_args)
         res = self.resolutions
         stats: Dict[str, torch.Tensor] = {}
         occ, evaluated = self._level0(query_fn, query_args, self.device)
@@ -338,14 +318,64 @@ class ReconEngine:
                 occ = self._upsample(occ, res[lv])
                 break
             budget = self._bucket(lv)
-            occ, evaluated, n_total, conflicts, residual = self._level_step(
+            occ, evaluated, counts, conflicts, residual = self._level_step(
                 lv, occ, evaluated, query_fn, budget, query_args)
-            if self.auto_budget:               # taken at a later frame
-                self._last_counts[lv] = HostCopy(n_total)
-            stats[f"level{lv}_points"] = n_total
-            stats[f"level{lv}_overflow"] = torch.clamp(n_total - budget,
-                                                       min=0)
+            self._level_stats(stats, lv, counts)
             if self.exact:
                 stats[f"level{lv}_conflicts"] = conflicts
                 stats[f"level{lv}_residual"] = residual
+        return occ, stats
+
+    def _level_stats(self, stats, lv, counts) -> None:
+        if self.auto_budget:               # taken at a later frame
+            self._last_counts[lv] = HostCopy(counts[1])
+        stats[f"level{lv}_points"] = counts[1]
+        stats[f"level{lv}_overflow"] = counts[2]
+
+    def _replay(self, query_fn, query_args):
+        """``__call__`` with ``graph_levels``."""
+        if self.device.type != "cuda":
+            raise ValueError(f"graph_levels needs a CUDA engine, this one is "
+                             f"on {self.device}")
+        if self.exact or not self.faster:
+            raise ValueError("graph_levels replays the faster mode only")
+        held = self._graph_inputs.get(id(query_fn))
+        if held is None or held[0] is not query_fn:
+            held = (query_fn, StaticInputs(tuple(query_args)))
+            self._graph_inputs[id(query_fn)] = held
+        args = held[1].load(tuple(query_args))
+        if self._pool is None:
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
+
+        def graph(key, fn):
+            call = self._graphs.get((key, id(query_fn)))
+            if call is None:
+                call = GraphedCall(fn, self._pool)
+                self._graphs[(key, id(query_fn))] = call
+            return call
+
+        res = self.resolutions
+        stats: Dict[str, torch.Tensor] = {}
+        with torch.cuda.device(self.device):
+            occ, evaluated = graph(("l0",), lambda *qa: self._level0(
+                query_fn, qa, self.device))(*args)
+            for lv in range(1, len(res)):
+                if lv == len(res) - 1:
+                    # the call's own copy: the next call's graphs rewrite
+                    # the level's buffer
+                    stats["coarse_occ"] = occ.clone()
+                    if self.virtual_final:
+                        stats["final_res"] = res[lv]
+                        return stats["coarse_occ"], stats
+                    occ = graph(("up", lv), lambda o, r=res[lv]:
+                                self._upsample(o, r))(occ)
+                    break
+                budget = self._bucket(lv)
+                occ, evaluated, counts = graph(
+                    ("step", lv, budget),
+                    lambda o, e, *qa, lv=lv, b=budget: self._level_step(
+                        lv, o, e, query_fn, b, qa)[:3])(occ, evaluated,
+                                                        *args)
+                self._level_stats(stats, lv, counts.clone())
         return occ, stats

@@ -40,6 +40,15 @@ unpacked, and frame i's decode (on the host: the wait for its copy and,
 for a CPU frame, the host decoder) runs on a worker thread while this
 thread dispatches frame i+1 (:func:`serve_frames`).
 
+On the card the serving frames replay their engine's levels and their
+filter as CUDA graphs (``ReconEngine(...)(..., graph_levels=True)`` and a
+:class:`~icon_tpu_torch.recon.graphs.GraphedCall` of ``filter``, the JAX
+package's per-level executables and ``filter_jit``); ``Frame.graphs``
+says so. A sharded frame (``mesh``), the fit frame and the CPU frames
+dispatch eagerly. A graph's outputs are rewritten by its next replay: the
+features and the final grid are consumed in stream order, and the stats a
+frame returns are its own.
+
 The frames run on the card unless the caller asks for the CPU. Each
 ``build_*`` function takes an optional device ``mesh``
 (``parallel.mesh``): its engine
@@ -77,6 +86,7 @@ from icon_tpu_torch.ops.sdf_fast import (build_column_bins,
                                          build_vertex_face_table)
 from icon_tpu_torch.recon.engine import ReconEngine, reconstruction_resolutions
 from icon_tpu_torch.recon.export import extract_mesh
+from icon_tpu_torch.recon.graphs import GraphedCall
 from icon_tpu_torch.recon.marching import AutoMarcher
 from icon_tpu_torch.render.render import query_color, render_normal
 from icon_tpu_torch.utils.io import clean_mesh
@@ -313,6 +323,7 @@ class Frame:
     query_fn: Callable         # the engine's field: net_occ*1e-6 + body occ
     engine: ReconEngine
     marcher: AutoMarcher
+    graphs: bool = False       # engine levels and filter as CUDA graphs
 
 
 def _sharded(query_fn: Callable, mesh: Optional[Mesh]) -> Callable:
@@ -377,9 +388,12 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
 
     in_t = {k: dev(batch[k], torch.float32) for k in ("normal_F", "normal_B")}
     calib = dev(batch["calib"], torch.float32)
+    graphs = device.type == "cuda" and mesh is None
 
-    def features():
+    def filter_eager():
         return net_on(device).filter(in_t)
+
+    features = GraphedCall(filter_eager) if graphs else filter_eager
 
     def net_occ(pts, cross_z, feats):
         d = pts.device
@@ -399,7 +413,8 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
     @torch.no_grad()
     def compute():
         cross_z, _ = columns()
-        occ, stats = engine(engine_query, query_args=(cross_z, features()))
+        occ, stats = engine(engine_query, query_args=(cross_z, features()),
+                            graph_levels=graphs)
         mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
         return marcher.pack(mesh), mesh, stats
 
@@ -412,7 +427,7 @@ def build_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return serve_frames(compute, marcher, n)
 
     return Frame(compute, frame, serve, columns, features, net_occ,
-                 query_fn, engine, marcher)
+                 query_fn, engine, marcher, graphs)
 
 
 def spurious_occ(pts: torch.Tensor) -> torch.Tensor:
@@ -449,6 +464,7 @@ class NormalNetFrame:
     query_fn: Callable   # the engine's field (bench.py's variant field)
     engine: ReconEngine
     marcher: AutoMarcher
+    graphs: bool = False  # engine levels and filter as CUDA graphs
 
 
 def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
@@ -492,9 +508,13 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return net.predict_normals({"image": image, "T_normal_F": t_f,
                                     "T_normal_B": t_b})
 
-    def features(nml_f, nml_b):
+    graphs = device.type == "cuda" and mesh is None
+
+    def filter_eager(nml_f, nml_b):
         return net.filter({"image": image, "normal_F": nml_f,
                            "normal_B": nml_b})
+
+    features = GraphedCall(filter_eager) if graphs else filter_eager
 
     def body():
         return icon_feats(verts, faces, calib[0], bins)
@@ -521,7 +541,8 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         smpl = body()
         smpl["smpl_cross_z"], _ = columns(smpl)
         feats = features(*normals(t_f, t_b))
-        occ, stats = engine(engine_query, query_args=(smpl, feats))
+        occ, stats = engine(engine_query, query_args=(smpl, feats),
+                            graph_levels=graphs)
         mesh = marcher(occ, coarse_occ=stats["coarse_occ"])
         return marcher.pack(mesh), mesh, stats
 
@@ -534,7 +555,8 @@ def build_normalnet_frame(cfg: Config, state: Mapping[str, torch.Tensor],
         return serve_frames(compute, marcher, n)
 
     return NormalNetFrame(compute, frame, serve, render, normals, features,
-                          body, columns, net_occ, query_fn, engine, marcher)
+                          body, columns, net_occ, query_fn, engine, marcher,
+                          graphs)
 
 
 class FitResult(NamedTuple):

@@ -33,10 +33,14 @@ against an older tree of the package on the import path.
 
 The plain and NormalNet profiles begin with the kernel launches of one
 warm frame under torch.profiler: the host's launch calls
-(``cudaLaunchKernel`` and kin) in the whole frame, in the engine and in
-the body-feature calls (``ops/sdf_fast.py:cal_sdf_batch_fast``, with
-their count), and the kernels the device ran. It too reads only names
-that older trees have. ``--launches`` stops after them.
+(``cudaLaunchKernel`` and kin) and graph launches (``cudaGraphLaunch``)
+in the whole frame, in the engine and in the body-feature calls
+(``ops/sdf_fast.py:cal_sdf_batch_fast``, with their count; a replayed
+level's calls are not dispatched from the host), and the kernels the
+device ran. It too reads only names that older trees have (the engine is
+called as the frame calls it, with ``graph_levels`` where
+``Frame.graphs`` is set). ``--launches`` stops after them. ``--serve``
+also gives the peak memory of a served window.
 
 ``--frame fit`` profiles the fit frame's two loops instead (their stage
 split is chip_smoke.py's phase 9): 5 iterations of the SMPL fit (512^2,
@@ -68,6 +72,13 @@ import numpy as np
 import torch
 
 
+def engine_kw(fr) -> dict:
+    """The frame's own engine call: its levels replayed as CUDA graphs
+    where the frame does so (``Frame.graphs``; older trees dispatch
+    eagerly and lack the name)."""
+    return {"graph_levels": True} if getattr(fr, "graphs", False) else {}
+
+
 def stage_times(fr):
     def timed(fn):
         torch.cuda.synchronize()
@@ -80,7 +91,7 @@ def stage_times(fr):
         feats, t_filter = timed(fr.features)
         (cz, _), t_cols = timed(fr.columns)
         (occ, st), t_eng = timed(lambda: fr.engine(
-            fr.query_fn, query_args=(cz, feats)))
+            fr.query_fn, query_args=(cz, feats), **engine_kw(fr)))
         mesh, t_march = timed(lambda: fr.marcher(
             occ, coarse_occ=st["coarse_occ"]))
         tok, t_pack = timed(lambda: fr.marcher.pack(mesh))
@@ -107,7 +118,7 @@ def normalnet_stage_times(fr):
         smpl = timed("vis", fr.body)
         smpl["smpl_cross_z"], _ = timed("columns", lambda: fr.columns(smpl))
         occ, st = timed("engine", lambda: fr.engine(
-            fr.query_fn, query_args=(smpl, feats)))
+            fr.query_fn, query_args=(smpl, feats), **engine_kw(fr)))
         mesh = timed("march", lambda: fr.marcher(
             occ, coarse_occ=st["coarse_occ"]))
         tok = timed("pack", lambda: fr.marcher.pack(mesh))
@@ -239,6 +250,14 @@ def serve_split(fr, n: int):
                      ("served, tokens held", held),
                      ("served again", lambda: fr.serve(n))):
         lines.append(f"  {name}: {per_image(fn, n):.4f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr.serve(n)
+    torch.cuda.synchronize()
+    lines.append(f"  peak memory of a served window of {n} frames: "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+                 f"allocated, {torch.cuda.max_memory_reserved() / 2 ** 30:.3f}"
+                 f" GiB reserved")
 
     with Spans() as sp:
         sp.patch(AM, "__call__", "march")
@@ -302,7 +321,7 @@ def busy_dispatch(fr, sleep_ms: float = 100.0):
             cz, _ = timed("columns", fr.columns)
             feats = timed("filter", fr.features)
             occ, st = timed("engine", lambda: fr.engine(
-                fr.query_fn, query_args=(cz, feats)))
+                fr.query_fn, query_args=(cz, feats), **engine_kw(fr)))
             mesh = timed("march", lambda: fr.marcher(
                 occ, coarse_occ=st["coarse_occ"]))
             tok = timed("pack", lambda: fr.marcher.pack(mesh))
@@ -328,7 +347,7 @@ def busy_dispatch(fr, sleep_ms: float = 100.0):
                                  ProfilerActivity.CUDA],
                      with_stack=True) as prof:
             torch.cuda._sleep(c)
-            fr.engine(fr.query_fn, query_args=(cz, feats))
+            fr.engine(fr.query_fn, query_args=(cz, feats), **engine_kw(fr))
         torch.cuda.synchronize()
     top = sorted((e for e in prof.key_averages()
                   if e.self_cpu_time_total > 0),
@@ -382,6 +401,7 @@ def fit_loops(cfg, state, iters: int = 5):
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
                 "cuLaunchKernel")
+GRAPH_LAUNCH = "cudaGraphLaunch"
 
 
 def launch_counts(fr):
@@ -429,13 +449,16 @@ def launch_counts(fr):
         return False
 
     launches = [e for e in events if e.name.startswith(LAUNCH_CALLS)]
+    graphs = [e for e in events if e.name.startswith(GRAPH_LAUNCH)]
     engine = sum(within(e, "engine") for e in launches)
+    engine_graphs = sum(within(e, "engine") for e in graphs)
     body = sum(within(e, "body features") for e in launches)
     kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA
                   and not e.name.startswith(("Memcpy", "Memset")))
     return [f"launches of one warm frame: {len(launches)} launch calls "
             f"(engine {engine}; {calls[0]} body-feature calls {body}, "
-            f"{body / max(calls[0], 1):.1f} a call), {kernels} device "
+            f"{body / max(calls[0], 1):.1f} a call) and {len(graphs)} "
+            f"graph launches (engine {engine_graphs}), {kernels} device "
             f"kernels"]
 
 
